@@ -82,6 +82,11 @@ def pytest_configure(config):
         "ci.sh runs them in the checkpoint gate under a hard timeout "
         "(main sweep excludes the marker; tier-1 runs the ones not "
         "also marked slow — the serve-fleet pushes are slow-marked)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (a CUDA kernel has no CPU mode); the "
+        "test skips with a reason where torch.cuda.is_available() is "
+        "false")
 
 
 @pytest.fixture(scope="session")
