@@ -10,7 +10,10 @@ Builds every CUDA kernel of the port from ``horovod_tpu_torch/csrc``
 2. kernels   — each kernel against its plain PyTorch version on the card
                at the main path's shapes (stated tolerances), with its
                median time, its bound, the plain version's time and one
-               PyTorch library call's time as a yardstick;
+               PyTorch library call's time as a yardstick: the paged
+               decode, and the three flash-attention kernels (forward,
+               dQ, dK/dV) at the training shape and at ragged, fp32 and
+               padded-head-dim shapes;
 3. serve     — the port's serving replica (``ModelRunner`` + ``Scheduler``
                + ``ReplicaServer``, driven through ``ServeClient`` over
                TCP) on Llama-3-8B at its published widths (bf16, 32
@@ -22,7 +25,20 @@ Builds every CUDA kernel of the port from ``horovod_tpu_torch/csrc``
                at full width, plus what holds of batch invariance;
    profile   — where a batch-8 decode step's time goes (host wall time,
                device busy time and top kernels from torch.profiler);
-5. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+5. train     — with the replica freed: the data-parallel training step
+               (``hvd.init()`` over NCCL, ``make_train_step``,
+               ``DistributedOptimizer`` over ``MasterWeights(AdamW)``,
+               flash attention, ``softmax_cross_entropy``) on Llama-3-8B
+               at its published widths cut to 4 layers, B 2 x S 2048,
+               seeded weights:
+   train_oracle — first, one forward and backward at B 1 through the
+               kernels against the dense ``causal_attention`` on the same
+               weights;
+               then 3 warm-up and 10 timed steps on a fixed batch (the
+               loss must fall; launch counts prove every layer's
+               attention went through the three kernels);
+   train_profile — where one step's time goes (torch.profiler);
+6. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints one JSON line; any failed check raises (exit != 0) and
@@ -34,6 +50,8 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
+import gc
 import json
 import math
 import re
@@ -47,10 +65,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.models.convert import init_params
 from horovod_tpu_torch.models.generation import (generate, paged_decode_step,
                                                  paged_prefill)
+from horovod_tpu_torch.models.llama import (LlamaConfig, LlamaModel,
+                                            causal_attention)
 from horovod_tpu_torch.ops import _build
+from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.ops import paged_attention as pa
+from horovod_tpu_torch.ops.losses import softmax_cross_entropy
+from horovod_tpu_torch.ops.mixed_precision import MasterWeights
 from horovod_tpu_torch.serve.config import ServeConfig
 from horovod_tpu_torch.serve.engine import ModelRunner
 from horovod_tpu_torch.serve.kv_cache import TRASH_BLOCK
@@ -103,6 +128,19 @@ def cuda_ms(fn, iters: int, flush: torch.Tensor) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def device_events(prof):
+    """(kernels, annotations): the profiler's device-side averages, split
+    into what ran on the card and the user ranges drawn over it (an
+    optimizer's ``step`` shows as one), which must not count as busy
+    time twice."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    ranges = [e for e in events if getattr(e, "is_user_annotation", False)]
+    return [e for e in events if e not in ranges], ranges
 
 
 def graph_ms(fn, iters: int, flush: torch.Tensor) -> float:
@@ -248,6 +286,206 @@ def phase_kernels(dev, flush, seed):
                       "maxb": 128, "pos": [int(p) for p in pos.tolist()],
                       "dtype": "bfloat16"})
     return entry
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the flash-attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+#: (name, kernel wrapper, plain version, TPU kernel it replaces).
+FLASH_KERNELS = (
+    ("flash_fwd", fa.flash_fwd, fa._fwd_blockwise,
+     "horovod_tpu/ops/flash_attention.py:113"),
+    ("flash_bwd_dq", fa.flash_bwd_dq, fa._bwd_dq_blockwise,
+     "horovod_tpu/ops/flash_attention.py:272"),
+    ("flash_bwd_dkv", fa.flash_bwd_dkv, fa._bwd_dkv_blockwise,
+     "horovod_tpu/ops/flash_attention.py:329"),
+)
+#: The training shape: Llama-3-8B's heads at B 2 x S 2048.
+FLASH_TRAIN_SHAPE = dict(B=2, S=2048, Hq=32, Hkv=8, D=128)
+
+
+def flash_inputs(dev, dtype, B, S, Hq, Hkv, D, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D),
+                          (B, S, Hq, D))]
+
+
+def flash_within(got, ref, dtype, grad):
+    """(ok, max |d|, tolerance).  fp32: the reference's own tolerances
+    (tests/test_flash_attention.py): out 2e-5, grads 5e-4, abs + rel.
+    bf16 out: |d| <= 2^-7 * max(1, |ref|), two bf16 ULPs of the larger of
+    1 and the value (both sides round the fp32 result once; P is rounded
+    to bf16 before P.V in both, but products sum in other orders).  bf16
+    grads: |d| <= 3e-2 * max |ref| of the tensor (the reference's bf16
+    bound): dS is rounded to bf16 before two products, so the error
+    scales with the tensor, not the element."""
+    g, r = got.detach().float(), ref.float()
+    d = (g - r).abs()
+    err = float(d.max())
+    if not bool(torch.isfinite(g).all()):
+        return False, err, "finite"
+    if dtype == torch.float32:
+        tol = 5e-4 if grad else 2e-5
+        return bool((d <= tol + tol * r.abs()).all()), err, \
+            f"|d| <= {tol} + {tol} * |ref|"
+    if grad:
+        return err <= 3e-2 * float(r.abs().max()), err, \
+            "|d| <= 3e-2 * max|ref|"
+    return bool((d <= 2.0 ** -7 * r.abs().clamp(min=1.0)).all()), err, \
+        "|d| <= 2^-7 * max(1, |ref|)"
+
+
+def flash_case_check(dev, case, seed):
+    """Each kernel (through its wrapper) against its plain version on the
+    same CUDA tensors; the backward kernels get the plain forward's lse
+    and delta.  Returns {kernel name: max |d|}."""
+    dtype, causal = case["dtype"], case["causal"]
+    shape = {k: case[k] for k in ("B", "S", "Hq", "Hkv", "D")}
+    q, k, v, do = flash_inputs(dev, dtype, seed=seed, **shape)
+    scale = shape["D"] ** -0.5
+    ref_out, ref_lse = fa._fwd_blockwise(q, k, v, causal, scale)
+    delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2)
+    bwd_args = (q, k, v, do, ref_lse, delta.contiguous(), causal, scale)
+    errs = {}
+    for name, kernel, plain, _ in FLASH_KERNELS:
+        args = (q, k, v, causal, scale) if name == "flash_fwd" else bwd_args
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        ref = plain(*args)
+        if name == "flash_fwd":
+            # lse: fp32 on both sides; 1e-3 absolute is ~1e-4 relative at
+            # the lse's scale (log S + max score).
+            d_lse = float((got[1] - ref[1]).abs().max())
+            check(d_lse <= 1e-3, f"{name}: lse |d| {d_lse}")
+            pairs = [(got[0], ref[0])]
+        elif name == "flash_bwd_dq":
+            pairs = [(got, ref)]
+        else:
+            pairs = list(zip(got, ref))
+        results = [flash_within(g, r, dtype, grad=name != "flash_fwd")
+                   for g, r in pairs]
+        ok = all(r[0] for r in results)
+        errs[name] = max(r[1] for r in results)
+        emit("kernel_check", kernel=name, case=case["case"], **shape,
+             causal=causal, dtype=str(dtype).replace("torch.", ""),
+             max_abs_err=errs[name], tolerance=results[0][2], ok=ok)
+        check(ok, f"{name} case {case['case']}: kernel disagrees with its "
+                  f"plain version (max |d| {errs[name]})")
+    return errs
+
+
+def flash_padded_check(dev, seed):
+    """Case (c): D 96 through the autograd wrapper, which zero-pads to 128
+    and keeps the true 1/sqrt(96); held against the plain versions on the
+    same padding, out and all three grads (fp32 tolerances)."""
+    q, k, v, do = flash_inputs(dev, torch.float32, 1, 200, 4, 2, 96, seed)
+    xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention(*xs, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    pad = [F.pad(t, (0, 32)) for t in (q, k, v, do)]
+    scale = 96 ** -0.5
+    ref_out, lse = fa._fwd_blockwise(*pad[:3], True, scale)
+    delta = (pad[3] * ref_out).sum(-1).transpose(1, 2).contiguous()
+    args = (*pad, lse, delta, True, scale)
+    ref_dq = fa._bwd_dq_blockwise(*args)
+    ref_dk, ref_dv = fa._bwd_dkv_blockwise(*args)
+    errs = {}
+    for name, got, ref in (("flash_fwd", out, ref_out),
+                           ("flash_bwd_dq", xs[0].grad, ref_dq),
+                           ("flash_bwd_dkv", xs[1].grad, ref_dk),
+                           ("flash_bwd_dkv", xs[2].grad, ref_dv)):
+        ok, err, tol = flash_within(got, ref[..., :96], torch.float32,
+                                    grad=name != "flash_fwd")
+        errs[name] = max(errs.get(name, 0.0), err)
+        check(ok, f"{name} case c (D 96 padded): max |d| {err}")
+    for name, err in errs.items():
+        emit("kernel_check", kernel=name, case="c", B=1, S=200, Hq=4, Hkv=2,
+             D=96, causal=True, dtype="float32", max_abs_err=err,
+             tolerance="fp32 out 2e-5, grads 5e-4 (abs + rel)", ok=True)
+    return errs
+
+
+def flash_bound(name, B, S, Hq, Hkv, D, causal):
+    """(bound_ms, bound_by) at bf16: the larger of the bytes each input is
+    read and each output written once over HBM bandwidth, and the tensor-
+    core operations the causal triangle needs (2·D per query-key pair and
+    product: 2 products forward; dQ 3, the scores recomputed; dK/dV 4)."""
+    pairs = B * Hq * (S * (S + 1) // 2 if causal else S * S)
+    products = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}[name]
+    q_bytes, kv_bytes, row_bytes = B * S * Hq * D * 2, B * S * Hkv * D * 2, \
+        B * Hq * S * 4
+    nbytes = {"flash_fwd": 2 * q_bytes + 2 * kv_bytes + row_bytes,
+              "flash_bwd_dq": 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes,
+              "flash_bwd_dkv": 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes
+              }[name]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * D * products * pairs / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def phase_flash_kernels(dev, flush, seed):
+    cases = [
+        dict(case="a", dtype=torch.bfloat16, causal=True, **FLASH_TRAIN_SHAPE),
+        dict(case="b", dtype=torch.float32, causal=True, B=1, S=200, Hq=4,
+             Hkv=2, D=64),
+        dict(case="b", dtype=torch.float32, causal=False, B=1, S=200, Hq=4,
+             Hkv=2, D=64),
+    ]
+    max_err = {name: 0.0 for name, *_ in FLASH_KERNELS}
+    for i, case in enumerate(cases):
+        for name, err in flash_case_check(dev, case, seed + 10 + i).items():
+            max_err[name] = max(max_err[name], err)
+    for name, err in flash_padded_check(dev, seed + 20).items():
+        max_err[name] = max(max_err[name], err)
+
+    # Times at the training shape (a).
+    shape = FLASH_TRAIN_SHAPE
+    q, k, v, do = flash_inputs(dev, torch.bfloat16, seed=seed, **shape)
+    scale = shape["D"] ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, True, scale)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    bwd_args = (q, k, v, do, lse, delta, True, scale)
+    # Library yardstick: SDPA (flash backend) on [B, H, S, D] views with
+    # the KV heads expanded, forward with is_causal; for dQ and dK/dV its
+    # backward, which computes the pair at once (the port never calls it).
+    G = shape["Hq"] // shape["Hkv"]
+    qh = q.transpose(1, 2).detach().requires_grad_(True)
+    kh = k.repeat_interleave(G, dim=2).transpose(1, 2).detach() \
+        .requires_grad_(True)
+    vh = v.repeat_interleave(G, dim=2).transpose(1, 2).detach() \
+        .requires_grad_(True)
+    doh = do.transpose(1, 2)
+    with torch.no_grad():
+        sdpa_fwd_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), 20, flush)
+    sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        sdpa_out, (qh, kh, vh), doh, retain_graph=True), 10, flush)
+    entries = []
+    for name, kernel, plain, replaces in FLASH_KERNELS:
+        args = (q, k, v, True, scale) if name == "flash_fwd" else bwd_args
+        ms = graph_ms(lambda: kernel(*args), 20, flush)
+        plain_ms = cuda_ms(lambda: plain(*args), 3, flush)
+        bound_ms, bound_by = flash_bound(name, causal=True, **shape)
+        entry = {"name": name, "route": "cuda",
+                 "source": "horovod_tpu_torch/csrc/flash_attention.cu",
+                 "replaces": replaces, "launches": None,
+                 "max_abs_err": max_err[name], "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by,
+                 "library_ms": sdpa_fwd_ms if name == "flash_fwd"
+                 else sdpa_bwd_ms}
+        emit("kernel_time", **entry,
+             library_call="scaled_dot_product_attention forward, is_causal"
+             if name == "flash_fwd" else
+             "scaled_dot_product_attention backward (dQ, dK, dV together)",
+             timed_shape={**shape, "causal": True, "dtype": "bfloat16"})
+        entries.append(entry)
+    return entries
 
 
 # ---------------------------------------------------------------------------
@@ -470,7 +708,6 @@ def phase_profile(runner):
     ``ModelRunner.decode`` against the device time of its kernels
     (``torch.profiler``), the top kernels by device time, and the idle
     share of the card."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     maxb = runner.max_blocks_per_seq
@@ -486,8 +723,7 @@ def phase_profile(runner):
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             runner.decode(*args)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels, _ = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     emit("profile", batch=width, pos=pos, fused=runner.fused_attn,
@@ -497,6 +733,167 @@ def phase_profile(runner):
          top=[{"name": e.key[:80],
                "ms_per_step": e.self_device_time_total / 1e3 / reps,
                "calls_per_step": e.count / reps} for e in top])
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the data-parallel training step on llama3_8b widths, 4 layers
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 4           # of 32: AdamW state for 8.03 B params is 128 GB
+TRAIN_B, TRAIN_S = 2, 2048
+WARMUP_STEPS, TIMED_STEPS = 3, 10
+#: train_oracle bounds: bf16 model, and the oracle rounds its scores to
+#: bf16 before the softmax (worth ~0.09 at logit scale in the serving
+#: oracle), so loss and gradients differ by bf16 noise, not by method.
+ORACLE_LOSS_TOL = 0.02
+ORACLE_GRAD_REL_L2_TOL = 5e-2
+
+
+def lm_loss(model, tokens):
+    logits = model(tokens[:, :-1])
+    return softmax_cross_entropy(logits, tokens[:, 1:])
+
+
+def train_flops(cfg, B, S):
+    """6 x (non-embedding params + lm_head) x tokens + 3 x the attention
+    forward (two causal products of 2 x S^2/2 x D per head and layer)."""
+    D, H = cfg.head_dim, cfg.hidden_size
+    per_layer = (H * cfg.num_heads * D * 2 + H * cfg.num_kv_heads * D * 2
+                 + 3 * H * cfg.intermediate_size + 2 * H)
+    dense = cfg.num_layers * per_layer + H + cfg.vocab_size * H
+    attn_fwd = cfg.num_layers * 4 * B * cfg.num_heads * S * S // 2 * D
+    return 6 * dense * B * S + 3 * attn_fwd
+
+
+def set_attention(model, fn):
+    for layer in model.layers:
+        layer.attn.attention_fn = fn
+
+
+def phase_train_oracle(model, tokens):
+    """One forward and backward at B 1 through the flash kernels and
+    through the dense ``causal_attention`` (fp32 scores, 0.5 GB a layer),
+    on the same weights, before the optimizer exists."""
+    params = list(model.parameters())
+    runs = {}
+    for name, fn in (("flash", fa.flash_attention_fn),
+                     ("dense", causal_attention)):
+        set_attention(model, fn)
+        model.zero_grad(set_to_none=True)
+        loss = lm_loss(model, tokens[:1])
+        loss.backward()
+        runs[name] = (float(loss.detach()),
+                      [p.grad.detach().clone() for p in params])
+    set_attention(model, fa.flash_attention_fn)
+    model.zero_grad(set_to_none=True)
+    (lf, gf), (ld, gd) = runs["flash"], runs["dense"]
+    rel = [float((a.float() - b.float()).norm() / b.float().norm().clamp(
+        min=1e-30)) for a, b in zip(gf, gd)]
+    names = [n for n, _ in model.named_parameters()]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    emit("train_oracle", batch=1, seq=TRAIN_S, loss_flash=lf, loss_dense=ld,
+         loss_abs_diff=abs(lf - ld), loss_tol=ORACLE_LOSS_TOL,
+         grad_rel_l2_max=rel[worst], grad_rel_l2_worst=names[worst],
+         grad_rel_l2_median=statistics.median(rel),
+         grad_rel_l2_tol=ORACLE_GRAD_REL_L2_TOL)
+    check(math.isfinite(lf) and abs(lf - ld) <= ORACLE_LOSS_TOL,
+          f"train_oracle: loss {lf} vs dense {ld}")
+    check(rel[worst] <= ORACLE_GRAD_REL_L2_TOL,
+          f"train_oracle: {names[worst]} grad rel L2 {rel[worst]}")
+    del runs, gf, gd
+
+
+def phase_train(dev, seed):
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=TRAIN_LAYERS)
+    hvd.init()
+    t0 = time.monotonic()
+    model = LlamaModel.from_state_dict(cfg, init_params(cfg, seed),
+                                       attention_fn=fa.flash_attention_fn)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(seed + 2)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1))).to(dev)
+    phase_train_oracle(model, tokens)
+    torch.cuda.empty_cache()
+
+    opt = hvd.DistributedOptimizer(MasterWeights(
+        model.parameters(), torch.optim.AdamW, lr=3e-4, betas=(0.9, 0.999),
+        eps=1e-8, weight_decay=1e-4))
+    step = hvd.make_train_step(model, lm_loss, opt)
+    losses = [float(step(tokens)) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launches()
+    step_ms = []
+    for _ in range(TIMED_STEPS):
+        t = time.perf_counter()
+        loss = step(tokens)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss))
+    launches = dict(fa.launches)
+    plain_calls = dict(fa.plain_calls)
+    plan = opt.last_plan
+    p50 = statistics.median(step_ms)
+    flops = train_flops(cfg, TRAIN_B, TRAIN_S)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+    emit("train", model="llama3_8b", layers=cfg.num_layers,
+         layers_published=32, hidden=cfg.hidden_size, heads=cfg.num_heads,
+         kv_heads=cfg.num_kv_heads, ffn=cfg.intermediate_size,
+         vocab=cfg.vocab_size, params=n_params, batch=TRAIN_B, seq=TRAIN_S,
+         world_size=hvd.size(), backend=torch.distributed.get_backend(),
+         optimizer="DistributedOptimizer(MasterWeights(AdamW lr 3e-4))",
+         warmup_steps=WARMUP_STEPS, steps=TIMED_STEPS,
+         step_ms_p50=p50, step_ms_max=max(step_ms), step_ms=step_ms,
+         tokens_per_s=TRAIN_B * TRAIN_S / (p50 / 1e3),
+         flops_per_step=flops, mfu=flops / (p50 / 1e3) / 989e12,
+         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+         losses=losses, fused_buckets=len(plan.buckets),
+         fused_bytes=sum(b.nbytes for b in plan.buckets),
+         fused_tensors=sum(len(b.indices) for b in plan.buckets),
+         kernel_launches=launches, plain_calls=plain_calls, init_s=init_s,
+         nvidia_smi_after=smi)
+    check(all(math.isfinite(x) for x in losses), f"loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    for name, n in launches.items():
+        check(n == cfg.num_layers * TIMED_STEPS,
+              f"{name} launches {n} != layers x steps "
+              f"{cfg.num_layers} x {TIMED_STEPS}")
+    check(not any(plain_calls.values()),
+          f"a plain version ran on the main path: {plain_calls}")
+    phase_train_profile(step, tokens)
+    return launches, (model, opt, step)
+
+
+def phase_train_profile(step, tokens):
+    """Where one training step's time goes: host wall time against the
+    device time of its kernels (torch.profiler), the top kernels, and the
+    idle share of the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t = time.perf_counter()
+    step(tokens)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(tokens)
+        torch.cuda.synchronize()
+    kernels, ranges = device_events(prof)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    emit("train_profile", step_wall_ms=wall_ms, device_busy_ms=busy_ms,
+         idle_share=1.0 - busy_ms / wall_ms,
+         kernels_per_step=sum(e.count for e in kernels),
+         ranges=[{"name": e.key[:60], "ms": e.device_time_total / 1e3}
+                 for e in ranges],
+         top=[{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
+               "calls": e.count} for e in top])
 
 
 def main(argv=None) -> int:
@@ -515,8 +912,9 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     build_s = _build.build()
-    ptxas = [ln.strip() for ln in _build.build_log("paged_attention")
-             .splitlines() if re.search(r"registers|spill", ln)]
+    ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
+                    if re.search(r"registers|spill", ln)]
+             for name in _build.sources()}
     emit("device", nvidia_smi=smi, torch_device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, build_s=build_s,
@@ -524,14 +922,30 @@ def main(argv=None) -> int:
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     entry = phase_kernels(dev, flush, args.seed)
+    flash_entries = phase_flash_kernels(dev, flush, args.seed)
     del flush
+    torch.cuda.reset_peak_memory_stats(dev)
+    # Serving runs before training: once torch.profiler has traced the
+    # training step, the process launches kernels more slowly, and a serve
+    # phase after it measured 18-30 % fewer tokens/s with the same device
+    # time (PERF.md, Findings).  The decode profile runs after serving.
     runner, launches, served = phase_serve(dev, args.seed)
     entry["launches"] = launches
     phase_oracle(runner, served, args.seed)
     phase_profile(runner)
+    del runner, served               # training needs the memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches, trained = phase_train(dev, args.seed)
+    for e in flash_entries:
+        e["launches"] = train_launches[e["name"]]
+    del trained
+    hvd.shutdown()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: entry[k] for k in keys}]}), flush=True)
+    print(json.dumps({"kernels": [{k: e[k] for k in keys}
+                                  for e in [entry] + flash_entries]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,11 +14,35 @@ a ported path is a hand-written Hopper kernel under ``csrc/``, built with
 
 Ported so far: the paged-KV serving replica (``serve/``) over the dense
 Llama model (``models/``) with the fused paged-attention decode kernel
-(``ops/paged_attention.py``).
+(``ops/paged_attention.py``); and the data-parallel training step —
+``import horovod_tpu_torch as hvd``: ``hvd.init()``, the model with
+``ops.flash_attention.flash_attention_fn`` (forward and backward
+kernels), ``ops.losses.softmax_cross_entropy``,
+``hvd.DistributedOptimizer`` over ``ops.mixed_precision.MasterWeights``,
+and ``hvd.make_train_step``.
 """
 
+from horovod_tpu_torch.common.basics import (device, init, is_initialized,
+                                             local_rank, local_size, rank,
+                                             shutdown, size)
 from horovod_tpu_torch.common.device import resolve_device
+from horovod_tpu_torch.frontend import (DistributedOptimizer,
+                                        allreduce_gradients,
+                                        broadcast_optimizer_state,
+                                        broadcast_parameters,
+                                        make_train_step)
+from horovod_tpu_torch.ops.collective_ops import (Average, Max, Min, Product,
+                                                  ReduceOp, Sum, allreduce,
+                                                  broadcast,
+                                                  grouped_allreduce)
+from horovod_tpu_torch.ops.compression import Compression
 
 __version__ = "0.1.0"
 
-__all__ = ["__version__", "resolve_device"]
+__all__ = ["__version__", "resolve_device", "init", "shutdown",
+           "is_initialized", "rank", "size", "local_rank", "local_size",
+           "device", "ReduceOp", "Sum", "Average", "Min", "Max", "Product",
+           "allreduce", "grouped_allreduce", "broadcast", "Compression",
+           "allreduce_gradients", "DistributedOptimizer",
+           "broadcast_parameters", "broadcast_optimizer_state",
+           "make_train_step"]

@@ -17,7 +17,12 @@ tensor already in the dtype the model computes in (see
 * :func:`params_from_jax` converts the JAX package's parameter tree (as
   numpy arrays) — the way the parity tests put both frameworks on the
   same weights.  Flax ``Dense`` kernels are ``[in, out]``; torch
-  ``Linear`` weights are ``[out, in]``.
+  ``Linear`` weights are ``[out, in]``.  :func:`params_to_jax` is its
+  inverse (fp32 numpy leaves), so the tests can compare parameters after
+  training steps.
+
+Both functions place the tensors on the CUDA device unless given
+``device="cpu"``, and raise without a GPU otherwise.
 """
 
 from __future__ import annotations
@@ -28,9 +33,10 @@ from typing import Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
+from horovod_tpu_torch.common.device import resolve_device
 from horovod_tpu_torch.models.llama import LlamaConfig, _require_dense
 
-__all__ = ["init_params", "params_from_jax"]
+__all__ = ["init_params", "params_from_jax", "params_to_jax"]
 
 #: Standard deviation of a unit normal truncated to [-2, 2]; lecun_normal
 #: divides by it so the truncated samples have the requested std.
@@ -74,10 +80,11 @@ def _trunc_normal(shape, std: float, gen: torch.Generator,
 
 
 def init_params(cfg: LlamaConfig, seed: int,
-                device="cpu") -> Dict[str, torch.Tensor]:
-    """Seeded weights drawn on ``device`` with an explicit generator."""
+                device=None) -> Dict[str, torch.Tensor]:
+    """Seeded weights drawn on ``device`` (``None``: the CUDA device)
+    with an explicit generator."""
     _require_dense(cfg)
-    device = torch.device(device)
+    device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     out: Dict[str, torch.Tensor] = {}
@@ -106,11 +113,13 @@ def _jax_path(name: str) -> Tuple[str, ...]:
 
 
 def params_from_jax(tree: Mapping, cfg: LlamaConfig,
-                    device="cpu") -> Dict[str, torch.Tensor]:
+                    device=None) -> Dict[str, torch.Tensor]:
     """Convert the JAX package's ``LlamaModel`` parameters (``variables``
     or ``variables["params"]``, leaves convertible with ``np.asarray``)
-    into the port's state dict on ``device``."""
+    into the port's state dict on ``device`` (``None``: the CUDA
+    device)."""
     _require_dense(cfg)
+    device = resolve_device(device)
     if "params" in tree:
         tree = tree["params"]
     out: Dict[str, torch.Tensor] = {}
@@ -127,3 +136,21 @@ def params_from_jax(tree: Mapping, cfg: LlamaConfig,
         out[name] = torch.from_numpy(np.array(arr, order="C")).to(
             device=device, dtype=_dtype(cfg, kind))
     return out
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor],
+                  cfg: LlamaConfig) -> Dict:
+    """The port's state dict (or ``model.state_dict()``) as the JAX
+    package's ``{"params": ...}`` tree of fp32 numpy arrays."""
+    _require_dense(cfg)
+    out: Dict = {}
+    for name, kind, _ in _layout(cfg):
+        arr = state[name].detach().float().cpu().numpy()
+        if kind in ("dense", "head"):
+            arr = arr.T                              # [out, in] -> [in, out]
+        *path, leaf = _jax_path(name)
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return {"params": out}

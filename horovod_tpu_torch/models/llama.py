@@ -22,13 +22,20 @@ values): projections and the embedding in ``dtype``, the head in
 ``logits_dtype``, norm scales in fp32.  ``models/convert.py`` builds them
 (seeded, or from the JAX package's parameter tree).
 
-``num_experts > 1`` (MoE) is not ported yet and raises.
+Every parameter trains (``requires_grad``); the serving entry points of
+``models/generation.py`` run under ``torch.no_grad()``.  Attention is a
+seam, as in the reference: ``attention_fn(q, k, v)`` on [B, S, H, D]
+tensors, :func:`causal_attention` by default, ``ops.flash_attention.
+flash_attention_fn`` for training.
+
+``num_experts > 1`` (MoE) and ``fused_rmsnorm`` (the Pallas RMSNorm
+kernels) are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
 import torch.nn as nn
@@ -52,6 +59,7 @@ class LlamaConfig:
     num_experts: int = 1          # >1 is MoE: not ported yet
     dtype: torch.dtype = torch.bfloat16
     logits_dtype: torch.dtype = torch.bfloat16
+    fused_rmsnorm: bool = False   # the RMSNorm kernels: not ported yet
 
     @staticmethod
     def llama3_8b() -> "LlamaConfig":
@@ -76,6 +84,10 @@ def _require_dense(cfg: LlamaConfig) -> None:
     if cfg.num_experts > 1:
         raise NotImplementedError("the port supports dense (non-MoE) "
                                   "configs only; MoEBlock is not ported yet")
+    if cfg.fused_rmsnorm:
+        raise NotImplementedError("fused_rmsnorm: the RMSNorm kernels are "
+                                  "not ported yet (ROADMAP.md Queue B, "
+                                  "B4-B5)")
 
 
 class RMSNorm(nn.Module):
@@ -85,8 +97,7 @@ class RMSNorm(nn.Module):
         self.eps = eps
         self.dtype = dtype
         self.scale = nn.Parameter(
-            torch.ones(hidden, dtype=torch.float32, device=device),
-            requires_grad=False)
+            torch.ones(hidden, dtype=torch.float32, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
@@ -159,9 +170,11 @@ def causal_attention(q, k, v):
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None,
+                 attention_fn: Callable = causal_attention):
         super().__init__()
         self.config = cfg
+        self.attention_fn = attention_fn
         D = cfg.head_dim
         kw = dict(bias=False, device=device, dtype=cfg.dtype)
         self.wq = nn.Linear(cfg.hidden_size, cfg.num_heads * D, **kw)
@@ -182,7 +195,7 @@ class LlamaAttention(nn.Module):
     def forward(self, x, cos, sin):
         B, S, _ = x.shape
         q, k, v = self.qkv(x, cos, sin)
-        out = causal_attention(q, k, v)
+        out = self.attention_fn(q, k, v)
         return self.wo(out.reshape(B, S, -1))
 
 
@@ -201,11 +214,12 @@ class SwiGLU(nn.Module):
 
 
 class LlamaLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None,
+                 attention_fn: Callable = causal_attention):
         super().__init__()
         self.norm_attn = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
                                  device)
-        self.attn = LlamaAttention(cfg, device)
+        self.attn = LlamaAttention(cfg, device, attention_fn)
         self.norm_mlp = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
                                 device)
         self.mlp = SwiGLU(cfg, device)
@@ -220,29 +234,30 @@ class LlamaModel(nn.Module):
     [B, S, V] in ``logits_dtype``; ``models/generation.py`` runs the same
     weights with a KV cache."""
 
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None,
+                 attention_fn: Callable = causal_attention):
         super().__init__()
         _require_dense(cfg)
         self.config = cfg
         self.tok_emb = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                     device=device, dtype=cfg.dtype)
-        self.layers = nn.ModuleList(LlamaLayer(cfg, device)
+        self.layers = nn.ModuleList(LlamaLayer(cfg, device, attention_fn)
                                     for _ in range(cfg.num_layers))
         self.norm_f = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
                               device)
         self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
                                  device=device, dtype=cfg.logits_dtype)
-        self.requires_grad_(False)
 
     @classmethod
-    def from_state_dict(cls, cfg: LlamaConfig,
-                        state: Dict[str, torch.Tensor]) -> "LlamaModel":
+    def from_state_dict(cls, cfg: LlamaConfig, state: Dict[str, torch.Tensor],
+                        attention_fn: Callable = causal_attention
+                        ) -> "LlamaModel":
         """Wrap ready tensors (``convert.init_params`` /
         ``convert.params_from_jax``) without allocating a second copy:
-        the module is built on the meta device and the tensors assigned."""
-        model = cls(cfg, device="meta")
+        the module is built on the meta device and the tensors assigned
+        (as trainable parameters)."""
+        model = cls(cfg, device="meta", attention_fn=attention_fn)
         model.load_state_dict(state, strict=True, assign=True)
-        model.requires_grad_(False)
         return model
 
     def head(self, x: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,7 @@ import torch
 from horovod_tpu_torch.models import generation
 from horovod_tpu_torch.models.convert import init_params
 from horovod_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -115,3 +116,95 @@ def test_fused_decode_step_tracks_oracle_on_the_card(dev):
     assert pa.launches == before + cfg.num_layers
     lo, _, _ = generation.paged_decode_step(model, tok, pk, pv, tables, pos)
     assert float((lf.float() - lo.float()).abs().max()) < 0.125
+
+
+# ---------------------------------------------------------------------------
+# flash attention: hvd_flash_fwd / hvd_flash_bwd_dq / hvd_flash_bwd_dkv
+# ---------------------------------------------------------------------------
+
+def _flash_inputs(dev, dtype, B, S, Hq, Hkv, D, seed):
+    rng = np.random.default_rng(seed)
+    shapes = [(B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D), (B, S, Hq, D)]
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(dev, dtype) for s in shapes]
+
+
+def _flash_agree(got, ref, dtype, grad):
+    """fp32: the reference's 2e-5 (out) / 5e-4 (grads).  bf16: out within
+    2 bf16 ULPs of max(1, |ref|); grads within 3e-2 of each tensor's max
+    (dS is rounded to bf16 before two products, so errors scale with the
+    tensor, not the element)."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:
+        tol = 5e-4 if grad else 2e-5
+        torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
+    elif grad:
+        assert float((got - ref).abs().max()) <= \
+            3e-2 * float(ref.abs().max())
+    else:
+        assert bool(((got - ref).abs()
+                     <= 2.0 ** -7 * ref.abs().clamp(min=1.0)).all())
+
+
+@pytest.mark.parametrize("dtype,B,S,Hq,Hkv,D,causal", [
+    (torch.bfloat16, 2, 256, 8, 2, 128, True),
+    (torch.bfloat16, 1, 200, 4, 2, 64, False),
+    (torch.bfloat16, 1, 333, 4, 4, 128, True),
+    (torch.float32, 1, 200, 4, 2, 64, True),
+    (torch.float32, 2, 130, 4, 1, 128, False),
+])
+def test_flash_kernels_match_plain_versions(dev, dtype, B, S, Hq, Hkv, D,
+                                            causal):
+    q, k, v, do = _flash_inputs(dev, dtype, B, S, Hq, Hkv, D, seed=S + D)
+    scale = D ** -0.5
+    fa.reset_launches()
+    out, lse = fa.flash_fwd(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa._fwd_blockwise(q, k, v, causal, scale)
+    _flash_agree(out, ref_out, dtype, grad=False)
+    torch.testing.assert_close(lse.cpu(), ref_lse.cpu(), rtol=1e-5,
+                               atol=1e-5 if dtype == torch.float32 else 1e-3)
+    delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2)
+    args = (q, k, v, do, ref_lse, delta.contiguous(), causal, scale)
+    dq = fa.flash_bwd_dq(*args)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    _flash_agree(dq, fa._bwd_dq_blockwise(*args), dtype, grad=True)
+    for got, ref in zip((dk, dv), fa._bwd_dkv_blockwise(*args)):
+        _flash_agree(got, ref, dtype, grad=True)
+    assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                           "flash_bwd_dkv": 1}
+
+
+def test_flash_autograd_runs_the_kernels_and_pads_head_dim(dev):
+    """D 96 through the wrapper: zero-padded to 128 with the true scale;
+    every kernel launched once, no plain version called."""
+    q, k, v, do = _flash_inputs(dev, torch.float32, 1, 200, 4, 2, 96, 5)
+    grads = []
+    for path in ("kernel", "plain"):
+        xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        if path == "plain":
+            xs = [t.detach().cpu().requires_grad_(True) for t in (q, k, v)]
+        fa.reset_launches()
+        out = fa.flash_attention(*xs, causal=True)
+        (out * do.to(out.device)).sum().backward()
+        if path == "kernel":
+            torch.cuda.synchronize()
+            assert fa.launches == dict.fromkeys(fa.launches, 1)
+            assert fa.plain_calls == dict.fromkeys(fa.plain_calls, 0)
+        grads.append([out] + [t.grad for t in xs])
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got.cpu(), ref, rtol=5e-4, atol=5e-4)
+
+
+def test_flash_kernels_reject_what_they_cannot_run(dev):
+    q, k, v, _ = _flash_inputs(dev, torch.float32, 1, 64, 4, 2, 64, 0)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    assert not fa.flash_lse_supported(64, 256, device=dev)
+    assert fa.flash_lse_supported(64, 128, device=dev)
+    with pytest.raises(ValueError, match="head dim 256"):
+        fa.flash_attention(*[torch.cat([t] * 4, -1) for t in (q, k, v)])
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_fwd(q, k.cpu(), v, True, 0.125)

@@ -41,7 +41,34 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 14, out.stdout
+    assert n_modules >= 22, out.stdout
+
+
+_TRAINING_MODULES = ["common.basics", "ops.collective_ops", "ops.compression",
+                     "ops.fusion", "ops.mixed_precision", "ops.losses",
+                     "ops.flash_attention", "frontend"]
+
+
+def test_training_slice_imports_no_jax_and_finds_no_library_attention():
+    """Each module of the training slice, imported alone in a fresh
+    interpreter, loads no JAX; and no source of the port calls a
+    library attention kernel."""
+    code = ("import importlib, sys\n"
+            f"for m in {_TRAINING_MODULES!r}:\n"
+            "    importlib.import_module('horovod_tpu_torch.' + m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'horovod_tpu'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    pkg = os.path.join(REPO, "horovod_tpu_torch")
+    for root, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith((".py", ".cu")):
+                with open(os.path.join(root, name)) as f:
+                    assert "scaled_dot_product_attention" not in f.read(), \
+                        name
 
 
 def test_chip_smoke_fails_without_gpu():

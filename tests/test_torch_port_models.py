@@ -49,7 +49,7 @@ def _models(dtype: str):
     ids = jnp.zeros((1, 8), jnp.int32)
     variables = JaxLlamaModel(jcfg).init(jax.random.key(1), ids)
     model = LlamaModel.from_state_dict(tcfg, params_from_jax(variables,
-                                                             tcfg))
+                                                             tcfg, "cpu"))
     return jcfg, variables, model
 
 
@@ -83,7 +83,8 @@ def test_llama_logits_match_flax():
     jcfg, variables, model = _models("float32")
     ids = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 11))
     ref = JaxLlamaModel(jcfg).apply(variables, jnp.asarray(ids, jnp.int32))
-    got = model(_t(ids).long())
+    with torch.no_grad():
+        got = model(_t(ids).long())
     assert got.dtype == torch.float32
     _close(ref, got.numpy(), "float32")
 
@@ -92,7 +93,8 @@ def test_llama_logits_bf16_within_contract():
     jcfg, variables, model = _models("bfloat16")
     ids = np.random.default_rng(1).integers(0, jcfg.vocab_size, (2, 9))
     ref = JaxLlamaModel(jcfg).apply(variables, jnp.asarray(ids, jnp.int32))
-    got = model(_t(ids).long())
+    with torch.no_grad():
+        got = model(_t(ids).long())
     assert got.dtype == torch.bfloat16
     _close(ref, got.float().numpy(), "bfloat16")
 
@@ -229,9 +231,9 @@ def test_paged_paths_match_jax(dtype):
 
 def test_init_params_distributions_and_determinism():
     cfg = LlamaConfig.tiny()
-    a = init_params(cfg, 7)
-    b = init_params(cfg, 7)
-    c = init_params(cfg, 8)
+    a = init_params(cfg, 7, "cpu")
+    b = init_params(cfg, 7, "cpu")
+    c = init_params(cfg, 8, "cpu")
     for name in a:
         assert torch.equal(a[name], b[name]), name
     assert not torch.equal(a["layers.0.attn.wq.weight"],
@@ -255,6 +257,6 @@ def test_conversion_rejects_mismatch_and_moe():
     _, variables, _ = _models("float32")
     wide = dataclasses.replace(LlamaConfig.tiny(), hidden_size=128)
     with pytest.raises(ValueError, match="does not match"):
-        params_from_jax(variables, wide)
+        params_from_jax(variables, wide, "cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
         LlamaModel(LlamaConfig.tiny(num_experts=4))

@@ -175,7 +175,7 @@ def runners():
     runner = ModelRunner(cfg, device="cpu")
     runner.model = LlamaModel.from_state_dict(
         runner.model_cfg, params_from_jax(jrunner.variables,
-                                          runner.model_cfg))
+                                          runner.model_cfg, "cpu"))
     return runner, jrunner
 
 
