@@ -11,9 +11,13 @@ Builds every CUDA kernel of the port from ``horovod_tpu_torch/csrc``
                at the main path's shapes (stated tolerances), with its
                median time, its bound, the plain version's time and one
                PyTorch library call's time as a yardstick: the paged
-               decode, and the three flash-attention kernels (forward,
-               dQ, dK/dV) at the training shape and at ragged, fp32 and
-               padded-head-dim shapes;
+               decode; the three flash-attention kernels (forward, dQ,
+               dK/dV) at the training shape and at ragged, fp32 and
+               padded-head-dim shapes, and with packed segment starts at
+               the packed training shape and a ragged fp32 shape;
+   rms_kernels — the RMSNorm forward and backward at the packed training
+               shape (R 4096, H 4096, bf16), a ragged fp32 R and an
+               off-tile H;
 3. serve     — the port's serving replica (``ModelRunner`` + ``Scheduler``
                + ``ReplicaServer``, driven through ``ServeClient`` over
                TCP) on Llama-3-8B at its published widths (bf16, 32
@@ -37,8 +41,27 @@ Builds every CUDA kernel of the port from ``horovod_tpu_torch/csrc``
                then 3 warm-up and 10 timed steps on a fixed batch (the
                loss must fall; launch counts prove every layer's
                attention went through the three kernels);
-   train_profile — where one step's time goes (torch.profiler);
-6. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+6. train_packed — with the train phase's optimizer freed: packed-sequence
+               pretraining (the ``examples/llama_packed_pretraining``
+               recipe): the same widths and cut, ``fused_rmsnorm=True``
+               (the RMSNorm kernels), flash attention with
+               ``segment_ids`` and the loss masked at document
+               boundaries, B 2 x S 2048 packed with documents of mean
+               length 300:
+   train_packed_oracle — first, at B 1 on the same weights: the segment
+               kernels against the dense ``attend`` with the
+               block-diagonal causal mask, and the fused model's logits
+               against the unfused model's;
+               then 3 warm-up and 10 timed steps (the loss must fall;
+               launch counts prove every norm went through the RMSNorm
+               kernels and every layer's attention through the three
+               flash kernels with segments);
+7. train_profile, train_packed_profile — where one step of each goes
+               (torch.profiler), after both phases were timed: once the
+               profiler has traced a step, the process launches kernels
+               more slowly; then train_packed_vs_train, the device time
+               the packed step saves, by kernel group;
+8. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints one JSON line; any failed check raises (exit != 0) and
@@ -51,6 +74,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -66,14 +90,17 @@ import torch
 import torch.nn.functional as F
 
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch.examples.llama_packed_pretraining import (
+    boundary_mask, make_packed_batch, packed_lm_loss)
 from horovod_tpu_torch.models.convert import init_params
 from horovod_tpu_torch.models.generation import (generate, paged_decode_step,
                                                  paged_prefill)
-from horovod_tpu_torch.models.llama import (LlamaConfig, LlamaModel,
-                                            causal_attention)
+from horovod_tpu_torch.models.llama import (LlamaConfig, LlamaModel, RMSNorm,
+                                            attend, causal_attention)
 from horovod_tpu_torch.ops import _build
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.ops import paged_attention as pa
+from horovod_tpu_torch.ops import rms_norm as rn
 from horovod_tpu_torch.ops.losses import softmax_cross_entropy
 from horovod_tpu_torch.ops.mixed_precision import MasterWeights
 from horovod_tpu_torch.serve.config import ServeConfig
@@ -340,17 +367,21 @@ def flash_within(got, ref, dtype, grad):
 def flash_case_check(dev, case, seed):
     """Each kernel (through its wrapper) against its plain version on the
     same CUDA tensors; the backward kernels get the plain forward's lse
-    and delta.  Returns {kernel name: max |d|}."""
+    and delta.  ``case["seg"]``: int32 [B, S] segment starts, or absent.
+    Returns {kernel name: max |d|}."""
     dtype, causal = case["dtype"], case["causal"]
     shape = {k: case[k] for k in ("B", "S", "Hq", "Hkv", "D")}
     q, k, v, do = flash_inputs(dev, dtype, seed=seed, **shape)
+    seg = case.get("seg")
+    seg = None if seg is None else seg.to(dev)
     scale = shape["D"] ** -0.5
-    ref_out, ref_lse = fa._fwd_blockwise(q, k, v, causal, scale)
+    ref_out, ref_lse = fa._fwd_blockwise(q, k, v, causal, scale, seg)
     delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2)
-    bwd_args = (q, k, v, do, ref_lse, delta.contiguous(), causal, scale)
+    bwd_args = (q, k, v, do, ref_lse, delta.contiguous(), causal, scale, seg)
     errs = {}
     for name, kernel, plain, _ in FLASH_KERNELS:
-        args = (q, k, v, causal, scale) if name == "flash_fwd" else bwd_args
+        args = (q, k, v, causal, scale, seg) if name == "flash_fwd" \
+            else bwd_args
         got = kernel(*args)
         torch.cuda.synchronize()
         ref = plain(*args)
@@ -370,6 +401,7 @@ def flash_case_check(dev, case, seed):
         errs[name] = max(r[1] for r in results)
         emit("kernel_check", kernel=name, case=case["case"], **shape,
              causal=causal, dtype=str(dtype).replace("torch.", ""),
+             segments=None if seg is None else n_segments(seg),
              max_abs_err=errs[name], tolerance=results[0][2], ok=ok)
         check(ok, f"{name} case {case['case']}: kernel disagrees with its "
                   f"plain version (max |d| {errs[name]})")
@@ -408,32 +440,111 @@ def flash_padded_check(dev, seed):
     return errs
 
 
-def flash_bound(name, B, S, Hq, Hkv, D, causal):
+def n_segments(seg: torch.Tensor) -> int:
+    """Documents in a batch of segment starts (one per run)."""
+    pos = torch.arange(seg.shape[1], device=seg.device)
+    return int((seg == pos).sum())
+
+
+def attn_pairs(B, S, Hq, causal, seg=None) -> int:
+    """(query, key) pairs the attention computes: the causal triangle
+    (B·Hq·S(S+1)/2), S² without causality, or with segment starts the sum
+    of each row's live keys r − start[r] + 1 — the block-diagonal
+    triangles, which is what this run's packed data needs."""
+    if seg is not None:
+        pos = torch.arange(S, device=seg.device)
+        return Hq * int((pos - seg + 1).sum())
+    return B * Hq * (S * (S + 1) // 2 if causal else S * S)
+
+
+def flash_bound(name, B, S, Hq, Hkv, D, causal, seg=None):
     """(bound_ms, bound_by) at bf16: the larger of the bytes each input is
     read and each output written once over HBM bandwidth, and the tensor-
-    core operations the causal triangle needs (2·D per query-key pair and
+    core operations the live pairs need (2·D per query-key pair and
     product: 2 products forward; dQ 3, the scores recomputed; dK/dV 4)."""
-    pairs = B * Hq * (S * (S + 1) // 2 if causal else S * S)
+    pairs = attn_pairs(B, S, Hq, causal, seg)
     products = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}[name]
     q_bytes, kv_bytes, row_bytes = B * S * Hq * D * 2, B * S * Hkv * D * 2, \
         B * Hq * S * 4
     nbytes = {"flash_fwd": 2 * q_bytes + 2 * kv_bytes + row_bytes,
               "flash_bwd_dq": 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes,
               "flash_bwd_dkv": 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes
-              }[name]
+              }[name] + (0 if seg is None else 4 * B * S)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * D * products * pairs / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
+def ragged_starts(S: int) -> torch.Tensor:
+    """int32 [1, S] starts with boundaries on a 64-row tile edge (64),
+    inside a tile (100) and at 150."""
+    ids = torch.zeros((1, S), dtype=torch.int64)
+    for b in (64, 100, 150):
+        ids[:, b:] += 1
+    return fa._segment_starts(ids)
+
+
+def flash_times(dev, flush, seed, seg=None):
+    """Each kernel's time (CUDA-graph replay, cold L2) at the training
+    shape, its plain version's, its bound, and the library yardstick:
+    SDPA (KV heads expanded) forward, and its backward, which computes
+    dQ, dK and dV together (the port never calls it) — with is_causal
+    (flash backend), or with segments a boolean block-diagonal causal
+    mask (SDPA has no packed-causal mode)."""
+    shape = FLASH_TRAIN_SHAPE
+    q, k, v, do = flash_inputs(dev, torch.bfloat16, seed=seed, **shape)
+    scale = shape["D"] ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, True, scale, seg)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    bwd_args = (q, k, v, do, lse, delta, True, scale, seg)
+    G = shape["Hq"] // shape["Hkv"]
+    qh = q.transpose(1, 2).detach().requires_grad_(True)
+    kh = k.repeat_interleave(G, dim=2).transpose(1, 2).detach() \
+        .requires_grad_(True)
+    vh = v.repeat_interleave(G, dim=2).transpose(1, 2).detach() \
+        .requires_grad_(True)
+    doh = do.transpose(1, 2)
+    if seg is None:
+        sdpa = functools.partial(F.scaled_dot_product_attention,
+                                 is_causal=True)
+    else:
+        pos = torch.arange(shape["S"], device=dev)
+        mask = (pos[:, None] >= pos[None, :]) & \
+            (seg[:, :, None] == seg[:, None, :])
+        sdpa = functools.partial(F.scaled_dot_product_attention,
+                                 attn_mask=mask[:, None])
+    with torch.no_grad():
+        lib_fwd_ms = graph_ms(lambda: sdpa(qh, kh, vh), 20, flush)
+    lib_out = sdpa(qh, kh, vh)
+    lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qh, kh, vh), doh, retain_graph=True), 10, flush)
+    del lib_out
+    times = {}
+    for name, kernel, plain, _ in FLASH_KERNELS:
+        args = (q, k, v, True, scale, seg) if name == "flash_fwd" \
+            else bwd_args
+        bound_ms, bound_by = flash_bound(name, causal=True, seg=seg, **shape)
+        times[name] = {
+            "ms": graph_ms(lambda: kernel(*args), 20, flush),
+            "plain_ms": cuda_ms(lambda: plain(*args), 3, flush),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_fwd_ms if name == "flash_fwd" else lib_bwd_ms}
+    return times
+
+
 def phase_flash_kernels(dev, flush, seed):
+    packed = packed_starts(seed)
     cases = [
         dict(case="a", dtype=torch.bfloat16, causal=True, **FLASH_TRAIN_SHAPE),
         dict(case="b", dtype=torch.float32, causal=True, B=1, S=200, Hq=4,
              Hkv=2, D=64),
         dict(case="b", dtype=torch.float32, causal=False, B=1, S=200, Hq=4,
              Hkv=2, D=64),
+        dict(case="a_packed", dtype=torch.bfloat16, causal=True, seg=packed,
+             **FLASH_TRAIN_SHAPE),
+        dict(case="b_packed", dtype=torch.float32, causal=True, B=1, S=200,
+             Hq=4, Hkv=2, D=64, seg=ragged_starts(200)),
     ]
     max_err = {name: 0.0 for name, *_ in FLASH_KERNELS}
     for i, case in enumerate(cases):
@@ -442,48 +553,163 @@ def phase_flash_kernels(dev, flush, seed):
     for name, err in flash_padded_check(dev, seed + 20).items():
         max_err[name] = max(max_err[name], err)
 
-    # Times at the training shape (a).
     shape = FLASH_TRAIN_SHAPE
-    q, k, v, do = flash_inputs(dev, torch.bfloat16, seed=seed, **shape)
-    scale = shape["D"] ** -0.5
-    out, lse = fa.flash_fwd(q, k, v, True, scale)
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    bwd_args = (q, k, v, do, lse, delta, True, scale)
-    # Library yardstick: SDPA (flash backend) on [B, H, S, D] views with
-    # the KV heads expanded, forward with is_causal; for dQ and dK/dV its
-    # backward, which computes the pair at once (the port never calls it).
-    G = shape["Hq"] // shape["Hkv"]
-    qh = q.transpose(1, 2).detach().requires_grad_(True)
-    kh = k.repeat_interleave(G, dim=2).transpose(1, 2).detach() \
-        .requires_grad_(True)
-    vh = v.repeat_interleave(G, dim=2).transpose(1, 2).detach() \
-        .requires_grad_(True)
-    doh = do.transpose(1, 2)
-    with torch.no_grad():
-        sdpa_fwd_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True), 20, flush)
-    sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
-    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-        sdpa_out, (qh, kh, vh), doh, retain_graph=True), 10, flush)
+    dense = flash_times(dev, flush, seed)
+    seg = packed.to(dev)
+    packed_times = flash_times(dev, flush, seed, seg)
+    pairs_dense = attn_pairs(causal=True, **{k: shape[k]
+                                             for k in ("B", "S", "Hq")})
+    pairs_packed = attn_pairs(causal=True, seg=seg,
+                              **{k: shape[k] for k in ("B", "S", "Hq")})
     entries = []
-    for name, kernel, plain, replaces in FLASH_KERNELS:
-        args = (q, k, v, True, scale) if name == "flash_fwd" else bwd_args
-        ms = graph_ms(lambda: kernel(*args), 20, flush)
-        plain_ms = cuda_ms(lambda: plain(*args), 3, flush)
-        bound_ms, bound_by = flash_bound(name, causal=True, **shape)
+    for name, _, _, replaces in FLASH_KERNELS:
         entry = {"name": name, "route": "cuda",
                  "source": "horovod_tpu_torch/csrc/flash_attention.cu",
                  "replaces": replaces, "launches": None,
-                 "max_abs_err": max_err[name], "ms": ms,
-                 "plain_ms": plain_ms, "bound_ms": bound_ms,
-                 "bound_by": bound_by,
-                 "library_ms": sdpa_fwd_ms if name == "flash_fwd"
-                 else sdpa_bwd_ms}
+                 "max_abs_err": max_err[name], **dense[name]}
         emit("kernel_time", **entry,
              library_call="scaled_dot_product_attention forward, is_causal"
              if name == "flash_fwd" else
              "scaled_dot_product_attention backward (dQ, dK, dV together)",
              timed_shape={**shape, "causal": True, "dtype": "bfloat16"})
+        p = packed_times[name]
+        emit("kernel_time_packed", name=name, **p,
+             dense_ms=dense[name]["ms"], ms_ratio=p["ms"] / dense[name]["ms"],
+             pairs=pairs_packed, dense_pairs=pairs_dense,
+             pairs_ratio=pairs_packed / pairs_dense,
+             segments=n_segments(seg), mean_doc=PACKED_MEAN_DOC,
+             library_call="scaled_dot_product_attention with the boolean "
+             "block-diagonal causal mask" + (" (backward: dQ, dK, dV)"
+                                             if name != "flash_fwd" else ""),
+             timed_shape={**shape, "causal": True, "dtype": "bfloat16",
+                          "packed": True})
+        entries.append(entry)
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the RMSNorm kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+RMS_EPS = 1e-5
+#: (case, R, H, x dtype, y/dy dtype): the packed training shape (R = B·S
+#: rows of Llama-3-8B's hidden 4096, bf16), a ragged fp32 R, off-tile H.
+RMS_CASES = (
+    ("path", 4096, 4096, torch.bfloat16, torch.bfloat16),
+    ("ragged", 1000, 4096, torch.float32, torch.float32),
+    ("off_tile_h", 64, 100, torch.bfloat16, torch.bfloat16),
+    ("off_tile_h", 37, 100, torch.float32, torch.float32),
+)
+
+
+def rms_inputs(dev, R, H, xdt, ydt, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((R, H), generator=gen, device=dev).to(xdt)
+    dy = torch.randn((R, H), generator=gen, device=dev).to(ydt)
+    scale = 1.0 + 0.1 * torch.randn((H,), generator=gen, device=dev)
+    return x, scale, dy
+
+
+def rms_bound(name, R, H, xdt, ydt):
+    """(bound_ms, bound_by): bytes each input is read and each output
+    written once (forward: x, scale → y, rstd; backward: x, scale, rstd,
+    dy → dx and the fp32 dscale [H] — the kernel's per-block partials are
+    its own choice, not the function's output) over HBM bandwidth,
+    against ~4 (forward) and ~10 (backward) fp32 operations an element
+    over the 67 TFLOP/s of fp32 outside the tensor cores."""
+    xs, ys = torch.finfo(xdt).bits // 8, torch.finfo(ydt).bits // 8
+    if name == "rms_fwd":
+        nbytes, ops = R * H * (xs + ys) + 4 * H + 4 * R, 4 * R * H
+    else:
+        nbytes = R * H * (2 * xs + ys) + 4 * H + 4 * R + 4 * H
+        ops = 10 * R * H
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def phase_rms_kernels(dev, flush, seed):
+    """B4/B5 against their plain versions: bf16 y within one bf16 ulp of
+    |y| (both round nearly the same fp32 value once; the statistic sums in
+    another order), fp32 y and rstd within rel 1e-5; dx within 2e-2 of its
+    max (bf16; fp32 1e-5); dscale (the summed partials) within rel 1e-4
+    of its max.  Then times at the path's shape."""
+    max_err = {"rms_fwd": 0.0, "rms_bwd": 0.0}
+    timed = None
+    for i, (case, R, H, xdt, ydt) in enumerate(RMS_CASES):
+        x, scale, dy = rms_inputs(dev, R, H, xdt, ydt, seed + 30 + i)
+        y, rstd = rn.rms_fwd(x, scale, RMS_EPS, ydt)
+        dx, parts = rn.rms_bwd(x, scale, rstd, dy)
+        torch.cuda.synchronize()
+        ry, rr = rn._fwd_rows(x, scale, RMS_EPS, ydt)
+        rdx, rparts = rn._bwd_rows(x, scale, rstd, dy)
+        d_y = (y.float() - ry.float()).abs()
+        y_rel = 2.0 ** -7 if ydt == torch.bfloat16 else 1e-5
+        ok_fwd = (y.dtype == ydt and bool(torch.isfinite(y).all())
+                  and bool((d_y <= y_rel * ry.float().abs()).all())
+                  and bool(torch.allclose(rstd, rr, rtol=1e-5, atol=0)))
+        dx_tol = 2e-2 if xdt == torch.bfloat16 else 1e-5
+        err_dx = float((dx.float() - rdx.float()).abs().max())
+        ds, rds = parts.sum(0), rparts.sum(0)
+        err_ds = float((ds - rds).abs().max())
+        ok_bwd = (dx.dtype == xdt and parts.shape == rparts.shape
+                  and bool(torch.isfinite(dx).all())
+                  and err_dx <= dx_tol * float(rdx.float().abs().max())
+                  and err_ds <= 1e-4 * float(rds.abs().max()))
+        dts = {"x": str(xdt).replace("torch.", ""),
+               "y": str(ydt).replace("torch.", "")}
+        emit("kernel_check", kernel="rms_fwd", case=case, R=R, H=H, **dts,
+             max_abs_err=float(d_y.max()),
+             tolerance=f"|d| <= {y_rel:g} * |y|; rstd rel 1e-5", ok=ok_fwd)
+        emit("kernel_check", kernel="rms_bwd", case=case, R=R, H=H, **dts,
+             max_abs_err=err_dx, dscale_max_abs_err=err_ds,
+             tolerance=f"dx |d| <= {dx_tol:g} * max|dx|; dscale "
+                       "|d| <= 1e-4 * max|dscale|", ok=ok_bwd)
+        check(ok_fwd, f"rms_fwd case {case}: kernel disagrees with its "
+                      f"plain version (max |d| {float(d_y.max())})")
+        check(ok_bwd, f"rms_bwd case {case}: kernel disagrees with its "
+                      f"plain version (dx {err_dx}, dscale {err_ds})")
+        max_err["rms_fwd"] = max(max_err["rms_fwd"], float(d_y.max()))
+        max_err["rms_bwd"] = max(max_err["rms_bwd"], err_dx)
+        if case == "path":
+            timed = (x, scale, dy, rstd)
+
+    x, scale, dy, rstd = timed
+    R, H = x.shape
+    # Library yardstick: F.rms_norm with the scale in x's dtype (with an
+    # fp32 weight it does not take its fused kernel); backward by autograd
+    # for x and the weight.  The port never calls it.
+    w = scale.to(x.dtype)
+    with torch.no_grad():
+        lib_fwd_ms = graph_ms(lambda: F.rms_norm(x, (H,), w, RMS_EPS), 50,
+                              flush)
+    xl, wl = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    yl = F.rms_norm(xl, (H,), wl, RMS_EPS)
+    lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        yl, (xl, wl), dy, retain_graph=True), 50, flush)
+    runs = {"rms_fwd": (lambda: rn.rms_fwd(x, scale, RMS_EPS, x.dtype),
+                        lambda: rn._fwd_rows(x, scale, RMS_EPS, x.dtype),
+                        lib_fwd_ms, "horovod_tpu/ops/rms_norm.py:46"),
+            "rms_bwd": (lambda: rn.rms_bwd(x, scale, rstd, dy),
+                        lambda: rn._bwd_rows(x, scale, rstd, dy),
+                        lib_bwd_ms, "horovod_tpu/ops/rms_norm.py:55")}
+    entries = []
+    for name, (kernel, plain, lib_ms, replaces) in runs.items():
+        bound_ms, bound_by = rms_bound(name, R, H, x.dtype, dy.dtype)
+        entry = {"name": name, "route": "cuda",
+                 "source": "horovod_tpu_torch/csrc/rms_norm.cu",
+                 "replaces": replaces, "launches": None,
+                 "max_abs_err": max_err[name],
+                 "ms": graph_ms(kernel, 50, flush),
+                 "plain_ms": cuda_ms(plain, 10, flush), "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": lib_ms}
+        emit("kernel_time", **entry,
+             library_call="torch.nn.functional.rms_norm (bf16 weight)" + (
+                 " backward (dx, dweight)" if name == "rms_bwd" else ""),
+             timed_shape={"R": R, "H": H, "x": "bfloat16", "y": "bfloat16",
+                          "scale": "float32",
+                          "row_block": rn.block_rows(R)})
         entries.append(entry)
     return entries
 
@@ -747,6 +973,8 @@ WARMUP_STEPS, TIMED_STEPS = 3, 10
 #: oracle), so loss and gradients differ by bf16 noise, not by method.
 ORACLE_LOSS_TOL = 0.02
 ORACLE_GRAD_REL_L2_TOL = 5e-2
+#: Packed documents' mean length: the reference example's full setting.
+PACKED_MEAN_DOC = 300
 
 
 def lm_loss(model, tokens):
@@ -754,20 +982,47 @@ def lm_loss(model, tokens):
     return softmax_cross_entropy(logits, tokens[:, 1:])
 
 
-def train_flops(cfg, B, S):
+def train_flops(cfg, B, S, seg=None):
     """6 x (non-embedding params + lm_head) x tokens + 3 x the attention
-    forward (two causal products of 2 x S^2/2 x D per head and layer)."""
+    forward: two products of 2·D FLOPs per live (query, key) pair, head
+    and layer — S²/2 pairs a row causal (the dense count), or with segment
+    starts each document's own causal triangle (:func:`attn_pairs`)."""
     D, H = cfg.head_dim, cfg.hidden_size
     per_layer = (H * cfg.num_heads * D * 2 + H * cfg.num_kv_heads * D * 2
                  + 3 * H * cfg.intermediate_size + 2 * H)
     dense = cfg.num_layers * per_layer + H + cfg.vocab_size * H
-    attn_fwd = cfg.num_layers * 4 * B * cfg.num_heads * S * S // 2 * D
-    return 6 * dense * B * S + 3 * attn_fwd
+    pairs = (B * cfg.num_heads * S * S // 2 if seg is None
+             else attn_pairs(B, S, cfg.num_heads, True, seg))
+    return 6 * dense * B * S + 3 * cfg.num_layers * 4 * D * pairs
 
 
 def set_attention(model, fn):
     for layer in model.layers:
         layer.attn.attention_fn = fn
+
+
+def packed_batch(vocab, seed):
+    """The packed training batch: (tokens [B, S+1], segment ids [B, S])
+    from ``make_packed_batch``, CPU tensors."""
+    return make_packed_batch(np.random.default_rng(seed + 3), vocab,
+                             TRAIN_B, TRAIN_S, PACKED_MEAN_DOC)
+
+
+def packed_starts(seed):
+    """Segment starts of the packed training batch (int32 [B, S], CPU)."""
+    return fa._segment_starts(
+        packed_batch(LlamaConfig.llama3_8b().vocab_size, seed)[1])
+
+
+def grad_rel_l2(model, got, want):
+    """Per-parameter relative L2 error of the gradients ``got`` against
+    ``want`` (lists in ``model.parameters()`` order): (worst name, worst,
+    median)."""
+    rel = [float((a.float() - b.float()).norm() / b.float().norm().clamp(
+        min=1e-30)) for a, b in zip(got, want)]
+    names = [n for n, _ in model.named_parameters()]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    return names[worst], rel[worst], statistics.median(rel)
 
 
 def phase_train_oracle(model, tokens):
@@ -786,29 +1041,97 @@ def phase_train_oracle(model, tokens):
                       [p.grad.detach().clone() for p in params])
     set_attention(model, fa.flash_attention_fn)
     model.zero_grad(set_to_none=True)
-    (lf, gf), (ld, gd) = runs["flash"], runs["dense"]
-    rel = [float((a.float() - b.float()).norm() / b.float().norm().clamp(
-        min=1e-30)) for a, b in zip(gf, gd)]
-    names = [n for n, _ in model.named_parameters()]
-    worst = max(range(len(rel)), key=rel.__getitem__)
+    lf, ld = runs["flash"][0], runs["dense"][0]
+    worst_name, worst, median = grad_rel_l2(model, runs["flash"][1],
+                                            runs["dense"][1])
     emit("train_oracle", batch=1, seq=TRAIN_S, loss_flash=lf, loss_dense=ld,
          loss_abs_diff=abs(lf - ld), loss_tol=ORACLE_LOSS_TOL,
-         grad_rel_l2_max=rel[worst], grad_rel_l2_worst=names[worst],
-         grad_rel_l2_median=statistics.median(rel),
-         grad_rel_l2_tol=ORACLE_GRAD_REL_L2_TOL)
+         grad_rel_l2_max=worst, grad_rel_l2_worst=worst_name,
+         grad_rel_l2_median=median, grad_rel_l2_tol=ORACLE_GRAD_REL_L2_TOL)
     check(math.isfinite(lf) and abs(lf - ld) <= ORACLE_LOSS_TOL,
           f"train_oracle: loss {lf} vs dense {ld}")
-    check(rel[worst] <= ORACLE_GRAD_REL_L2_TOL,
-          f"train_oracle: {names[worst]} grad rel L2 {rel[worst]}")
-    del runs, gf, gd
+    check(worst <= ORACLE_GRAD_REL_L2_TOL,
+          f"train_oracle: {worst_name} grad rel L2 {worst}")
+    del runs
+
+
+def make_step(model, loss_fn):
+    """(optimizer, step): ``DistributedOptimizer(MasterWeights(AdamW))`` —
+    optax.adamw's defaults, as ``bench.py --model llama`` uses them — and
+    ``make_train_step``."""
+    opt = hvd.DistributedOptimizer(MasterWeights(
+        model.parameters(), torch.optim.AdamW, lr=3e-4, betas=(0.9, 0.999),
+        eps=1e-8, weight_decay=1e-4))
+    return opt, hvd.make_train_step(model, loss_fn, opt)
+
+
+def timed_steps(step, batch, dev):
+    """WARMUP_STEPS, then TIMED_STEPS each timed on the host clock to a
+    ``synchronize()``, with the launch counters and peak memory reset in
+    between.  Returns (losses, step ms, flash launches, flash plain calls,
+    RMSNorm launches, RMSNorm plain calls)."""
+    losses = [float(step(batch)) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launches()
+    rn.reset_launches()
+    step_ms = []
+    for _ in range(TIMED_STEPS):
+        t = time.perf_counter()
+        loss = step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss))
+    return (losses, step_ms, dict(fa.launches), dict(fa.plain_calls),
+            dict(rn.launches), dict(rn.plain_calls))
+
+
+def step_metrics(cfg, step_ms, flops, dev):
+    p50 = statistics.median(step_ms)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+    return dict(model="llama3_8b", layers=cfg.num_layers,
+                layers_published=32, hidden=cfg.hidden_size,
+                heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+                ffn=cfg.intermediate_size, vocab=cfg.vocab_size,
+                batch=TRAIN_B, seq=TRAIN_S, world_size=hvd.size(),
+                backend=torch.distributed.get_backend(),
+                optimizer="DistributedOptimizer(MasterWeights(AdamW lr 3e-4))",
+                warmup_steps=WARMUP_STEPS, steps=TIMED_STEPS,
+                step_ms_p50=p50, step_ms_max=max(step_ms), step_ms=step_ms,
+                tokens_per_s=TRAIN_B * TRAIN_S / (p50 / 1e3),
+                flops_per_step=flops, mfu=flops / (p50 / 1e3) / 989e12,
+                peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                nvidia_smi_after=smi)
+
+
+def check_training(name, losses, launches, expected, plain_calls):
+    check(all(math.isfinite(x) for x in losses),
+          f"{name}: loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"{name}: loss did not fall: {losses}")
+    for kernel, n in launches.items():
+        check(n == expected[kernel], f"{name}: {kernel} launches {n} != "
+                                     f"{expected[kernel]}")
+    check(not any(plain_calls.values()),
+          f"{name}: a plain version ran on the main path: {plain_calls}")
+
+
+def build_model(cfg, seed, attention_fn):
+    """Llama at ``cfg`` with seeded weights on the card."""
+    return LlamaModel.from_state_dict(cfg, init_params(cfg, seed),
+                                      attention_fn=attention_fn)
 
 
 def phase_train(dev, seed):
+    """The dense training step, timed.  Returns the flash launches and what
+    its profile needs to rebuild it: (cfg, attention_fn, loss_fn,
+    batch)."""
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=TRAIN_LAYERS)
     hvd.init()
     t0 = time.monotonic()
-    model = LlamaModel.from_state_dict(cfg, init_params(cfg, seed),
-                                       attention_fn=fa.flash_attention_fn)
+    model = build_model(cfg, seed, fa.flash_attention_fn)
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     n_params = sum(p.numel() for p in model.parameters())
@@ -818,82 +1141,215 @@ def phase_train(dev, seed):
     phase_train_oracle(model, tokens)
     torch.cuda.empty_cache()
 
-    opt = hvd.DistributedOptimizer(MasterWeights(
-        model.parameters(), torch.optim.AdamW, lr=3e-4, betas=(0.9, 0.999),
-        eps=1e-8, weight_decay=1e-4))
-    step = hvd.make_train_step(model, lm_loss, opt)
-    losses = [float(step(tokens)) for _ in range(WARMUP_STEPS)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    fa.reset_launches()
-    step_ms = []
-    for _ in range(TIMED_STEPS):
-        t = time.perf_counter()
-        loss = step(tokens)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        losses.append(float(loss))
-    launches = dict(fa.launches)
-    plain_calls = dict(fa.plain_calls)
+    opt, step = make_step(model, lm_loss)
+    losses, step_ms, launches, plain_calls, _, _ = timed_steps(step, tokens,
+                                                               dev)
     plan = opt.last_plan
-    p50 = statistics.median(step_ms)
-    flops = train_flops(cfg, TRAIN_B, TRAIN_S)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
-         "--format=csv,noheader"], capture_output=True, text=True
-    ).stdout.strip()
-    emit("train", model="llama3_8b", layers=cfg.num_layers,
-         layers_published=32, hidden=cfg.hidden_size, heads=cfg.num_heads,
-         kv_heads=cfg.num_kv_heads, ffn=cfg.intermediate_size,
-         vocab=cfg.vocab_size, params=n_params, batch=TRAIN_B, seq=TRAIN_S,
-         world_size=hvd.size(), backend=torch.distributed.get_backend(),
-         optimizer="DistributedOptimizer(MasterWeights(AdamW lr 3e-4))",
-         warmup_steps=WARMUP_STEPS, steps=TIMED_STEPS,
-         step_ms_p50=p50, step_ms_max=max(step_ms), step_ms=step_ms,
-         tokens_per_s=TRAIN_B * TRAIN_S / (p50 / 1e3),
-         flops_per_step=flops, mfu=flops / (p50 / 1e3) / 989e12,
-         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-         losses=losses, fused_buckets=len(plan.buckets),
+    emit("train", **step_metrics(cfg, step_ms, train_flops(
+        cfg, TRAIN_B, TRAIN_S), dev), params=n_params, losses=losses,
+         fused_buckets=len(plan.buckets),
          fused_bytes=sum(b.nbytes for b in plan.buckets),
          fused_tensors=sum(len(b.indices) for b in plan.buckets),
-         kernel_launches=launches, plain_calls=plain_calls, init_s=init_s,
-         nvidia_smi_after=smi)
-    check(all(math.isfinite(x) for x in losses), f"loss not finite: {losses}")
-    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    for name, n in launches.items():
-        check(n == cfg.num_layers * TIMED_STEPS,
-              f"{name} launches {n} != layers x steps "
-              f"{cfg.num_layers} x {TIMED_STEPS}")
-    check(not any(plain_calls.values()),
-          f"a plain version ran on the main path: {plain_calls}")
-    phase_train_profile(step, tokens)
-    return launches, (model, opt, step)
+         kernel_launches=launches, plain_calls=plain_calls, init_s=init_s)
+    check_training("train", losses, launches,
+                   dict.fromkeys(launches, cfg.num_layers * TIMED_STEPS),
+                   plain_calls)
+    return launches, (cfg, fa.flash_attention_fn, lm_loss, tokens)
 
 
-def phase_train_profile(step, tokens):
+# ---------------------------------------------------------------------------
+# phase 6: packed-sequence pretraining with the fused RMSNorm
+# ---------------------------------------------------------------------------
+
+def set_fused_norms(model, fused: bool) -> None:
+    for m in model.modules():
+        if isinstance(m, RMSNorm):
+            m.fused = fused
+
+
+def phase_train_packed_oracle(model, tokens, seg):
+    """At B 1 on the same weights, before the optimizer exists: (1) loss
+    and gradients through the segment kernels against the dense ``attend``
+    with the mask ``causal & same segment`` (train_oracle's bounds); (2)
+    the fused model's loss and gradients against the unfused model's
+    (same bounds: this holds the RMSNorm backward kernel and the dscale
+    sum of its partials against autograd of the plain norm); (3) the
+    fused model's logits against the unfused model's, within 4 bf16 ULPs
+    at logit scale (at least 0.125, the serving oracle's bound), the
+    argmax equal wherever the unfused top-2 margin exceeds it."""
+    params = list(model.parameters())
+    starts = fa._segment_starts(seg)
+    pos = torch.arange(seg.shape[1], device=seg.device)
+    mask = ((pos[:, None] >= pos[None, :])
+            & (starts[:, :, None] == starts[:, None, :]))[:, None, None]
+    runs = {}
+    for name in ("flash", "dense", "unfused"):
+        model.zero_grad(set_to_none=True)
+        if name == "dense":
+            set_attention(model, lambda q, k, v: attend(q, k, v, mask))
+            logits = model(tokens[:, :-1])
+            loss = softmax_cross_entropy(logits, tokens[:, 1:],
+                                         where=boundary_mask(seg))
+            del logits
+        else:
+            set_fused_norms(model, name == "flash")
+            loss = packed_lm_loss(model, (tokens, seg))
+        loss.backward()
+        set_fused_norms(model, True)
+        runs[name] = (float(loss.detach()),
+                      [p.grad.detach().clone() for p in params])
+    model.zero_grad(set_to_none=True)
+    lf, ld, lu = (runs[n][0] for n in ("flash", "dense", "unfused"))
+    worst_name, worst, median = grad_rel_l2(model, runs["flash"][1],
+                                            runs["dense"][1])
+    n_worst_name, n_worst, n_median = grad_rel_l2(model, runs["flash"][1],
+                                                  runs["unfused"][1])
+    del runs
+    with torch.no_grad():
+        packed_lm_loss(model, (tokens, seg))      # binds the segments
+        fused = model(tokens[:, :-1]).float()
+        set_fused_norms(model, False)
+        plain = model(tokens[:, :-1]).float()
+        set_fused_norms(model, True)
+    d_logit = float((fused - plain).abs().max())
+    bound = max(FUSED_LOGIT_TOL, 4 * bf16_ulp(float(plain.abs().max())))
+    top2 = plain.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > bound
+    flips = int(((fused.argmax(-1) != plain.argmax(-1)) & sure).sum())
+    del fused, plain, top2
+    emit("train_packed_oracle", batch=1, seq=int(seg.shape[1]),
+         segments=n_segments(starts), loss_flash=lf, loss_dense=ld,
+         loss_abs_diff=abs(lf - ld), loss_tol=ORACLE_LOSS_TOL,
+         grad_rel_l2_max=worst, grad_rel_l2_worst=worst_name,
+         grad_rel_l2_median=median, grad_rel_l2_tol=ORACLE_GRAD_REL_L2_TOL,
+         loss_unfused=lu, fused_vs_unfused_loss_abs_diff=abs(lf - lu),
+         fused_vs_unfused_grad_rel_l2_max=n_worst,
+         fused_vs_unfused_grad_rel_l2_worst=n_worst_name,
+         fused_vs_unfused_grad_rel_l2_median=n_median,
+         fused_vs_unfused_max_abs_dlogit=d_logit, dlogit_bound=bound,
+         argmax_decided=int(sure.sum()), argmax_flips=flips)
+    check(math.isfinite(lf) and abs(lf - ld) <= ORACLE_LOSS_TOL,
+          f"train_packed_oracle: loss {lf} vs dense {ld}")
+    check(worst <= ORACLE_GRAD_REL_L2_TOL,
+          f"train_packed_oracle: {worst_name} grad rel L2 {worst}")
+    check(abs(lf - lu) <= ORACLE_LOSS_TOL,
+          f"train_packed_oracle: fused loss {lf} vs unfused {lu}")
+    check(n_worst <= ORACLE_GRAD_REL_L2_TOL,
+          f"train_packed_oracle: fused vs unfused {n_worst_name} grad rel "
+          f"L2 {n_worst}")
+    check(d_logit <= bound and flips == 0,
+          f"train_packed_oracle: fused vs unfused logits |d| {d_logit} "
+          f"(bound {bound}), {flips} argmax flips")
+
+
+def phase_train_packed(dev, seed):
+    """Packed pretraining with the fused RMSNorm, timed.  Returns the
+    RMSNorm launches and what its profile needs to rebuild it."""
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=TRAIN_LAYERS,
+                              fused_rmsnorm=True)
+    tokens, seg = (t.to(dev) for t in packed_batch(cfg.vocab_size, seed))
+    # packed_lm_loss binds each batch's segments to every layer before its
+    # forward, so the model is built with the plain causal flash seam.
+    attention_fn = fa.flash_attention_fn
+    t0 = time.monotonic()
+    model = build_model(cfg, seed, attention_fn)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    phase_train_packed_oracle(model, tokens[:1], seg[:1])
+    torch.cuda.empty_cache()
+
+    opt, step = make_step(model, packed_lm_loss)
+    losses, step_ms, launches, plain_calls, rms_launches, rms_plain = \
+        timed_steps(step, (tokens, seg), dev)
+    starts = fa._segment_starts(seg)
+    valid = boundary_mask(seg)
+    emit("train_packed", **step_metrics(cfg, step_ms, train_flops(
+        cfg, TRAIN_B, TRAIN_S, starts), dev), fused_rmsnorm=True,
+         mean_doc=PACKED_MEAN_DOC, segments=n_segments(starts),
+         loss_tokens=int(valid.sum()),
+         attention_pairs_vs_causal=attn_pairs(TRAIN_B, TRAIN_S, 1, True,
+                                              starts)
+         / attn_pairs(TRAIN_B, TRAIN_S, 1, True), losses=losses,
+         kernel_launches={**launches, **rms_launches},
+         plain_calls={**plain_calls, **rms_plain}, init_s=init_s)
+    expected = {**dict.fromkeys(launches, cfg.num_layers * TIMED_STEPS),
+                **dict.fromkeys(rms_launches, (2 * cfg.num_layers + 1)
+                                * TIMED_STEPS)}
+    check_training("train_packed", losses, {**launches, **rms_launches},
+                   expected, {**plain_calls, **rms_plain})
+    return rms_launches, (cfg, attention_fn, packed_lm_loss, (tokens, seg))
+
+
+def phase_train_profile(phase, seed, cfg, attention_fn, loss_fn, batch):
     """Where one training step's time goes: host wall time against the
     device time of its kernels (torch.profiler), the top kernels, and the
-    idle share of the card."""
+    idle share of the card.  The model and optimizer are built afresh (a
+    timed phase frees its own before the next, which needs the memory);
+    the first step, which creates the AdamW state, is an untraced warm
+    step."""
     from torch.profiler import ProfilerActivity, profile
 
+    model = build_model(cfg, seed, attention_fn)
+    opt, step = make_step(model, loss_fn)
+    step(batch)
+    torch.cuda.synchronize()
     t = time.perf_counter()
-    step(tokens)
+    step(batch)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step(tokens)
+        step(batch)
         torch.cuda.synchronize()
     kernels, ranges = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-    emit("train_profile", step_wall_ms=wall_ms, device_busy_ms=busy_ms,
+    emit(phase, step_wall_ms=wall_ms, device_busy_ms=busy_ms,
          idle_share=1.0 - busy_ms / wall_ms,
          kernels_per_step=sum(e.count for e in kernels),
          ranges=[{"name": e.key[:60], "ms": e.device_time_total / 1e3}
                  for e in ranges],
          top=[{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
                "calls": e.count} for e in top])
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {e.key: e.self_device_time_total / 1e3 for e in kernels}
+
+
+#: Kernel groups of a training step's profile, by a substring of the
+#: kernel's name (first match wins).
+KERNEL_GROUPS = (("flash", ("fwd_bf16", "bwd_dq_bf16", "bwd_dkv_bf16")),
+                 ("rms_norm", ("rms_fwd_kernel", "rms_bwd_kernel")),
+                 ("gemm", ("nvjet", "gemm", "cutlass", "sm90_")),
+                 ("optimizer", ("multi_tensor_apply",)),
+                 ("nccl", ("nccl",)),
+                 ("reduce", ("reduce_kernel",)),
+                 ("elementwise", ("elementwise", "copy", "fill")))
+
+
+def kernel_group(name: str) -> str:
+    return next((g for g, keys in KERNEL_GROUPS
+                 if any(k in name for k in keys)), "other")
+
+
+def compare_profiles(train, packed):
+    """Device ms of one packed step minus one train step, by kernel group
+    and by kernel (the largest changes): what the packed path saves."""
+    groups = {}
+    for name in set(train) | set(packed):
+        g = kernel_group(name)
+        d = packed.get(name, 0.0) - train.get(name, 0.0)
+        groups[g] = groups.get(g, 0.0) + d
+    by_name = sorted(((packed.get(n, 0.0) - train.get(n, 0.0), n)
+                      for n in set(train) | set(packed)))
+    emit("train_packed_vs_train", device_ms_delta=sum(groups.values()),
+         by_group_ms_delta=groups,
+         train_by_group_ms={g: sum(v for n, v in train.items()
+                                   if kernel_group(n) == g) for g in groups},
+         largest_savings=[{"name": n[:90], "ms": d} for d, n in by_name[:8]],
+         largest_additions=[{"name": n[:90], "ms": d}
+                            for d, n in by_name[::-1][:4]])
 
 
 def main(argv=None) -> int:
@@ -923,12 +1379,14 @@ def main(argv=None) -> int:
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     entry = phase_kernels(dev, flush, args.seed)
     flash_entries = phase_flash_kernels(dev, flush, args.seed)
+    rms_entries = phase_rms_kernels(dev, flush, args.seed)
     del flush
     torch.cuda.reset_peak_memory_stats(dev)
     # Serving runs before training: once torch.profiler has traced the
     # training step, the process launches kernels more slowly, and a serve
     # phase after it measured 18-30 % fewer tokens/s with the same device
-    # time (PERF.md, Findings).  The decode profile runs after serving.
+    # time (PERF.md, Findings).  The decode profile runs after serving;
+    # both training phases are timed before either is profiled.
     runner, launches, served = phase_serve(dev, args.seed)
     entry["launches"] = launches
     phase_oracle(runner, served, args.seed)
@@ -936,15 +1394,24 @@ def main(argv=None) -> int:
     del runner, served               # training needs the memory
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches, trained = phase_train(dev, args.seed)
+    train_launches, train = phase_train(dev, args.seed)
     for e in flash_entries:
         e["launches"] = train_launches[e["name"]]
-    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    rms_launches, packed = phase_train_packed(dev, args.seed)
+    for e in rms_entries:
+        e["launches"] = rms_launches[e["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    compare_profiles(
+        phase_train_profile("train_profile", args.seed, *train),
+        phase_train_profile("train_packed_profile", args.seed, *packed))
     hvd.shutdown()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys}
-                                  for e in [entry] + flash_entries]}),
+    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in
+                                  [entry] + flash_entries + rms_entries]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

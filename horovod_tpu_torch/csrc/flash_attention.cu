@@ -13,8 +13,12 @@
 // rounded to the q/k dtype before dS.K and dS^T.Q; out = acc / max(l,
 // 1e-30) and lse = m + log(max(l, 1e-30)).  Causal key tiles above the
 // diagonal are skipped by the loop bound, not masked, for any ratio of
-// query tile to key tile.  delta = rowsum(dout * out) - g_lse is computed
-// by the caller (fp32, [B, Hq, S]).
+// query tile to key tile.  Packed rows (optional int32 segment starts,
+// the reference's seg_ref) add the mask key < start[query] and skip the
+// key tiles below a query tile's first start (forward, dq) and the query
+// tiles past the last row that can see a key tile (dk/dv), so packing
+// saves the FLOPs of the masked blocks, as on the TPU.  delta =
+// rowsum(dout * out) - g_lse is computed by the caller (fp32, [B, Hq, S]).
 //
 // Layout: q/out/dout/dq are contiguous [B, S, Hq, D], k/v/dk/dv contiguous
 // [B, S, Hkv, D], indexed in place by strides (no [B*H, S, D] transpose and
@@ -183,6 +187,49 @@ __device__ __forceinline__ void stage(bf16* dst, const bf16* src,
 }
 
 // ---------------------------------------------------------------------------
+// Packed segments (the reference's seg_ref sideband)
+// ---------------------------------------------------------------------------
+//
+// `sb` is one batch row's int32 [S] segment starts: query row r attends
+// keys [sb[r], r].  Starts never decrease along a row, which the three
+// bounds below rely on.  Each kernel is compiled twice, with and without
+// segments (kSeg), so the dense path runs the code it ran before the
+// sideband existed.
+
+// Segment start of query row `row`; 0 without segments or past S.
+template <bool kSeg>
+__device__ __forceinline__ int seg_start(const int* sb, int row, int S) {
+  if constexpr (kSeg) return row < S ? sb[row] : 0;
+  return 0;
+}
+
+// First key tile of the query tile starting at row q0 (< S): its first row
+// has the tile's smallest start, so every earlier key tile is masked for
+// all its rows and is skipped — the reference's kv_first.
+template <bool kSeg>
+__device__ __forceinline__ int first_tile(const int* sb, int q0) {
+  if constexpr (kSeg) return sb[q0] / kBN;
+  return 0;
+}
+
+// Query rows that can see the key tile starting at k0: the rows whose
+// start is at most the tile's last key, a prefix of the rows (binary
+// search), at least k0 + 1 since row r's start is at most r.  S without
+// segments.  The reference's n_q_live.
+template <bool kSeg>
+__device__ __forceinline__ int q_rows(const int* sb, int k0, int S) {
+  if constexpr (!kSeg) return S;
+  const int last = min(k0 + kBN, S) - 1;
+  int lo = 0, hi = S;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (sb[mid] <= last) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// ---------------------------------------------------------------------------
 // bf16 kernels (tensor cores)
 // ---------------------------------------------------------------------------
 
@@ -235,12 +282,12 @@ __device__ __forceinline__ void acc_pv(float (&acc)[D / 8][4],
 // One CTA per 64 query rows of one (batch, head); each warp keeps its 16
 // rows' running max, denominator and 16 x D fp32 accumulator in registers
 // while K/V tiles stream through shared memory.
-template <int D>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
     fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ out,
-             float* __restrict__ lse, int S, int Hq, int Hkv, float sm_scale,
-             int causal) {
+             float* __restrict__ lse, const int* __restrict__ seg, int S,
+             int Hq, int Hkv, float sm_scale, int causal) {
   constexpr int LD = D + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);   // [kBM][LD]
@@ -261,9 +308,12 @@ __global__ void __launch_bounds__(kThreads)
   const int n_live =
       causal ? min((q0 + kBM + kBN - 1) / kBN, n_tiles) : n_tiles;
 
+  const int* sb = kSeg ? seg + static_cast<size_t>(b) * S : nullptr;
+  const int j0 = first_tile<kSeg>(sb, q0);
+
   stage<D>(Qs, qb, qs, q0, kBM, S);
-  stage<D>(Ks, kb, ks, 0, kBN, S);
-  stage<D>(Vs, vb, ks, 0, kBN, S);
+  stage<D>(Ks, kb, ks, j0 * kBN, kBN, S);
+  stage<D>(Vs, vb, ks, j0 * kBN, kBN, S);
   cp_async_commit();
 
   float acc[D / 8][4];
@@ -272,10 +322,13 @@ __global__ void __launch_bounds__(kThreads)
     acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   const int row0 = q0 + warp * 16 + g;   // this thread's rows: row0, row0+8
+  const int st[2] = {seg_start<kSeg>(sb, row0, S),
+                     seg_start<kSeg>(sb, row0 + 8, S)};
 
-  for (int j = 0; j < n_live; ++j) {
+  for (int j = j0; j < n_live; ++j) {
+    const int buf = (j - j0) & 1;
     if (j + 1 < n_live) {
-      const int nb = (j + 1) & 1;
+      const int nb = buf ^ 1;
       stage<D>(Ks + nb * kBN * LD, kb, ks, (j + 1) * kBN, kBN, S);
       stage<D>(Vs + nb * kBN * LD, vb, ks, (j + 1) * kBN, kBN, S);
       cp_async_commit();
@@ -284,8 +337,8 @@ __global__ void __launch_bounds__(kThreads)
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Kt = Ks + (j & 1) * kBN * LD;
-    const bf16* Vt = Vs + (j & 1) * kBN * LD;
+    const bf16* Kt = Ks + buf * kBN * LD;
+    const bf16* Vt = Vs + buf * kBN * LD;
 
     float s[kBN / 8][4];
     scores_qk<D>(s, Qs + warp * 16 * LD, Kt, lane);
@@ -297,7 +350,8 @@ __global__ void __launch_bounds__(kThreads)
         const int row = row0 + (e >> 1) * 8;
         const int col = j * kBN + nt * 8 + t * 2 + (e & 1);
         float x = s[nt][e] * sm_scale;
-        if (col >= S || (causal && col > row)) x = kNegInf;
+        if (col >= S || (causal && col > row) || (kSeg && col < st[e >> 1]))
+          x = kNegInf;
         s[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -350,13 +404,14 @@ __global__ void __launch_bounds__(kThreads)
 // Bound by operations: Q.K^T again, dO.V^T and dS.K, 6 * D FLOPs per live
 // pair.  Same tiling as the forward; P is rebuilt from the saved lse, and
 // dS goes from the accumulators straight into the dS.K product.
-template <int D>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
     bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, bf16* __restrict__ dq,
-                int S, int Hq, int Hkv, float sm_scale, int causal) {
+                const int* __restrict__ seg, int S, int Hq, int Hkv,
+                float sm_scale, int causal) {
   constexpr int LD = D + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);   // [kBM][LD]
@@ -378,13 +433,18 @@ __global__ void __launch_bounds__(kThreads)
   const int n_live =
       causal ? min((q0 + kBM + kBN - 1) / kBN, n_tiles) : n_tiles;
 
+  const int* sb = kSeg ? seg + static_cast<size_t>(b) * S : nullptr;
+  const int j0 = first_tile<kSeg>(sb, q0);
+
   stage<D>(Qs, q + qoff, qs, q0, kBM, S);
   stage<D>(dOs, dout + qoff, qs, q0, kBM, S);
-  stage<D>(Ks, kb, ks, 0, kBN, S);
-  stage<D>(Vs, vb, ks, 0, kBN, S);
+  stage<D>(Ks, kb, ks, j0 * kBN, kBN, S);
+  stage<D>(Vs, vb, ks, j0 * kBN, kBN, S);
   cp_async_commit();
 
   const int row0 = q0 + warp * 16 + g;
+  const int st[2] = {seg_start<kSeg>(sb, row0, S),
+                     seg_start<kSeg>(sb, row0 + 8, S)};
   const float* lrow = lse + (static_cast<size_t>(b) * Hq + h) * S;
   const float* drow = delta + (static_cast<size_t>(b) * Hq + h) * S;
   float lr[2], dr[2];
@@ -399,9 +459,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int dt = 0; dt < D / 8; ++dt)
     acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
 
-  for (int j = 0; j < n_live; ++j) {
+  for (int j = j0; j < n_live; ++j) {
+    const int buf = (j - j0) & 1;
     if (j + 1 < n_live) {
-      const int nb = (j + 1) & 1;
+      const int nb = buf ^ 1;
       stage<D>(Ks + nb * kBN * LD, kb, ks, (j + 1) * kBN, kBN, S);
       stage<D>(Vs + nb * kBN * LD, vb, ks, (j + 1) * kBN, kBN, S);
       cp_async_commit();
@@ -410,8 +471,8 @@ __global__ void __launch_bounds__(kThreads)
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Kt = Ks + (j & 1) * kBN * LD;
-    const bf16* Vt = Vs + (j & 1) * kBN * LD;
+    const bf16* Kt = Ks + buf * kBN * LD;
+    const bf16* Vt = Vs + buf * kBN * LD;
 
     float s[kBN / 8][4], dp[kBN / 8][4];
     scores_qk<D>(s, Qs + warp * 16 * LD, Kt, lane);
@@ -424,7 +485,9 @@ __global__ void __launch_bounds__(kThreads)
         const int row = row0 + i * 8;
         const int col = j * kBN + nt * 8 + t * 2 + (e & 1);
         float x = s[nt][e] * sm_scale;
-        if (col >= S || (causal && col > row)) x = kNegInf;
+        if (col >= S || (causal && col > row) ||
+            (kSeg && col < st[i]))
+          x = kNegInf;
         const float p = expf(x - lr[i]);
         s[nt][e] = p * (dp[nt][e] - dr[i]) * sm_scale;   // dS
       }
@@ -495,14 +558,14 @@ __device__ __forceinline__ void scores_kq(float (&s)[kBQ / 8][4],
 // 8 * D FLOPs per live pair.  One CTA per 64 keys of one (batch, KV
 // head), transposed so keys are the rows: each warp keeps 16 keys' dK and
 // dV in registers across the G query heads and all query tiles.
-template <int D>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
     bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, bf16* __restrict__ dk,
-                 bf16* __restrict__ dv, int S, int Hq, int Hkv,
-                 float sm_scale, int causal) {
+                 bf16* __restrict__ dv, const int* __restrict__ seg, int S,
+                 int Hq, int Hkv, float sm_scale, int causal) {
   constexpr int LD = D + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);   // [kBN][LD]
@@ -511,6 +574,7 @@ __global__ void __launch_bounds__(kThreads)
   bf16* dOs = Qs + 2 * kBQ * LD;               // [2][kBQ][LD]
   float* Ls = reinterpret_cast<float*>(dOs + 2 * kBQ * LD);   // [2][kBQ]
   float* Ds = Ls + 2 * kBQ;                                    // [2][kBQ]
+  int* Ss = reinterpret_cast<int*>(Ds + 2 * kBQ);              // [2][kBQ]
 
   const int kj = blockIdx.x;
   const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv, G = Hq / Hkv;
@@ -520,13 +584,15 @@ __global__ void __launch_bounds__(kThreads)
   const size_t ks = static_cast<size_t>(Hkv) * D;
   const size_t koff = static_cast<size_t>(b) * S * ks + hk * D;
   const int k0 = kj * kBN;
-  const int n_q = (S + kBQ - 1) / kBQ;
   const int first_q = causal ? k0 / kBQ : 0;   // tiles from the diagonal
-  const int n_live = n_q - first_q;
-  const int n_iter = G * n_live;               // (head of group, q tile)
 
   stage<D>(Ks, k + koff, ks, k0, kBN, S);
   stage<D>(Vs, v + koff, ks, k0, kBN, S);
+  const int* sb = kSeg ? seg + static_cast<size_t>(b) * S : nullptr;
+  // Query tiles that can see this key tile (segments: a prefix of rows).
+  const int n_q = (q_rows<kSeg>(sb, k0, S) + kBQ - 1) / kBQ;
+  const int n_live = n_q - first_q;            // >= 1: row k0 sees key k0
+  const int n_iter = G * n_live;               // (head of group, q tile)
 
   // Issue the loads of iteration `it` into buffer `buf`.
   auto load_q = [&](int it, int buf) {
@@ -541,6 +607,7 @@ __global__ void __launch_bounds__(kThreads)
       const bool ok = qt0 + r < S;
       Ls[buf * kBQ + r] = ok ? lse[lo + qt0 + r] : 0.f;
       Ds[buf * kBQ + r] = ok ? delta[lo + qt0 + r] : 0.f;
+      if constexpr (kSeg) Ss[buf * kBQ + r] = seg_start<kSeg>(sb, qt0 + r, S);
     }
   };
   if (n_iter > 0) load_q(0, 0);
@@ -568,6 +635,7 @@ __global__ void __launch_bounds__(kThreads)
     const bf16* dOt = dOs + buf * kBQ * LD;
     const float* Lt = Ls + buf * kBQ;
     const float* Dt = Ds + buf * kBQ;
+    const int* St = Ss + buf * kBQ;
     const int qt0 = (first_q + it % n_live) * kBQ;
 
     float s[kBQ / 8][4], dp[kBQ / 8][4];
@@ -581,7 +649,9 @@ __global__ void __launch_bounds__(kThreads)
         const int c = nt * 8 + t * 2 + (e & 1);
         const int qrow = qt0 + c;
         float x = s[nt][e] * sm_scale;
-        if (qrow >= S || (causal && key > qrow)) x = kNegInf;
+        if (qrow >= S || (causal && key > qrow) ||
+            (kSeg && key < St[c]))
+          x = kNegInf;
         const float p = expf(x - Lt[c]);
         s[nt][e] = p;
         dp[nt][e] = p * (dp[nt][e] - Dt[c]) * sm_scale;   // dS^T
@@ -628,12 +698,12 @@ __device__ __forceinline__ void stage_f32(float* dst, int ld,
 // fp32 twin of fwd_bf16 (and of _fwd_kernel): one thread per query row;
 // kBN keys per tile, scores kept in shared memory.  Bound by 67 TFLOP/s
 // of fp32 FMA; the correctness path for fp32 inputs.
-template <int D>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kBM)
     fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, float* __restrict__ out,
-            float* __restrict__ lse, int S, int Hq, int Hkv, float sm_scale,
-            int causal) {
+            float* __restrict__ lse, const int* __restrict__ seg, int S,
+            int Hq, int Hkv, float sm_scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);   // [kBM][D + 1]
   float* Ks = Qs + kBM * (D + 1);                // [kBN][D]
@@ -660,8 +730,10 @@ __global__ void __launch_bounds__(kBM)
   float m = kNegInf, l = 0.f;
   const float* qr = Qs + r * (D + 1);
   float* sr = Ss + r * (kBN + 1);
+  const int* sb = kSeg ? seg + static_cast<size_t>(b) * S : nullptr;
+  const int st = seg_start<kSeg>(sb, row, S);
 
-  for (int j = 0; j < n_live; ++j) {
+  for (int j = first_tile<kSeg>(sb, q0); j < n_live; ++j) {
     __syncthreads();
     stage_f32<D>(Ks, D, kb, ks, j * kBN, kBN, S, kBM);
     stage_f32<D>(Vs, D, vb, ks, j * kBN, kBN, S, kBM);
@@ -673,7 +745,9 @@ __global__ void __launch_bounds__(kBM)
       for (int d = 0; d < D; ++d) x = fmaf(qr[d], Ks[c * D + d], x);
       x *= sm_scale;
       const int col = j * kBN + c;
-      if (col >= S || (causal && col > row)) x = kNegInf;
+      if (col >= S || (causal && col > row) ||
+          (kSeg && col < st))
+        x = kNegInf;
       sr[c] = x;
       mx = fmaxf(mx, x);
     }
@@ -701,13 +775,14 @@ __global__ void __launch_bounds__(kBM)
 
 // fp32 twin of bwd_dq_bf16 (and of _bwd_dq_kernel): one thread per query
 // row, the same loop over key tiles.
-template <int D>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kBM)
     bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse,
                const float* __restrict__ delta, float* __restrict__ dq,
-               int S, int Hq, int Hkv, float sm_scale, int causal) {
+               const int* __restrict__ seg, int S, int Hq, int Hkv,
+               float sm_scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);   // [kBM][D + 1]
   float* dOs = Qs + kBM * (D + 1);               // [kBM][D + 1]
@@ -737,8 +812,10 @@ __global__ void __launch_bounds__(kBM)
   for (int d = 0; d < D; ++d) acc[d] = 0.f;
   const float* qr = Qs + r * (D + 1);
   const float* dor = dOs + r * (D + 1);
+  const int* sb = kSeg ? seg + static_cast<size_t>(b) * S : nullptr;
+  const int st = seg_start<kSeg>(sb, row, S);
 
-  for (int j = 0; j < n_live; ++j) {
+  for (int j = first_tile<kSeg>(sb, q0); j < n_live; ++j) {
     __syncthreads();
     stage_f32<D>(Ks, D, kb, ks, j * kBN, kBN, S, kBM);
     stage_f32<D>(Vs, D, vb, ks, j * kBN, kBN, S, kBM);
@@ -752,7 +829,9 @@ __global__ void __launch_bounds__(kBM)
       }
       x *= sm_scale;
       const int col = j * kBN + c;
-      if (col >= S || (causal && col > row)) x = kNegInf;
+      if (col >= S || (causal && col > row) ||
+          (kSeg && col < st))
+        x = kNegInf;
       const float ds = expf(x - lr) * (dp - dr) * sm_scale;
 #pragma unroll
       for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, Ks[c * D + d], acc[d]);
@@ -767,14 +846,14 @@ __global__ void __launch_bounds__(kBM)
 
 // fp32 twin of bwd_dkv_bf16 (and of _bwd_dkv_kernel): 2 * kBN threads,
 // warps 0-1 own dV of the CTA's kBN keys, warps 2-3 own dK.
-template <int D>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(2 * kBN)
     bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dk,
-                float* __restrict__ dv, int S, int Hq, int Hkv,
-                float sm_scale, int causal) {
+                float* __restrict__ dv, const int* __restrict__ seg, int S,
+                int Hq, int Hkv, float sm_scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* Ks = reinterpret_cast<float*>(smem);   // [kBN][D + 1]
   float* Vs = Ks + kBN * (D + 1);                // [kBN][D + 1]
@@ -782,6 +861,7 @@ __global__ void __launch_bounds__(2 * kBN)
   float* dOs = Qs + kBQ * D;                     // [kBQ][D]
   float* Ls = dOs + kBQ * D;                     // [kBQ]
   float* Ds = Ls + kBQ;                          // [kBQ]
+  int* Ss = reinterpret_cast<int*>(Ds + kBQ);    // [kBQ]
 
   const int kj = blockIdx.x;
   const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv, G = Hq / Hkv;
@@ -791,7 +871,8 @@ __global__ void __launch_bounds__(2 * kBN)
   const size_t ks = static_cast<size_t>(Hkv) * D;
   const size_t koff = static_cast<size_t>(b) * S * ks + hk * D;
   const int k0 = kj * kBN, key = k0 + r;
-  const int n_q = (S + kBQ - 1) / kBQ;
+  const int* sb = kSeg ? seg + static_cast<size_t>(b) * S : nullptr;
+  const int n_q = (q_rows<kSeg>(sb, k0, S) + kBQ - 1) / kBQ;
   const int first_q = causal ? k0 / kBQ : 0;
 
   stage_f32<D>(Ks, D + 1, k + koff, ks, k0, kBN, S, 2 * kBN);
@@ -815,6 +896,8 @@ __global__ void __launch_bounds__(2 * kBN)
         const bool ok = qt0 + threadIdx.x < S;
         Ls[threadIdx.x] = ok ? lse[lo + qt0 + threadIdx.x] : 0.f;
         Ds[threadIdx.x] = ok ? delta[lo + qt0 + threadIdx.x] : 0.f;
+        if constexpr (kSeg)
+          Ss[threadIdx.x] = seg_start<kSeg>(sb, qt0 + threadIdx.x, S);
       }
       __syncthreads();
       for (int c = 0; c < kBQ; ++c) {
@@ -823,7 +906,9 @@ __global__ void __launch_bounds__(2 * kBN)
 #pragma unroll
         for (int d = 0; d < D; ++d) x = fmaf(kr[d], Qs[c * D + d], x);
         x *= sm_scale;
-        if (qrow >= S || (causal && key > qrow)) x = kNegInf;
+        if (qrow >= S || (causal && key > qrow) ||
+            (kSeg && key < Ss[c]))
+          x = kNegInf;
         const float p = expf(x - Ls[c]);
         if (!dk_role) {
 #pragma unroll
@@ -862,6 +947,7 @@ int prepare(Kernel kernel, size_t smem) {
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *out, *lse_out, *dq, *dk, *dv;
+  const int* seg;
   int B, S, Hq, Hkv;
   float sm_scale;
   int causal;
@@ -873,20 +959,22 @@ int fwd(const Args& a, int dtype) {
   const dim3 grid((a.S + kBM - 1) / kBM, a.B * a.Hq);
   if (dtype == 1) {
     const size_t smem = (kBM + 4 * kBN) * (D + kPad) * sizeof(bf16);
-    if (int err = prepare(fwd_bf16<D>, smem)) return err;
-    fwd_bf16<D><<<grid, kThreads, smem, a.stream>>>(
+    auto kernel = a.seg ? fwd_bf16<D, true> : fwd_bf16<D, false>;
+    if (int err = prepare(kernel, smem)) return err;
+    kernel<<<grid, kThreads, smem, a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
         static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out),
-        static_cast<float*>(a.lse_out), a.S, a.Hq, a.Hkv, a.sm_scale,
+        static_cast<float*>(a.lse_out), a.seg, a.S, a.Hq, a.Hkv, a.sm_scale,
         a.causal);
   } else {
     const size_t smem =
         (kBM * (D + 1) + 2 * kBN * D + kBM * (kBN + 1)) * sizeof(float);
-    if (int err = prepare(fwd_f32<D>, smem)) return err;
-    fwd_f32<D><<<grid, kBM, smem, a.stream>>>(
+    auto kernel = a.seg ? fwd_f32<D, true> : fwd_f32<D, false>;
+    if (int err = prepare(kernel, smem)) return err;
+    kernel<<<grid, kBM, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<float*>(a.out),
-        static_cast<float*>(a.lse_out), a.S, a.Hq, a.Hkv, a.sm_scale,
+        static_cast<float*>(a.lse_out), a.seg, a.S, a.Hq, a.Hkv, a.sm_scale,
         a.causal);
   }
   return static_cast<int>(cudaGetLastError());
@@ -897,20 +985,24 @@ int bwd_dq(const Args& a, int dtype) {
   const dim3 grid((a.S + kBM - 1) / kBM, a.B * a.Hq);
   if (dtype == 1) {
     const size_t smem = (2 * kBM + 4 * kBN) * (D + kPad) * sizeof(bf16);
-    if (int err = prepare(bwd_dq_bf16<D>, smem)) return err;
-    bwd_dq_bf16<D><<<grid, kThreads, smem, a.stream>>>(
+    auto kernel = a.seg ? bwd_dq_bf16<D, true> : bwd_dq_bf16<D, false>;
+    if (int err = prepare(kernel, smem)) return err;
+    kernel<<<grid, kThreads, smem, a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
         static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<bf16*>(a.dq), a.S, a.Hq, a.Hkv, a.sm_scale, a.causal);
+        static_cast<bf16*>(a.dq), a.seg, a.S, a.Hq, a.Hkv, a.sm_scale,
+        a.causal);
   } else {
     const size_t smem = (2 * kBM * (D + 1) + 2 * kBN * D) * sizeof(float);
-    if (int err = prepare(bwd_dq_f32<D>, smem)) return err;
-    bwd_dq_f32<D><<<grid, kBM, smem, a.stream>>>(
+    auto kernel = a.seg ? bwd_dq_f32<D, true> : bwd_dq_f32<D, false>;
+    if (int err = prepare(kernel, smem)) return err;
+    kernel<<<grid, kBM, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<float*>(a.dq), a.S, a.Hq, a.Hkv, a.sm_scale, a.causal);
+        static_cast<float*>(a.dq), a.seg, a.S, a.Hq, a.Hkv, a.sm_scale,
+        a.causal);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -920,24 +1012,27 @@ int bwd_dkv(const Args& a, int dtype) {
   const dim3 grid((a.S + kBN - 1) / kBN, a.B * a.Hkv);
   if (dtype == 1) {
     const size_t smem = (2 * kBN + 4 * kBQ) * (D + kPad) * sizeof(bf16) +
-                        4 * kBQ * sizeof(float);
-    if (int err = prepare(bwd_dkv_bf16<D>, smem)) return err;
-    bwd_dkv_bf16<D><<<grid, kThreads, smem, a.stream>>>(
+                        4 * kBQ * sizeof(float) + 2 * kBQ * sizeof(int);
+    auto kernel = a.seg ? bwd_dkv_bf16<D, true> : bwd_dkv_bf16<D, false>;
+    if (int err = prepare(kernel, smem)) return err;
+    kernel<<<grid, kThreads, smem, a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
         static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.S, a.Hq, a.Hkv,
-        a.sm_scale, a.causal);
+        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.seg, a.S, a.Hq,
+        a.Hkv, a.sm_scale, a.causal);
   } else {
     const size_t smem =
-        (2 * kBN * (D + 1) + 2 * kBQ * D + 2 * kBQ) * sizeof(float);
-    if (int err = prepare(bwd_dkv_f32<D>, smem)) return err;
-    bwd_dkv_f32<D><<<grid, 2 * kBN, smem, a.stream>>>(
+        (2 * kBN * (D + 1) + 2 * kBQ * D + 2 * kBQ) * sizeof(float) +
+        kBQ * sizeof(int);
+    auto kernel = a.seg ? bwd_dkv_f32<D, true> : bwd_dkv_f32<D, false>;
+    if (int err = prepare(kernel, smem)) return err;
+    kernel<<<grid, 2 * kBN, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.S, a.Hq,
-        a.Hkv, a.sm_scale, a.causal);
+        static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.seg, a.S,
+        a.Hq, a.Hkv, a.sm_scale, a.causal);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -955,16 +1050,19 @@ int dispatch(const Args& a, int D, int dtype) {
 
 // dtype: 0 = float32, 1 = bfloat16 (every tensor but lse/delta, which are
 // fp32).  q/out/dout/dq: contiguous [B, S, Hq, D]; k/v/dk/dv: contiguous
-// [B, S, Hkv, D]; lse/delta: contiguous [B, Hq, S].  D is 64 or 128.  All
-// on the current device; launches on `stream`, allocates nothing.
+// [B, S, Hkv, D]; lse/delta: contiguous [B, Hq, S]; seg: nullptr, or the
+// contiguous int32 [B, S] segment starts of packed causal rows (each row's
+// nondecreasing, seg[b, r] <= r).  D is 64 or 128.  All on the current
+// device; launches on `stream`, allocates nothing.
 // Returns 0, a cudaError_t from the launch, or -1 for an unsupported
 // dtype, head dim or shape.
 extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v,
-                             void* out, void* lse, int B, int S, int Hq,
-                             int Hkv, int D, float sm_scale, int causal,
-                             int dtype, void* stream) {
+                             void* out, void* lse, const void* seg, int B,
+                             int S, int Hq, int Hkv, int D, float sm_scale,
+                             int causal, int dtype, void* stream) {
   Args a{};
   a.q = q, a.k = k, a.v = v, a.out = out, a.lse_out = lse;
+  a.seg = static_cast<const int*>(seg);
   a.B = B, a.S = S, a.Hq = Hq, a.Hkv = Hkv, a.sm_scale = sm_scale;
   a.causal = causal, a.stream = static_cast<cudaStream_t>(stream);
   return dispatch<fwd<64>, fwd<128>>(a, D, dtype);
@@ -972,11 +1070,13 @@ extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v,
 
 extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
-                                const void* delta, void* dq, int B, int S,
-                                int Hq, int Hkv, int D, float sm_scale,
-                                int causal, int dtype, void* stream) {
+                                const void* delta, void* dq, const void* seg,
+                                int B, int S, int Hq, int Hkv, int D,
+                                float sm_scale, int causal, int dtype,
+                                void* stream) {
   Args a{};
   a.q = q, a.k = k, a.v = v, a.dout = dout, a.lse = lse, a.delta = delta;
+  a.seg = static_cast<const int*>(seg);
   a.dq = dq, a.B = B, a.S = S, a.Hq = Hq, a.Hkv = Hkv;
   a.sm_scale = sm_scale, a.causal = causal;
   a.stream = static_cast<cudaStream_t>(stream);
@@ -985,12 +1085,13 @@ extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
 
 extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
-                                 const void* delta, void* dk, void* dv, int B,
-                                 int S, int Hq, int Hkv, int D,
-                                 float sm_scale, int causal, int dtype,
-                                 void* stream) {
+                                 const void* delta, void* dk, void* dv,
+                                 const void* seg, int B, int S, int Hq,
+                                 int Hkv, int D, float sm_scale, int causal,
+                                 int dtype, void* stream) {
   Args a{};
   a.q = q, a.k = k, a.v = v, a.dout = dout, a.lse = lse, a.delta = delta;
+  a.seg = static_cast<const int*>(seg);
   a.dk = dk, a.dv = dv, a.B = B, a.S = S, a.Hq = Hq, a.Hkv = Hkv;
   a.sm_scale = sm_scale, a.causal = causal;
   a.stream = static_cast<cudaStream_t>(stream);

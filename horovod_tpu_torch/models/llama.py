@@ -28,8 +28,9 @@ seam, as in the reference: ``attention_fn(q, k, v)`` on [B, S, H, D]
 tensors, :func:`causal_attention` by default, ``ops.flash_attention.
 flash_attention_fn`` for training.
 
-``num_experts > 1`` (MoE) and ``fused_rmsnorm`` (the Pallas RMSNorm
-kernels) are not ported yet and raise.
+``fused_rmsnorm`` runs every RMSNorm through ``ops.rms_norm`` (the
+RMSNorm kernels, forward and backward; the same math and parameters).
+``num_experts > 1`` (MoE) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ from typing import Callable, Dict
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from horovod_tpu_torch.ops.rms_norm import rms_norm
 
 __all__ = ["LlamaConfig", "LlamaModel", "RMSNorm", "SwiGLU", "LlamaLayer",
            "LlamaAttention", "rope_freqs", "apply_rope", "causal_attention"]
@@ -59,7 +62,7 @@ class LlamaConfig:
     num_experts: int = 1          # >1 is MoE: not ported yet
     dtype: torch.dtype = torch.bfloat16
     logits_dtype: torch.dtype = torch.bfloat16
-    fused_rmsnorm: bool = False   # the RMSNorm kernels: not ported yet
+    fused_rmsnorm: bool = False   # the RMSNorm kernels (ops/rms_norm.py)
 
     @staticmethod
     def llama3_8b() -> "LlamaConfig":
@@ -83,23 +86,26 @@ class LlamaConfig:
 def _require_dense(cfg: LlamaConfig) -> None:
     if cfg.num_experts > 1:
         raise NotImplementedError("the port supports dense (non-MoE) "
-                                  "configs only; MoEBlock is not ported yet")
-    if cfg.fused_rmsnorm:
-        raise NotImplementedError("fused_rmsnorm: the RMSNorm kernels are "
-                                  "not ported yet (ROADMAP.md Queue B, "
-                                  "B4-B5)")
+                                  "configs only; MoEBlock is not ported yet "
+                                  "(ROADMAP.md Queue A 2f)")
 
 
 class RMSNorm(nn.Module):
+    """fp32 statistics and scale, the result in ``dtype``; ``fused``
+    runs ``ops.rms_norm.rms_norm`` (its kernels) on the same parameter."""
+
     def __init__(self, hidden: int, eps: float, dtype: torch.dtype,
-                 device=None):
+                 device=None, fused: bool = False):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
+        self.fused = fused
         self.scale = nn.Parameter(
             torch.ones(hidden, dtype=torch.float32, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            return rms_norm(x, self.scale, eps=self.eps, out_dtype=self.dtype)
         x32 = x.float()
         x32 = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True)
                                 + self.eps)
@@ -218,10 +224,10 @@ class LlamaLayer(nn.Module):
                  attention_fn: Callable = causal_attention):
         super().__init__()
         self.norm_attn = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
-                                 device)
+                                 device, cfg.fused_rmsnorm)
         self.attn = LlamaAttention(cfg, device, attention_fn)
         self.norm_mlp = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
-                                device)
+                                device, cfg.fused_rmsnorm)
         self.mlp = SwiGLU(cfg, device)
 
     def forward(self, x, cos, sin):
@@ -244,7 +250,7 @@ class LlamaModel(nn.Module):
         self.layers = nn.ModuleList(LlamaLayer(cfg, device, attention_fn)
                                     for _ in range(cfg.num_layers))
         self.norm_f = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
-                              device)
+                              device, cfg.fused_rmsnorm)
         self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
                                  device=device, dtype=cfg.logits_dtype)
 

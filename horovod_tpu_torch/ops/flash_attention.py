@@ -24,11 +24,16 @@ device:
 
 A ``torch.autograd.Function`` ties them together; ``delta = rowsum(dO·O)
 - g_lse`` is plain PyTorch, as XLA computes it outside the reference's
-kernels.  Differences from the reference, none of which changes a
-result beyond fp32 reassociation: GQA is native (query head ``h`` reads KV
+kernels, and so are the segment starts of packed rows
+(:func:`_segment_starts`, a cummax over run boundaries): an int32
+``[B, S]`` the kernels read as a sideband (query row r attends keys
+``[start[r], r]``), not the reference's ``[B, 8, S]`` replica.
+Differences from the reference, none of which changes a result beyond
+fp32 reassociation: GQA is native (query head ``h`` reads KV
 head ``h // G``; K/V are never repeated, and dK/dV sum the group in fp32
 inside the kernel); a sequence off the tile is masked in the kernel, not
-padded to 128; lse is ``[B, H, S]``, not sublane-replicated.  Head dims
+padded to 128 (a packed row is not padded with a fresh trailing segment
+either); lse is ``[B, H, S]``, not sublane-replicated.  Head dims
 other than 64 and 128 are zero-padded to the next multiple of 64 with the
 true ``1/sqrt(D)`` threaded through as ``sm_scale``, as the reference
 does.  On CUDA tensors D is at most 128 (the kernels' widest tile; a
@@ -73,8 +78,8 @@ launches = dict.fromkeys(_KERNELS, 0)
 #: Calls of each kernel's plain PyTorch version.
 plain_calls = dict.fromkeys(_KERNELS, 0)
 
-_ROADMAP = ("not ported yet (ROADMAP.md Queue B, 'flash key-padding and "
-            "segment sidebands')")
+_ROADMAP = ("not ported yet (ROADMAP.md Queue A 2a: the key-padding "
+            "sideband comes with models/bert.py)")
 _fns = {}
 
 
@@ -117,22 +122,41 @@ def _causal_first_row(k0: int) -> int:
     return (k0 // BLOCK_M) * BLOCK_M
 
 
-def _scores(qf, kf, r0, k0, k1, causal, sm_scale):
+def _mask(s, q0, q1, k0, k1, causal, seg):
+    """Scores s [B, Hkv, (G,) q1-q0, k1-k0] with the masked pairs at -1e30:
+    keys after the query (causal) and keys before the query's segment
+    start (``seg`` [B, S] int32, or None).  Vectorised over B, so each
+    batch row takes its own segment bounds."""
+    cols = torch.arange(k0, k1, device=s.device)
+    keep = None
+    if causal:
+        rows = torch.arange(q0, q1, device=s.device)
+        keep = rows[:, None] >= cols[None, :]
+    if seg is not None:
+        st = cols >= seg[:, q0:q1, None]              # [B, q1-q0, k1-k0]
+        st = st[:, None] if s.dim() == 4 else st[:, None, None]
+        keep = st if keep is None else keep & st
+    return s if keep is None else torch.where(keep, s, _NEG_INF)
+
+
+def _scores(qf, kf, r0, k0, k1, causal, sm_scale, seg):
     """Masked fp32 scores [B, Hkv, G, S-r0, k1-k0], scaled after the dot."""
     s = torch.einsum("bhgqd,bhkd->bhgqk", qf[..., r0:, :],
                      kf[:, :, k0:k1]) * sm_scale
-    if causal:
-        rows = torch.arange(r0, qf.shape[3], device=qf.device)
-        cols = torch.arange(k0, k1, device=qf.device)
-        s = torch.where(rows[:, None] >= cols[None, :], s, _NEG_INF)
-    return s
+    return _mask(s, r0, qf.shape[3], k0, k1, causal, seg)
 
 
-def _fwd_blockwise(q, k, v, causal: bool, sm_scale: float):
+def _fwd_blockwise(q, k, v, causal: bool, sm_scale: float, seg=None):
     """Plain version of ``hvd_flash_fwd``: (out [B, S, Hq, D] in q.dtype,
     lse [B, Hq, S] fp32).  Online softmax over BLOCK_N-key tiles; rows of
     query tiles the causal loop bound excludes are not touched.  P is
-    rounded to v.dtype before P·V."""
+    rounded to v.dtype before P·V.
+
+    With segment starts ``seg``, the key tiles the kernel skips below a
+    query tile's first start are masked here instead.  That gives the same
+    bits: until a row meets its first valid key its running max stays at
+    -1e30, and the first valid tile's ``alpha = exp(-1e30 - m)`` is exactly
+    0, which wipes what the masked tiles added to l and acc."""
     plain_calls["flash_fwd"] += 1
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
@@ -143,7 +167,7 @@ def _fwd_blockwise(q, k, v, causal: bool, sm_scale: float):
     for k0 in range(0, S, BLOCK_N):
         k1 = min(S, k0 + BLOCK_N)
         r0 = _causal_first_row(k0) if causal else 0
-        s = _scores(qf, kf, r0, k0, k1, causal, sm_scale)
+        s = _scores(qf, kf, r0, k0, k1, causal, sm_scale, seg)
         m_old = m[..., r0:]
         m_new = torch.maximum(m_old, s.amax(dim=-1))
         alpha = torch.exp(m_old - m_new)
@@ -160,9 +184,11 @@ def _fwd_blockwise(q, k, v, causal: bool, sm_scale: float):
 
 
 def _bwd_dq_blockwise(q, k, v, dout, lse, delta, causal: bool,
-                      sm_scale: float):
+                      sm_scale: float, seg=None):
     """Plain version of ``hvd_flash_bwd_dq``: dq [B, S, Hq, D] in q.dtype.
-    dS = P·(dO·Vᵀ − delta)·scale, rounded to k.dtype before dS·K."""
+    dS = P·(dO·Vᵀ − delta)·scale, rounded to k.dtype before dS·K.  A
+    masked pair has P = exp(-1e30 - lse) = 0, so the tiles the kernel
+    skips below a segment start add exact zeros here."""
     plain_calls["flash_bwd_dq"] += 1
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
@@ -173,7 +199,7 @@ def _bwd_dq_blockwise(q, k, v, dout, lse, delta, causal: bool,
     for k0 in range(0, S, BLOCK_N):
         k1 = min(S, k0 + BLOCK_N)
         r0 = _causal_first_row(k0) if causal else 0
-        s = _scores(qf, kf, r0, k0, k1, causal, sm_scale)
+        s = _scores(qf, kf, r0, k0, k1, causal, sm_scale, seg)
         p = torch.exp(s - lse[..., r0:, None])
         dp = torch.einsum("bhgqd,bhkd->bhgqk", dof[..., r0:, :],
                           vf[:, :, k0:k1])
@@ -184,12 +210,14 @@ def _bwd_dq_blockwise(q, k, v, dout, lse, delta, causal: bool,
 
 
 def _bwd_dkv_blockwise(q, k, v, dout, lse, delta, causal: bool,
-                       sm_scale: float):
+                       sm_scale: float, seg=None):
     """Plain version of ``hvd_flash_bwd_dkv``: (dk, dv) [B, S, Hkv, D] in
     k/v's dtype.  For each query head of the group, then each
     BLOCK_Q_DKV-row query tile, every key tile at or left of the diagonal
     accumulates dV += Pᵀ·dO (P rounded to dout.dtype) and dK += dSᵀ·Q (dS
-    rounded to q.dtype), in fp32 across the whole group."""
+    rounded to q.dtype), in fp32 across the whole group.  With segment
+    starts, the query tiles the kernel skips past the last row that sees a
+    key tile are masked here (P = 0: exact zeros)."""
     plain_calls["flash_bwd_dkv"] += 1
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
@@ -210,11 +238,7 @@ def _bwd_dkv_blockwise(q, k, v, dout, lse, delta, causal: bool,
                 kv_end = min(S, -(-(q0 + BLOCK_Q_DKV) // BLOCK_N) * BLOCK_N)
             qt, dot = qf[:, :, gi, q0:q1], dof[:, :, gi, q0:q1]
             s = torch.einsum("bhqd,bhkd->bhqk", qt, kf[:, :, :kv_end])
-            s = s * sm_scale
-            if causal:
-                rows = torch.arange(q0, q1, device=q.device)
-                cols = torch.arange(kv_end, device=q.device)
-                s = torch.where(rows[:, None] >= cols[None, :], s, _NEG_INF)
+            s = _mask(s * sm_scale, q0, q1, 0, kv_end, causal, seg)
             p = torch.exp(s - lse[:, :, gi, q0:q1, None])
             dv[:, :, :kv_end] += torch.einsum(
                 "bhqk,bhqd->bhkd", p.to(dout.dtype).float(), dot)
@@ -237,7 +261,7 @@ def _kernel(name: str):
         from horovod_tpu_torch.ops import _build
 
         fn = getattr(_build.load("flash_attention"), "hvd_" + name)
-        n_ptr = {"flash_fwd": 5, "flash_bwd_dq": 7, "flash_bwd_dkv": 8}[name]
+        n_ptr = {"flash_fwd": 6, "flash_bwd_dq": 8, "flash_bwd_dkv": 9}[name]
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
@@ -246,13 +270,17 @@ def _kernel(name: str):
     return fn
 
 
-def _check_cuda(name, q, k, v, *rest):
-    tensors = (q, k, v) + rest
+def _check_cuda(name, seg, q, k, v, *rest):
+    tensors = (q, k, v) + rest + (() if seg is None else (seg,))
     if not all(t.is_cuda for t in tensors):
         raise ValueError(f"{name}: the CUDA kernel needs every tensor on "
                          "the CUDA device")
     if len({t.device for t in tensors}) != 1:
         raise ValueError(f"{name}: tensors on different devices")
+    if seg is not None and (seg.dtype != torch.int32
+                            or seg.shape != q.shape[:2]):
+        raise TypeError(f"{name}: segment starts must be int32 [B, S], got "
+                        f"{seg.dtype} {tuple(seg.shape)}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q/k/v must share one dtype of "
                         f"float32/bfloat16, got {q.dtype}, {k.dtype}, "
@@ -270,40 +298,42 @@ def _check_cuda(name, q, k, v, *rest):
                              "16-byte aligned")
 
 
-def _launch(name, ptrs, q, k, causal, sm_scale):
+def _launch(name, ptrs, seg, q, k, causal, sm_scale):
     B, S, Hq, D = q.shape
     fn = _kernel(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*[t.data_ptr() for t in ptrs], B, S, Hq, k.shape[2], D,
-                 float(sm_scale), int(causal), _DTYPES[q.dtype], stream)
+        err = fn(*[t.data_ptr() for t in ptrs],
+                 None if seg is None else seg.data_ptr(), B, S, Hq,
+                 k.shape[2], D, float(sm_scale), int(causal),
+                 _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed (error {err})")
     launches[name] += 1
 
 
-def _fwd_cuda(q, k, v, causal, sm_scale):
-    _check_cuda("flash_fwd", q, k, v)
+def _fwd_cuda(q, k, v, causal, sm_scale, seg=None):
+    _check_cuda("flash_fwd", seg, q, k, v)
     B, S, Hq, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", (q, k, v, out, lse), q, k, causal, sm_scale)
+    _launch("flash_fwd", (q, k, v, out, lse), seg, q, k, causal, sm_scale)
     return out, lse
 
 
-def _bwd_dq_cuda(q, k, v, dout, lse, delta, causal, sm_scale):
-    _check_cuda("flash_bwd_dq", q, k, v, dout, lse, delta)
+def _bwd_dq_cuda(q, k, v, dout, lse, delta, causal, sm_scale, seg=None):
+    _check_cuda("flash_bwd_dq", seg, q, k, v, dout, lse, delta)
     dq = torch.empty_like(q)
-    _launch("flash_bwd_dq", (q, k, v, dout, lse, delta, dq), q, k, causal,
-            sm_scale)
+    _launch("flash_bwd_dq", (q, k, v, dout, lse, delta, dq), seg, q, k,
+            causal, sm_scale)
     return dq
 
 
-def _bwd_dkv_cuda(q, k, v, dout, lse, delta, causal, sm_scale):
-    _check_cuda("flash_bwd_dkv", q, k, v, dout, lse, delta)
+def _bwd_dkv_cuda(q, k, v, dout, lse, delta, causal, sm_scale, seg=None):
+    _check_cuda("flash_bwd_dkv", seg, q, k, v, dout, lse, delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("flash_bwd_dkv", (q, k, v, dout, lse, delta, dk, dv), q, k,
+    _launch("flash_bwd_dkv", (q, k, v, dout, lse, delta, dk, dv), seg, q, k,
             causal, sm_scale)
     return dk, dv
 
@@ -312,25 +342,26 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
-def flash_fwd(q, k, v, causal, sm_scale):
-    """(out, lse) — the kernel on CUDA tensors, the plain version on CPU."""
+def flash_fwd(q, k, v, causal, sm_scale, seg=None):
+    """(out, lse) — the kernel on CUDA tensors, the plain version on CPU.
+    ``seg``: optional int32 [B, S] segment starts (packed causal rows)."""
     if _on_cpu(q):
-        return _fwd_blockwise(q, k, v, causal, sm_scale)
-    return _fwd_cuda(q, k, v, causal, sm_scale)
+        return _fwd_blockwise(q, k, v, causal, sm_scale, seg)
+    return _fwd_cuda(q, k, v, causal, sm_scale, seg)
 
 
-def flash_bwd_dq(q, k, v, dout, lse, delta, causal, sm_scale):
+def flash_bwd_dq(q, k, v, dout, lse, delta, causal, sm_scale, seg=None):
     if _on_cpu(q):
         return _bwd_dq_blockwise(q, k, v, dout, lse, delta, causal,
-                                 sm_scale)
-    return _bwd_dq_cuda(q, k, v, dout, lse, delta, causal, sm_scale)
+                                 sm_scale, seg)
+    return _bwd_dq_cuda(q, k, v, dout, lse, delta, causal, sm_scale, seg)
 
 
-def flash_bwd_dkv(q, k, v, dout, lse, delta, causal, sm_scale):
+def flash_bwd_dkv(q, k, v, dout, lse, delta, causal, sm_scale, seg=None):
     if _on_cpu(q):
         return _bwd_dkv_blockwise(q, k, v, dout, lse, delta, causal,
-                                  sm_scale)
-    return _bwd_dkv_cuda(q, k, v, dout, lse, delta, causal, sm_scale)
+                                  sm_scale, seg)
+    return _bwd_dkv_cuda(q, k, v, dout, lse, delta, causal, sm_scale, seg)
 
 
 # ---------------------------------------------------------------------------
@@ -340,29 +371,30 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal, sm_scale):
 class _Flash(torch.autograd.Function):
     """(out, lse) with the backward kernels; the lse cotangent folds into
     delta (dL/ds = p·(dp − delta + g_lse)), so both outputs differentiate
-    through the same two kernels."""
+    through the same two kernels.  ``seg`` (segment starts, or None) is
+    not differentiable."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
-        out, lse = flash_fwd(q, k, v, causal, sm_scale)
-        ctx.save_for_backward(q, k, v, out, lse)
+    def forward(ctx, q, k, v, seg, causal, sm_scale):
+        out, lse = flash_fwd(q, k, v, causal, sm_scale, seg)
+        ctx.save_for_backward(q, k, v, out, lse, seg)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         ctx.set_materialize_grads(False)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, g_lse):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, seg = ctx.saved_tensors
         dout = (torch.zeros_like(out) if dout is None
                 else dout.to(out.dtype).contiguous())
         delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)
         if g_lse is not None:
             delta = delta - g_lse.float()
         delta = delta.contiguous()
-        args = (q, k, v, dout, lse, delta, ctx.causal, ctx.sm_scale)
+        args = (q, k, v, dout, lse, delta, ctx.causal, ctx.sm_scale, seg)
         dq = flash_bwd_dq(*args)
         dk, dv = flash_bwd_dkv(*args)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def _check_shapes(q, k, v):
@@ -379,11 +411,24 @@ def _check_shapes(q, k, v):
                          f"of {k.shape[2]} kv heads")
 
 
-def _attend(q, k, v, causal, sm_scale):
+def _segment_starts(segment_ids: torch.Tensor) -> torch.Tensor:
+    """[B, S] segment ids (contiguous runs) -> [B, S] int32 index of each
+    position's segment start, by a cummax over run boundaries: a new run
+    starts wherever the id changes, so an id that recurs after a gap is a
+    new segment."""
+    B, S = segment_ids.shape
+    pos = torch.arange(S, dtype=torch.int32, device=segment_ids.device)
+    change = torch.ones((B, S), dtype=torch.bool, device=segment_ids.device)
+    change[:, 1:] = segment_ids[:, 1:] != segment_ids[:, :-1]
+    starts = torch.where(change, pos, torch.zeros_like(pos))
+    return torch.cummax(starts, dim=1).values.contiguous()
+
+
+def _attend(q, k, v, causal, sm_scale, seg=None):
     """(out, lse): D off {64, 128} is zero-padded to the next multiple of
     64 (zero dims change no score) with the true head dim's scale kept as
     ``sm_scale``; autograd slices the grads back.  D > 128 raises on
-    CUDA tensors."""
+    CUDA tensors.  ``seg``: int32 [B, S] segment starts, or None."""
     _check_shapes(q, k, v)
     D = q.shape[-1]
     if D > _KERNEL_HEAD_DIMS[-1] and not _on_cpu(q):
@@ -396,7 +441,7 @@ def _attend(q, k, v, causal, sm_scale):
         pad = (0, -D % 64)
         q, k, v = F.pad(q, pad), F.pad(k, pad), F.pad(v, pad)
     out, lse = _Flash.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                            bool(causal), float(sm_scale))
+                            seg, bool(causal), float(sm_scale))
     return out[..., :D], lse
 
 
@@ -406,15 +451,55 @@ def flash_attention(q, k, v, *, causal: bool = True, key_padding_mask=None,
     multiple of Hkv); returns [B, S, Hq, D] in q's dtype.  Any S (the
     kernels mask the tail); D up to 128 on CUDA tensors (padded as
     above), any D on CPU tensors.
-    ``key_padding_mask`` and ``segment_ids`` raise ``NotImplementedError``
-    on every device: their kernel sidebands are not ported yet."""
+
+    ``segment_ids``: optional [B, S] integer ids of contiguous packed
+    sequences (causal only, exclusive with the padding mask): each query
+    attends only within its own segment — block-diagonal causal attention
+    for packed pretraining, through an O(S) sideband of segment starts,
+    with the fully masked tiles skipped.  ``key_padding_mask`` raises
+    ``NotImplementedError`` on every device: its kernel sideband is not
+    ported yet."""
+    if segment_ids is not None:
+        if not causal:
+            raise NotImplementedError(
+                "segment_ids implies packed causal attention; bidirectional"
+                " segment masking is not supported")
+        if key_padding_mask is not None:
+            raise NotImplementedError(
+                "segment_ids and key_padding_mask are mutually exclusive "
+                "(mark padding as its own trailing segment instead)")
     if key_padding_mask is not None:
         raise NotImplementedError("flash_attention: key_padding_mask is "
                                   + _ROADMAP)
+    seg = None
     if segment_ids is not None:
-        raise NotImplementedError("flash_attention: segment_ids is "
-                                  + _ROADMAP)
-    return _attend(q, k, v, causal, _sm_scale)[0]
+        _check_segments(segment_ids, q)
+        seg = _segment_starts(segment_ids.to(q.device))
+    return _attend(q, k, v, causal, _sm_scale, seg)[0]
+
+
+def _check_segments(segment_ids, q):
+    if tuple(segment_ids.shape) != tuple(q.shape[:2]):
+        raise ValueError(f"flash_attention: segment_ids "
+                         f"{tuple(segment_ids.shape)} do not match "
+                         f"[B, S] = {tuple(q.shape[:2])}")
+
+
+def segment_attention_fn(segment_ids):
+    """The model's ``attention_fn`` for packed rows: what
+    ``flash_attention(q, k, v, causal=True, segment_ids=segment_ids)``
+    computes, with the segment starts computed once here and shared by
+    every layer that calls it."""
+    starts = _segment_starts(segment_ids)
+
+    def fn(q, k, v, mask=None):
+        if mask is not None:
+            raise NotImplementedError(
+                "segment_ids and key_padding_mask are mutually exclusive "
+                "(mark padding as its own trailing segment instead)")
+        _check_segments(starts, q)
+        return _attend(q, k, v, True, None, starts.to(q.device))[0]
+    return fn
 
 
 def flash_attention_lse(q, k, v, *, causal: bool = True,

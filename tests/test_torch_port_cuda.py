@@ -208,3 +208,116 @@ def test_flash_kernels_reject_what_they_cannot_run(dev):
         fa.flash_attention(*[torch.cat([t] * 4, -1) for t in (q, k, v)])
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_fwd(q, k.cpu(), v, True, 0.125)
+
+
+def _starts(B, S, mean, seed):
+    """int32 [B, S] segment starts of Poisson-length packed documents,
+    with one boundary on a 64-row tile edge and one inside a tile."""
+    rng = np.random.default_rng(seed)
+    ids = np.zeros((B, S), np.int64)
+    for b in range(B):
+        pos, doc = 0, 0
+        while pos < S:
+            n = max(1, int(rng.poisson(mean)))
+            ids[b, pos:pos + n] = doc
+            pos, doc = pos + n, doc + 1
+    ids[0, 64:] += 1000          # a boundary on a tile edge
+    ids[0, 100:] += 1000         # and one inside a tile
+    return fa._segment_starts(torch.from_numpy(ids))
+
+
+@pytest.mark.parametrize("dtype,B,S,Hq,Hkv,D,mean", [
+    (torch.bfloat16, 2, 512, 8, 2, 128, 120),
+    (torch.bfloat16, 1, 333, 4, 4, 64, 40),
+    (torch.float32, 2, 200, 4, 2, 64, 30),
+    (torch.float32, 1, 130, 4, 1, 128, 500),
+])
+def test_flash_kernels_with_segments_match_plain_versions(dev, dtype, B, S,
+                                                          Hq, Hkv, D, mean):
+    """The three kernels with segment starts (the kv_first skip, the dK/dV
+    query-tile cap) against their plain versions, which mask instead."""
+    q, k, v, do = _flash_inputs(dev, dtype, B, S, Hq, Hkv, D, seed=S + 1)
+    seg = _starts(B, S, mean, seed=S).to(dev)
+    scale = D ** -0.5
+    fa.reset_launches()
+    out, lse = fa.flash_fwd(q, k, v, True, scale, seg)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa._fwd_blockwise(q, k, v, True, scale, seg)
+    _flash_agree(out, ref_out, dtype, grad=False)
+    torch.testing.assert_close(lse.cpu(), ref_lse.cpu(), rtol=1e-5,
+                               atol=1e-5 if dtype == torch.float32 else 1e-3)
+    delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2)
+    args = (q, k, v, do, ref_lse, delta.contiguous(), True, scale, seg)
+    dq = fa.flash_bwd_dq(*args)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    _flash_agree(dq, fa._bwd_dq_blockwise(*args), dtype, grad=True)
+    for got, ref in zip((dk, dv), fa._bwd_dkv_blockwise(*args)):
+        _flash_agree(got, ref, dtype, grad=True)
+    assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                           "flash_bwd_dkv": 1}
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm: hvd_rms_fwd / hvd_rms_bwd
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("R,H,xdt,ydt", [
+    (4096, 4096, torch.bfloat16, torch.bfloat16),
+    (1000, 4096, torch.float32, torch.float32),
+    (37, 100, torch.float32, torch.float32),
+    (64, 100, torch.bfloat16, torch.bfloat16),
+    (300, 768, torch.bfloat16, torch.float32),
+    (5, 20000, torch.float32, torch.bfloat16),
+])
+def test_rms_kernels_match_plain_versions(dev, R, H, xdt, ydt):
+    """Forward: bf16 y within one bf16 ulp of |y| (both round nearly the
+    same fp32 value once; the statistic's sum order differs), fp32 y and
+    rstd within rel 1e-5.
+    Backward: dx within 2e-2 of its max (bf16) or 1e-5 (fp32), the
+    partials and their sum within rel 1e-4."""
+    from horovod_tpu_torch.ops import rms_norm as rn
+
+    rng = np.random.default_rng(R + H)
+    x = torch.from_numpy(rng.standard_normal((R, H), np.float32)).to(dev, xdt)
+    dy = torch.from_numpy(rng.standard_normal((R, H), np.float32)).to(dev, ydt)
+    scale = torch.from_numpy(rng.standard_normal(H).astype(np.float32)
+                             + 1.0).to(dev)
+    rn.reset_launches()
+    y, rstd = rn.rms_fwd(x, scale, 1e-5, ydt)
+    dx, parts = rn.rms_bwd(x, scale, rstd, dy)
+    torch.cuda.synchronize()
+    assert rn.launches == {"rms_fwd": 1, "rms_bwd": 1}
+    ry, rr = rn._fwd_rows(x, scale, 1e-5, ydt)
+    rdx, rparts = rn._bwd_rows(x, scale, rstd, dy)
+    assert y.dtype == ydt and dx.dtype == xdt
+    torch.testing.assert_close(rstd, rr, rtol=1e-5, atol=1e-5)
+    ulp = 2.0 ** -7 if ydt == torch.bfloat16 else 1e-5
+    d = (y.float() - ry.float()).abs()
+    assert bool((d <= ulp * ry.float().abs() + 1e-6).all()), float(d.max())
+    tol = 2e-2 if xdt == torch.bfloat16 else 1e-5
+    assert float((dx.float() - rdx.float()).abs().max()) <= \
+        tol * float(rdx.float().abs().max())
+    assert parts.shape == rparts.shape
+    torch.testing.assert_close(parts, rparts, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(parts.sum(0), rparts.sum(0), rtol=1e-4,
+                               atol=1e-3)
+
+
+def test_rms_norm_autograd_runs_the_kernels(dev):
+    """rms_norm on CUDA tensors: one launch each way, no plain call, dx in
+    x's dtype and dscale in the scale's."""
+    from horovod_tpu_torch.ops import rms_norm as rn
+
+    x = torch.randn((2, 33, 512), device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    scale = torch.ones(512, device=dev, requires_grad=True)
+    rn.reset_launches()
+    rn.rms_norm(x, scale).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert rn.launches == {"rms_fwd": 1, "rms_bwd": 1}
+    assert rn.plain_calls == {"rms_fwd": 0, "rms_bwd": 0}
+    assert x.grad.dtype == torch.bfloat16 and scale.grad.dtype == \
+        torch.float32
+    with pytest.raises(ValueError, match="CUDA"):
+        rn.rms_fwd(x.detach(), scale.detach().cpu(), 1e-5, torch.bfloat16)

@@ -86,9 +86,12 @@ def test_unported_options_raise():
                dict(local_sgd_steps=4)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             hvd.DistributedOptimizer(opt, **kw)
-    with pytest.raises(NotImplementedError, match="B4-B5"):
-        LlamaModel(dataclasses.replace(LlamaConfig.tiny(),
-                                       fused_rmsnorm=True), device="meta")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LlamaModel(LlamaConfig.tiny(num_experts=4), device="meta")
+    # The RMSNorm kernels are ported: the fused model builds.
+    fused = LlamaModel(dataclasses.replace(LlamaConfig.tiny(),
+                                           fused_rmsnorm=True), device="meta")
+    assert fused.norm_f.fused and fused.layers[0].norm_attn.fused
 
 
 def test_master_weights_track_the_reference_within_one_bf16_ulp():

@@ -8,6 +8,7 @@ already (tests/conftest.py), so only a fresh interpreter can tell.
 """
 
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -41,18 +42,22 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 22, out.stdout
+    assert n_modules >= 27, out.stdout
 
 
 _TRAINING_MODULES = ["common.basics", "ops.collective_ops", "ops.compression",
                      "ops.fusion", "ops.mixed_precision", "ops.losses",
-                     "ops.flash_attention", "frontend"]
+                     "ops.flash_attention", "ops.rms_norm", "frontend",
+                     "examples.llama_packed_pretraining"]
+#: A call of PyTorch's own RMSNorm (``F.rms_norm``, ``torch.rms_norm``,
+#: ``torch.nn.functional.rms_norm``): a library kernel, not the port's.
+_LIBRARY_RMS_NORM = re.compile(r"\b(F|functional|torch)\.rms_norm\b")
 
 
 def test_training_slice_imports_no_jax_and_finds_no_library_attention():
     """Each module of the training slice, imported alone in a fresh
     interpreter, loads no JAX; and no source of the port calls a
-    library attention kernel."""
+    library attention or RMSNorm kernel."""
     code = ("import importlib, sys\n"
             f"for m in {_TRAINING_MODULES!r}:\n"
             "    importlib.import_module('horovod_tpu_torch.' + m)\n"
@@ -67,8 +72,10 @@ def test_training_slice_imports_no_jax_and_finds_no_library_attention():
         for name in files:
             if name.endswith((".py", ".cu")):
                 with open(os.path.join(root, name)) as f:
-                    assert "scaled_dot_product_attention" not in f.read(), \
-                        name
+                    text = f.read()
+                assert "scaled_dot_product_attention" not in text, name
+                assert not _LIBRARY_RMS_NORM.search(text), name
+    assert _LIBRARY_RMS_NORM.search("y = F.rms_norm(x, (4096,))")
 
 
 def test_chip_smoke_fails_without_gpu():

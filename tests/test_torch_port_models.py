@@ -253,6 +253,36 @@ def test_init_params_distributions_and_determinism():
         (1, 3, cfg.vocab_size)
 
 
+def test_fused_rmsnorm_model_matches_flax_fused():
+    """The reference's fused-flag config (tiny, hidden 128, 2 heads) in
+    fp32, ``fused_rmsnorm=True`` on both sides, weights carried across by
+    ``params_from_jax`` (the parameter tree is the unfused one): logits
+    within the reference's 2e-5, and every norm went through the port's
+    RMSNorm op."""
+    from horovod_tpu_torch.ops import rms_norm as trn
+
+    jcfg = dataclasses.replace(JaxLlamaConfig.tiny(), hidden_size=128,
+                               num_heads=2, num_kv_heads=2, dtype=jnp.float32,
+                               logits_dtype=jnp.float32, fused_rmsnorm=True)
+    tcfg = dataclasses.replace(LlamaConfig.tiny(), hidden_size=128,
+                               num_heads=2, num_kv_heads=2,
+                               dtype=torch.float32,
+                               logits_dtype=torch.float32,
+                               fused_rmsnorm=True)
+    ids = np.random.default_rng(5).integers(0, jcfg.vocab_size, (2, 16))
+    variables = JaxLlamaModel(dataclasses.replace(
+        jcfg, fused_rmsnorm=False)).init(jax.random.key(0),
+                                         jnp.asarray(ids, jnp.int32))
+    ref = JaxLlamaModel(jcfg).apply(variables, jnp.asarray(ids, jnp.int32))
+    model = LlamaModel.from_state_dict(tcfg, params_from_jax(variables, tcfg,
+                                                             "cpu"))
+    trn.reset_launches()
+    with torch.no_grad():
+        got = model(_t(ids).long())
+    assert trn.plain_calls["rms_fwd"] == 2 * tcfg.num_layers + 1
+    np.testing.assert_allclose(got.numpy(), _np(ref), atol=2e-5, rtol=2e-5)
+
+
 def test_conversion_rejects_mismatch_and_moe():
     _, variables, _ = _models("float32")
     wide = dataclasses.replace(LlamaConfig.tiny(), hidden_size=128)
