@@ -13,8 +13,11 @@ Builds every CUDA kernel of the port from ``horovod_tpu_torch/csrc``
                PyTorch library call's time as a yardstick: the paged
                decode; the three flash-attention kernels (forward, dQ,
                dK/dV) at the training shape and at ragged, fp32 and
-               padded-head-dim shapes, and with packed segment starts at
-               the packed training shape and a ragged fp32 shape;
+               padded-head-dim shapes, with packed segment starts at
+               the packed training shape and a ragged fp32 shape, and
+               with the key-padding bias at BERT-base's shape (bf16,
+               bidirectional, B 32 x S 512, 12 heads of 64, the BERT
+               batch's lengths), a holed fp32 mask and a padded D 16;
    rms_kernels — the RMSNorm forward and backward at the packed training
                shape (R 4096, H 4096, bf16), a ragged fp32 R and an
                off-tile H;
@@ -56,12 +59,26 @@ Builds every CUDA kernel of the port from ``horovod_tpu_torch/csrc``
                launch counts prove every norm went through the RMSNorm
                kernels and every layer's attention through the three
                flash kernels with segments);
-7. train_profile, train_packed_profile — where one step of each goes
-               (torch.profiler), after both phases were timed: once the
-               profiler has traced a step, the process launches kernels
-               more slowly; then train_packed_vs_train, the device time
-               the packed step saves, by kernel group;
-8. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+7. train_bert — BERT pretraining (the ``examples/bert_pretraining_fsdp``
+               pieces: ``build_mesh({"data": 1, "fsdp": -1})``,
+               ``shard_params``, AdamW, ``pretraining_loss``) on BERT-base
+               at its published widths and full depth (12 layers, fp32
+               parameters, bf16 compute), the flash seam (bidirectional,
+               key bias), B 32 x S 512 padded as BERT's phase-2 data:
+   bert_oracle — first, at B 8 on the same weights: loss, gradients and
+               MLM logits through the flash seam against the dense
+               ``dot_product_attention``;
+               then 3 warm-up and 10 timed steps (the loss must fall;
+               launch counts prove every layer's attention went through
+               the three kernels, each launch with the key bias);
+8. train_profile, train_packed_profile, train_bert_profile — where one
+               step of each goes (torch.profiler), after every phase was
+               timed: once the profiler has traced a step, the process
+               launches kernels more slowly; then train_packed_vs_train,
+               the device time the packed step saves, by kernel group;
+               and the key-bias kernels' ``kernel_time_kpm`` lines with
+               train_bert's launches;
+9. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints one JSON line; any failed check raises (exit != 0) and
@@ -90,8 +107,10 @@ import torch
 import torch.nn.functional as F
 
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch.examples import bert_pretraining_fsdp as bert_example
 from horovod_tpu_torch.examples.llama_packed_pretraining import (
     boundary_mask, make_packed_batch, packed_lm_loss)
+from horovod_tpu_torch.models.bert import BertConfig, dot_product_attention
 from horovod_tpu_torch.models.convert import init_params
 from horovod_tpu_torch.models.generation import (generate, paged_decode_step,
                                                  paged_prefill)
@@ -103,6 +122,7 @@ from horovod_tpu_torch.ops import paged_attention as pa
 from horovod_tpu_torch.ops import rms_norm as rn
 from horovod_tpu_torch.ops.losses import softmax_cross_entropy
 from horovod_tpu_torch.ops.mixed_precision import MasterWeights
+from horovod_tpu_torch.parallel.mesh import build_mesh
 from horovod_tpu_torch.serve.config import ServeConfig
 from horovod_tpu_torch.serve.engine import ModelRunner
 from horovod_tpu_torch.serve.kv_cache import TRASH_BLOCK
@@ -367,20 +387,29 @@ def flash_within(got, ref, dtype, grad):
 def flash_case_check(dev, case, seed):
     """Each kernel (through its wrapper) against its plain version on the
     same CUDA tensors; the backward kernels get the plain forward's lse
-    and delta.  ``case["seg"]``: int32 [B, S] segment starts, or absent.
-    Returns {kernel name: max |d|}."""
+    and delta.  ``case["seg"]``: int32 [B, S] segment starts, or absent;
+    ``case["mask"]``: bool [B, S] key-padding mask (the kernels get its
+    key bias), or absent — then out and lse are held on the rows whose
+    query is valid, and the cotangent is zero on the others.  Returns
+    {kernel name: max |d|}."""
     dtype, causal = case["dtype"], case["causal"]
     shape = {k: case[k] for k in ("B", "S", "Hq", "Hkv", "D")}
     q, k, v, do = flash_inputs(dev, dtype, seed=seed, **shape)
     seg = case.get("seg")
     seg = None if seg is None else seg.to(dev)
+    rows = bias = None
+    if case.get("mask") is not None:
+        rows = case["mask"].to(dev)
+        bias = fa._key_bias(rows)
+        do = do * rows[:, :, None, None].to(dtype)
     scale = shape["D"] ** -0.5
-    ref_out, ref_lse = fa._fwd_blockwise(q, k, v, causal, scale, seg)
+    ref_out, ref_lse = fa._fwd_blockwise(q, k, v, causal, scale, seg, bias)
     delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2)
-    bwd_args = (q, k, v, do, ref_lse, delta.contiguous(), causal, scale, seg)
+    bwd_args = (q, k, v, do, ref_lse, delta.contiguous(), causal, scale, seg,
+                bias)
     errs = {}
     for name, kernel, plain, _ in FLASH_KERNELS:
-        args = (q, k, v, causal, scale, seg) if name == "flash_fwd" \
+        args = (q, k, v, causal, scale, seg, bias) if name == "flash_fwd" \
             else bwd_args
         got = kernel(*args)
         torch.cuda.synchronize()
@@ -388,9 +417,14 @@ def flash_case_check(dev, case, seed):
         if name == "flash_fwd":
             # lse: fp32 on both sides; 1e-3 absolute is ~1e-4 relative at
             # the lse's scale (log S + max score).
-            d_lse = float((got[1] - ref[1]).abs().max())
+            got_lse, ref_lse_ = got[1].transpose(1, 2), ref[1].transpose(1, 2)
+            out, ref_o = got[0], ref[0]
+            if rows is not None:
+                got_lse, ref_lse_ = got_lse[rows], ref_lse_[rows]
+                out, ref_o = out[rows], ref_o[rows]
+            d_lse = float((got_lse - ref_lse_).abs().max())
             check(d_lse <= 1e-3, f"{name}: lse |d| {d_lse}")
-            pairs = [(got[0], ref[0])]
+            pairs = [(out, ref_o)]
         elif name == "flash_bwd_dq":
             pairs = [(got, ref)]
         else:
@@ -402,40 +436,54 @@ def flash_case_check(dev, case, seed):
         emit("kernel_check", kernel=name, case=case["case"], **shape,
              causal=causal, dtype=str(dtype).replace("torch.", ""),
              segments=None if seg is None else n_segments(seg),
+             masked_keys=None if rows is None else int((~rows).sum()),
              max_abs_err=errs[name], tolerance=results[0][2], ok=ok)
         check(ok, f"{name} case {case['case']}: kernel disagrees with its "
                   f"plain version (max |d| {errs[name]})")
     return errs
 
 
-def flash_padded_check(dev, seed):
-    """Case (c): D 96 through the autograd wrapper, which zero-pads to 128
-    and keeps the true 1/sqrt(96); held against the plain versions on the
-    same padding, out and all three grads (fp32 tolerances)."""
-    q, k, v, do = flash_inputs(dev, torch.float32, 1, 200, 4, 2, 96, seed)
+def flash_padded_check(dev, seed, case="c", B=1, D=96, mask=None):
+    """Case (c): D 96 (or another D off 64/128) through the autograd
+    wrapper, which zero-pads to the next multiple of 64 and keeps the true
+    1/sqrt(D); held against the plain versions on the same padding, out
+    and all three grads (fp32 tolerances).  Causal, or with a bool [B, S]
+    ``mask`` bidirectional with the key bias (out on the valid query
+    rows; zero cotangent on the others)."""
+    S, causal = 200, mask is None
+    q, k, v, do = flash_inputs(dev, torch.float32, B, S, 4, 2, D, seed)
+    bias = rows = None
+    if mask is not None:
+        rows = mask.to(dev)
+        bias = fa._key_bias(rows)
+        do = do * rows[:, :, None, None]
     xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    out = fa.flash_attention(*xs, causal=True)
+    out = fa.flash_attention(*xs, causal=causal, key_padding_mask=rows)
     out.backward(do)
     torch.cuda.synchronize()
-    pad = [F.pad(t, (0, 32)) for t in (q, k, v, do)]
-    scale = 96 ** -0.5
-    ref_out, lse = fa._fwd_blockwise(*pad[:3], True, scale)
+    pad = [F.pad(t, (0, -D % 64)) for t in (q, k, v, do)]
+    scale = D ** -0.5
+    ref_out, lse = fa._fwd_blockwise(*pad[:3], causal, scale, None, bias)
     delta = (pad[3] * ref_out).sum(-1).transpose(1, 2).contiguous()
-    args = (*pad, lse, delta, True, scale)
+    args = (*pad, lse, delta, causal, scale, None, bias)
     ref_dq = fa._bwd_dq_blockwise(*args)
     ref_dk, ref_dv = fa._bwd_dkv_blockwise(*args)
+    if rows is not None:
+        out, ref_out = out[rows], ref_out[rows]
     errs = {}
     for name, got, ref in (("flash_fwd", out, ref_out),
                            ("flash_bwd_dq", xs[0].grad, ref_dq),
                            ("flash_bwd_dkv", xs[1].grad, ref_dk),
                            ("flash_bwd_dkv", xs[2].grad, ref_dv)):
-        ok, err, tol = flash_within(got, ref[..., :96], torch.float32,
+        ok, err, tol = flash_within(got, ref[..., :D], torch.float32,
                                     grad=name != "flash_fwd")
         errs[name] = max(errs.get(name, 0.0), err)
-        check(ok, f"{name} case c (D 96 padded): max |d| {err}")
+        check(ok, f"{name} case {case} (D {D} padded): max |d| {err}")
     for name, err in errs.items():
-        emit("kernel_check", kernel=name, case="c", B=1, S=200, Hq=4, Hkv=2,
-             D=96, causal=True, dtype="float32", max_abs_err=err,
+        emit("kernel_check", kernel=name, case=case, B=B, S=S, Hq=4, Hkv=2,
+             D=D, causal=causal, dtype="float32",
+             masked_keys=None if rows is None else int((~rows).sum()),
+             max_abs_err=err,
              tolerance="fp32 out 2e-5, grads 5e-4 (abs + rel)", ok=True)
     return errs
 
@@ -446,30 +494,33 @@ def n_segments(seg: torch.Tensor) -> int:
     return int((seg == pos).sum())
 
 
-def attn_pairs(B, S, Hq, causal, seg=None) -> int:
+def attn_pairs(B, S, Hq, causal, seg=None, mask=None) -> int:
     """(query, key) pairs the attention computes: the causal triangle
-    (B·Hq·S(S+1)/2), S² without causality, or with segment starts the sum
+    (B·Hq·S(S+1)/2), S² without causality, with segment starts the sum
     of each row's live keys r − start[r] + 1 — the block-diagonal
-    triangles, which is what this run's packed data needs."""
+    triangles — or with a key-padding mask (bool [B, S], bidirectional)
+    every query against the valid keys: what this run's data needs."""
     if seg is not None:
         pos = torch.arange(S, device=seg.device)
         return Hq * int((pos - seg + 1).sum())
+    if mask is not None:
+        return Hq * S * int(mask.sum())
     return B * Hq * (S * (S + 1) // 2 if causal else S * S)
 
 
-def flash_bound(name, B, S, Hq, Hkv, D, causal, seg=None):
+def flash_bound(name, B, S, Hq, Hkv, D, causal, seg=None, mask=None):
     """(bound_ms, bound_by) at bf16: the larger of the bytes each input is
     read and each output written once over HBM bandwidth, and the tensor-
     core operations the live pairs need (2·D per query-key pair and
     product: 2 products forward; dQ 3, the scores recomputed; dK/dV 4)."""
-    pairs = attn_pairs(B, S, Hq, causal, seg)
+    pairs = attn_pairs(B, S, Hq, causal, seg, mask)
     products = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}[name]
     q_bytes, kv_bytes, row_bytes = B * S * Hq * D * 2, B * S * Hkv * D * 2, \
         B * Hq * S * 4
     nbytes = {"flash_fwd": 2 * q_bytes + 2 * kv_bytes + row_bytes,
               "flash_bwd_dq": 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes,
               "flash_bwd_dkv": 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes
-              }[name] + (0 if seg is None else 4 * B * S)
+              }[name] + (0 if seg is None and mask is None else 4 * B * S)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * D * products * pairs / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -485,19 +536,21 @@ def ragged_starts(S: int) -> torch.Tensor:
     return fa._segment_starts(ids)
 
 
-def flash_times(dev, flush, seed, seg=None):
-    """Each kernel's time (CUDA-graph replay, cold L2) at the training
-    shape, its plain version's, its bound, and the library yardstick:
-    SDPA (KV heads expanded) forward, and its backward, which computes
-    dQ, dK and dV together (the port never calls it) — with is_causal
-    (flash backend), or with segments a boolean block-diagonal causal
-    mask (SDPA has no packed-causal mode)."""
-    shape = FLASH_TRAIN_SHAPE
+def flash_times(dev, flush, seed, seg=None, mask=None,
+                shape=FLASH_TRAIN_SHAPE, causal=True):
+    """Each kernel's time (CUDA-graph replay, cold L2) at ``shape``, its
+    plain version's, its bound, and the library yardstick: SDPA (KV heads
+    expanded) forward, and its backward, which computes dQ, dK and dV
+    together (the port never calls it) — with is_causal (flash backend),
+    with segments a boolean block-diagonal causal mask (SDPA has no
+    packed-causal mode), or with a key-padding ``mask`` (bool [B, S]; the
+    kernels get its key bias) SDPA's boolean [B, 1, 1, S] key mask."""
     q, k, v, do = flash_inputs(dev, torch.bfloat16, seed=seed, **shape)
     scale = shape["D"] ** -0.5
-    out, lse = fa.flash_fwd(q, k, v, True, scale, seg)
+    bias = None if mask is None else fa._key_bias(mask)
+    out, lse = fa.flash_fwd(q, k, v, causal, scale, seg, bias)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    bwd_args = (q, k, v, do, lse, delta, True, scale, seg)
+    bwd_args = (q, k, v, do, lse, delta, causal, scale, seg, bias)
     G = shape["Hq"] // shape["Hkv"]
     qh = q.transpose(1, 2).detach().requires_grad_(True)
     kh = k.repeat_interleave(G, dim=2).transpose(1, 2).detach() \
@@ -505,7 +558,11 @@ def flash_times(dev, flush, seed, seg=None):
     vh = v.repeat_interleave(G, dim=2).transpose(1, 2).detach() \
         .requires_grad_(True)
     doh = do.transpose(1, 2)
-    if seg is None:
+    if mask is not None:
+        sdpa = functools.partial(F.scaled_dot_product_attention,
+                                 attn_mask=mask[:, None, None, :],
+                                 is_causal=causal)
+    elif seg is None:
         sdpa = functools.partial(F.scaled_dot_product_attention,
                                  is_causal=True)
     else:
@@ -522,9 +579,10 @@ def flash_times(dev, flush, seed, seg=None):
     del lib_out
     times = {}
     for name, kernel, plain, _ in FLASH_KERNELS:
-        args = (q, k, v, True, scale, seg) if name == "flash_fwd" \
+        args = (q, k, v, causal, scale, seg, bias) if name == "flash_fwd" \
             else bwd_args
-        bound_ms, bound_by = flash_bound(name, causal=True, seg=seg, **shape)
+        bound_ms, bound_by = flash_bound(name, causal=causal, seg=seg,
+                                         mask=mask, **shape)
         times[name] = {
             "ms": graph_ms(lambda: kernel(*args), 20, flush),
             "plain_ms": cuda_ms(lambda: plain(*args), 3, flush),
@@ -533,8 +591,26 @@ def flash_times(dev, flush, seed, seg=None):
     return times
 
 
+def holed_mask(B, S) -> torch.Tensor:
+    """bool [B, S]: ragged tails (the last row 37 keys short) and a run of
+    masked keys in the middle, across a 64-key tile edge — the function
+    takes any mask, not only a suffix."""
+    mask = torch.arange(S)[None, :] < torch.tensor([S] * (B - 1)
+                                                   + [S - 37])[:, None]
+    mask[:, 50:140] = False
+    return mask
+
+
+#: BERT-base's attention at train_bert's shape: B 32 x S 512, 12 heads of
+#: 64 (no GQA), bidirectional.
+FLASH_KPM_SHAPE = dict(B=32, S=512, Hq=12, Hkv=12, D=64)
+
+
 def phase_flash_kernels(dev, flush, seed):
+    """The flash cases and times.  Returns (kernels-line entries, the
+    key-bias times at (a_kpm), which train_bert's launches complete)."""
     packed = packed_starts(seed)
+    bert_mask = bert_batch(seed).attention_mask.bool()
     cases = [
         dict(case="a", dtype=torch.bfloat16, causal=True, **FLASH_TRAIN_SHAPE),
         dict(case="b", dtype=torch.float32, causal=True, B=1, S=200, Hq=4,
@@ -545,12 +621,20 @@ def phase_flash_kernels(dev, flush, seed):
              **FLASH_TRAIN_SHAPE),
         dict(case="b_packed", dtype=torch.float32, causal=True, B=1, S=200,
              Hq=4, Hkv=2, D=64, seg=ragged_starts(200)),
+        dict(case="a_kpm", dtype=torch.bfloat16, causal=False,
+             mask=bert_mask, **FLASH_KPM_SHAPE),
+        dict(case="b_kpm", dtype=torch.float32, causal=False, B=2, S=200,
+             Hq=4, Hkv=2, D=64, mask=holed_mask(2, 200)),
     ]
     max_err = {name: 0.0 for name, *_ in FLASH_KERNELS}
     for i, case in enumerate(cases):
         for name, err in flash_case_check(dev, case, seed + 10 + i).items():
             max_err[name] = max(max_err[name], err)
     for name, err in flash_padded_check(dev, seed + 20).items():
+        max_err[name] = max(max_err[name], err)
+    for name, err in flash_padded_check(dev, seed + 21, case="c_kpm", B=2,
+                                        D=16,
+                                        mask=holed_mask(2, 200)).items():
         max_err[name] = max(max_err[name], err)
 
     shape = FLASH_TRAIN_SHAPE
@@ -584,7 +668,22 @@ def phase_flash_kernels(dev, flush, seed):
              timed_shape={**shape, "causal": True, "dtype": "bfloat16",
                           "packed": True})
         entries.append(entry)
-    return entries
+    mask = bert_mask.to(dev)
+    kpm = flash_times(dev, flush, seed, mask=mask, shape=FLASH_KPM_SHAPE,
+                      causal=False)
+    for name in kpm:
+        kpm[name].update(
+            max_abs_err=max_err[name], dense_ms=dense[name]["ms"],
+            pairs=attn_pairs(causal=False, mask=mask,
+                             **{k: FLASH_KPM_SHAPE[k]
+                                for k in ("B", "S", "Hq")}),
+            masked_keys=int((~mask).sum()),
+            library_call="scaled_dot_product_attention with the boolean "
+            "[B, 1, 1, S] key mask" + (" (backward: dQ, dK, dV)"
+                                       if name != "flash_fwd" else ""),
+            timed_shape={**FLASH_KPM_SHAPE, "causal": False,
+                         "dtype": "bfloat16", "key_bias": True})
+    return entries, kpm
 
 
 # ---------------------------------------------------------------------------
@@ -1280,17 +1379,24 @@ def phase_train_packed(dev, seed):
     return rms_launches, (cfg, attention_fn, packed_lm_loss, (tokens, seg))
 
 
-def phase_train_profile(phase, seed, cfg, attention_fn, loss_fn, batch):
+def llama_factory(seed, cfg, attention_fn, loss_fn):
+    """A profile's ``build``: the Llama phases' model and step, afresh."""
+    def build():
+        model = build_model(cfg, seed, attention_fn)
+        return (model, *make_step(model, loss_fn))
+    return build
+
+
+def phase_train_profile(phase, build, batch):
     """Where one training step's time goes: host wall time against the
-    device time of its kernels (torch.profiler), the top kernels, and the
-    idle share of the card.  The model and optimizer are built afresh (a
-    timed phase frees its own before the next, which needs the memory);
-    the first step, which creates the AdamW state, is an untraced warm
-    step."""
+    device time of its kernels (torch.profiler), the top kernels, device
+    time by kernel group, and the idle share of the card.  ``build()``
+    makes the model, optimizer and step afresh (a timed phase frees its
+    own before the next, which needs the memory); the first step, which
+    creates the AdamW state, is an untraced warm step."""
     from torch.profiler import ProfilerActivity, profile
 
-    model = build_model(cfg, seed, attention_fn)
-    opt, step = make_step(model, loss_fn)
+    model, opt, step = build()
     step(batch)
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1304,9 +1410,14 @@ def phase_train_profile(phase, seed, cfg, attention_fn, loss_fn, batch):
     kernels, ranges = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    by_group = {}
+    for e in kernels:
+        g = kernel_group(e.key)
+        by_group[g] = by_group.get(g, 0.0) + e.self_device_time_total / 1e3
     emit(phase, step_wall_ms=wall_ms, device_busy_ms=busy_ms,
          idle_share=1.0 - busy_ms / wall_ms,
          kernels_per_step=sum(e.count for e in kernels),
+         by_group_ms=by_group,
          ranges=[{"name": e.key[:60], "ms": e.device_time_total / 1e3}
                  for e in ranges],
          top=[{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
@@ -1321,6 +1432,7 @@ def phase_train_profile(phase, seed, cfg, attention_fn, loss_fn, batch):
 #: kernel's name (first match wins).
 KERNEL_GROUPS = (("flash", ("fwd_bf16", "bwd_dq_bf16", "bwd_dkv_bf16")),
                  ("rms_norm", ("rms_fwd_kernel", "rms_bwd_kernel")),
+                 ("layer_norm", ("layer_norm",)),
                  ("gemm", ("nvjet", "gemm", "cutlass", "sm90_")),
                  ("optimizer", ("multi_tensor_apply",)),
                  ("nccl", ("nccl",)),
@@ -1352,6 +1464,190 @@ def compare_profiles(train, packed):
                             for d, n in by_name[::-1][:4]])
 
 
+# ---------------------------------------------------------------------------
+# phase 7: BERT pretraining on BERT-base, the flash seam with the key bias
+# ---------------------------------------------------------------------------
+
+BERT_B, BERT_S = 32, 512
+#: google-research/bert create_pretraining_data.py: short_seq_prob,
+#: masked_lm_prob, max_predictions_per_seq at S 512.
+BERT_SHORT_SEQ_PROB, BERT_MLM_PROB, BERT_MAX_PREDICTIONS = 0.1, 0.15, 80
+BERT_MASK_ID = 103              # [MASK] in BERT's uncased 30522 vocabulary
+BERT_ORACLE_B = 8
+BERT_LR = 1e-4                  # the example's default
+
+
+def bert_batch(seed) -> bert_example.BertBatch:
+    """The fixed, seeded B 32 x S 512 pretraining batch (CPU tensors), drawn
+    as google-research/bert's create_pretraining_data.py makes phase-2
+    data: 90 % of rows fill all 512 positions, 10 % (short_seq_prob 0.1)
+    take a length uniform in [2, 512] and are padded; each row's tokens
+    split into sentence A and B (token types 0/1) at a uniform point;
+    15 % of its valid tokens (at most 80) are MLM targets, of which 80 %
+    are replaced by [MASK], 10 % by a random token and 10 % kept; NSP
+    labels are random."""
+    rng = np.random.default_rng(seed + 4)
+    V = BertConfig.base().vocab_size
+    B, S = BERT_B, BERT_S
+    lengths = np.where(rng.random(B) < BERT_SHORT_SEQ_PROB,
+                       rng.integers(2, S + 1, B), S)
+    pos = np.arange(S)[None, :]
+    valid = pos < lengths[:, None]
+    labels = rng.integers(0, V, (B, S))
+    ids = np.where(valid, labels, 0)
+    split = rng.integers(1, np.maximum(lengths, 2))
+    types = (valid & (pos >= split[:, None])).astype(np.int64)
+    targets = np.zeros((B, S), bool)
+    for b in range(B):
+        n = min(BERT_MAX_PREDICTIONS,
+                max(1, int(round(lengths[b] * BERT_MLM_PROB))))
+        targets[b, rng.choice(lengths[b], n, replace=False)] = True
+    roll = rng.random((B, S))
+    ids = np.where(targets & (roll < 0.8), BERT_MASK_ID, ids)
+    ids = np.where(targets & (roll >= 0.8) & (roll < 0.9),
+                   rng.integers(0, V, (B, S)), ids)
+    nsp = rng.integers(0, 2, B)
+    t = torch.from_numpy
+    return bert_example.BertBatch(t(ids), t(labels), t(targets), t(nsp),
+                                  t(valid.astype(np.int64)), t(types))
+
+
+def set_bert_attention(model, fn) -> None:
+    for layer in model.encoder.layers:
+        layer.attention.attention_fn = fn
+
+
+def phase_bert_oracle(model, batch):
+    """At B 8 on the same weights, before the first step: the
+    example's loss and its gradients through the flash seam (the three
+    kernels with the key bias) against the dense ``dot_product_attention``
+    (which rounds its scores to bf16, as the reference's does), and the
+    MLM logits at the valid positions: max |d| and argmax agreement.
+    train_oracle's bounds: loss 0.02, gradient relative L2 0.05."""
+    params = list(model.parameters())
+    runs, logits = {}, {}
+    valid = batch.attention_mask.bool()
+    for name, fn in (("flash", fa.flash_attention_fn),
+                     ("dense", dot_product_attention)):
+        set_bert_attention(model, fn)
+        model.zero_grad(set_to_none=True)
+        loss = bert_example.pretraining_loss(model, batch)
+        loss.backward()
+        runs[name] = (float(loss.detach()),
+                      [p.grad.detach().clone() for p in params])
+        with torch.no_grad():
+            logits[name] = model(batch.input_ids, batch.token_type_ids,
+                                 batch.attention_mask)[0][valid]
+    set_bert_attention(model, fa.flash_attention_fn)
+    model.zero_grad(set_to_none=True)
+    lf, ld = runs["flash"][0], runs["dense"][0]
+    worst_name, worst, median = grad_rel_l2(model, runs["flash"][1],
+                                            runs["dense"][1])
+    del runs
+    d_logit = float((logits["flash"] - logits["dense"]).abs().max())
+    agree = float((logits["flash"].argmax(-1)
+                   == logits["dense"].argmax(-1)).float().mean())
+    finite = bool(torch.isfinite(logits["flash"]).all())
+    del logits
+    emit("bert_oracle", model="bert_base", batch=int(valid.shape[0]),
+         seq=int(valid.shape[1]), valid_positions=int(valid.sum()),
+         loss_flash=lf, loss_dense=ld, loss_abs_diff=abs(lf - ld),
+         loss_tol=ORACLE_LOSS_TOL, grad_rel_l2_max=worst,
+         grad_rel_l2_worst=worst_name, grad_rel_l2_median=median,
+         grad_rel_l2_tol=ORACLE_GRAD_REL_L2_TOL,
+         mlm_logits_max_abs_diff=d_logit, mlm_argmax_agreement=agree)
+    check(finite, "bert_oracle: flash MLM logits not finite")
+    check(math.isfinite(lf) and abs(lf - ld) <= ORACLE_LOSS_TOL,
+          f"bert_oracle: loss {lf} vs dense {ld}")
+    check(worst <= ORACLE_GRAD_REL_L2_TOL,
+          f"bert_oracle: {worst_name} grad rel L2 {worst}")
+
+
+def bert_flops(cfg, batch) -> int:
+    """6 x (the encoder layers' params + the tied head's V·H +
+    mlm_transform) x B·S + 3 x the attention forward: two products of
+    2·D FLOPs per (query, valid key) pair, head and layer."""
+    H, F_ = cfg.hidden_size, cfg.intermediate_size
+    per_layer = 4 * H * H + 2 * H * F_ + 9 * H + F_   # weights, biases, LNs
+    dense = cfg.num_layers * per_layer + cfg.vocab_size * H + H * H + H
+    B, S = batch.input_ids.shape
+    pairs = attn_pairs(B, S, cfg.num_heads, False,
+                       mask=batch.attention_mask.bool())
+    return 6 * dense * B * S + 3 * cfg.num_layers * 4 * cfg.head_dim * pairs
+
+
+def bert_factory(seed, cfg, mesh):
+    """train_bert's model, optimizer and step (the example's ``build``):
+    BERT-base weights seeded with a token-type table, the flash seam."""
+    def build():
+        state = init_params(cfg, seed, token_types=True)
+        model, opt = bert_example.build(cfg, state, mesh, BERT_LR,
+                                        fa.flash_attention_fn)
+        return model, opt, hvd.make_train_step(
+            model, bert_example.pretraining_loss, opt)
+    return build
+
+
+def phase_train_bert(dev, seed):
+    """BERT pretraining, timed.  Returns its flash launches and what its
+    profile needs to rebuild it: (build, batch)."""
+    cfg = BertConfig.base()
+    hvd.init()
+    mesh = build_mesh({"data": 1, "fsdp": -1})
+    batch = bert_batch(seed).to(dev)
+    build = bert_factory(seed, cfg, mesh)
+    t0 = time.monotonic()
+    model, opt, step = build()
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    # The oracle's rows: the padded ones first, so its batch is ragged.
+    order = torch.argsort(batch.attention_mask.sum(1).cpu(), stable=True)
+    phase_bert_oracle(model, batch.rows(order[:BERT_ORACLE_B].to(dev)))
+    torch.cuda.empty_cache()
+
+    losses, step_ms, launches, plain_calls, _, _ = timed_steps(step, batch,
+                                                               dev)
+    bias_launches = dict(fa.key_bias_launches)
+    p50 = statistics.median(step_ms)
+    valid = batch.attention_mask.bool()
+    flops = bert_flops(cfg, batch)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+    emit("train_bert", model="bert_base", layers=cfg.num_layers,
+         layers_published=12, hidden=cfg.hidden_size, heads=cfg.num_heads,
+         head_dim=cfg.head_dim, ffn=cfg.intermediate_size,
+         vocab=cfg.vocab_size, max_position=cfg.max_position,
+         type_vocab=cfg.type_vocab_size, params=n_params,
+         param_dtype="float32", compute_dtype="bfloat16", batch=BERT_B,
+         seq=BERT_S, valid_tokens=int(valid.sum()),
+         short_rows=int((valid.sum(1) < BERT_S).sum()),
+         mlm_targets=int(batch.mask_positions.sum()),
+         mesh={"data": 1, "fsdp": 1}, world_size=hvd.size(),
+         backend=torch.distributed.get_backend(),
+         optimizer=f"DistributedOptimizer(AdamW lr {BERT_LR}, wd 1e-4)",
+         warmup_steps=WARMUP_STEPS, steps=TIMED_STEPS, step_ms_p50=p50,
+         step_ms_max=max(step_ms), step_ms=step_ms,
+         sequences_per_s=BERT_B / (p50 / 1e3),
+         tokens_per_s=BERT_B * BERT_S / (p50 / 1e3),
+         valid_tokens_per_s=int(valid.sum()) / (p50 / 1e3),
+         flops_per_step=flops, mfu=flops / (p50 / 1e3) / 989e12,
+         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+         losses=losses, kernel_launches=launches,
+         key_bias_launches=bias_launches, plain_calls=plain_calls,
+         init_s=init_s, nvidia_smi_after=smi)
+    check_training("train_bert", losses, launches,
+                   dict.fromkeys(launches, cfg.num_layers * TIMED_STEPS),
+                   plain_calls)
+    check(bias_launches == launches,
+          f"train_bert: launches without the key bias: {bias_launches} of "
+          f"{launches}")
+    del model, opt, step
+    return launches, (build, batch)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -1378,7 +1674,7 @@ def main(argv=None) -> int:
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     entry = phase_kernels(dev, flush, args.seed)
-    flash_entries = phase_flash_kernels(dev, flush, args.seed)
+    flash_entries, kpm_times = phase_flash_kernels(dev, flush, args.seed)
     rms_entries = phase_rms_kernels(dev, flush, args.seed)
     del flush
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1404,9 +1700,18 @@ def main(argv=None) -> int:
         e["launches"] = rms_launches[e["name"]]
     gc.collect()
     torch.cuda.empty_cache()
+    bert_launches, (bert_build, bert_data) = phase_train_bert(dev, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
     compare_profiles(
-        phase_train_profile("train_profile", args.seed, *train),
-        phase_train_profile("train_packed_profile", args.seed, *packed))
+        phase_train_profile("train_profile",
+                            llama_factory(args.seed, *train[:3]), train[3]),
+        phase_train_profile("train_packed_profile",
+                            llama_factory(args.seed, *packed[:3]),
+                            packed[3]))
+    phase_train_profile("train_bert_profile", bert_build, bert_data)
+    for name, t in kpm_times.items():
+        emit("kernel_time_kpm", name=name, launches=bert_launches[name], **t)
     hvd.shutdown()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -17,8 +17,15 @@
 // the reference's seg_ref) add the mask key < start[query] and skip the
 // key tiles below a query tile's first start (forward, dq) and the query
 // tiles past the last row that can see a key tile (dk/dv), so packing
-// saves the FLOPs of the masked blocks, as on the TPU.  delta =
-// rowsum(dout * out) - g_lse is computed by the caller (fp32, [B, Hq, S]).
+// saves the FLOPs of the masked blocks, as on the TPU.  Key padding
+// (optional fp32 [B, S] additive key bias, the reference's bias_ref: 0 for
+// a valid key, -1e30 for a masked one) adds bias[b, key] to every score of
+// batch row b after the scale and the causal mask, as the reference adds
+// it; one row serves every head, and no tile is skipped.  Segments and the
+// key bias are exclusive (as in the reference), and each kernel is compiled
+// once per sideband kind, so the dense and packed paths run the code they
+// ran before the key bias existed.  delta = rowsum(dout * out) - g_lse is
+// computed by the caller (fp32, [B, Hq, S]).
 //
 // Layout: q/out/dout/dq are contiguous [B, S, Hq, D], k/v/dk/dv contiguous
 // [B, S, Hkv, D], indexed in place by strides (no [B*H, S, D] transpose and
@@ -32,7 +39,10 @@
 // 4 * B * Hq * S^2 * D / 2 = 68.7 GFLOP, against 16.8 MB of q/k/v/out, so
 // ~4000 FLOP per byte, far above the ~295 where the tensor cores become the
 // limit; the backward kernels do seven products (dQ 3, dK/dV 4, each
-// recomputing the scores) over about twice the bytes.  So the design is about
+// recomputing the scores) over about twice the bytes.  BERT-base's shape (B
+// 32, S 512, 12 heads, D 64, bidirectional, ragged key masks) sits near the
+// ridge instead: 4 * B * H * S^2 * D = 25.8 GFLOP against 101 MB, ~255 FLOP
+// a byte, so there the bound is bytes, ~0.03 ms.  The design is about
 // feeding the tensor cores, with the score matrix never leaving registers:
 //
 //   * bf16: warp-level mma.sync.m16n8k16 (fp32 accumulate) for every
@@ -44,7 +54,9 @@
 //     operand of the next product (the C layout of two m16n8 tiles is the
 //     A layout of one m16k16), so P and dS never touch shared memory.
 //     Rows are padded by 16 bytes in shared memory so ldmatrix is free of
-//     bank conflicts.
+//     bank conflicts.  The key bias of a key tile is staged in shared
+//     memory beside it (forward, dq); dk/dv keep their keys' bias in two
+//     registers a thread, as the bias depends on the key alone.
 //   * forward and dq: one CTA of 4 warps per (64 query rows, batch, head),
 //     16 rows per warp, looping over 64-key tiles; heavy (late) causal
 //     query tiles are scheduled first.
@@ -77,6 +89,11 @@ constexpr int kBM = 64;             // query rows per CTA (fwd, dq)
 constexpr int kBN = 64;             // keys per tile (fwd, dq); per CTA (dkv)
 constexpr int kBQ = 32;             // query rows per tile (dkv)
 constexpr int kPad = 8;             // bf16 padding per shared-memory row
+
+// Sideband kinds: each kernel is instantiated once per kind.
+constexpr int kDense = 0;      // none
+constexpr int kSegments = 1;   // int32 [B, S] segment starts (packed rows)
+constexpr int kKeyBias = 2;    // fp32 [B, S] additive key bias (key padding)
 
 // ---------------------------------------------------------------------------
 // PTX helpers
@@ -192,9 +209,7 @@ __device__ __forceinline__ void stage(bf16* dst, const bf16* src,
 //
 // `sb` is one batch row's int32 [S] segment starts: query row r attends
 // keys [sb[r], r].  Starts never decrease along a row, which the three
-// bounds below rely on.  Each kernel is compiled twice, with and without
-// segments (kSeg), so the dense path runs the code it ran before the
-// sideband existed.
+// bounds below rely on.  kSeg is true in the kSegments instantiation only.
 
 // Segment start of query row `row`; 0 without segments or past S.
 template <bool kSeg>
@@ -282,17 +297,20 @@ __device__ __forceinline__ void acc_pv(float (&acc)[D / 8][4],
 // One CTA per 64 query rows of one (batch, head); each warp keeps its 16
 // rows' running max, denominator and 16 x D fp32 accumulator in registers
 // while K/V tiles stream through shared memory.
-template <int D, bool kSeg>
+template <int D, int kSide>
 __global__ void __launch_bounds__(kThreads)
     fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ out,
-             float* __restrict__ lse, const int* __restrict__ seg, int S,
-             int Hq, int Hkv, float sm_scale, int causal) {
+             float* __restrict__ lse, const int* __restrict__ seg,
+             const float* __restrict__ bias, int S, int Hq, int Hkv,
+             float sm_scale, int causal) {
+  constexpr bool kSeg = kSide == kSegments, kBias = kSide == kKeyBias;
   constexpr int LD = D + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);   // [kBM][LD]
   bf16* Ks = Qs + kBM * LD;                    // [2][kBN][LD]
   bf16* Vs = Ks + 2 * kBN * LD;                // [2][kBN][LD]
+  float* Bs = reinterpret_cast<float*>(Vs + 2 * kBN * LD);   // [kBN] (kBias)
 
   const int qi = gridDim.x - 1 - blockIdx.x;   // heavy causal tiles first
   const int b = blockIdx.y / Hq, h = blockIdx.y % Hq, hk = h / (Hq / Hkv);
@@ -309,6 +327,7 @@ __global__ void __launch_bounds__(kThreads)
       causal ? min((q0 + kBM + kBN - 1) / kBN, n_tiles) : n_tiles;
 
   const int* sb = kSeg ? seg + static_cast<size_t>(b) * S : nullptr;
+  const float* bb = kBias ? bias + static_cast<size_t>(b) * S : nullptr;
   const int j0 = first_tile<kSeg>(sb, q0);
 
   stage<D>(Qs, qb, qs, q0, kBM, S);
@@ -336,6 +355,12 @@ __global__ void __launch_bounds__(kThreads)
     } else {
       cp_async_wait<0>();
     }
+    // Tile j's key bias; the last reads of Bs were before the previous
+    // iteration's closing barrier.
+    if (kBias && threadIdx.x < kBN) {
+      const int c = j * kBN + threadIdx.x;
+      Bs[threadIdx.x] = c < S ? bb[c] : 0.f;
+    }
     __syncthreads();
     const bf16* Kt = Ks + buf * kBN * LD;
     const bf16* Vt = Vs + buf * kBN * LD;
@@ -350,8 +375,14 @@ __global__ void __launch_bounds__(kThreads)
         const int row = row0 + (e >> 1) * 8;
         const int col = j * kBN + nt * 8 + t * 2 + (e & 1);
         float x = s[nt][e] * sm_scale;
-        if (col >= S || (causal && col > row) || (kSeg && col < st[e >> 1]))
+        if constexpr (kBias) {
+          if (causal && col > row) x = kNegInf;
+          x += Bs[nt * 8 + t * 2 + (e & 1)];
+          if (col >= S) x = kNegInf;
+        } else if (col >= S || (causal && col > row) ||
+                   (kSeg && col < st[e >> 1])) {
           x = kNegInf;
+        }
         s[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -404,20 +435,22 @@ __global__ void __launch_bounds__(kThreads)
 // Bound by operations: Q.K^T again, dO.V^T and dS.K, 6 * D FLOPs per live
 // pair.  Same tiling as the forward; P is rebuilt from the saved lse, and
 // dS goes from the accumulators straight into the dS.K product.
-template <int D, bool kSeg>
+template <int D, int kSide>
 __global__ void __launch_bounds__(kThreads)
     bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, bf16* __restrict__ dq,
-                const int* __restrict__ seg, int S, int Hq, int Hkv,
-                float sm_scale, int causal) {
+                const int* __restrict__ seg, const float* __restrict__ bias,
+                int S, int Hq, int Hkv, float sm_scale, int causal) {
+  constexpr bool kSeg = kSide == kSegments, kBias = kSide == kKeyBias;
   constexpr int LD = D + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);   // [kBM][LD]
   bf16* dOs = Qs + kBM * LD;                   // [kBM][LD]
   bf16* Ks = dOs + kBM * LD;                   // [2][kBN][LD]
   bf16* Vs = Ks + 2 * kBN * LD;                // [2][kBN][LD]
+  float* Bs = reinterpret_cast<float*>(Vs + 2 * kBN * LD);   // [kBN] (kBias)
 
   const int qi = gridDim.x - 1 - blockIdx.x;
   const int b = blockIdx.y / Hq, h = blockIdx.y % Hq, hk = h / (Hq / Hkv);
@@ -434,6 +467,7 @@ __global__ void __launch_bounds__(kThreads)
       causal ? min((q0 + kBM + kBN - 1) / kBN, n_tiles) : n_tiles;
 
   const int* sb = kSeg ? seg + static_cast<size_t>(b) * S : nullptr;
+  const float* bb = kBias ? bias + static_cast<size_t>(b) * S : nullptr;
   const int j0 = first_tile<kSeg>(sb, q0);
 
   stage<D>(Qs, q + qoff, qs, q0, kBM, S);
@@ -470,6 +504,12 @@ __global__ void __launch_bounds__(kThreads)
     } else {
       cp_async_wait<0>();
     }
+    // Tile j's key bias; the last reads of Bs were before the previous
+    // iteration's closing barrier.
+    if (kBias && threadIdx.x < kBN) {
+      const int c = j * kBN + threadIdx.x;
+      Bs[threadIdx.x] = c < S ? bb[c] : 0.f;
+    }
     __syncthreads();
     const bf16* Kt = Ks + buf * kBN * LD;
     const bf16* Vt = Vs + buf * kBN * LD;
@@ -485,9 +525,14 @@ __global__ void __launch_bounds__(kThreads)
         const int row = row0 + i * 8;
         const int col = j * kBN + nt * 8 + t * 2 + (e & 1);
         float x = s[nt][e] * sm_scale;
-        if (col >= S || (causal && col > row) ||
-            (kSeg && col < st[i]))
+        if constexpr (kBias) {
+          if (causal && col > row) x = kNegInf;
+          x += Bs[nt * 8 + t * 2 + (e & 1)];
+          if (col >= S) x = kNegInf;
+        } else if (col >= S || (causal && col > row) ||
+                   (kSeg && col < st[i])) {
           x = kNegInf;
+        }
         const float p = expf(x - lr[i]);
         s[nt][e] = p * (dp[nt][e] - dr[i]) * sm_scale;   // dS
       }
@@ -558,14 +603,16 @@ __device__ __forceinline__ void scores_kq(float (&s)[kBQ / 8][4],
 // 8 * D FLOPs per live pair.  One CTA per 64 keys of one (batch, KV
 // head), transposed so keys are the rows: each warp keeps 16 keys' dK and
 // dV in registers across the G query heads and all query tiles.
-template <int D, bool kSeg>
+template <int D, int kSide>
 __global__ void __launch_bounds__(kThreads)
     bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, bf16* __restrict__ dk,
-                 bf16* __restrict__ dv, const int* __restrict__ seg, int S,
-                 int Hq, int Hkv, float sm_scale, int causal) {
+                 bf16* __restrict__ dv, const int* __restrict__ seg,
+                 const float* __restrict__ bias, int S, int Hq, int Hkv,
+                 float sm_scale, int causal) {
+  constexpr bool kSeg = kSide == kSegments, kBias = kSide == kKeyBias;
   constexpr int LD = D + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);   // [kBN][LD]
@@ -620,6 +667,15 @@ __global__ void __launch_bounds__(kThreads)
     dv_acc[dt][0] = dv_acc[dt][1] = dv_acc[dt][2] = dv_acc[dt][3] = 0.f;
   }
   const int key0 = k0 + warp * 16 + g;   // this thread's keys: key0, key0+8
+  // The key bias is a function of the key alone: two registers a thread.
+  float kbias[2] = {0.f, 0.f};
+  if constexpr (kBias) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = key0 + i * 8;
+      if (key < S) kbias[i] = bias[static_cast<size_t>(b) * S + key];
+    }
+  }
 
   for (int it = 0; it < n_iter; ++it) {
     if (it + 1 < n_iter) {
@@ -649,9 +705,14 @@ __global__ void __launch_bounds__(kThreads)
         const int c = nt * 8 + t * 2 + (e & 1);
         const int qrow = qt0 + c;
         float x = s[nt][e] * sm_scale;
-        if (qrow >= S || (causal && key > qrow) ||
-            (kSeg && key < St[c]))
+        if constexpr (kBias) {
+          if (causal && key > qrow) x = kNegInf;
+          x += kbias[e >> 1];
+          if (qrow >= S) x = kNegInf;
+        } else if (qrow >= S || (causal && key > qrow) ||
+                   (kSeg && key < St[c])) {
           x = kNegInf;
+        }
         const float p = expf(x - Lt[c]);
         s[nt][e] = p;
         dp[nt][e] = p * (dp[nt][e] - Dt[c]) * sm_scale;   // dS^T
@@ -698,17 +759,20 @@ __device__ __forceinline__ void stage_f32(float* dst, int ld,
 // fp32 twin of fwd_bf16 (and of _fwd_kernel): one thread per query row;
 // kBN keys per tile, scores kept in shared memory.  Bound by 67 TFLOP/s
 // of fp32 FMA; the correctness path for fp32 inputs.
-template <int D, bool kSeg>
+template <int D, int kSide>
 __global__ void __launch_bounds__(kBM)
     fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, float* __restrict__ out,
-            float* __restrict__ lse, const int* __restrict__ seg, int S,
-            int Hq, int Hkv, float sm_scale, int causal) {
+            float* __restrict__ lse, const int* __restrict__ seg,
+            const float* __restrict__ bias, int S, int Hq, int Hkv,
+            float sm_scale, int causal) {
+  constexpr bool kSeg = kSide == kSegments, kBias = kSide == kKeyBias;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);   // [kBM][D + 1]
   float* Ks = Qs + kBM * (D + 1);                // [kBN][D]
   float* Vs = Ks + kBN * D;                      // [kBN][D]
   float* Ss = Vs + kBN * D;                      // [kBM][kBN + 1]
+  float* Bs = Ss + kBM * (kBN + 1);              // [kBN] (kBias)
 
   const int qi = gridDim.x - 1 - blockIdx.x;
   const int b = blockIdx.y / Hq, h = blockIdx.y % Hq, hk = h / (Hq / Hkv);
@@ -731,12 +795,14 @@ __global__ void __launch_bounds__(kBM)
   const float* qr = Qs + r * (D + 1);
   float* sr = Ss + r * (kBN + 1);
   const int* sb = kSeg ? seg + static_cast<size_t>(b) * S : nullptr;
+  const float* bb = kBias ? bias + static_cast<size_t>(b) * S : nullptr;
   const int st = seg_start<kSeg>(sb, row, S);
 
   for (int j = first_tile<kSeg>(sb, q0); j < n_live; ++j) {
     __syncthreads();
     stage_f32<D>(Ks, D, kb, ks, j * kBN, kBN, S, kBM);
     stage_f32<D>(Vs, D, vb, ks, j * kBN, kBN, S, kBM);
+    if constexpr (kBias) Bs[r] = j * kBN + r < S ? bb[j * kBN + r] : 0.f;
     __syncthreads();
     float mx = m;
     for (int c = 0; c < kBN; ++c) {
@@ -745,9 +811,13 @@ __global__ void __launch_bounds__(kBM)
       for (int d = 0; d < D; ++d) x = fmaf(qr[d], Ks[c * D + d], x);
       x *= sm_scale;
       const int col = j * kBN + c;
-      if (col >= S || (causal && col > row) ||
-          (kSeg && col < st))
+      if constexpr (kBias) {
+        if (causal && col > row) x = kNegInf;
+        x += Bs[c];
+        if (col >= S) x = kNegInf;
+      } else if (col >= S || (causal && col > row) || (kSeg && col < st)) {
         x = kNegInf;
+      }
       sr[c] = x;
       mx = fmaxf(mx, x);
     }
@@ -775,19 +845,21 @@ __global__ void __launch_bounds__(kBM)
 
 // fp32 twin of bwd_dq_bf16 (and of _bwd_dq_kernel): one thread per query
 // row, the same loop over key tiles.
-template <int D, bool kSeg>
+template <int D, int kSide>
 __global__ void __launch_bounds__(kBM)
     bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse,
                const float* __restrict__ delta, float* __restrict__ dq,
-               const int* __restrict__ seg, int S, int Hq, int Hkv,
-               float sm_scale, int causal) {
+               const int* __restrict__ seg, const float* __restrict__ bias,
+               int S, int Hq, int Hkv, float sm_scale, int causal) {
+  constexpr bool kSeg = kSide == kSegments, kBias = kSide == kKeyBias;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);   // [kBM][D + 1]
   float* dOs = Qs + kBM * (D + 1);               // [kBM][D + 1]
   float* Ks = dOs + kBM * (D + 1);               // [kBN][D]
   float* Vs = Ks + kBN * D;                      // [kBN][D]
+  float* Bs = Vs + kBN * D;                      // [kBN] (kBias)
 
   const int qi = gridDim.x - 1 - blockIdx.x;
   const int b = blockIdx.y / Hq, h = blockIdx.y % Hq, hk = h / (Hq / Hkv);
@@ -813,12 +885,14 @@ __global__ void __launch_bounds__(kBM)
   const float* qr = Qs + r * (D + 1);
   const float* dor = dOs + r * (D + 1);
   const int* sb = kSeg ? seg + static_cast<size_t>(b) * S : nullptr;
+  const float* bb = kBias ? bias + static_cast<size_t>(b) * S : nullptr;
   const int st = seg_start<kSeg>(sb, row, S);
 
   for (int j = first_tile<kSeg>(sb, q0); j < n_live; ++j) {
     __syncthreads();
     stage_f32<D>(Ks, D, kb, ks, j * kBN, kBN, S, kBM);
     stage_f32<D>(Vs, D, vb, ks, j * kBN, kBN, S, kBM);
+    if constexpr (kBias) Bs[r] = j * kBN + r < S ? bb[j * kBN + r] : 0.f;
     __syncthreads();
     for (int c = 0; c < kBN; ++c) {
       float x = 0.f, dp = 0.f;
@@ -829,9 +903,13 @@ __global__ void __launch_bounds__(kBM)
       }
       x *= sm_scale;
       const int col = j * kBN + c;
-      if (col >= S || (causal && col > row) ||
-          (kSeg && col < st))
+      if constexpr (kBias) {
+        if (causal && col > row) x = kNegInf;
+        x += Bs[c];
+        if (col >= S) x = kNegInf;
+      } else if (col >= S || (causal && col > row) || (kSeg && col < st)) {
         x = kNegInf;
+      }
       const float ds = expf(x - lr) * (dp - dr) * sm_scale;
 #pragma unroll
       for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, Ks[c * D + d], acc[d]);
@@ -846,14 +924,16 @@ __global__ void __launch_bounds__(kBM)
 
 // fp32 twin of bwd_dkv_bf16 (and of _bwd_dkv_kernel): 2 * kBN threads,
 // warps 0-1 own dV of the CTA's kBN keys, warps 2-3 own dK.
-template <int D, bool kSeg>
+template <int D, int kSide>
 __global__ void __launch_bounds__(2 * kBN)
     bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dk,
-                float* __restrict__ dv, const int* __restrict__ seg, int S,
-                int Hq, int Hkv, float sm_scale, int causal) {
+                float* __restrict__ dv, const int* __restrict__ seg,
+                const float* __restrict__ bias, int S, int Hq, int Hkv,
+                float sm_scale, int causal) {
+  constexpr bool kSeg = kSide == kSegments, kBias = kSide == kKeyBias;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Ks = reinterpret_cast<float*>(smem);   // [kBN][D + 1]
   float* Vs = Ks + kBN * (D + 1);                // [kBN][D + 1]
@@ -871,6 +951,8 @@ __global__ void __launch_bounds__(2 * kBN)
   const size_t ks = static_cast<size_t>(Hkv) * D;
   const size_t koff = static_cast<size_t>(b) * S * ks + hk * D;
   const int k0 = kj * kBN, key = k0 + r;
+  const float kbias =
+      kBias && key < S ? bias[static_cast<size_t>(b) * S + key] : 0.f;
   const int* sb = kSeg ? seg + static_cast<size_t>(b) * S : nullptr;
   const int n_q = (q_rows<kSeg>(sb, k0, S) + kBQ - 1) / kBQ;
   const int first_q = causal ? k0 / kBQ : 0;
@@ -906,9 +988,14 @@ __global__ void __launch_bounds__(2 * kBN)
 #pragma unroll
         for (int d = 0; d < D; ++d) x = fmaf(kr[d], Qs[c * D + d], x);
         x *= sm_scale;
-        if (qrow >= S || (causal && key > qrow) ||
-            (kSeg && key < Ss[c]))
+        if constexpr (kBias) {
+          if (causal && key > qrow) x = kNegInf;
+          x += kbias;
+          if (qrow >= S) x = kNegInf;
+        } else if (qrow >= S || (causal && key > qrow) ||
+                   (kSeg && key < Ss[c])) {
           x = kNegInf;
+        }
         const float p = expf(x - Ls[c]);
         if (!dk_role) {
 #pragma unroll
@@ -948,34 +1035,48 @@ struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *out, *lse_out, *dq, *dk, *dv;
   const int* seg;
+  const float* bias;
   int B, S, Hq, Hkv;
   float sm_scale;
   int causal;
   cudaStream_t stream;
 };
 
+// The instantiation of the call's sideband kind.
+template <typename Kernel>
+Kernel pick(const Args& a, Kernel dense, Kernel segments, Kernel key_bias) {
+  return a.seg ? segments : a.bias ? key_bias : dense;
+}
+
+// Shared memory for the key-bias tile (forward and dq only).
+size_t bias_smem(const Args& a) { return a.bias ? kBN * sizeof(float) : 0; }
+
 template <int D>
 int fwd(const Args& a, int dtype) {
   const dim3 grid((a.S + kBM - 1) / kBM, a.B * a.Hq);
   if (dtype == 1) {
-    const size_t smem = (kBM + 4 * kBN) * (D + kPad) * sizeof(bf16);
-    auto kernel = a.seg ? fwd_bf16<D, true> : fwd_bf16<D, false>;
+    const size_t smem =
+        (kBM + 4 * kBN) * (D + kPad) * sizeof(bf16) + bias_smem(a);
+    auto kernel = pick(a, fwd_bf16<D, kDense>, fwd_bf16<D, kSegments>,
+                       fwd_bf16<D, kKeyBias>);
     if (int err = prepare(kernel, smem)) return err;
     kernel<<<grid, kThreads, smem, a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
         static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out),
-        static_cast<float*>(a.lse_out), a.seg, a.S, a.Hq, a.Hkv, a.sm_scale,
-        a.causal);
+        static_cast<float*>(a.lse_out), a.seg, a.bias, a.S, a.Hq, a.Hkv,
+        a.sm_scale, a.causal);
   } else {
     const size_t smem =
-        (kBM * (D + 1) + 2 * kBN * D + kBM * (kBN + 1)) * sizeof(float);
-    auto kernel = a.seg ? fwd_f32<D, true> : fwd_f32<D, false>;
+        (kBM * (D + 1) + 2 * kBN * D + kBM * (kBN + 1)) * sizeof(float) +
+        bias_smem(a);
+    auto kernel = pick(a, fwd_f32<D, kDense>, fwd_f32<D, kSegments>,
+                       fwd_f32<D, kKeyBias>);
     if (int err = prepare(kernel, smem)) return err;
     kernel<<<grid, kBM, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<float*>(a.out),
-        static_cast<float*>(a.lse_out), a.seg, a.S, a.Hq, a.Hkv, a.sm_scale,
-        a.causal);
+        static_cast<float*>(a.lse_out), a.seg, a.bias, a.S, a.Hq, a.Hkv,
+        a.sm_scale, a.causal);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -984,25 +1085,29 @@ template <int D>
 int bwd_dq(const Args& a, int dtype) {
   const dim3 grid((a.S + kBM - 1) / kBM, a.B * a.Hq);
   if (dtype == 1) {
-    const size_t smem = (2 * kBM + 4 * kBN) * (D + kPad) * sizeof(bf16);
-    auto kernel = a.seg ? bwd_dq_bf16<D, true> : bwd_dq_bf16<D, false>;
+    const size_t smem =
+        (2 * kBM + 4 * kBN) * (D + kPad) * sizeof(bf16) + bias_smem(a);
+    auto kernel = pick(a, bwd_dq_bf16<D, kDense>, bwd_dq_bf16<D, kSegments>,
+                       bwd_dq_bf16<D, kKeyBias>);
     if (int err = prepare(kernel, smem)) return err;
     kernel<<<grid, kThreads, smem, a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
         static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<bf16*>(a.dq), a.seg, a.S, a.Hq, a.Hkv, a.sm_scale,
-        a.causal);
+        static_cast<bf16*>(a.dq), a.seg, a.bias, a.S, a.Hq, a.Hkv,
+        a.sm_scale, a.causal);
   } else {
-    const size_t smem = (2 * kBM * (D + 1) + 2 * kBN * D) * sizeof(float);
-    auto kernel = a.seg ? bwd_dq_f32<D, true> : bwd_dq_f32<D, false>;
+    const size_t smem =
+        (2 * kBM * (D + 1) + 2 * kBN * D) * sizeof(float) + bias_smem(a);
+    auto kernel = pick(a, bwd_dq_f32<D, kDense>, bwd_dq_f32<D, kSegments>,
+                       bwd_dq_f32<D, kKeyBias>);
     if (int err = prepare(kernel, smem)) return err;
     kernel<<<grid, kBM, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<float*>(a.dq), a.seg, a.S, a.Hq, a.Hkv, a.sm_scale,
-        a.causal);
+        static_cast<float*>(a.dq), a.seg, a.bias, a.S, a.Hq, a.Hkv,
+        a.sm_scale, a.causal);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1013,26 +1118,28 @@ int bwd_dkv(const Args& a, int dtype) {
   if (dtype == 1) {
     const size_t smem = (2 * kBN + 4 * kBQ) * (D + kPad) * sizeof(bf16) +
                         4 * kBQ * sizeof(float) + 2 * kBQ * sizeof(int);
-    auto kernel = a.seg ? bwd_dkv_bf16<D, true> : bwd_dkv_bf16<D, false>;
+    auto kernel = pick(a, bwd_dkv_bf16<D, kDense>, bwd_dkv_bf16<D, kSegments>,
+                       bwd_dkv_bf16<D, kKeyBias>);
     if (int err = prepare(kernel, smem)) return err;
     kernel<<<grid, kThreads, smem, a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
         static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.seg, a.S, a.Hq,
-        a.Hkv, a.sm_scale, a.causal);
+        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.seg, a.bias,
+        a.S, a.Hq, a.Hkv, a.sm_scale, a.causal);
   } else {
     const size_t smem =
         (2 * kBN * (D + 1) + 2 * kBQ * D + 2 * kBQ) * sizeof(float) +
         kBQ * sizeof(int);
-    auto kernel = a.seg ? bwd_dkv_f32<D, true> : bwd_dkv_f32<D, false>;
+    auto kernel = pick(a, bwd_dkv_f32<D, kDense>, bwd_dkv_f32<D, kSegments>,
+                       bwd_dkv_f32<D, kKeyBias>);
     if (int err = prepare(kernel, smem)) return err;
     kernel<<<grid, 2 * kBN, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.seg, a.S,
-        a.Hq, a.Hkv, a.sm_scale, a.causal);
+        static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.seg, a.bias,
+        a.S, a.Hq, a.Hkv, a.sm_scale, a.causal);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1041,6 +1148,7 @@ template <int (*F64)(const Args&, int), int (*F128)(const Args&, int)>
 int dispatch(const Args& a, int D, int dtype) {
   if (dtype != 0 && dtype != 1) return -1;
   if (a.B < 1 || a.S < 1 || a.Hkv < 1 || a.Hq % a.Hkv) return -1;
+  if (a.seg && a.bias) return -1;   // exclusive, as in the reference
   if (D == 64) return F64(a, dtype);
   if (D == 128) return F128(a, dtype);
   return -1;
@@ -1048,21 +1156,24 @@ int dispatch(const Args& a, int D, int dtype) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (every tensor but lse/delta, which are
-// fp32).  q/out/dout/dq: contiguous [B, S, Hq, D]; k/v/dk/dv: contiguous
-// [B, S, Hkv, D]; lse/delta: contiguous [B, Hq, S]; seg: nullptr, or the
-// contiguous int32 [B, S] segment starts of packed causal rows (each row's
-// nondecreasing, seg[b, r] <= r).  D is 64 or 128.  All on the current
-// device; launches on `stream`, allocates nothing.
-// Returns 0, a cudaError_t from the launch, or -1 for an unsupported
-// dtype, head dim or shape.
+// dtype: 0 = float32, 1 = bfloat16 (every tensor but lse/delta/bias,
+// which are fp32).  q/out/dout/dq: contiguous [B, S, Hq, D]; k/v/dk/dv:
+// contiguous [B, S, Hkv, D]; lse/delta: contiguous [B, Hq, S].  Sidebands,
+// at most one non-null: seg, the contiguous int32 [B, S] segment starts of
+// packed causal rows (each row's nondecreasing, seg[b, r] <= r); bias, the
+// contiguous fp32 [B, S] additive key bias (0 valid, -1e30 masked).  D is
+// 64 or 128.  All on the current device; launches on `stream`, allocates
+// nothing.  Returns 0, a cudaError_t from the launch, or -1 for an
+// unsupported dtype, head dim, shape or pair of sidebands.
 extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v,
-                             void* out, void* lse, const void* seg, int B,
-                             int S, int Hq, int Hkv, int D, float sm_scale,
-                             int causal, int dtype, void* stream) {
+                             void* out, void* lse, const void* seg,
+                             const void* bias, int B, int S, int Hq, int Hkv,
+                             int D, float sm_scale, int causal, int dtype,
+                             void* stream) {
   Args a{};
   a.q = q, a.k = k, a.v = v, a.out = out, a.lse_out = lse;
   a.seg = static_cast<const int*>(seg);
+  a.bias = static_cast<const float*>(bias);
   a.B = B, a.S = S, a.Hq = Hq, a.Hkv = Hkv, a.sm_scale = sm_scale;
   a.causal = causal, a.stream = static_cast<cudaStream_t>(stream);
   return dispatch<fwd<64>, fwd<128>>(a, D, dtype);
@@ -1071,12 +1182,13 @@ extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v,
 extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dq, const void* seg,
-                                int B, int S, int Hq, int Hkv, int D,
-                                float sm_scale, int causal, int dtype,
-                                void* stream) {
+                                const void* bias, int B, int S, int Hq,
+                                int Hkv, int D, float sm_scale, int causal,
+                                int dtype, void* stream) {
   Args a{};
   a.q = q, a.k = k, a.v = v, a.dout = dout, a.lse = lse, a.delta = delta;
   a.seg = static_cast<const int*>(seg);
+  a.bias = static_cast<const float*>(bias);
   a.dq = dq, a.B = B, a.S = S, a.Hq = Hq, a.Hkv = Hkv;
   a.sm_scale = sm_scale, a.causal = causal;
   a.stream = static_cast<cudaStream_t>(stream);
@@ -1086,12 +1198,13 @@ extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
 extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dk, void* dv,
-                                 const void* seg, int B, int S, int Hq,
-                                 int Hkv, int D, float sm_scale, int causal,
-                                 int dtype, void* stream) {
+                                 const void* seg, const void* bias, int B,
+                                 int S, int Hq, int Hkv, int D, float sm_scale,
+                                 int causal, int dtype, void* stream) {
   Args a{};
   a.q = q, a.k = k, a.v = v, a.dout = dout, a.lse = lse, a.delta = delta;
   a.seg = static_cast<const int*>(seg);
+  a.bias = static_cast<const float*>(bias);
   a.dk = dk, a.dv = dv, a.B = B, a.S = S, a.Hq = Hq, a.Hkv = Hkv;
   a.sm_scale = sm_scale, a.causal = causal;
   a.stream = static_cast<cudaStream_t>(stream);

@@ -1,15 +1,18 @@
-"""Parameters for the port's ``LlamaModel``: seeded, or carried over
-from the JAX package.
+"""Parameters for the port's ``LlamaModel`` and ``BertForPretraining``:
+seeded, or carried over from the JAX package.
 
-Both builders return a state dict keyed by the port's module names, each
-tensor already in the dtype the model computes in (see
-``models/llama.py``), ready for ``LlamaModel.from_state_dict``.
+Both functions return a state dict keyed by the port's module names, ready
+for ``LlamaModel.from_state_dict`` / ``BertForPretraining.from_state_dict``
+(which model follows from the config's type): Llama's tensors already in
+the dtype the model computes in (see ``models/llama.py``), BERT's all fp32
+(the model casts at each use, see ``models/bert.py``).
 
 * :func:`init_params` draws seeded weights with the *distributions* of
   the flax model's default initializers: ``nn.Dense`` kernels from
   ``lecun_normal`` (a normal truncated at two standard deviations, scaled
   so the truncated std is ``1/sqrt(fan_in)``), the ``nn.Embed`` table
-  from a normal with std ``1/sqrt(hidden)``, RMSNorm scales at one.  It
+  from a normal with std ``1/sqrt(hidden)``, RMSNorm and LayerNorm scales
+  at one, biases (LayerNorm, ``Dense``, BERT's ``mlm_bias``) at zero.  It
   cannot reproduce flax's bits: the JAX replica seeds with
   ``jax.random.key(HOROVOD_SERVE_PARAM_SEED)``, so a port replica and a
   JAX replica given the same seed serve *different* weights.  Every port
@@ -19,7 +22,8 @@ tensor already in the dtype the model computes in (see
   same weights.  Flax ``Dense`` kernels are ``[in, out]``; torch
   ``Linear`` weights are ``[out, in]``.  :func:`params_to_jax` is its
   inverse (fp32 numpy leaves), so the tests can compare parameters after
-  training steps.
+  training steps.  BERT's ``type_emb`` table travels when the tree has
+  it (the reference creates it only if ``init`` saw ``token_type_ids``).
 
 Both functions place the tensors on the CUDA device unless given
 ``device="cpu"``, and raise without a GPU otherwise.
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from horovod_tpu_torch.common.device import resolve_device
+from horovod_tpu_torch.models.bert import BertConfig
 from horovod_tpu_torch.models.llama import LlamaConfig, _require_dense
 
 __all__ = ["init_params", "params_from_jax", "params_to_jax"]
@@ -63,7 +68,50 @@ def _layout(cfg: LlamaConfig) -> Iterator[Tuple[str, str, Tuple[int, ...]]]:
     yield "lm_head.weight", "head", (cfg.vocab_size, H)
 
 
-def _dtype(cfg: LlamaConfig, kind: str) -> torch.dtype:
+def _bert_layout(cfg: BertConfig, type_emb: bool = True
+                 ) -> Iterator[Tuple[str, str, Tuple[int, ...]]]:
+    """(port name, kind, torch shape) for every parameter of
+    ``BertForPretraining``; kind is "embed", "dense" (torch [out, in]),
+    "norm" (a LayerNorm scale) or "zero" (a bias)."""
+    H, F = cfg.hidden_size, cfg.intermediate_size
+
+    def dense(name, n_in, n_out):
+        yield name + ".weight", "dense", (n_out, n_in)
+        yield name + ".bias", "zero", (n_out,)
+
+    def norm(name):
+        yield name + ".weight", "norm", (H,)
+        yield name + ".bias", "zero", (H,)
+
+    yield "encoder.tok_emb.weight", "embed", (cfg.vocab_size, H)
+    yield "encoder.pos_emb.weight", "embed", (cfg.max_position, H)
+    if type_emb:
+        yield "encoder.type_emb.weight", "embed", (cfg.type_vocab_size, H)
+    yield from norm("encoder.ln_emb")
+    for i in range(cfg.num_layers):
+        p = f"encoder.layers.{i}."
+        yield from dense(p + "attention.qkv", H, 3 * H)
+        yield from dense(p + "attention.proj", H, H)
+        yield from norm(p + "ln_attn")
+        yield from dense(p + "mlp_in", H, F)
+        yield from dense(p + "mlp_out", F, H)
+        yield from norm(p + "ln_mlp")
+    yield from dense("mlm_transform", H, H)
+    yield from norm("mlm_ln")
+    yield "mlm_bias", "zero", (cfg.vocab_size,)
+    yield from dense("nsp", H, 2)
+
+
+def _layout_of(cfg, type_emb: bool = True):
+    if isinstance(cfg, BertConfig):
+        return _bert_layout(cfg, type_emb)
+    _require_dense(cfg)
+    return _layout(cfg)
+
+
+def _dtype(cfg, kind: str) -> torch.dtype:
+    if isinstance(cfg, BertConfig):
+        return torch.float32
     return {"norm": torch.float32,
             "head": cfg.logits_dtype}.get(kind, cfg.dtype)
 
@@ -79,18 +127,23 @@ def _trunc_normal(shape, std: float, gen: torch.Generator,
     return x.mul_(std / _TRUNC_STD)
 
 
-def init_params(cfg: LlamaConfig, seed: int,
-                device=None) -> Dict[str, torch.Tensor]:
-    """Seeded weights drawn on ``device`` (``None``: the CUDA device)
-    with an explicit generator."""
-    _require_dense(cfg)
+def init_params(cfg, seed: int, device=None, *,
+                token_types: bool = True) -> Dict[str, torch.Tensor]:
+    """Seeded weights for ``cfg`` (a ``LlamaConfig`` or a ``BertConfig``)
+    drawn on ``device`` (``None``: the CUDA device) with an explicit
+    generator.  ``token_types`` (BERT only): whether to make the
+    ``type_emb`` table, as the reference's ``init`` does when it is given
+    ``token_type_ids``."""
+    layout = _layout_of(cfg, token_types)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     out: Dict[str, torch.Tensor] = {}
-    for name, kind, shape in _layout(cfg):
+    for name, kind, shape in layout:
         if kind == "norm":
             t = torch.ones(shape, dtype=torch.float32, device=device)
+        elif kind == "zero":
+            t = torch.zeros(shape, dtype=torch.float32, device=device)
         elif kind == "embed":
             t = torch.randn(shape, generator=gen, device=device,
                             dtype=torch.float32)
@@ -101,31 +154,38 @@ def init_params(cfg: LlamaConfig, seed: int,
     return out
 
 
-def _jax_path(name: str) -> Tuple[str, ...]:
-    """The flax tree path of a port parameter name."""
+def _jax_path(name: str, kind: str) -> Tuple[str, ...]:
+    """The flax tree path of a port parameter name of the given kind."""
     parts = name.split(".")
-    if parts[0] == "layers":
-        parts = [f"layer_{parts[1]}"] + parts[2:]
-    leaf = {"scale": "scale", "weight": "kernel"}[parts[-1]]
-    if parts[0] == "tok_emb":
-        leaf = "embedding"
+    i = parts.index("layers") if "layers" in parts else -1
+    if i >= 0:
+        parts = parts[:i] + [f"layer_{parts[i + 1]}"] + parts[i + 2:]
+    if len(parts) == 1:                    # a bare parameter (mlm_bias)
+        return tuple(parts)
+    leaf = {"embed": "embedding", "dense": "kernel", "head": "kernel",
+            "norm": "scale", "zero": "bias"}[kind]
     return tuple(parts[:-1]) + (leaf,)
 
 
-def params_from_jax(tree: Mapping, cfg: LlamaConfig,
+def _has_type_emb(cfg, tree: Mapping) -> bool:
+    return isinstance(cfg, BertConfig) and "type_emb" in tree.get(
+        "encoder", {})
+
+
+def params_from_jax(tree: Mapping, cfg,
                     device=None) -> Dict[str, torch.Tensor]:
-    """Convert the JAX package's ``LlamaModel`` parameters (``variables``
-    or ``variables["params"]``, leaves convertible with ``np.asarray``)
-    into the port's state dict on ``device`` (``None``: the CUDA
-    device)."""
-    _require_dense(cfg)
-    device = resolve_device(device)
+    """Convert the JAX package's ``LlamaModel`` or ``BertForPretraining``
+    parameters (``variables`` or ``variables["params"]``, leaves
+    convertible with ``np.asarray``) into the port's state dict on
+    ``device`` (``None``: the CUDA device)."""
     if "params" in tree:
         tree = tree["params"]
+    layout = _layout_of(cfg, _has_type_emb(cfg, tree))
+    device = resolve_device(device)
     out: Dict[str, torch.Tensor] = {}
-    for name, kind, shape in _layout(cfg):
+    for name, kind, shape in layout:
         node = tree
-        for key in _jax_path(name):
+        for key in _jax_path(name, kind):
             node = node[key]
         arr = np.asarray(node, dtype=np.float32)
         if kind in ("dense", "head"):
@@ -138,17 +198,16 @@ def params_from_jax(tree: Mapping, cfg: LlamaConfig,
     return out
 
 
-def params_to_jax(state: Mapping[str, torch.Tensor],
-                  cfg: LlamaConfig) -> Dict:
+def params_to_jax(state: Mapping[str, torch.Tensor], cfg) -> Dict:
     """The port's state dict (or ``model.state_dict()``) as the JAX
     package's ``{"params": ...}`` tree of fp32 numpy arrays."""
-    _require_dense(cfg)
     out: Dict = {}
-    for name, kind, _ in _layout(cfg):
+    type_emb = "encoder.type_emb.weight" in state
+    for name, kind, _ in _layout_of(cfg, type_emb):
         arr = state[name].detach().float().cpu().numpy()
         if kind in ("dense", "head"):
             arr = arr.T                              # [out, in] -> [in, out]
-        *path, leaf = _jax_path(name)
+        *path, leaf = _jax_path(name, kind)
         node = out
         for key in path:
             node = node.setdefault(key, {})

@@ -24,10 +24,14 @@ device:
 
 A ``torch.autograd.Function`` ties them together; ``delta = rowsum(dO·O)
 - g_lse`` is plain PyTorch, as XLA computes it outside the reference's
-kernels, and so are the segment starts of packed rows
-(:func:`_segment_starts`, a cummax over run boundaries): an int32
-``[B, S]`` the kernels read as a sideband (query row r attends keys
-``[start[r], r]``), not the reference's ``[B, 8, S]`` replica.
+kernels, and so are the two sidebands the kernels read, each ``[B, S]``
+and not the reference's ``[B, 8, S]`` replica: the segment starts of
+packed rows (:func:`_segment_starts`, a cummax over run boundaries; int32,
+query row r attends keys ``[start[r], r]``) and the additive key bias of
+a key-padding mask (:func:`_key_bias`; fp32, 0 for a valid key and -1e30
+for a masked one, added to every score after the scale and the causal
+mask, as the reference adds its ``bias_ref``).  A query row whose every
+key is masked gives undefined output, as in the reference.
 Differences from the reference, none of which changes a result beyond
 fp32 reassociation: GQA is native (query head ``h`` reads KV
 head ``h // G``; K/V are never repeated, and dK/dV sum the group in fp32
@@ -40,7 +44,8 @@ does.  On CUDA tensors D is at most 128 (the kernels' widest tile; a
 wider head raises, and :func:`flash_lse_supported` says so); the plain
 versions take any D.
 
-:data:`launches` counts kernel launches per kernel (CUDA path only) and
+:data:`launches` counts kernel launches per kernel (CUDA path only),
+:data:`key_bias_launches` those of them that carried the key bias, and
 :data:`plain_calls` the plain versions' calls, so a run can show which
 path it took.
 """
@@ -56,7 +61,7 @@ import torch.nn.functional as F
 
 __all__ = ["flash_attention", "flash_attention_fn", "flash_attention_lse",
            "flash_lse_supported", "fallback_count", "launches",
-           "plain_calls", "reset_launches"]
+           "key_bias_launches", "plain_calls", "reset_launches"]
 
 _NEG_INF = -1e30   # the reference kernels' mask value and initial max
 _TINY = 1e-30      # the reference's floor on the softmax denominator
@@ -75,17 +80,18 @@ _KERNEL_HEAD_DIMS = (64, 128)
 #: Kernel launches by kernel name (plain integers, reset by
 #: :func:`reset_launches`).
 launches = dict.fromkeys(_KERNELS, 0)
+#: The launches that carried the key bias.
+key_bias_launches = dict.fromkeys(_KERNELS, 0)
 #: Calls of each kernel's plain PyTorch version.
 plain_calls = dict.fromkeys(_KERNELS, 0)
 
-_ROADMAP = ("not ported yet (ROADMAP.md Queue A 2a: the key-padding "
-            "sideband comes with models/bert.py)")
 _fns = {}
 
 
 def reset_launches() -> None:
     for name in _KERNELS:
         launches[name] = 0
+        key_bias_launches[name] = 0
         plain_calls[name] = 0
 
 
@@ -122,11 +128,13 @@ def _causal_first_row(k0: int) -> int:
     return (k0 // BLOCK_M) * BLOCK_M
 
 
-def _mask(s, q0, q1, k0, k1, causal, seg):
+def _mask(s, q0, q1, k0, k1, causal, seg, bias=None):
     """Scores s [B, Hkv, (G,) q1-q0, k1-k0] with the masked pairs at -1e30:
     keys after the query (causal) and keys before the query's segment
-    start (``seg`` [B, S] int32, or None).  Vectorised over B, so each
-    batch row takes its own segment bounds."""
+    start (``seg`` [B, S] int32, or None); then the key bias (``bias``
+    [B, S] fp32, or None) added, after the causal mask, as the reference
+    adds it.  Vectorised over B, so each batch row takes its own segment
+    bounds and key bias."""
     cols = torch.arange(k0, k1, device=s.device)
     keep = None
     if causal:
@@ -136,17 +144,23 @@ def _mask(s, q0, q1, k0, k1, causal, seg):
         st = cols >= seg[:, q0:q1, None]              # [B, q1-q0, k1-k0]
         st = st[:, None] if s.dim() == 4 else st[:, None, None]
         keep = st if keep is None else keep & st
-    return s if keep is None else torch.where(keep, s, _NEG_INF)
+    if keep is not None:
+        s = torch.where(keep, s, _NEG_INF)
+    if bias is not None:
+        kb = bias[:, k0:k1]
+        s = s + (kb[:, None, None] if s.dim() == 4 else kb[:, None, None, None])
+    return s
 
 
-def _scores(qf, kf, r0, k0, k1, causal, sm_scale, seg):
+def _scores(qf, kf, r0, k0, k1, causal, sm_scale, seg, bias=None):
     """Masked fp32 scores [B, Hkv, G, S-r0, k1-k0], scaled after the dot."""
     s = torch.einsum("bhgqd,bhkd->bhgqk", qf[..., r0:, :],
                      kf[:, :, k0:k1]) * sm_scale
-    return _mask(s, r0, qf.shape[3], k0, k1, causal, seg)
+    return _mask(s, r0, qf.shape[3], k0, k1, causal, seg, bias)
 
 
-def _fwd_blockwise(q, k, v, causal: bool, sm_scale: float, seg=None):
+def _fwd_blockwise(q, k, v, causal: bool, sm_scale: float, seg=None,
+                   bias=None):
     """Plain version of ``hvd_flash_fwd``: (out [B, S, Hq, D] in q.dtype,
     lse [B, Hq, S] fp32).  Online softmax over BLOCK_N-key tiles; rows of
     query tiles the causal loop bound excludes are not touched.  P is
@@ -156,7 +170,8 @@ def _fwd_blockwise(q, k, v, causal: bool, sm_scale: float, seg=None):
     query tile's first start are masked here instead.  That gives the same
     bits: until a row meets its first valid key its running max stays at
     -1e30, and the first valid tile's ``alpha = exp(-1e30 - m)`` is exactly
-    0, which wipes what the masked tiles added to l and acc."""
+    0, which wipes what the masked tiles added to l and acc.  The key bias
+    ``bias`` ([B, S] fp32, or None) masks no tile: every tile is walked."""
     plain_calls["flash_fwd"] += 1
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
@@ -167,7 +182,7 @@ def _fwd_blockwise(q, k, v, causal: bool, sm_scale: float, seg=None):
     for k0 in range(0, S, BLOCK_N):
         k1 = min(S, k0 + BLOCK_N)
         r0 = _causal_first_row(k0) if causal else 0
-        s = _scores(qf, kf, r0, k0, k1, causal, sm_scale, seg)
+        s = _scores(qf, kf, r0, k0, k1, causal, sm_scale, seg, bias)
         m_old = m[..., r0:]
         m_new = torch.maximum(m_old, s.amax(dim=-1))
         alpha = torch.exp(m_old - m_new)
@@ -184,7 +199,7 @@ def _fwd_blockwise(q, k, v, causal: bool, sm_scale: float, seg=None):
 
 
 def _bwd_dq_blockwise(q, k, v, dout, lse, delta, causal: bool,
-                      sm_scale: float, seg=None):
+                      sm_scale: float, seg=None, bias=None):
     """Plain version of ``hvd_flash_bwd_dq``: dq [B, S, Hq, D] in q.dtype.
     dS = P·(dO·Vᵀ − delta)·scale, rounded to k.dtype before dS·K.  A
     masked pair has P = exp(-1e30 - lse) = 0, so the tiles the kernel
@@ -199,7 +214,7 @@ def _bwd_dq_blockwise(q, k, v, dout, lse, delta, causal: bool,
     for k0 in range(0, S, BLOCK_N):
         k1 = min(S, k0 + BLOCK_N)
         r0 = _causal_first_row(k0) if causal else 0
-        s = _scores(qf, kf, r0, k0, k1, causal, sm_scale, seg)
+        s = _scores(qf, kf, r0, k0, k1, causal, sm_scale, seg, bias)
         p = torch.exp(s - lse[..., r0:, None])
         dp = torch.einsum("bhgqd,bhkd->bhgqk", dof[..., r0:, :],
                           vf[:, :, k0:k1])
@@ -210,7 +225,7 @@ def _bwd_dq_blockwise(q, k, v, dout, lse, delta, causal: bool,
 
 
 def _bwd_dkv_blockwise(q, k, v, dout, lse, delta, causal: bool,
-                       sm_scale: float, seg=None):
+                       sm_scale: float, seg=None, bias=None):
     """Plain version of ``hvd_flash_bwd_dkv``: (dk, dv) [B, S, Hkv, D] in
     k/v's dtype.  For each query head of the group, then each
     BLOCK_Q_DKV-row query tile, every key tile at or left of the diagonal
@@ -238,7 +253,7 @@ def _bwd_dkv_blockwise(q, k, v, dout, lse, delta, causal: bool,
                 kv_end = min(S, -(-(q0 + BLOCK_Q_DKV) // BLOCK_N) * BLOCK_N)
             qt, dot = qf[:, :, gi, q0:q1], dof[:, :, gi, q0:q1]
             s = torch.einsum("bhqd,bhkd->bhqk", qt, kf[:, :, :kv_end])
-            s = _mask(s * sm_scale, q0, q1, 0, kv_end, causal, seg)
+            s = _mask(s * sm_scale, q0, q1, 0, kv_end, causal, seg, bias)
             p = torch.exp(s - lse[:, :, gi, q0:q1, None])
             dv[:, :, :kv_end] += torch.einsum(
                 "bhqk,bhqd->bhkd", p.to(dout.dtype).float(), dot)
@@ -261,7 +276,7 @@ def _kernel(name: str):
         from horovod_tpu_torch.ops import _build
 
         fn = getattr(_build.load("flash_attention"), "hvd_" + name)
-        n_ptr = {"flash_fwd": 6, "flash_bwd_dq": 8, "flash_bwd_dkv": 9}[name]
+        n_ptr = {"flash_fwd": 7, "flash_bwd_dq": 9, "flash_bwd_dkv": 10}[name]
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
@@ -270,8 +285,9 @@ def _kernel(name: str):
     return fn
 
 
-def _check_cuda(name, seg, q, k, v, *rest):
-    tensors = (q, k, v) + rest + (() if seg is None else (seg,))
+def _check_cuda(name, seg, bias, q, k, v, *rest):
+    tensors = (q, k, v) + rest + tuple(t for t in (seg, bias)
+                                       if t is not None)
     if not all(t.is_cuda for t in tensors):
         raise ValueError(f"{name}: the CUDA kernel needs every tensor on "
                          "the CUDA device")
@@ -281,6 +297,10 @@ def _check_cuda(name, seg, q, k, v, *rest):
                             or seg.shape != q.shape[:2]):
         raise TypeError(f"{name}: segment starts must be int32 [B, S], got "
                         f"{seg.dtype} {tuple(seg.shape)}")
+    if bias is not None and (bias.dtype != torch.float32
+                             or bias.shape != q.shape[:2]):
+        raise TypeError(f"{name}: the key bias must be float32 [B, S], got "
+                        f"{bias.dtype} {tuple(bias.shape)}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q/k/v must share one dtype of "
                         f"float32/bfloat16, got {q.dtype}, {k.dtype}, "
@@ -298,43 +318,48 @@ def _check_cuda(name, seg, q, k, v, *rest):
                              "16-byte aligned")
 
 
-def _launch(name, ptrs, seg, q, k, causal, sm_scale):
+def _launch(name, ptrs, seg, bias, q, k, causal, sm_scale):
     B, S, Hq, D = q.shape
     fn = _kernel(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*[t.data_ptr() for t in ptrs],
-                 None if seg is None else seg.data_ptr(), B, S, Hq,
-                 k.shape[2], D, float(sm_scale), int(causal),
+                 *[None if t is None else t.data_ptr() for t in (seg, bias)],
+                 B, S, Hq, k.shape[2], D, float(sm_scale), int(causal),
                  _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed (error {err})")
     launches[name] += 1
+    if bias is not None:
+        key_bias_launches[name] += 1
 
 
-def _fwd_cuda(q, k, v, causal, sm_scale, seg=None):
-    _check_cuda("flash_fwd", seg, q, k, v)
+def _fwd_cuda(q, k, v, causal, sm_scale, seg=None, bias=None):
+    _check_cuda("flash_fwd", seg, bias, q, k, v)
     B, S, Hq, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", (q, k, v, out, lse), seg, q, k, causal, sm_scale)
+    _launch("flash_fwd", (q, k, v, out, lse), seg, bias, q, k, causal,
+            sm_scale)
     return out, lse
 
 
-def _bwd_dq_cuda(q, k, v, dout, lse, delta, causal, sm_scale, seg=None):
-    _check_cuda("flash_bwd_dq", seg, q, k, v, dout, lse, delta)
+def _bwd_dq_cuda(q, k, v, dout, lse, delta, causal, sm_scale, seg=None,
+                 bias=None):
+    _check_cuda("flash_bwd_dq", seg, bias, q, k, v, dout, lse, delta)
     dq = torch.empty_like(q)
-    _launch("flash_bwd_dq", (q, k, v, dout, lse, delta, dq), seg, q, k,
+    _launch("flash_bwd_dq", (q, k, v, dout, lse, delta, dq), seg, bias, q, k,
             causal, sm_scale)
     return dq
 
 
-def _bwd_dkv_cuda(q, k, v, dout, lse, delta, causal, sm_scale, seg=None):
-    _check_cuda("flash_bwd_dkv", seg, q, k, v, dout, lse, delta)
+def _bwd_dkv_cuda(q, k, v, dout, lse, delta, causal, sm_scale, seg=None,
+                  bias=None):
+    _check_cuda("flash_bwd_dkv", seg, bias, q, k, v, dout, lse, delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("flash_bwd_dkv", (q, k, v, dout, lse, delta, dk, dv), seg, q, k,
-            causal, sm_scale)
+    _launch("flash_bwd_dkv", (q, k, v, dout, lse, delta, dk, dv), seg, bias,
+            q, k, causal, sm_scale)
     return dk, dv
 
 
@@ -342,26 +367,31 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
-def flash_fwd(q, k, v, causal, sm_scale, seg=None):
+def flash_fwd(q, k, v, causal, sm_scale, seg=None, bias=None):
     """(out, lse) — the kernel on CUDA tensors, the plain version on CPU.
-    ``seg``: optional int32 [B, S] segment starts (packed causal rows)."""
+    ``seg``: optional int32 [B, S] segment starts (packed causal rows);
+    ``bias``: optional fp32 [B, S] additive key bias (key padding)."""
     if _on_cpu(q):
-        return _fwd_blockwise(q, k, v, causal, sm_scale, seg)
-    return _fwd_cuda(q, k, v, causal, sm_scale, seg)
+        return _fwd_blockwise(q, k, v, causal, sm_scale, seg, bias)
+    return _fwd_cuda(q, k, v, causal, sm_scale, seg, bias)
 
 
-def flash_bwd_dq(q, k, v, dout, lse, delta, causal, sm_scale, seg=None):
+def flash_bwd_dq(q, k, v, dout, lse, delta, causal, sm_scale, seg=None,
+                 bias=None):
     if _on_cpu(q):
         return _bwd_dq_blockwise(q, k, v, dout, lse, delta, causal,
-                                 sm_scale, seg)
-    return _bwd_dq_cuda(q, k, v, dout, lse, delta, causal, sm_scale, seg)
+                                 sm_scale, seg, bias)
+    return _bwd_dq_cuda(q, k, v, dout, lse, delta, causal, sm_scale, seg,
+                        bias)
 
 
-def flash_bwd_dkv(q, k, v, dout, lse, delta, causal, sm_scale, seg=None):
+def flash_bwd_dkv(q, k, v, dout, lse, delta, causal, sm_scale, seg=None,
+                  bias=None):
     if _on_cpu(q):
         return _bwd_dkv_blockwise(q, k, v, dout, lse, delta, causal,
-                                  sm_scale, seg)
-    return _bwd_dkv_cuda(q, k, v, dout, lse, delta, causal, sm_scale, seg)
+                                  sm_scale, seg, bias)
+    return _bwd_dkv_cuda(q, k, v, dout, lse, delta, causal, sm_scale, seg,
+                         bias)
 
 
 # ---------------------------------------------------------------------------
@@ -371,30 +401,33 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal, sm_scale, seg=None):
 class _Flash(torch.autograd.Function):
     """(out, lse) with the backward kernels; the lse cotangent folds into
     delta (dL/ds = p·(dp − delta + g_lse)), so both outputs differentiate
-    through the same two kernels.  ``seg`` (segment starts, or None) is
-    not differentiable."""
+    through the same two kernels.  The sidebands ``seg`` (segment starts)
+    and ``bias`` (key bias), each a tensor or None, are not
+    differentiable: the bias encodes a constant mask, and the reference
+    gives it a zero cotangent."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seg, causal, sm_scale):
-        out, lse = flash_fwd(q, k, v, causal, sm_scale, seg)
-        ctx.save_for_backward(q, k, v, out, lse, seg)
+    def forward(ctx, q, k, v, seg, bias, causal, sm_scale):
+        out, lse = flash_fwd(q, k, v, causal, sm_scale, seg, bias)
+        ctx.save_for_backward(q, k, v, out, lse, seg, bias)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         ctx.set_materialize_grads(False)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, g_lse):
-        q, k, v, out, lse, seg = ctx.saved_tensors
+        q, k, v, out, lse, seg, bias = ctx.saved_tensors
         dout = (torch.zeros_like(out) if dout is None
                 else dout.to(out.dtype).contiguous())
         delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)
         if g_lse is not None:
             delta = delta - g_lse.float()
         delta = delta.contiguous()
-        args = (q, k, v, dout, lse, delta, ctx.causal, ctx.sm_scale, seg)
+        args = (q, k, v, dout, lse, delta, ctx.causal, ctx.sm_scale, seg,
+                bias)
         dq = flash_bwd_dq(*args)
         dk, dv = flash_bwd_dkv(*args)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def _check_shapes(q, k, v):
@@ -424,11 +457,39 @@ def _segment_starts(segment_ids: torch.Tensor) -> torch.Tensor:
     return torch.cummax(starts, dim=1).values.contiguous()
 
 
-def _attend(q, k, v, causal, sm_scale, seg=None):
+def _key_mask(mask, q) -> torch.Tensor:
+    """A key-padding mask as bool [B, S] (True = attend): given as [B, S]
+    or in the encoder's [B, 1, 1, S] form; any other shape raises, as the
+    reference's adapter does."""
+    B, S = q.shape[:2]
+    if mask.dim() == 4 and mask.shape[1] == 1 and mask.shape[2] == 1:
+        mask = mask[:, 0, 0, :]
+    elif mask.dim() != 2:
+        raise NotImplementedError(
+            "flash attention supports key-padding masks ([B, S] or "
+            f"[B, 1, 1, S]); got shape {tuple(mask.shape)} — use the dense "
+            "attention path for richer mask structures")
+    if tuple(mask.shape) != (B, S):
+        raise ValueError(f"flash_attention: key-padding mask "
+                         f"{tuple(mask.shape)} does not match [B, S] = "
+                         f"{(B, S)}")
+    return mask.to(device=q.device, dtype=torch.bool)
+
+
+def _key_bias(mask: torch.Tensor) -> torch.Tensor:
+    """The kernels' additive key bias from a bool [B, S] mask: fp32, 0
+    where a key is attended and -1e30 where it is masked, as the reference
+    builds it (``flash_attention.py:749``)."""
+    bias = torch.zeros(mask.shape, dtype=torch.float32, device=mask.device)
+    return bias.masked_fill_(~mask, _NEG_INF)
+
+
+def _attend(q, k, v, causal, sm_scale, seg=None, bias=None):
     """(out, lse): D off {64, 128} is zero-padded to the next multiple of
     64 (zero dims change no score) with the true head dim's scale kept as
     ``sm_scale``; autograd slices the grads back.  D > 128 raises on
-    CUDA tensors.  ``seg``: int32 [B, S] segment starts, or None."""
+    CUDA tensors.  ``seg``: int32 [B, S] segment starts, or None;
+    ``bias``: fp32 [B, S] key bias, or None."""
     _check_shapes(q, k, v)
     D = q.shape[-1]
     if D > _KERNEL_HEAD_DIMS[-1] and not _on_cpu(q):
@@ -441,7 +502,7 @@ def _attend(q, k, v, causal, sm_scale, seg=None):
         pad = (0, -D % 64)
         q, k, v = F.pad(q, pad), F.pad(k, pad), F.pad(v, pad)
     out, lse = _Flash.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                            seg, bool(causal), float(sm_scale))
+                            seg, bias, bool(causal), float(sm_scale))
     return out[..., :D], lse
 
 
@@ -452,13 +513,16 @@ def flash_attention(q, k, v, *, causal: bool = True, key_padding_mask=None,
     kernels mask the tail); D up to 128 on CUDA tensors (padded as
     above), any D on CPU tensors.
 
+    ``key_padding_mask``: optional bool [B, S] (or [B, 1, 1, S]; True =
+    attend to that key) — BERT-style padding, through an O(S) additive
+    key-bias sideband; with ``causal=False`` (bidirectional) as BERT uses
+    it, or causal.  A query row whose every key is masked gives undefined
+    output, as in the reference: callers must not consume such rows.
     ``segment_ids``: optional [B, S] integer ids of contiguous packed
     sequences (causal only, exclusive with the padding mask): each query
     attends only within its own segment — block-diagonal causal attention
     for packed pretraining, through an O(S) sideband of segment starts,
-    with the fully masked tiles skipped.  ``key_padding_mask`` raises
-    ``NotImplementedError`` on every device: its kernel sideband is not
-    ported yet."""
+    with the fully masked tiles skipped."""
     if segment_ids is not None:
         if not causal:
             raise NotImplementedError(
@@ -468,14 +532,13 @@ def flash_attention(q, k, v, *, causal: bool = True, key_padding_mask=None,
             raise NotImplementedError(
                 "segment_ids and key_padding_mask are mutually exclusive "
                 "(mark padding as its own trailing segment instead)")
-    if key_padding_mask is not None:
-        raise NotImplementedError("flash_attention: key_padding_mask is "
-                                  + _ROADMAP)
-    seg = None
+    seg = bias = None
     if segment_ids is not None:
         _check_segments(segment_ids, q)
         seg = _segment_starts(segment_ids.to(q.device))
-    return _attend(q, k, v, causal, _sm_scale, seg)[0]
+    elif key_padding_mask is not None:
+        bias = _key_bias(_key_mask(key_padding_mask, q))
+    return _attend(q, k, v, causal, _sm_scale, seg, bias)[0]
 
 
 def _check_segments(segment_ids, q):
@@ -521,10 +584,14 @@ def flash_lse_supported(S: int, D: int, device=None) -> bool:
 
 
 def flash_attention_fn(q, k, v, mask=None, **kwargs):
-    """Adapter for the model's ``attention_fn`` seam: causal flash
-    attention.  A ``mask`` (the reference's key-padding form) raises
-    ``NotImplementedError`` until the key-padding sideband is ported."""
-    if mask is not None:
-        raise NotImplementedError("flash_attention_fn: a key-padding mask "
-                                  "is " + _ROADMAP)
-    return flash_attention(q, k, v, causal=True, **kwargs)
+    """Adapter for the model's ``attention_fn`` seam.  ``mask`` follows
+    the model zoo's convention (a [B, 1, 1, S] or [B, S] key-padding mask,
+    True = attend; what ``BertEncoder`` passes): with a mask the attention
+    is bidirectional and key-masked (BERT semantics); without one it is
+    causal (decoder semantics) — so a bidirectional caller with nothing to
+    mask passes an all-ones mask.  Other mask shapes raise
+    ``NotImplementedError``, as in the reference."""
+    if mask is None:
+        return flash_attention(q, k, v, causal=True, **kwargs)
+    return flash_attention(q, k, v, causal=False, key_padding_mask=mask,
+                           **kwargs)

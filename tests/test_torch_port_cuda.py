@@ -321,3 +321,84 @@ def test_rms_norm_autograd_runs_the_kernels(dev):
         torch.float32
     with pytest.raises(ValueError, match="CUDA"):
         rn.rms_fwd(x.detach(), scale.detach().cpu(), 1e-5, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# flash attention with the key-bias sideband (key padding)
+# ---------------------------------------------------------------------------
+
+def _key_mask(B, S, seed, hole):
+    """bool [B, S]: row 0 whole, the others ragged (at least S/3 keys);
+    ``hole`` also masks a run of keys across a 64-key tile edge."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(S // 3, S + 1, B)
+    lengths[0] = S
+    mask = np.arange(S)[None, :] < lengths[:, None]
+    if hole:
+        mask[:, S // 4:S // 4 + 70] = False
+    return torch.from_numpy(mask)
+
+
+@pytest.mark.parametrize("dtype,B,S,Hq,Hkv,D,causal,hole", [
+    (torch.bfloat16, 4, 512, 12, 12, 64, False, False),   # BERT-base heads
+    (torch.bfloat16, 2, 333, 4, 2, 128, False, True),
+    (torch.bfloat16, 2, 256, 4, 2, 64, True, False),
+    (torch.float32, 2, 200, 4, 2, 64, False, True),
+    (torch.float32, 1, 130, 4, 1, 128, False, False),
+])
+def test_flash_kernels_with_key_bias_match_plain_versions(dev, dtype, B, S,
+                                                          Hq, Hkv, D, causal,
+                                                          hole):
+    """The three kernels with the key bias against their plain versions on
+    the rows whose query is valid (the cotangent is zero elsewhere)."""
+    q, k, v, do = _flash_inputs(dev, dtype, B, S, Hq, Hkv, D, seed=S + 2)
+    mask = _key_mask(B, S, S, hole).to(dev)
+    bias = fa._key_bias(mask)
+    do = do * mask[:, :, None, None].to(dtype)
+    scale = D ** -0.5
+    fa.reset_launches()
+    out, lse = fa.flash_fwd(q, k, v, causal, scale, None, bias)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa._fwd_blockwise(q, k, v, causal, scale, None, bias)
+    _flash_agree(out[mask], ref_out[mask], dtype, grad=False)
+    torch.testing.assert_close(lse.transpose(1, 2)[mask].cpu(),
+                               ref_lse.transpose(1, 2)[mask].cpu(),
+                               rtol=1e-5,
+                               atol=1e-5 if dtype == torch.float32 else 1e-3)
+    delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2)
+    args = (q, k, v, do, ref_lse, delta.contiguous(), causal, scale, None,
+            bias)
+    dq = fa.flash_bwd_dq(*args)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    _flash_agree(dq, fa._bwd_dq_blockwise(*args), dtype, grad=True)
+    for got, ref in zip((dk, dv), fa._bwd_dkv_blockwise(*args)):
+        _flash_agree(got, ref, dtype, grad=True)
+    assert fa.launches == dict.fromkeys(fa.launches, 1)
+    assert fa.key_bias_launches == dict.fromkeys(fa.launches, 1)
+
+
+def test_flash_autograd_with_key_padding_runs_the_kernels(dev):
+    """flash_attention_fn with a [B, 1, 1, S] mask on CUDA tensors:
+    bidirectional, every kernel launched once with the key bias, no plain
+    version called; D 96 padded to 128."""
+    q, k, v, do = _flash_inputs(dev, torch.float32, 2, 200, 4, 2, 96, 6)
+    mask = _key_mask(2, 200, 1, hole=True).to(dev)
+    do = do * mask[:, :, None, None]
+    grads = []
+    for path in ("kernel", "plain"):
+        xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        m = mask
+        if path == "plain":
+            xs = [t.detach().cpu().requires_grad_(True) for t in (q, k, v)]
+            m = mask.cpu()
+        fa.reset_launches()
+        out = fa.flash_attention_fn(*xs, m[:, None, None, :])
+        (out * do.to(out.device)).sum().backward()
+        if path == "kernel":
+            torch.cuda.synchronize()
+            assert fa.key_bias_launches == dict.fromkeys(fa.launches, 1)
+            assert fa.plain_calls == dict.fromkeys(fa.plain_calls, 0)
+        grads.append([out[m.to(out.device)]] + [t.grad for t in xs])
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got.cpu(), ref, rtol=5e-4, atol=5e-4)

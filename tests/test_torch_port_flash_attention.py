@@ -9,7 +9,11 @@ the reference's own (tests/test_flash_attention.py): fp32 out and lse
 (the port walks 64-key tiles, the reference up to 512), and in bf16 the
 kernels round P and dS at the same points.  Packed rows (``segment_ids``)
 are held the same way; the reference pads a ragged S with a fresh
-trailing segment, the port masks the tail.
+trailing segment, the port masks the tail.  Key-padding masks (the
+additive key-bias sideband) are held on the reference's own cases
+(tests/test_flash_attention.py:221-291, :348-397) and a few more, on the
+rows whose query position is valid (a query row whose every key is
+masked is undefined in both packages).
 """
 
 import numpy as np
@@ -222,23 +226,141 @@ def test_segment_attention_fn_matches_flash_attention():
         fn(tq[:1], tk[:1], tv[:1])
 
 
-def test_unported_sidebands_raise_on_every_device():
-    """The key-padding sideband is still refused (it comes with BERT);
-    segments raise where the reference raises: with causal=False and
-    together with a key-padding mask."""
+def _key_mask(B, S, case):
+    """bool [B, S] key-padding masks: per-row lengths, or (``hole``) a
+    ragged tail plus a run of masked keys in the middle that spans a
+    64-key tile edge."""
+    pos = np.arange(S)[None, :]
+    if case == "hole":
+        mask = pos < np.array([S, S - 37])[:B, None]
+        mask[:, 50:140] = False
+        return mask
+    lengths = {"lengths": [S, 100], "prefix": [192], "ragged": [S, 160],
+               "empty_row": [0, 150]}.get(case, [S, 100, 231, 64][:B])
+    return pos < np.array(lengths)[:, None]
+
+
+KPM_CASES = [
+    # (case, B, S, Hq, Hkv, D, causal, dtype): the reference's lengths
+    # [256, 100] (D 128), 192 of 256, D 64, S 200 off the tile, the
+    # [B, 1, 1, S] seam; then D 16 padded, GQA, a hole, bf16, causal with
+    # a mask, and a batch row with no valid key.
+    ("lengths", 2, 256, 2, 2, 128, False, "float32"),
+    ("prefix", 1, 256, 2, 2, 128, False, "float32"),
+    ("d64", 2, 256, 2, 2, 64, False, "float32"),
+    ("ragged", 2, 200, 2, 2, 64, False, "float32"),
+    ("seam", 2, 256, 2, 2, 64, False, "float32"),
+    ("d16", 2, 200, 4, 2, 16, False, "float32"),
+    ("gqa", 2, 256, 4, 2, 64, False, "float32"),
+    ("hole", 2, 256, 4, 2, 64, False, "float32"),
+    ("bf16", 2, 256, 4, 2, 64, False, "bfloat16"),
+    ("causal", 2, 256, 4, 2, 64, True, "float32"),
+    ("empty_row", 2, 256, 2, 2, 64, False, "float32"),
+]
+
+
+@pytest.mark.parametrize("case,B,S,Hq,Hkv,D,causal,dtype", KPM_CASES)
+def test_key_padding_mask_out_and_grads_match_jax(case, B, S, Hq, Hkv, D,
+                                                  causal, dtype):
+    (jq, jk, jv, jg, _), (tq, tk, tv, tg, _) = _inputs(
+        B, S, Hq, Hkv, D, dtype, seed=31 + S + D + Hq)
+    mask = _key_mask(B, S, case)
+    # Cotangent zero on rows whose query is padding (and on a row with no
+    # valid key, undefined in both packages): compare the valid rows.
+    rows = mask & mask.any(axis=1, keepdims=True)
+    w = rows[:, :, None, None].astype(np.float32)
+    out_tol, grad_tol = TOL[dtype]
+
+    if case == "seam":
+        def jfn(q, k, v):
+            return jfa.flash_attention_fn(q, k, v,
+                                          jnp.asarray(mask)[:, None, None])
+
+        def tfn(q, k, v):
+            return tfa.flash_attention_fn(
+                q, k, v, torch.from_numpy(mask)[:, None, None])
+    else:
+        def jfn(q, k, v):
+            return jfa.flash_attention(q, k, v, causal=causal,
+                                       key_padding_mask=jnp.asarray(mask))
+
+        def tfn(q, k, v):
+            return tfa.flash_attention(
+                q, k, v, causal=causal,
+                key_padding_mask=torch.from_numpy(mask))
+
+    def jloss(q, k, v):
+        out = jfn(q, k, v).astype(jnp.float32)
+        return jnp.sum(out * jg.astype(jnp.float32) * w)
+
+    jout = jfn(jq, jk, jv)
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    tfa.reset_launches()
+    tout, tgrads = _torch_grads(
+        tfn, tq, tk, tv,
+        lambda o: (o.float() * tg.float() * torch.from_numpy(w)).sum())
+    assert tfa.plain_calls == dict.fromkeys(tfa.plain_calls, 1)
+
+    assert tout.dtype == _DT[dtype][1] and tout.shape == (B, S, Hq, D)
+    assert bool(torch.isfinite(tout).all())
+    np.testing.assert_allclose(_np(tout)[rows], _np(jout)[rows],
+                               atol=out_tol, rtol=out_tol)
+    for name, a, b in zip("qkv", jgrads, tgrads):
+        assert b.dtype == _DT[dtype][1]
+        np.testing.assert_allclose(_np(b), _np(a), atol=grad_tol,
+                                   rtol=grad_tol, err_msg=f"d{name}")
+
+
+def test_key_bias_is_the_references():
+    """0 for an attended key, -1e30 for a masked one, fp32 [B, S]; the
+    mask may come as [B, S] or [B, 1, 1, S]."""
+    mask = torch.tensor([[True, False, True], [False, False, True]])
+    q = torch.zeros((2, 3, 1, 64))
+    for m in (mask, mask[:, None, None]):
+        bias = tfa._key_bias(tfa._key_mask(m, q))
+        assert bias.dtype == torch.float32
+        np.testing.assert_array_equal(
+            bias.numpy(), np.where(mask.numpy(), 0.0, -1e30).astype(
+                np.float32))
+
+
+def test_key_padding_mask_shapes():
+    """[B, S] and [B, 1, 1, S] masks run on both entry points; any other
+    shape raises NotImplementedError, as the reference's adapter does, and
+    a mask of another [B, S] raises."""
     (_, _, _, _, _), (tq, tk, tv, _, _) = _inputs(1, 64, 4, 2, 64,
                                                   "float32", seed=4)
     mask = torch.ones((1, 64), dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfa.flash_attention(tq, tk, tv, key_padding_mask=mask)
+    assert tfa.flash_attention(tq, tk, tv, causal=False,
+                               key_padding_mask=mask).shape == tq.shape
+    assert tfa.flash_attention_fn(tq, tk, tv, mask[:, None, None, :]).shape \
+        == tq.shape
+    with pytest.raises(NotImplementedError, match="key-padding masks"):
+        tfa.flash_attention(tq, tk, tv, causal=False,
+                            key_padding_mask=torch.ones((1, 1, 64, 64),
+                                                        dtype=torch.bool))
+    with pytest.raises(ValueError, match="does not match"):
+        tfa.flash_attention(tq, tk, tv, causal=False,
+                            key_padding_mask=mask[:, :32])
+
+
+def test_unported_sidebands_raise_on_every_device():
+    """What the reference refuses stays refused: segments with
+    causal=False and together with a key-padding mask, a [B, H, S, S]
+    mask at the seam, KV heads that do not divide the query heads; and
+    D > 128 has no CUDA kernel."""
+    (_, _, _, _, _), (tq, tk, tv, _, _) = _inputs(1, 64, 4, 2, 64,
+                                                  "float32", seed=4)
+    mask = torch.ones((1, 64), dtype=torch.bool)
     with pytest.raises(NotImplementedError, match="bidirectional"):
         tfa.flash_attention(tq, tk, tv, causal=False,
                             segment_ids=mask.long())
     with pytest.raises(NotImplementedError, match="mutually exclusive"):
         tfa.flash_attention(tq, tk, tv, key_padding_mask=mask,
                             segment_ids=mask.long())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfa.flash_attention_fn(tq, tk, tv, mask[:, None, None, :])
+    with pytest.raises(NotImplementedError, match="key-padding masks"):
+        tfa.flash_attention_fn(tq, tk, tv,
+                               torch.ones((1, 4, 64, 64), dtype=torch.bool))
     with pytest.raises(ValueError, match="multiple"):
         kv3 = torch.zeros((1, 64, 3, 64))
         tfa.flash_attention(tq, kv3, kv3)
