@@ -21,6 +21,15 @@ Builds every CUDA kernel of the port from ``horovod_tpu_torch/csrc``
    rms_kernels — the RMSNorm forward and backward at the packed training
                shape (R 4096, H 4096, bf16), a ragged fp32 R and an
                off-tile H;
+   conv_bn_kernels — the 1x1 convolution with BatchNorm statistics at the
+               spike's shape (ResNet-50's stage-2 1x1, x [200704, 512] ·
+               w [512, 128], bf16), a ragged N, half a column block (C 64)
+               and two (C 256), K and C off the tiles; with F.conv2d alone
+               (channels-last bf16) as its library time and F.conv2d plus
+               the fp32 statistics beside it;
+   conv_bn_spike — the spike's three chained arms (``experiments/
+               conv_bn_spike``: kernel, library, conv_only; 12 dependent
+               iterations a call) and its check: B7's launches;
 3. serve     — the port's serving replica (``ModelRunner`` + ``Scheduler``
                + ``ReplicaServer``, driven through ``ServeClient`` over
                TCP) on Llama-3-8B at its published widths (bf16, 32
@@ -71,14 +80,25 @@ Builds every CUDA kernel of the port from ``horovod_tpu_torch/csrc``
                then 3 warm-up and 10 timed steps (the loss must fall;
                launch counts prove every layer's attention went through
                the three kernels, each launch with the key bias);
-8. train_profile, train_packed_profile, train_bert_profile — where one
-               step of each goes (torch.profiler), after every phase was
-               timed: once the profiler has traced a step, the process
-               launches kernels more slowly; then train_packed_vs_train,
-               the device time the packed step saves, by kernel group;
-               and the key-bias kernels' ``kernel_time_kpm`` lines with
-               train_bert's launches;
-9. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+8. train_resnet — ResNet-50 data-parallel training through
+               ``horovod_tpu_torch.bench``'s step (bench.py's headline):
+               bf16, B 256 x 224², ``DistributedOptimizer(SGD 0.01,
+               momentum 0.9)``, ``make_train_step`` (running statistics averaged);
+               3 warm-up and 10 timed steps on a fixed batch (the loss
+               must fall and the running statistics move), then one
+               eval-mode forward, which must use the running statistics;
+9. train_profile, train_packed_profile, train_bert_profile,
+               train_resnet_profile — where one step of each goes
+               (torch.profiler), after every phase was timed: once the
+               profiler has traced a step, the process launches kernels
+               more slowly; then train_packed_vs_train, the device time
+               the packed step saves, by kernel group; and the key-bias
+               kernels' ``kernel_time_kpm`` lines with train_bert's
+               launches.  The ResNet profile also gives the forward device
+               time of the three stage-2 1x1 512→128 convolutions and of
+               the BatchNorms beside them: the spike's question inside the
+               real step;
+10. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints one JSON line; any failed check raises (exit != 0) and
@@ -107,16 +127,20 @@ import torch
 import torch.nn.functional as F
 
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch import bench as resnet_bench
 from horovod_tpu_torch.examples import bert_pretraining_fsdp as bert_example
 from horovod_tpu_torch.examples.llama_packed_pretraining import (
     boundary_mask, make_packed_batch, packed_lm_loss)
+from horovod_tpu_torch.experiments import conv_bn_spike
 from horovod_tpu_torch.models.bert import BertConfig, dot_product_attention
 from horovod_tpu_torch.models.convert import init_params
 from horovod_tpu_torch.models.generation import (generate, paged_decode_step,
                                                  paged_prefill)
 from horovod_tpu_torch.models.llama import (LlamaConfig, LlamaModel, RMSNorm,
                                             attend, causal_attention)
+from horovod_tpu_torch.models.resnet import ResNetConfig
 from horovod_tpu_torch.ops import _build
+from horovod_tpu_torch.ops import conv_bn_stats as cbs
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.ops import paged_attention as pa
 from horovod_tpu_torch.ops import rms_norm as rn
@@ -814,6 +838,143 @@ def phase_rms_kernels(dev, flush, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the conv + BatchNorm-statistics kernel against its plain version
+# ---------------------------------------------------------------------------
+
+#: (case, N, K, C): ResNet-50's 1x1 convolutions at batch 256 — the
+#: spike's stage-2 shape, the stage-1 reduce (C 64: half of the kernel's
+#: 128-channel column block) and the stage-3 reduce (C 256: two blocks) —
+#: a ragged N, and K and C off the kernel's tiles.
+CONV_BN_CASES = (
+    ("spike", 200704, 512, 128),
+    ("ragged", 1000, 512, 128),
+    ("stage1_reduce", 802816, 256, 64),
+    ("stage3_reduce", 200704, 512, 256),
+    ("off_tile", 333, 72, 40),
+)
+
+
+def conv_bn_bound(N, K, C):
+    """(bound_ms, bound_by): x and w read once, y (bf16) and the two fp32
+    [C] sums written once, over HBM bandwidth, against the product's 2·N·K·C
+    bf16 tensor-core operations plus the sums' 3·N·C fp32 ones."""
+    nbytes = 2 * (N * K + K * C + N * C) + 2 * 4 * C
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (2 * N * K * C / PEAK_OPS_PER_S[torch.bfloat16]
+             + 3 * N * C / PEAK_OPS_PER_S[torch.float32]) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def phase_conv_bn_kernels(dev, flush, x2d, w2d, seed):
+    """B7 against its plain version at every case: y within one bf16 ulp
+    plus 1e-5 of the sum of its products' magnitudes (|d| <= 2^-7·|y| +
+    1e-5·Σ_k |x_k·w_k|: both round an fp32 sum of exact bf16 products once,
+    but the tensor cores and cuBLAS's fp32 GEMM accumulate in other orders
+    and alignments, which moves a y that cancels to near zero by more than
+    its own ulp); Σy within 1e-5 of the largest Σ|y| and
+    Σy² within 1e-5 relative (fp32 sums of N terms in other orders); mean
+    and var as the spike derives them.  Then times at the spike's shape:
+    the kernel's wrapper (launch and the sum of its partials), its plain
+    version, F.conv2d alone on channels-last bf16 (the conv_only arm: what
+    the kernel must match while also producing the statistics) and
+    F.conv2d with the fp32 statistics (the library arm)."""
+    max_err = 0.0
+    for i, (case, N, K, C) in enumerate(CONV_BN_CASES):
+        if case == "spike":
+            x, w = x2d, w2d
+        else:
+            gen = torch.Generator(device=dev).manual_seed(seed + 40 + i)
+            x = torch.randn((N, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            w = (0.05 * torch.randn((K, C), generator=gen, device=dev)).to(
+                torch.bfloat16)
+        y, s1, s2 = cbs.conv_stats(x, w)
+        torch.cuda.synchronize()
+        ry, r1, r2 = cbs._conv_stats_rows(x, w)
+        d = (y.float() - ry.float()).abs()
+        err = float(d.max())
+        mag = x.float().abs() @ w.float().abs()
+        y_ok = (y.shape == (N, C) and bool(torch.isfinite(y).all())
+                and bool((d <= 2.0 ** -7 * ry.float().abs()
+                          + 1e-5 * mag).all()))
+        del mag
+        abs_sum = float((x.float() @ w.float()).abs().sum(0).max())
+        d1 = float((s1 - r1).abs().max())
+        d2 = float(((s2 - r2).abs() / r2).max())
+        mean, rmean = s1 / N, r1 / N
+        var, rvar = s2 / N - mean * mean, r2 / N - rmean * rmean
+        ok = y_ok and d1 <= 1e-5 * abs_sum and d2 <= 1e-5
+        emit("kernel_check", kernel="conv_bn_stats", case=case, N=N, K=K,
+             C=C, dtype="bfloat16", max_abs_err=err,
+             sum_abs_err=d1, sum_sq_rel_err=d2,
+             mean_max_abs_err=float((mean - rmean).abs().max()),
+             var_max_rel_err=float(((var - rvar).abs() / rvar).max()),
+             tolerance="y |d| <= 2^-7 |y| + 1e-5 sum_k |x_k w_k|; sum |d| "
+                       "<= 1e-5 * max sum|y|; sum of squares rel 1e-5",
+             ok=ok)
+        check(ok, f"conv_bn_stats case {case}: kernel disagrees with its "
+                  f"plain version (y {err}, sums {d1}, {d2})")
+        max_err = max(max_err, err)
+        del x, w, y, ry
+    N, K = x2d.shape
+    C = w2d.shape[1]
+    x4d, w4d = conv_bn_spike._nchw(x2d), conv_bn_spike._oihw(w2d)
+    bound_ms, bound_by = conv_bn_bound(N, K, C)
+    entry = {"name": "conv_bn_stats", "route": "cuda",
+             "source": "horovod_tpu_torch/csrc/conv_bn_stats.cu",
+             "replaces": "experiments/pallas_conv_bn_spike.py:39",
+             "launches": None, "max_abs_err": max_err,
+             "ms": graph_ms(lambda: cbs.conv_stats(x2d, w2d), 50, flush),
+             "plain_ms": cuda_ms(lambda: cbs._conv_stats_rows(x2d, w2d), 10,
+                                 flush),
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": graph_ms(lambda: F.conv2d(x4d, w4d), 50, flush)}
+    library_stats_ms = graph_ms(
+        lambda: conv_bn_spike.library_conv_stats(x2d, w2d), 50, flush)
+    emit("kernel_time", **entry, library_stats_ms=library_stats_ms,
+         library_call="F.conv2d 1x1, channels-last bf16 (conv only)",
+         library_stats_call="F.conv2d, then the fp32 mean and E[y^2] - "
+                            "mean^2 over N, H, W",
+         grid_rows=cbs.grid_rows(N, C, torch.cuda.get_device_properties(
+             dev).multi_processor_count),
+         timed_shape={"N": N, "K": K, "C": C, "dtype": "bfloat16"})
+    return entry
+
+
+def phase_conv_bn_spike(x2d, w2d):
+    """The spike's question on the card: its check, then its three arms,
+    each 12 dependent steps a call (median of 3 after 2 warm-up calls, host
+    clock to a synchronising read), with B7's launch count reset just
+    before the kernel arm and read just after."""
+    conv_bn_spike.check(x2d, w2d)
+    arms = conv_bn_spike.arms(x2d)
+    out = {}
+    for name in ("kernel", "library", "conv_only"):
+        if name == "kernel":
+            cbs.reset_launches()
+        dt = conv_bn_spike.time_it(arms[name], w2d)
+        if name == "kernel":
+            launches = cbs.launches["conv_bn_stats"]
+            plain = cbs.plain_calls["conv_bn_stats"]
+        out[name] = {"ms": dt * 1e3,
+                     "tflops": conv_bn_spike.FLOPS / dt / 1e12}
+    calls = (2 + 3) * conv_bn_spike.REPEATS
+    emit("conv_bn_spike", shape={"B": conv_bn_spike.B, "H": conv_bn_spike.H,
+                                 "W": conv_bn_spike.W, "K": conv_bn_spike.K,
+                                 "C": conv_bn_spike.C},
+         repeats=conv_bn_spike.REPEATS, arms=out,
+         kernel_vs_library=out["library"]["ms"] / out["kernel"]["ms"],
+         kernel_vs_conv_only=out["conv_only"]["ms"] / out["kernel"]["ms"],
+         check="kernel vs library: mean 2e-2, y 5e-2 (the spike's)",
+         kernel_launches=launches, plain_calls=plain)
+    check(launches == calls and plain == 0,
+          f"conv_bn_spike: {launches} kernel launches (want {calls}), "
+          f"{plain} plain calls")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the serving replica on llama3_8b
 # ---------------------------------------------------------------------------
 
@@ -1387,16 +1548,19 @@ def llama_factory(seed, cfg, attention_fn, loss_fn):
     return build
 
 
-def phase_train_profile(phase, build, batch):
+def phase_train_profile(phase, build, batch, labels=None):
     """Where one training step's time goes: host wall time against the
     device time of its kernels (torch.profiler), the top kernels, device
     time by kernel group, and the idle share of the card.  ``build()``
     makes the model, optimizer and step afresh (a timed phase frees its
     own before the next, which needs the memory); the first step, which
-    creates the AdamW state, is an untraced warm step."""
+    creates the optimizer's state, is an untraced warm step.
+    ``labels(model)``: opens named ranges in the model and returns their
+    names; each range's forward device time is reported."""
     from torch.profiler import ProfilerActivity, profile
 
     model, opt, step = build()
+    names = labels(model) if labels else ()
     step(batch)
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1414,10 +1578,16 @@ def phase_train_profile(phase, build, batch):
     for e in kernels:
         g = kernel_group(e.key)
         by_group[g] = by_group.get(g, 0.0) + e.self_device_time_total / 1e3
+    ranges_fwd = {}
+    for name in names:
+        ms, calls, groups = range_kernels(prof, name)
+        check(ms > 0, f"{phase}: no device time inside range {name}")
+        ranges_fwd[name] = {"device_ms": ms, "calls": calls,
+                            "by_group_ms": groups}
     emit(phase, step_wall_ms=wall_ms, device_busy_ms=busy_ms,
          idle_share=1.0 - busy_ms / wall_ms,
          kernels_per_step=sum(e.count for e in kernels),
-         by_group_ms=by_group,
+         by_group_ms=by_group, labelled_forward=ranges_fwd,
          ranges=[{"name": e.key[:60], "ms": e.device_time_total / 1e3}
                  for e in ranges],
          top=[{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
@@ -1433,6 +1603,7 @@ def phase_train_profile(phase, build, batch):
 KERNEL_GROUPS = (("flash", ("fwd_bf16", "bwd_dq_bf16", "bwd_dkv_bf16")),
                  ("rms_norm", ("rms_fwd_kernel", "rms_bwd_kernel")),
                  ("layer_norm", ("layer_norm",)),
+                 ("conv", ("fprop", "dgrad", "wgrad", "conv")),
                  ("gemm", ("nvjet", "gemm", "cutlass", "sm90_")),
                  ("optimizer", ("multi_tensor_apply",)),
                  ("nccl", ("nccl",)),
@@ -1648,6 +1819,151 @@ def phase_train_bert(dev, seed):
     return launches, (build, batch)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: ResNet-50 data-parallel training, bench.py's headline step
+# ---------------------------------------------------------------------------
+
+RESNET_B, RESNET_SIZE = 256, 224
+#: The stage-2 bottlenecks whose 1x1 reduce is 512 -> 128 at 28 x 28 (the
+#: spike's shape): blocks 1-3 of the second stage, 4-6 counting from 0.
+RESNET_SPIKE_BLOCKS = (4, 5, 6)
+
+
+def resnet_factory(seed):
+    """train_resnet's model, optimizer and step, afresh: the bench's
+    ``make_step_and_state`` on ResNet-50 (bf16) at B 256 x 224²; the
+    bench's fixed batch is left in ``build.batch``."""
+    def build():
+        step, model, opt, build.batch = resnet_bench.make_step_and_state(
+            ResNetConfig.resnet50(), RESNET_B, RESNET_SIZE, seed=seed)
+        return model, opt, step
+    return build
+
+
+def resnet_eval_check(model, images):
+    """One eval-mode forward on 8 images, which must use the running
+    statistics: its logits do not depend on the batch (one image alone
+    gives its row within bf16 noise, 5e-2 of the largest |logit|) and
+    move when every running variance is taken 4x (each BatchNorm then
+    scales by about a half: by more than 10x that noise).  Returns the
+    numbers."""
+    norms = [m for m in model.modules() if hasattr(m, "var")]
+    with torch.no_grad():
+        ev8 = model(images[:8]).float()
+        ev1 = model(images[:1]).float()
+        for m in norms:
+            m.var.mul_(4.0)
+        moved = model(images[:8]).float()
+        for m in norms:
+            m.var.div_(4.0)
+    top = float(ev8.abs().max())
+    batch_diff = float((ev1[0] - ev8[0]).abs().max())
+    stats_diff = float((moved - ev8).abs().max())
+    check(bool(torch.isfinite(ev8).all()) and ev8.shape == (8, 1000),
+          "train_resnet: eval logits not finite or misshapen")
+    check(batch_diff <= 5e-2 * top,
+          f"train_resnet: eval logits depend on the batch ({batch_diff} of "
+          f"{top}): not the running statistics")
+    check(stats_diff > 10 * max(batch_diff, 1e-6 * top),
+          f"train_resnet: eval logits ignore the running statistics "
+          f"({stats_diff} vs {batch_diff})")
+    return {"logit_max": top, "one_vs_batch_max_abs_diff": batch_diff,
+            "var_x4_max_abs_diff": stats_diff}
+
+
+def phase_train_resnet(dev, seed):
+    """ResNet-50 training through the bench's step, timed.  Returns what
+    its profile needs: (build, batch)."""
+    hvd.init()
+    cfg = ResNetConfig.resnet50()
+    build = resnet_factory(seed)
+    t0 = time.monotonic()
+    model, opt, step = build()
+    batch = build.batch
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    probe = model.blocks[RESNET_SPIKE_BLOCKS[0]].norms[0]
+    mean0, var0 = probe.mean.clone(), probe.var.clone()
+    losses, step_ms, _, _, _, _ = timed_steps(step, batch, dev)
+    moved = (float((probe.mean - mean0).abs().max()),
+             float((probe.var - var0).abs().max()))
+    evl = resnet_eval_check(model, batch[0])
+    p50 = statistics.median(step_ms)
+    flops = resnet_bench.model_flops_per_step(cfg, RESNET_SIZE, RESNET_B)
+    buffers = [b for b in model.buffers() if b.is_floating_point()]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+    emit("train_resnet", model="resnet50", params=n_params,
+         param_dtype="float32", compute_dtype="bfloat16", batch=RESNET_B,
+         image_size=RESNET_SIZE, world_size=hvd.size(),
+         backend=torch.distributed.get_backend(),
+         optimizer="DistributedOptimizer(SGD lr 0.01, momentum 0.9)",
+         buffers=len(buffers),
+         buffer_bytes=sum(b.numel() * b.element_size() for b in buffers),
+         warmup_steps=WARMUP_STEPS, steps=TIMED_STEPS, step_ms_p50=p50,
+         step_ms_max=max(step_ms), step_ms=step_ms,
+         images_per_s=RESNET_B / (p50 / 1e3), flops_per_step=flops,
+         mfu=flops / (p50 / 1e3) / 989e12,
+         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+         losses=losses, running_stats_moved={"mean": moved[0],
+                                             "var": moved[1]},
+         eval_check=evl, init_s=init_s, nvidia_smi_after=smi)
+    check(all(math.isfinite(x) for x in losses),
+          f"train_resnet: loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"train_resnet: loss did not fall: "
+                                  f"{losses}")
+    check(moved[0] > 0 and moved[1] > 0,
+          "train_resnet: the running statistics did not move")
+    del model, opt, step
+    return build, batch
+
+
+def label_forward(module, name):
+    """Open a profiler range ``name`` around ``module``'s forward."""
+    inner = module.forward
+
+    def forward(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return inner(*args, **kwargs)
+
+    module.forward = forward
+
+
+def label_spike_layers(model):
+    """Label the three stage-2 1x1 512 -> 128 convolutions and the
+    BatchNorms beside them; returns the labels."""
+    for i in RESNET_SPIKE_BLOCKS:
+        label_forward(model.blocks[i].convs[0], "spike_conv")
+        label_forward(model.blocks[i].norms[0], "spike_bn")
+    return ("spike_conv", "spike_bn")
+
+
+def range_kernels(prof, name):
+    """Device time of the kernels launched inside every CPU range
+    ``name`` (the forward: backward kernels run on autograd's thread,
+    outside it): (ms, calls, {kernel group: ms})."""
+    total, calls, groups = 0.0, 0, {}
+
+    def walk(e):
+        nonlocal total
+        for k in e.kernels:
+            ms = k.duration / 1e3
+            total += ms
+            g = kernel_group(k.name)
+            groups[g] = groups.get(g, 0.0) + ms
+        for c in e.cpu_children:
+            walk(c)
+
+    for e in prof.events():
+        if e.name == name and e.device_type.name == "CPU":
+            calls += 1
+            walk(e)
+    return total, calls, groups
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -1676,7 +1992,10 @@ def main(argv=None) -> int:
     entry = phase_kernels(dev, flush, args.seed)
     flash_entries, kpm_times = phase_flash_kernels(dev, flush, args.seed)
     rms_entries = phase_rms_kernels(dev, flush, args.seed)
-    del flush
+    x2d, w2d = conv_bn_spike.make_inputs(dev, args.seed)
+    conv_entry = phase_conv_bn_kernels(dev, flush, x2d, w2d, args.seed)
+    conv_entry["launches"] = phase_conv_bn_spike(x2d, w2d)
+    del flush, x2d, w2d
     torch.cuda.reset_peak_memory_stats(dev)
     # Serving runs before training: once torch.profiler has traced the
     # training step, the process launches kernels more slowly, and a serve
@@ -1703,6 +2022,9 @@ def main(argv=None) -> int:
     bert_launches, (bert_build, bert_data) = phase_train_bert(dev, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
+    resnet_build, resnet_data = phase_train_resnet(dev, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
     compare_profiles(
         phase_train_profile("train_profile",
                             llama_factory(args.seed, *train[:3]), train[3]),
@@ -1710,14 +2032,16 @@ def main(argv=None) -> int:
                             llama_factory(args.seed, *packed[:3]),
                             packed[3]))
     phase_train_profile("train_bert_profile", bert_build, bert_data)
+    phase_train_profile("train_resnet_profile", resnet_build, resnet_data,
+                        labels=label_spike_layers)
     for name, t in kpm_times.items():
         emit("kernel_time_kpm", name=name, launches=bert_launches[name], **t)
     hvd.shutdown()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in
-                                  [entry] + flash_entries + rms_entries]}),
-          flush=True)
+                                  [entry] + flash_entries + rms_entries
+                                  + [conv_entry]]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,11 @@ Llama model (``models/``) with the fused paged-attention decode kernel
 ``ops.flash_attention.flash_attention_fn`` (forward and backward
 kernels), ``ops.losses.softmax_cross_entropy``,
 ``hvd.DistributedOptimizer`` over ``ops.mixed_precision.MasterWeights``,
-and ``hvd.make_train_step``.
+and ``hvd.make_train_step``; packed and BERT pretraining
+(``examples/``); ResNet (``models/resnet.py``) with
+``make_train_step`` (which averages its running statistics) and the ResNet-50
+throughput bench (``python -m horovod_tpu_torch.bench``); and the conv +
+BatchNorm-statistics spike (``experiments/conv_bn_spike.py``).
 """
 
 from horovod_tpu_torch.common.basics import (device, init, is_initialized,

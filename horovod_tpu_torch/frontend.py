@@ -190,8 +190,8 @@ def broadcast_optimizer_state(optimizer, root_rank: int = 0):
     return optimizer
 
 
-def make_train_step(model: nn.Module, loss_fn: Callable,
-                    optimizer) -> Callable:
+def make_train_step(model: nn.Module, loss_fn: Callable, optimizer
+                    ) -> Callable:
     """``step(batch) -> loss``: zero-grad, ``loss_fn(model, batch)``,
     backward, ``optimizer.step()`` (gradients averaged across ranks), and
     the loss averaged across ranks (a 0-dim fp32 tensor).
@@ -201,6 +201,12 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
     The step runs on the device ``hvd.init()`` bound (the card, unless it
     was given ``device="cpu"``), so it raises before ``hvd.init()``; the
     model must be there already.
+
+    The model's floating-point buffers (BatchNorm's running statistics),
+    where it has any, are averaged across ranks after each step, in
+    place, in fused same-dtype buckets — the reference's ``has_aux`` step,
+    which averages its non-differentiated ``aux_state`` over the data
+    axes.  Integer buffers are left alone.
     """
     dev = basics.device()
     on = {p.device.type for p in model.parameters()}
@@ -209,12 +215,17 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
                          f"parameters are on {sorted(on)}")
     if not isinstance(optimizer, DistributedOptimizer):
         optimizer = DistributedOptimizer(optimizer)
+    buffers = [b for b in model.buffers() if b.is_floating_point()]
+    plan = plan_fusion(buffers) if buffers else None
 
     def step(batch) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(model, batch)
         loss.backward()
         optimizer.step()
+        if buffers:
+            with torch.no_grad():
+                _reduce_(buffers, Average, Compression.none, plan)
         return allreduce(loss.detach().float(), op=Average)
 
     return step

@@ -1,5 +1,6 @@
-"""Model zoo of the port: the dense Llama decoder and its KV-cache
-generation paths (counterparts of ``horovod_tpu/models/``)."""
+"""Model zoo of the port (counterparts of ``horovod_tpu/models/``): the
+dense Llama decoder and its KV-cache generation paths, BERT
+(``models/bert.py``) and ResNet (``models/resnet.py``)."""
 
 from horovod_tpu_torch.models.llama import LlamaConfig, LlamaModel
 

@@ -402,3 +402,75 @@ def test_flash_autograd_with_key_padding_runs_the_kernels(dev):
         grads.append([out[m.to(out.device)]] + [t.grad for t in xs])
     for got, ref in zip(*grads):
         torch.testing.assert_close(got.cpu(), ref, rtol=5e-4, atol=5e-4)
+
+
+# ---------------------------------------------------------------------------
+# 1x1 convolution with BatchNorm statistics: hvd_conv_bn_stats
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("N,K,C", [
+    (200704, 512, 128),   # ResNet-50's stage-2 1x1 at batch 256 (the spike)
+    (1000, 512, 128),     # a ragged N
+    (802816, 256, 64),    # stage-1 reduce: half a column block
+    (200704, 512, 256),   # stage-3 reduce: two column blocks
+    (333, 72, 40),        # K and C off the kernel's tiles
+    (1, 8, 8),
+])
+def test_conv_bn_stats_kernel_matches_plain_version(dev, N, K, C):
+    """y within one bf16 ulp of the plain version's plus 1e-5 of the sum
+    of its products' magnitudes (both round an fp32 sum of exact bf16
+    products once, but the tensor cores and cuBLAS accumulate in other
+    orders and alignments, which moves a y that cancels to near zero by
+    more than its own ulp); Σy and Σy²
+    within 1e-5 of Σ|y| and Σy² (fp32 sums of N terms in other orders:
+    per-thread running sums of ~1,500 rows, then the CTA and the G
+    partials, against cuBLAS's and torch.sum's orders)."""
+    from horovod_tpu_torch.ops import conv_bn_stats as cbs
+
+    gen = torch.Generator(device=dev).manual_seed(N + K + C)
+    x = torch.randn((N, K), generator=gen, device=dev).to(torch.bfloat16)
+    w = (0.05 * torch.randn((K, C), generator=gen, device=dev)).to(
+        torch.bfloat16)
+    cbs.reset_launches()
+    y, s1, s2 = cbs.conv_stats(x, w)
+    torch.cuda.synchronize()
+    assert cbs.launches == {"conv_bn_stats": 1}
+    assert cbs.plain_calls == {"conv_bn_stats": 0}
+    assert y.shape == (N, C) and y.dtype == torch.bfloat16
+    ry, r1, r2 = cbs._conv_stats_rows(x, w)
+    d = (y.float() - ry.float()).abs()
+    mag = x.float().abs() @ w.float().abs()
+    assert bool((d <= 2.0 ** -7 * ry.float().abs() + 1e-5 * mag).all()), \
+        float(d.max())
+    y32 = x.float() @ w.float()
+    assert float((s1 - r1).abs().max()) <= 1e-5 * float(
+        y32.abs().sum(0).max())
+    assert bool(((s2 - r2).abs() <= 1e-5 * r2).all())
+    _, mean, var = cbs.conv_bn_stats(x, w)
+    torch.testing.assert_close(mean, r1 / N, rtol=0, atol=1e-5)
+    torch.testing.assert_close(var, r2 / N - (r1 / N) ** 2, rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_conv_bn_stats_rejects_what_it_cannot_run(dev):
+    from horovod_tpu_torch.ops import conv_bn_stats as cbs
+
+    x = torch.randn((64, 64), device=dev).to(torch.bfloat16)
+    w = torch.randn((64, 16), device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        cbs.conv_stats(x, w.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        cbs.conv_stats(x.t(), w)
+    with pytest.raises(ValueError, match="shared memory"):
+        cbs.conv_stats(torch.zeros((4, 1024), dtype=torch.bfloat16,
+                                   device=dev),
+                       torch.zeros((1024, 8), dtype=torch.bfloat16,
+                                   device=dev))
+
+
+def test_conv_bn_spike_check_on_the_card(dev):
+    """The spike counterpart's own check at its shape: the kernel against
+    F.conv2d + fp32 statistics, the reference spike's tolerances."""
+    from horovod_tpu_torch.experiments import conv_bn_spike
+
+    conv_bn_spike.check(*conv_bn_spike.make_inputs(dev))

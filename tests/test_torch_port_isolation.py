@@ -50,7 +50,9 @@ _TRAINING_MODULES = ["common.basics", "ops.collective_ops", "ops.compression",
                      "ops.flash_attention", "ops.rms_norm", "frontend",
                      "examples.llama_packed_pretraining", "models.bert",
                      "parallel.mesh", "parallel.api",
-                     "examples.bert_pretraining_fsdp"]
+                     "examples.bert_pretraining_fsdp", "ops.conv_bn_stats",
+                     "experiments.conv_bn_spike", "models.resnet",
+                     "models.convert", "bench"]
 #: A call of PyTorch's own RMSNorm (``F.rms_norm``, ``torch.rms_norm``,
 #: ``torch.nn.functional.rms_norm``): a library kernel, not the port's.
 _LIBRARY_RMS_NORM = re.compile(r"\b(F|functional|torch)\.rms_norm\b")
