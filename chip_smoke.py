@@ -18,6 +18,11 @@ Builds every CUDA kernel of the port from ``horovod_tpu_torch/csrc``
                with the key-padding bias at BERT-base's shape (bf16,
                bidirectional, B 32 x S 512, 12 heads of 64, the BERT
                batch's lengths), a holed fp32 mask and a padded D 16;
+               SDPA's backward is timed as the kernels are, a graph
+               replay (forward and backward captured as one graph, less
+               the forward), with the backend SDPA chose; the flash
+               timing lines carry ptxas's registers and spills of the
+               kernel and its grid's CTAs per SM;
    rms_kernels — the RMSNorm forward and backward at the packed training
                shape (R 4096, H 4096, bf16), a ragged fp32 R and an
                off-tile H;
@@ -38,7 +43,11 @@ Builds every CUDA kernel of the port from ``horovod_tpu_torch/csrc``
                256-token prefix; launch counts prove every decode layer
                went through the kernel;
 4. oracle    — fused decode against the gather oracle on the same pools
-               at full width, plus what holds of batch invariance;
+               at full width, plus batch invariance: a row decoded alone
+               and beside batch-mates through ``ModelRunner.decode`` must
+               agree bit for bit; and each of the 8 served streams
+               against its own offline ``generate`` at the pinned cache
+               length (how many part from it, and where);
    profile   — where a batch-8 decode step's time goes (host wall time,
                device busy time and top kernels from torch.profiler);
 5. train     — with the replica freed: the data-parallel training step
@@ -212,6 +221,23 @@ def device_events(prof):
               if e.device_type == DeviceType.CUDA]
     ranges = [e for e in events if getattr(e, "is_user_annotation", False)]
     return [e for e in events if e not in ranges], ranges
+
+
+def autograd_graph_ms(fn, iters: int, flush: torch.Tensor) -> float:
+    """:func:`graph_ms` of ``fn`` that records or runs autograd: warmed up
+    on a side stream and captured whole, forward and backward in one
+    graph (PyTorch's recipe for whole-network capture)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters, flush)
 
 
 def graph_ms(fn, iters: int, flush: torch.Tensor) -> float:
@@ -551,6 +577,55 @@ def flash_bound(name, B, S, Hq, Hkv, D, causal, seg=None, mask=None):
                                  else "operations")
 
 
+#: Each flash wrapper's bf16 kernel (ptxas's name for it), query or key
+#: rows per CTA, and the heads its grid spans.
+FLASH_GRIDS = {"flash_fwd": ("fwd_bf16", 128, "Hq"),
+               "flash_bwd_dq": ("bwd_dq_bf16", 64, "Hq"),
+               "flash_bwd_dkv": ("bwd_dkv_bf16", 128, "Hkv")}
+
+
+def flash_grid(name, B, S, Hq, Hkv, D):
+    """The bf16 kernel's grid at a shape: work items (row blocks of a
+    head), CTAs launched and the card's SMs.  The Hopper kernels (forward,
+    dK/dV) fit one CTA on an SM and launch one per SM, each walking
+    several items, when there are 4 items an SM or more (else one an
+    item); dQ launches one CTA an item."""
+    _, rows, heads = FLASH_GRIDS[name]
+    items = B * {"Hq": Hq, "Hkv": Hkv}[heads] * -(-S // rows)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    persistent = name != "flash_bwd_dq" and items >= 4 * sms
+    ctas = sms if persistent else items
+    return {"items": items, "ctas": ctas, "sms": sms,
+            "items_per_cta": items / ctas}
+
+
+def ptxas_entry(name, D, kind):
+    """ptxas's report of the bf16 kernel of wrapper ``name`` at head dim D
+    and sideband kind (0 dense, 1 segments, 2 key bias), from the build
+    log: registers, spill stores and loads (bytes), and any other line
+    that names it (a wgmma serialisation note)."""
+    pat = re.compile(rf"\d{FLASH_GRIDS[name][0]}ILi{D}ELi{kind}EE")
+    log = _build.build_log("flash_attention").splitlines()
+    rep, cur = {"notes": []}, False
+    for line in log:
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = bool(pat.search(m.group(1)))
+            continue
+        if pat.search(line) and "Function properties" not in line:
+            rep["notes"].append(line.strip())
+        if not cur:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rep["spill_stores"], rep["spill_loads"] = int(m[1]), int(m[2])
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rep["registers"] = int(m[1])
+    return rep
+
+
 def ragged_starts(S: int) -> torch.Tensor:
     """int32 [1, S] starts with boundaries on a 64-row tile edge (64),
     inside a tile (100) and at 150."""
@@ -597,10 +672,14 @@ def flash_times(dev, flush, seed, seg=None, mask=None,
                                  attn_mask=mask[:, None])
     with torch.no_grad():
         lib_fwd_ms = graph_ms(lambda: sdpa(qh, kh, vh), 20, flush)
-    lib_out = sdpa(qh, kh, vh)
-    lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-        lib_out, (qh, kh, vh), doh, retain_graph=True), 10, flush)
-    del lib_out
+    backend = sdpa(qh, kh, vh).grad_fn.name()
+    # SDPA's backward as the kernels are timed (graph replay, cold L2): the
+    # forward and backward captured as one graph, less the forward alone
+    # with grad (which also saves what the backward reads).
+    fwd_grad_ms = autograd_graph_ms(lambda: sdpa(qh, kh, vh), 20, flush)
+    both_ms = autograd_graph_ms(lambda: torch.autograd.grad(
+        sdpa(qh, kh, vh), (qh, kh, vh), doh), 20, flush)
+    lib_bwd_ms = both_ms - fwd_grad_ms
     times = {}
     for name, kernel, plain, _ in FLASH_KERNELS:
         args = (q, k, v, causal, scale, seg, bias) if name == "flash_fwd" \
@@ -611,7 +690,10 @@ def flash_times(dev, flush, seed, seg=None, mask=None,
             "ms": graph_ms(lambda: kernel(*args), 20, flush),
             "plain_ms": cuda_ms(lambda: plain(*args), 3, flush),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_fwd_ms if name == "flash_fwd" else lib_bwd_ms}
+            "library_ms": lib_fwd_ms if name == "flash_fwd" else lib_bwd_ms,
+            "library_backend": backend,
+            "library_fwd_bwd_ms": both_ms, "library_fwd_grad_ms": fwd_grad_ms,
+            "grid": flash_grid(name, **shape)}
     return times
 
 
@@ -676,12 +758,14 @@ def phase_flash_kernels(dev, flush, seed):
                  "replaces": replaces, "launches": None,
                  "max_abs_err": max_err[name], **dense[name]}
         emit("kernel_time", **entry,
+             ptxas=ptxas_entry(name, shape["D"], 0),
              library_call="scaled_dot_product_attention forward, is_causal"
              if name == "flash_fwd" else
              "scaled_dot_product_attention backward (dQ, dK, dV together)",
              timed_shape={**shape, "causal": True, "dtype": "bfloat16"})
         p = packed_times[name]
         emit("kernel_time_packed", name=name, **p,
+             ptxas=ptxas_entry(name, shape["D"], 1),
              dense_ms=dense[name]["ms"], ms_ratio=p["ms"] / dense[name]["ms"],
              pairs=pairs_packed, dense_pairs=pairs_dense,
              pairs_ratio=pairs_packed / pairs_dense,
@@ -698,6 +782,7 @@ def phase_flash_kernels(dev, flush, seed):
     for name in kpm:
         kpm[name].update(
             max_abs_err=max_err[name], dense_ms=dense[name]["ms"],
+            ptxas=ptxas_entry(name, FLASH_KPM_SHAPE["D"], 2),
             pairs=attn_pairs(causal=False, mask=mask,
                              **{k: FLASH_KPM_SHAPE[k]
                                 for k in ("B", "S", "Hq")}),
@@ -1092,8 +1177,8 @@ def phase_serve(dev, seed):
     sched_thread.join(timeout=30)
     check(not sched_thread.is_alive(), "scheduler thread did not stop")
     runner.decode = inner_decode
-    first = reqs[0]
-    return runner, launches, (first[1], results[first[0]][-1]["tokens"])
+    return runner, launches, [(rid, prompt, results[rid][-1]["tokens"])
+                              for rid, prompt, _ in reqs]
 
 
 # ---------------------------------------------------------------------------
@@ -1153,8 +1238,10 @@ def phase_oracle(runner, served, seed):
                                f"{bound_used}")
     check(flips == 0, f"{flips} argmax flips where the margin > bound")
 
-    # Batch invariance: one row decoded alone, then padded to 8 rows.
-    row = {"tok": toks[0], "pos": len(prompts[0]) + steps,
+    # Batch invariance: one row decoded alone, then padded to 8 rows, at
+    # its last funded position (a position past its table would write its
+    # K/V to the trash block, where the padded rows write theirs).
+    row = {"tok": toks[0], "pos": len(prompts[0]) + steps - 1,
            "table": tables[0]}
     inv = {}
     for fused in (False, True):
@@ -1175,18 +1262,49 @@ def phase_oracle(runner, served, seed):
             "bitwise_equal": bool(torch.equal(outs[0], outs[1])),
             "max_abs_diff": float((outs[0] - outs[1]).abs().max())}
 
-    # Served stream vs the contiguous-cache generate on the same card.
-    prompt, served_toks = served
-    ids = torch.tensor([prompt], dtype=torch.long, device=dev)
-    offline = generate(model, ids, max_new_tokens=len(served_toks),
-                       cache_len=runner.cache_len)[0].tolist()
-    agree = next((i for i, (a, b) in enumerate(zip(offline, served_toks))
-                  if a != b), len(served_toks))
+    # Batch composition: a row through ModelRunner.decode alone (width 1)
+    # and beside batch-mates (the other sequence and trash rows, width
+    # max_batch) must give the same logits bit for bit, as a served stream
+    # may not depend on who else is served.  Each call rewrites the rows'
+    # own last funded K/V slots with the same values.
+    trash = np.full((maxb,), TRASH_BLOCK, np.int32)
+    width = runner.serve_cfg.max_batch
+    last = [row["pos"], len(prompts[1]) + steps - 1]
+    alone = runner.decode([toks[0]], [tables[0]], [last[0]])
+    mates = runner.decode(toks + [1] * (width - 2),
+                          [tables[0], tables[1]] + [trash] * (width - 2),
+                          last + [0] * (width - 2))
+    composition_bitwise = bool(np.array_equal(alone[0], mates[0]))
+    check(composition_bitwise, "a decoded row's logits depend on its "
+                               "batch-mates")
+
+    # Every served stream vs its own contiguous-cache generate at the
+    # pinned cache length, on the same card (the reference's contract:
+    # docs/serving.md:172-181): the first index where they part, or the
+    # stream's length where they agree throughout.  generate's path is not
+    # the server's (a prefill at the prompt's own length, dense attention
+    # over a contiguous cache, width 1), so on the card the two may part
+    # where the greedy margin is below their rounding difference.
+    agree = {}
+    for rid, prompt, served_toks in served:
+        ids = torch.tensor([prompt], dtype=torch.long, device=dev)
+        offline = generate(model, ids, max_new_tokens=len(served_toks),
+                           cache_len=runner.cache_len)[0].tolist()
+        agree[rid] = next((i for i, (a, b) in
+                           enumerate(zip(offline, served_toks)) if a != b),
+                          len(served_toks))
+    lengths = {rid: len(toks) for rid, _, toks in served}
+    divergent = {rid: i for rid, i in agree.items() if i < lengths[rid]}
     emit("oracle", steps=steps, rows=len(prompts),
          max_abs_dlogit=max_d, bound=bound_used,
          argmax_decided=decided, argmax_flips=flips,
-         batch_width_1_vs_8=inv, served_vs_offline_generate_tokens_agree=agree,
-         served_tokens=len(served_toks))
+         batch_width_1_vs_8=inv,
+         row_alone_vs_with_mates_bitwise=composition_bitwise,
+         served_streams=len(served),
+         served_tokens=sum(lengths.values()),
+         served_vs_offline_generate_tokens_agree=agree,
+         divergent_streams=len(divergent),
+         first_divergent_index=divergent)
 
 
 def phase_profile(runner):

@@ -11,28 +11,35 @@
 // the running max starts at -1e30; probabilities are rounded to v's dtype
 // before P.V (forward) and to dout's dtype before P^T.dout (dV); dS is
 // rounded to the q/k dtype before dS.K and dS^T.Q; out = acc / max(l,
-// 1e-30) and lse = m + log(max(l, 1e-30)).  Causal key tiles above the
-// diagonal are skipped by the loop bound, not masked, for any ratio of
-// query tile to key tile.  Packed rows (optional int32 segment starts,
-// the reference's seg_ref) add the mask key < start[query] and skip the
-// key tiles below a query tile's first start (forward, dq) and the query
-// tiles past the last row that can see a key tile (dk/dv), so packing
-// saves the FLOPs of the masked blocks, as on the TPU.  Key padding
-// (optional fp32 [B, S] additive key bias, the reference's bias_ref: 0 for
-// a valid key, -1e30 for a masked one) adds bias[b, key] to every score of
-// batch row b after the scale and the causal mask, as the reference adds
-// it; one row serves every head, and no tile is skipped.  Segments and the
-// key bias are exclusive (as in the reference), and each kernel is compiled
-// once per sideband kind, so the dense and packed paths run the code they
-// ran before the key bias existed.  delta = rowsum(dout * out) - g_lse is
+// 1e-30) and lse = m + log(max(l, 1e-30)).  The bf16 forward and dk/dv
+// take their exponentials as 2^x of scores in log2 units (log2(e) folded
+// into the scale, the key bias and lse: one FFMA and one ex2.approx a
+// score, where expf costs about ten instructions and the softmax, not the
+// products, bounds them); the plain versions keep the reference's exp of
+// natural-unit scores.  The two differ by a few fp32 ulps of P, which the
+// bf16 rounding of P and the tolerances that hold each kernel to its
+// plain version absorb.  dq and the fp32 kernels use expf.  Causal
+// key tiles above the diagonal are skipped by the loop bound, not masked,
+// for any ratio of query tile to key tile.  Packed rows (optional int32
+// segment starts, the reference's seg_ref) add the mask key < start[query]
+// and skip the key tiles below a query tile's first start (forward, dq)
+// and the query tiles past the last row that can see a key tile (dk/dv),
+// so packing saves the FLOPs of the masked blocks, as on the TPU.  Key
+// padding (optional fp32 [B, S] additive key bias, the reference's
+// bias_ref: 0 for a valid key, -1e30 for a masked one) adds bias[b, key] to
+// every score of batch row b after the scale and the causal mask, as the
+// reference adds it; one row serves every head, and no tile is skipped.
+// Segments and the key bias are exclusive (as in the reference), and each
+// kernel is compiled once per sideband kind, so the dense and packed paths
+// run no code of the others.  delta = rowsum(dout * out) - g_lse is
 // computed by the caller (fp32, [B, Hq, S]).
 //
 // Layout: q/out/dout/dq are contiguous [B, S, Hq, D], k/v/dk/dv contiguous
-// [B, S, Hkv, D], indexed in place by strides (no [B*H, S, D] transpose and
-// no repeat of the KV heads); lse/delta are [B, Hq, S] fp32 (no sublane-
-// replicated [8, S] copy).  GQA: query head h reads KV head h / G.  The
-// tail of a sequence that is not a multiple of the tile is masked here:
-// out-of-range rows are loaded as zeros and their keys masked to -1e30.
+// [B, S, Hkv, D], indexed in place (no [B*H, S, D] transpose and no repeat
+// of the KV heads); lse/delta are [B, Hq, S] fp32 (no sublane-replicated
+// [8, S] copy).  GQA: query head h reads KV head h / G.  The tail of a
+// sequence that is not a multiple of the tile is masked here: out-of-range
+// rows are loaded as zeros and their keys masked to -1e30.
 //
 // What bounds them on this card: operations.  At the training shape (B 2,
 // S 2048, Hq 32, D 128, causal) the forward does two causal products,
@@ -45,35 +52,78 @@
 // a byte, so there the bound is bytes, ~0.03 ms.  The design is about
 // feeding the tensor cores, with the score matrix never leaving registers:
 //
-//   * bf16: warp-level mma.sync.m16n8k16 (fp32 accumulate) for every
-//     product.  Tiles are staged in shared memory by cp.async, two stages
-//     deep, so the next K/V (or Q/dout) tile loads while this one
-//     computes; operand fragments come out of shared memory by ldmatrix
-//     (.trans where the product contracts over the tile's rows).  The
-//     score/probability accumulators are re-packed in registers as the A
-//     operand of the next product (the C layout of two m16n8 tiles is the
-//     A layout of one m16k16), so P and dS never touch shared memory.
-//     Rows are padded by 16 bytes in shared memory so ldmatrix is free of
-//     bank conflicts.  The key bias of a key tile is staged in shared
-//     memory beside it (forward, dq); dk/dv keep their keys' bias in two
-//     registers a thread, as the bias depends on the key alone.
-//   * forward and dq: one CTA of 4 warps per (64 query rows, batch, head),
-//     16 rows per warp, looping over 64-key tiles; heavy (late) causal
-//     query tiles are scheduled first.
-//   * dk/dv: one CTA per (64 keys, batch, KV head), looping over the G query
-//     heads of the group and over 32-row query tiles from the diagonal
-//     down.  That sums the group's contributions in fp32 registers, with
-//     no atomics and a fixed order: deterministic, and equal to the
-//     reference's repeat-then-sum.  dq stays a kernel of its own (the
-//     reference's split), so there are no atomics for dq either.
+//   * bf16 forward and dk/dv (Hopper): warpgroup-wide wgmma.m64nNk16 with
+//     fp32 accumulators in registers, fed by TMA.  A CTA is three
+//     warpgroups: the first warp of the first (the producer, its registers
+//     cut to 24 by setmaxnreg) issues every load, cp.async.bulk.tensor into
+//     a two-stage ring of shared-memory tiles, each
+//     stage guarded by a "full" mbarrier (the TMA's byte count) and an
+//     "empty" one (the consumers' 256 arrivals); the two others (the
+//     consumers, 240 registers) each own 64 rows of the CTA's 128 and run
+//     the products, the masks and the softmax.  Tiles are stored as
+//     128-byte-swizzled [rows][64] boxes, one box per 64 columns of D (TMA's
+//     swizzle span), which is the layout the wgmma shared-memory descriptors
+//     read: K-major (advance 32 bytes per k-step inside a box, the next box
+//     after 4) where the product contracts over D, MN-major (the
+//     instruction's transpose bit, 16 rows per k-step, the next box 64
+//     columns on) where it contracts over the tile's rows.  The TMA maps are
+//     4-D (D, H, S, B), so a box that runs past S is zero-filled and never
+//     reads the next batch row.  lse, delta, segment starts and the key bias
+//     are a few hundred bytes a stage, loaded by the producer warp's lanes
+//     (before the stage frees) and released by the same arrival as the TMA
+//     copies: a TMA box must start 16-byte aligned, which a row of S 4-byte
+//     values does not unless S % 4 == 0.  An fp32 accumulator of m64nN is,
+//     warp by warp, the C layout of mma.m16n8 tiles, which is the register A
+//     layout of the next wgmma, so P and dS are rounded to bf16 in registers
+//     and fed straight back.  With 4 work items an SM or more (a query block
+//     of a head, or a key block of a KV head) the grid is persistent: one
+//     CTA per SM walks the items sorted heaviest first, in a snake order
+//     that pairs heavy causal items with light ones, and its producer loads
+//     the next item's Q (or K/V, double-buffered) while the consumers finish
+//     the current one, so an item's prologue and epilogue hide behind the
+//     neighbour's products (at BERT's shape an item is a few us of
+//     products).  With fewer, one CTA an item, which the hardware schedules
+//     as SMs free up: a static split of ~2 items a CTA balances data-
+//     dependent (packed) work badly.  What bounds them in practice is the
+//     softmax's per-score instructions, not the products (a 128 x 128 tile
+//     took about as long at D 64 as at D 128): hence 2^x with the scale
+//     folded into one FFMA, and the scale left out of tiles with no mask.
+//     Ordering the two consumers' products against each other (named-barrier
+//     ping-pong) and issuing the next tile's S with this tile's P.V were
+//     both slower on the card.
+//   * forward: items of (128 query rows, batch, head), 128-key tiles: with
+//     D 128 the score accumulator (64) and the output accumulator (64)
+//     take 128 of a consumer's 240 registers and the packed P 32, and two
+//     stages of K and V (128 KB) and two Q tiles (64 KB) fit the 227 KB of
+//     shared memory; 128 keys halve the tiles (and the softmax rescales)
+//     of 64, and wider tiles would not fit.
+//   * dk/dv: items of (128 keys, batch, KV head), 64 keys per consumer,
+//     looping over the G query heads of the group and over 64-row query
+//     tiles from the diagonal down (packed rows stop at the last row that
+//     sees the block); K and V stay in shared memory for the whole loop.
+//     dK and dV accumulate in fp32 registers across the whole group (128
+//     of the 240 at D 128): no atomics and a fixed order, deterministic,
+//     equal to the reference's repeat-then-sum.  The products run in the
+//     order S^T = K.Q^T; P^T; dP^T = V.dO^T with dV += P^T.dO; dS^T; dK
+//     += dS^T.Q, so no more than one transient 64x64 pair is live beside
+//     the accumulators.
+//   * dq (bf16): warp-level mma.sync.m16n8k16 (fp32 accumulate), one CTA
+//     of 4 warps per (64 query rows, batch, head), 64-key tiles staged by
+//     cp.async two stages deep, ldmatrix fragments from padded shared
+//     memory, dS fed back from the accumulators as the next A operand.
+//     dq stays a kernel of its own (the reference's split), so there are
+//     no atomics for dq either.
 //   * fp32 inputs: the tensor cores would round them to TF32, so fp32 runs
 //     a plain FMA kernel per function (one thread per query row, or per key
-//     row and role for dk/dv) on the same tiles.  It exists for exactness,
+//     row and role for dk/dv) on 64-row tiles.  It exists for exactness,
 //     not speed: its bound is 67 TFLOP/s of fp32 FMA.
 //
-// wgmma, TMA and warp specialisation are later work.  Plain C interface,
+// The TMA maps are encoded on the host per call (cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint, so nothing links libcuda) and
+// passed as __grid_constant__ kernel parameters.  Plain C interface,
 // loaded with ctypes (horovod_tpu_torch/ops/_build.py).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,10 +134,11 @@ typedef __nv_bfloat16 bf16;
 
 constexpr float kNegInf = -1e30f;   // the reference's mask value
 constexpr float kTiny = 1e-30f;     // the reference's floor on l
-constexpr int kThreads = 128;       // 4 warps
-constexpr int kBM = 64;             // query rows per CTA (fwd, dq)
-constexpr int kBN = 64;             // keys per tile (fwd, dq); per CTA (dkv)
-constexpr int kBQ = 32;             // query rows per tile (dkv)
+constexpr int kThreads = 128;       // 4 warps (dq, mma.sync)
+constexpr int kBM = 64;             // query rows per CTA (dq, fp32 fwd)
+constexpr int kBN = 64;             // keys per tile (dq, fp32 fwd) or per
+                                    // CTA (fp32 dkv)
+constexpr int kBQ = 32;             // query rows per tile (fp32 dkv)
 constexpr int kPad = 8;             // bf16 padding per shared-memory row
 
 // Sideband kinds: each kernel is instantiated once per kind.
@@ -218,23 +269,23 @@ __device__ __forceinline__ int seg_start(const int* sb, int row, int S) {
   return 0;
 }
 
-// First key tile of the query tile starting at row q0 (< S): its first row
-// has the tile's smallest start, so every earlier key tile is masked for
-// all its rows and is skipped — the reference's kv_first.
-template <bool kSeg>
+// First kKeys-key tile of the query tile starting at row q0 (< S): its
+// first row has the tile's smallest start, so every earlier key tile is
+// masked for all its rows and is skipped — the reference's kv_first.
+template <bool kSeg, int kKeys>
 __device__ __forceinline__ int first_tile(const int* sb, int q0) {
-  if constexpr (kSeg) return sb[q0] / kBN;
+  if constexpr (kSeg) return sb[q0] / kKeys;
   return 0;
 }
 
-// Query rows that can see the key tile starting at k0: the rows whose
-// start is at most the tile's last key, a prefix of the rows (binary
+// Query rows that can see the kKeys-key block starting at k0: the rows
+// whose start is at most the block's last key, a prefix of the rows (binary
 // search), at least k0 + 1 since row r's start is at most r.  S without
 // segments.  The reference's n_q_live.
-template <bool kSeg>
+template <bool kSeg, int kKeys>
 __device__ __forceinline__ int q_rows(const int* sb, int k0, int S) {
   if constexpr (!kSeg) return S;
-  const int last = min(k0 + kBN, S) - 1;
+  const int last = min(k0 + kKeys, S) - 1;
   int lo = 0, hi = S;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
@@ -245,7 +296,7 @@ __device__ __forceinline__ int q_rows(const int* sb, int k0, int S) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 kernels (tensor cores)
+// bf16 dq kernel (warp-level tensor cores)
 // ---------------------------------------------------------------------------
 
 // Scores of one warp's 16 query rows against kBN keys: s = Qw . Kt^T.
@@ -292,145 +343,6 @@ __device__ __forceinline__ void acc_pv(float (&acc)[D / 8][4],
   }
 }
 
-// hvd_flash_fwd (bf16) <- _fwd_kernel, horovod_tpu/ops/flash_attention.py:113.
-// Bound by operations: Q.K^T and P.V, 4 * D FLOPs per live (query, key).
-// One CTA per 64 query rows of one (batch, head); each warp keeps its 16
-// rows' running max, denominator and 16 x D fp32 accumulator in registers
-// while K/V tiles stream through shared memory.
-template <int D, int kSide>
-__global__ void __launch_bounds__(kThreads)
-    fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ out,
-             float* __restrict__ lse, const int* __restrict__ seg,
-             const float* __restrict__ bias, int S, int Hq, int Hkv,
-             float sm_scale, int causal) {
-  constexpr bool kSeg = kSide == kSegments, kBias = kSide == kKeyBias;
-  constexpr int LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);   // [kBM][LD]
-  bf16* Ks = Qs + kBM * LD;                    // [2][kBN][LD]
-  bf16* Vs = Ks + 2 * kBN * LD;                // [2][kBN][LD]
-  float* Bs = reinterpret_cast<float*>(Vs + 2 * kBN * LD);   // [kBN] (kBias)
-
-  const int qi = gridDim.x - 1 - blockIdx.x;   // heavy causal tiles first
-  const int b = blockIdx.y / Hq, h = blockIdx.y % Hq, hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t qs = static_cast<size_t>(Hq) * D;    // q row stride
-  const size_t ks = static_cast<size_t>(Hkv) * D;   // k/v row stride
-  const bf16* qb = q + static_cast<size_t>(b) * S * qs + h * D;
-  const bf16* kb = k + static_cast<size_t>(b) * S * ks + hk * D;
-  const bf16* vb = v + static_cast<size_t>(b) * S * ks + hk * D;
-  const int q0 = qi * kBM;
-  const int n_tiles = (S + kBN - 1) / kBN;
-  const int n_live =
-      causal ? min((q0 + kBM + kBN - 1) / kBN, n_tiles) : n_tiles;
-
-  const int* sb = kSeg ? seg + static_cast<size_t>(b) * S : nullptr;
-  const float* bb = kBias ? bias + static_cast<size_t>(b) * S : nullptr;
-  const int j0 = first_tile<kSeg>(sb, q0);
-
-  stage<D>(Qs, qb, qs, q0, kBM, S);
-  stage<D>(Ks, kb, ks, j0 * kBN, kBN, S);
-  stage<D>(Vs, vb, ks, j0 * kBN, kBN, S);
-  cp_async_commit();
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const int row0 = q0 + warp * 16 + g;   // this thread's rows: row0, row0+8
-  const int st[2] = {seg_start<kSeg>(sb, row0, S),
-                     seg_start<kSeg>(sb, row0 + 8, S)};
-
-  for (int j = j0; j < n_live; ++j) {
-    const int buf = (j - j0) & 1;
-    if (j + 1 < n_live) {
-      const int nb = buf ^ 1;
-      stage<D>(Ks + nb * kBN * LD, kb, ks, (j + 1) * kBN, kBN, S);
-      stage<D>(Vs + nb * kBN * LD, vb, ks, (j + 1) * kBN, kBN, S);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    // Tile j's key bias; the last reads of Bs were before the previous
-    // iteration's closing barrier.
-    if (kBias && threadIdx.x < kBN) {
-      const int c = j * kBN + threadIdx.x;
-      Bs[threadIdx.x] = c < S ? bb[c] : 0.f;
-    }
-    __syncthreads();
-    const bf16* Kt = Ks + buf * kBN * LD;
-    const bf16* Vt = Vs + buf * kBN * LD;
-
-    float s[kBN / 8][4];
-    scores_qk<D>(s, Qs + warp * 16 * LD, Kt, lane);
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + (e >> 1) * 8;
-        const int col = j * kBN + nt * 8 + t * 2 + (e & 1);
-        float x = s[nt][e] * sm_scale;
-        if constexpr (kBias) {
-          if (causal && col > row) x = kNegInf;
-          x += Bs[nt * 8 + t * 2 + (e & 1)];
-          if (col >= S) x = kNegInf;
-        } else if (col >= S || (causal && col > row) ||
-                   (kSeg && col < st[e >> 1])) {
-          x = kNegInf;
-        }
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = quad_max(mx[i]);
-      alpha[i] = expf(m[i] - mx[i]);
-      m[i] = mx[i];
-    }
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[nt][e] - m[e >> 1]);
-        s[nt][e] = p;
-        rs[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(rs[i]);
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= alpha[0];
-      acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1];
-      acc[dt][3] *= alpha[1];
-    }
-    acc_pv<D>(acc, s, Vt, lane);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + i * 8;
-    if (row >= S) continue;
-    const float lc = fmaxf(l[i], kTiny);
-    bf16* ob = out + (static_cast<size_t>(b) * S + row) * qs + h * D;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(ob + dt * 8 + t * 2) =
-          pack_bf16(acc[dt][2 * i] / lc, acc[dt][2 * i + 1] / lc);
-    if (t == 0)
-      lse[(static_cast<size_t>(b) * Hq + h) * S + row] = m[i] + logf(lc);
-  }
-}
-
 // hvd_flash_bwd_dq (bf16) <- _bwd_dq_kernel, flash_attention.py:272.
 // Bound by operations: Q.K^T again, dO.V^T and dS.K, 6 * D FLOPs per live
 // pair.  Same tiling as the forward; P is rebuilt from the saved lse, and
@@ -468,7 +380,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int* sb = kSeg ? seg + static_cast<size_t>(b) * S : nullptr;
   const float* bb = kBias ? bias + static_cast<size_t>(b) * S : nullptr;
-  const int j0 = first_tile<kSeg>(sb, q0);
+  const int j0 = first_tile<kSeg, kBN>(sb, q0);
 
   stage<D>(Qs, q + qoff, qs, q0, kBM, S);
   stage<D>(dOs, dout + qoff, qs, q0, kBM, S);
@@ -552,188 +464,785 @@ __global__ void __launch_bounds__(kThreads)
           pack_bf16(acc[dt][2 * i], acc[dt][2 * i + 1]);
   }
 }
+// ---------------------------------------------------------------------------
+// Hopper building blocks: mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
 
-// acc[16 keys x D] += X^T . Y where X^T is a warp's [16 keys x kBQ] C tile
-// (rounded here) and Yt the [kBQ x D] query-side tile in shared memory.
+constexpr int kWG = 128;              // threads of a warpgroup
+constexpr int kHThreads = 3 * kWG;    // producer warpgroup + two consumers
+constexpr int kProducerRegs = 24;     // setmaxnreg: 128 * 24 + 256 * 240
+constexpr int kConsumerRegs = 240;    //   = 64512 of the SM's 65536
+constexpr int kSwz = 64;              // bf16 columns of a 128-byte swizzle row
+constexpr int kFwdM = 128;            // query rows per CTA (forward)
+constexpr int kFwdN = 128;            // keys per tile (forward)
+constexpr int kDkvN = 128;            // keys per CTA (dk/dv)
+constexpr int kDkvM = 64;             // query rows per tile (dk/dv)
+constexpr int kStages = 2;            // depth of the TMA ring (4 at D 64
+                                      // measured no faster)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegInf2 = kNegInf * kLog2e;   // the mask value in log2 units
+
+// 2^x in one MUFU instruction (results below 2^-126 flush to 0, far
+// below what a softmax row's sum of at least 1 can see).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The dynamic shared memory rounded up to 1024 bytes: a 128-byte swizzle
+// repeats every 8 rows of 128 bytes, and the wgmma descriptors below
+// assume each box starts on that period.
+__device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also announces `bytes` of TMA traffic for this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box of `map` at the given coordinates (innermost first) into
+// shared memory at `dst`, counted on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// kRows rows (from row0) of one head of a [B, S, H, D] tensor through its
+// 4-D map: D / 64 swizzled boxes of [kRows][64], one after the other.
+template <int D, int kRows>
+__device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int head, int row0,
+                                         int b) {
+#pragma unroll
+  for (int c = 0; c < D / kSwz; ++c)
+    tma_load_4d(dst + c * kRows * kSwz, map, bar, c * kSwz, head, row0, b);
+}
+
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout type 1
+// (128-byte swizzle).
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+// K-major operand (the product contracts over D): k-step ks (16 columns)
+// of the 64 rows from r0 of a tile of D / 64 boxes of [kRows][64].  Rows
+// step 1024 bytes per 8; inside a box a k-step is 32 bytes.
+template <int kRows>
+__device__ __forceinline__ uint64_t desc_k(const bf16* tile, int r0,
+                                           int ks) {
+  return gmma_desc(tile + (ks / 4) * kRows * kSwz + r0 * kSwz + (ks % 4) * 16,
+                   16, 1024);
+}
+
+// MN-major operand (the product contracts over the tile's rows): k-step kk
+// (16 rows) of the same tile; its N (D) steps 64 columns to the next box,
+// the leading byte offset, and 8 rows per 1024 bytes, the stride offset.
+template <int kRows>
+__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int kk) {
+  return gmma_desc(tile + kk * 16 * kSwz, kRows * kSwz * 2, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Ties the accumulators to the preceding wait: no read of them moves above
+// it, no write below the next wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define HVD_F8(i)                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (+)= A . B, m64n64k16: A and B K-major in shared memory; `acc` 0
+// overwrites d.
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a,
+                                       uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HVD_F8(0), HVD_F8(8), HVD_F8(16), HVD_F8(24)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// m64n128k16 of the same.
+__device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t a,
+                                       uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, "
+      "1, 0, 0;\n}\n"
+      : HVD_F8(0), HVD_F8(8), HVD_F8(16), HVD_F8(24), HVD_F8(32),
+        HVD_F8(40), HVD_F8(48), HVD_F8(56)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d += A . B, m64n64k16: A the bf16 register fragment a, B MN-major in
+// shared memory (transpose bit set).
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : HVD_F8(0), HVD_F8(8), HVD_F8(16), HVD_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// m64n128k16 of the same.
+__device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, "
+      "%67}, %68, p, 1, 1, 1;\n}\n"
+      : HVD_F8(0), HVD_F8(8), HVD_F8(16), HVD_F8(24), HVD_F8(32),
+        HVD_F8(40), HVD_F8(48), HVD_F8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef HVD_F8
+
+// The register A fragment of k-step kk (16 columns) from fp32 accumulator
+// values of the same rows, rounded to bf16: columns 16kk..16kk+15 are the
+// accumulator's n8 blocks 2kk and 2kk+1.
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&x)[N],
+                                       int kk) {
+  a[0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
+  a[1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+  a[2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+  a[3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 forward and dk/dv kernels (wgmma, TMA, warp-specialised)
+// ---------------------------------------------------------------------------
+
+// The CTA's k-th work item, or n_items past its last: a snake order over
+// the items sorted heaviest first (CTA c of P takes items c, 2P - 1 - c,
+// 2P + c, 4P - 1 - c, ...), which pairs heavy causal items with light ones
+// without atomics.  With one CTA an item, CTA c takes item c alone.
+__device__ __forceinline__ int snake_item(int k, int n_items) {
+  const int P = gridDim.x, c = blockIdx.x;
+  const int i = k * P + ((k & 1) ? P - 1 - c : c);
+  return i < n_items ? i : n_items;
+}
+
+// Shared memory of the forward, byte offsets from the 1024-aligned base.
 template <int D>
-__device__ __forceinline__ void acc_xty(float (&acc)[D / 8][4],
-                                        const float (&x)[kBQ / 8][4],
-                                        const bf16* Yt, int lane) {
-  constexpr int LD = D + kPad;
+struct FwdSmem {
+  static constexpr int kTileQ = kFwdM * D * 2;
+  static constexpr int kTileKV = kFwdN * D * 2;
+  static constexpr int kQ = 0;                                // [2] Q tiles
+  static constexpr int kK = kQ + 2 * kTileQ;                  // [kStages] tiles
+  static constexpr int kV = kK + kStages * kTileKV;           // [kStages] tiles
+  static constexpr int kB = kV + kStages * kTileKV;           // bias x log2(e)
+  static constexpr int kBar = kB + kStages * kFwdN * 4;       // full, empty, q
+  static constexpr int kBytes = kBar + (2 * kStages + 4) * 8 + 1024;
+};
+
+// The forward's work item i: query block q0 of (batch b, head h), the
+// last (heaviest causal) block of every head first.
+struct FwdItem {
+  int b, h, q0, j0, n_live;
+};
+
+template <bool kSeg>
+__device__ __forceinline__ FwdItem fwd_item(int i, const int* seg, int B,
+                                            int S, int Hq, int causal) {
+  const int BH = B * Hq, n_qb = (S + kFwdM - 1) / kFwdM;
+  const int n_tiles = (S + kFwdN - 1) / kFwdN;
+  FwdItem w;
+  w.b = (i % BH) / Hq;
+  w.h = (i % BH) % Hq;
+  w.q0 = (n_qb - 1 - i / BH) * kFwdM;
+  w.n_live =
+      causal ? min((w.q0 + kFwdM + kFwdN - 1) / kFwdN, n_tiles) : n_tiles;
+  w.j0 = first_tile<kSeg, kFwdN>(
+      kSeg ? seg + static_cast<size_t>(w.b) * S : nullptr, w.q0);
+  return w;
+}
+
+// hvd_flash_fwd (bf16) <- _fwd_kernel, horovod_tpu/ops/flash_attention.py:113.
+// Bound by operations: Q.K^T and P.V, 4 * D FLOPs per live (query, key).
+// Work items of 128 query rows of one (batch, head); each consumer
+// warpgroup keeps its 64 rows' running max, denominator and 64 x D fp32
+// accumulator in registers while the producer streams 128-key K/V tiles
+// (and the key bias) through the ring, and the next item's Q into the
+// other of two Q buffers.
+template <int D, int kSide>
+__global__ void __launch_bounds__(kHThreads, 1)
+    fwd_bf16(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+             float* __restrict__ lse, const int* __restrict__ seg,
+             const float* __restrict__ bias, int B, int S, int Hq, int Hkv,
+             float sm_scale, int causal) {
+  using L = FwdSmem<D>;
+  constexpr bool kSeg = kSide == kSegments, kBias = kSide == kKeyBias;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(sm + L::kQ);
+  bf16* Ks = reinterpret_cast<bf16*>(sm + L::kK);
+  bf16* Vs = reinterpret_cast<bf16*>(sm + L::kV);
+  float* Bs = reinterpret_cast<float*>(sm + L::kB);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* empty = full + kStages;
+  uint64_t* qfull = empty + kStages;   // [2]
+  uint64_t* qempty = qfull + 2;        // [2]
+  const int n_items = B * Hq * ((S + kFwdM - 1) / kFwdM);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * kWG);
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&qfull[s], 1);
+      mbar_init(&qempty[s], 2 * kWG);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWG) {   // producer: the first warp
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      int it = 0;   // K/V tiles loaded so far: the ring's position
+      for (int n = 0, i; (i = snake_item(n, n_items)) < n_items; ++n) {
+        const FwdItem w = fwd_item<kSeg>(i, seg, B, S, Hq, causal);
+        const int qb = n & 1, hk = w.h / (Hq / Hkv);
+        mbar_wait(&qempty[qb], ((n >> 1) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&qfull[qb], L::kTileQ);
+          tma_rows<D, kFwdM>(Qs + qb * kFwdM * D, &tq, &qfull[qb], w.h, w.q0,
+                             w.b);
+        }
+        const float* bb =
+            kBias ? bias + static_cast<size_t>(w.b) * S : nullptr;
+        for (int j = w.j0; j < w.n_live; ++j, ++it) {
+          const int s = it % kStages;
+          // The key tile's bias, by the lanes, read before the stage frees.
+          float bv[kFwdN / 32];
+          if constexpr (kBias) {
 #pragma unroll
-  for (int kk = 0; kk < kBQ / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+            for (int c = 0; c < kFwdN / 32; ++c) {
+              const int key = j * kFwdN + c * 32 + lane;
+              bv[c] = key < S ? bb[key] * kLog2e : 0.f;
+            }
+          }
+          mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+          if constexpr (kBias) {
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      uint32_t b[2];
-      load_bt(b, Yt + kk * 16 * LD + dt * 8, LD, lane);
-      mma(acc[dt], a, b);
+            for (int c = 0; c < kFwdN / 32; ++c)
+              Bs[s * kFwdN + c * 32 + lane] = bv[c];
+            __syncwarp();
+          }
+          if (lane == 0) {   // its arrival releases the lanes' stores too
+            mbar_expect_tx(&full[s], 2 * L::kTileKV);
+            tma_rows<D, kFwdN>(Ks + s * kFwdN * D, &tk, &full[s], hk,
+                               j * kFwdN, w.b);
+            tma_rows<D, kFwdN>(Vs + s * kFwdN * D, &tv, &full[s], hk,
+                               j * kFwdN, w.b);
+          }
+        }
+      }
+    }
+    return;
+  }
+  regs_inc<kConsumerRegs>();
+
+  const int cw = threadIdx.x / kWG - 1;   // consumer warpgroup: 64 rows
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t qs = static_cast<size_t>(Hq) * D;
+  const float scale2 = sm_scale * kLog2e;
+  int it = 0;
+  for (int n = 0, i; (i = snake_item(n, n_items)) < n_items; ++n) {
+    const FwdItem w = fwd_item<kSeg>(i, seg, B, S, Hq, causal);
+    const int* sb = kSeg ? seg + static_cast<size_t>(w.b) * S : nullptr;
+    const int r_first = w.q0 + cw * 64;          // the warpgroup's first row
+    const int row0 = r_first + warp * 16 + g;    // this thread's: row0, +8
+    const int st[2] = {seg_start<kSeg>(sb, row0, S),
+                       seg_start<kSeg>(sb, row0 + 8, S)};
+    float acc[D / 2];
+#pragma unroll
+    for (int k = 0; k < D / 2; ++k) acc[k] = 0.f;
+    float m[2] = {kNegInf2, kNegInf2}, l[2] = {0.f, 0.f};   // log2 units
+    const int qb = n & 1;
+    const bf16* Qt = Qs + qb * kFwdM * D;
+
+    mbar_wait(&qfull[qb], (n >> 1) & 1);
+    for (int j = w.j0; j < w.n_live; ++j, ++it) {
+      const int s = it % kStages;
+      mbar_wait(&full[s], (it / kStages) & 1);
+      const bf16* Kt = Ks + s * kFwdN * D;
+      const bf16* Vt = Vs + s * kFwdN * D;
+      const float* Bt = Bs + s * kFwdN;
+
+      float sc[kFwdN / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        mma_ss(sc, desc_k<kFwdM>(Qt, cw * 64, ks), desc_k<kFwdN>(Kt, 0, ks),
+               ks);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sc);
+
+      // Only the diagonal tile and the ragged last one pay for the causal
+      // and tail masks (whole-warpgroup decision).
+      const int k_first = j * kFwdN;
+      const bool edge = k_first + kFwdN > S ||
+                        (causal && k_first + kFwdN - 1 > r_first);
+      // A tile with no mask keeps the raw scores: the scale rides the
+      // exponent's FFMA (max(s) * scale is max(s * scale), both rounded
+      // once).  Otherwise the scores are scaled (the bias in the same
+      // FFMA) and masked first.
+      const bool raw = !kSeg && !kBias && !edge;
+      float mx[2] = {-3e38f, -3e38f};   // below every score
+#pragma unroll
+      for (int nt = 0; nt < kFwdN / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = nt * 8 + t * 2 + (e & 1);
+          const int row = row0 + (e >> 1) * 8, col = k_first + c;
+          float x = sc[nt * 4 + e];
+          if (!raw) {
+            if constexpr (kBias) {   // the reference's order: causal, bias
+              x = edge && causal && col > row ? kNegInf2 + Bt[c]
+                                              : fmaf(x, scale2, Bt[c]);
+              if (edge && col >= S) x = kNegInf2;
+            } else {
+              x *= scale2;
+              if (col >= S || (causal && col > row) ||
+                  (kSeg && col < st[e >> 1]))
+                x = kNegInf2;
+            }
+            sc[nt * 4 + e] = x;
+          }
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(m[r], quad_max(raw ? mx[r] * scale2 : mx[r]));
+        alpha[r] = ex2(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+      const float mul = raw ? scale2 : 1.f;
+#pragma unroll
+      for (int k = 0; k < kFwdN / 2; ++k) {
+        const float p = ex2(fmaf(sc[k], mul, -m[(k >> 1) & 1]));
+        sc[k] = p;
+        rs[(k >> 1) & 1] += p;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(rs[r]);
+#pragma unroll
+      for (int k = 0; k < D / 2; ++k) acc[k] *= alpha[(k >> 1) & 1];
+
+      uint32_t pa[kFwdN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kFwdN / 16; ++kk) pack_a(pa[kk], sc, kk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kFwdN / 16; ++kk)
+        mma_rs(acc, pa[kk], desc_mn<kFwdN>(Vt, kk));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(acc);
+      mbar_arrive(&empty[s]);
+    }
+    mbar_arrive(&qempty[qb]);
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + r * 8;
+      if (row >= S) continue;
+      const float lc = fmaxf(l[r], kTiny);
+      bf16* ob = out + (static_cast<size_t>(w.b) * S + row) * qs + w.h * D;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt)
+        *reinterpret_cast<uint32_t*>(ob + dt * 8 + t * 2) =
+            pack_bf16(acc[dt * 4 + 2 * r] / lc, acc[dt * 4 + 2 * r + 1] / lc);
+      if (t == 0)
+        lse[(static_cast<size_t>(w.b) * Hq + w.h) * S + row] =
+            (m[r] + log2f(lc)) * kLn2;
     }
   }
 }
 
-// [16 keys x kBQ] = Xw (a warp's 16 rows of K or V) . Yt^T (kBQ query rows).
+// Shared memory of dk/dv, byte offsets from the 1024-aligned base.
 template <int D>
-__device__ __forceinline__ void scores_kq(float (&s)[kBQ / 8][4],
-                                          const bf16* Xw, const bf16* Yt,
-                                          int lane) {
-  constexpr int LD = D + kPad;
-#pragma unroll
-  for (int nt = 0; nt < kBQ / 8; ++nt)
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    uint32_t a[4];
-    load_a(a, Xw + kc * 16, LD, lane);
-#pragma unroll
-    for (int nt = 0; nt < kBQ / 8; ++nt) {
-      uint32_t b[2];
-      load_b(b, Yt + nt * 8 * LD + kc * 16, LD, lane);
-      mma(s[nt], a, b);
-    }
-  }
+struct DkvSmem {
+  static constexpr int kTileKV = kDkvN * D * 2;
+  static constexpr int kTileQ = kDkvM * D * 2;
+  static constexpr int kK = 0;                                // [2] K tiles
+  static constexpr int kV = kK + 2 * kTileKV;                 // [2] V tiles
+  static constexpr int kQ = kV + 2 * kTileKV;                 // [kStages] tiles
+  static constexpr int kO = kQ + kStages * kTileQ;            // dout tiles
+  static constexpr int kL = kO + kStages * kTileQ;            // lse x log2(e)
+  static constexpr int kDl = kL + kStages * kDkvM * 4;        // delta x scale
+  static constexpr int kSg = kDl + kStages * kDkvM * 4;       // int32 starts
+  static constexpr int kBar = kSg + kStages * kDkvM * 4;      // full, empty, kv
+  static constexpr int kBytes = kBar + (2 * kStages + 4) * 8 + 1024;
+};
+
+// The dk/dv work item i: key block k0 of (batch b, KV head hk), the first
+// (heaviest causal) block of every head first, with the query tiles it
+// walks: from first_q, n_live of them for each of the G heads.
+struct DkvItem {
+  int b, hk, k0, first_q, n_live;
+};
+
+template <bool kSeg>
+__device__ __forceinline__ DkvItem dkv_item(int i, const int* seg, int B,
+                                            int S, int Hkv, int causal) {
+  const int BH = B * Hkv;
+  DkvItem w;
+  w.b = (i % BH) / Hkv;
+  w.hk = (i % BH) % Hkv;
+  w.k0 = (i / BH) * kDkvN;
+  w.first_q = causal ? w.k0 / kDkvM : 0;   // tiles from the diagonal
+  // Query tiles that can see this key block (segments: a prefix of rows);
+  // at least one, since row k0 sees key k0.
+  const int n_q = (q_rows<kSeg, kDkvN>(
+                       kSeg ? seg + static_cast<size_t>(w.b) * S : nullptr,
+                       w.k0, S) +
+                   kDkvM - 1) /
+                  kDkvM;
+  w.n_live = n_q - w.first_q;
+  return w;
 }
 
 // hvd_flash_bwd_dkv (bf16) <- _bwd_dkv_kernel, flash_attention.py:329.
 // Bound by operations: four products (K.Q^T, V.dO^T, P^T.dO, dS^T.Q),
-// 8 * D FLOPs per live pair.  One CTA per 64 keys of one (batch, KV
-// head), transposed so keys are the rows: each warp keeps 16 keys' dK and
-// dV in registers across the G query heads and all query tiles.
+// 8 * D FLOPs per live pair.  Work items of 128 keys of one (batch, KV
+// head), transposed so keys are the rows: each consumer warpgroup keeps
+// its 64 keys' dK and dV in registers across the G query heads and every
+// 64-row query tile, which the producer streams with their lse, delta
+// (and segment starts); the next item's K and V go to the other of two
+// K/V buffers.
 template <int D, int kSide>
-__global__ void __launch_bounds__(kThreads)
-    bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(kHThreads, 1)
+    bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, bf16* __restrict__ dk,
                  bf16* __restrict__ dv, const int* __restrict__ seg,
-                 const float* __restrict__ bias, int S, int Hq, int Hkv,
-                 float sm_scale, int causal) {
+                 const float* __restrict__ bias, int B, int S, int Hq,
+                 int Hkv, float sm_scale, int causal) {
+  using L = DkvSmem<D>;
   constexpr bool kSeg = kSide == kSegments, kBias = kSide == kKeyBias;
-  constexpr int LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);   // [kBN][LD]
-  bf16* Vs = Ks + kBN * LD;                    // [kBN][LD]
-  bf16* Qs = Vs + kBN * LD;                    // [2][kBQ][LD]
-  bf16* dOs = Qs + 2 * kBQ * LD;               // [2][kBQ][LD]
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * kBQ * LD);   // [2][kBQ]
-  float* Ds = Ls + 2 * kBQ;                                    // [2][kBQ]
-  int* Ss = reinterpret_cast<int*>(Ds + 2 * kBQ);              // [2][kBQ]
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  bf16* Ks = reinterpret_cast<bf16*>(sm + L::kK);
+  bf16* Vs = reinterpret_cast<bf16*>(sm + L::kV);
+  bf16* Qs = reinterpret_cast<bf16*>(sm + L::kQ);
+  bf16* dOs = reinterpret_cast<bf16*>(sm + L::kO);
+  float* Ls = reinterpret_cast<float*>(sm + L::kL);
+  float* Ds = reinterpret_cast<float*>(sm + L::kDl);
+  int* Ss = reinterpret_cast<int*>(sm + L::kSg);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvfull = empty + kStages;   // [2]
+  uint64_t* kvempty = kvfull + 2;       // [2]
+  const int G = Hq / Hkv;
+  const int n_items = B * Hkv * ((S + kDkvN - 1) / kDkvN);
 
-  const int kj = blockIdx.x;
-  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv, G = Hq / Hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t qs = static_cast<size_t>(Hq) * D;
-  const size_t ks = static_cast<size_t>(Hkv) * D;
-  const size_t koff = static_cast<size_t>(b) * S * ks + hk * D;
-  const int k0 = kj * kBN;
-  const int first_q = causal ? k0 / kBQ : 0;   // tiles from the diagonal
-
-  stage<D>(Ks, k + koff, ks, k0, kBN, S);
-  stage<D>(Vs, v + koff, ks, k0, kBN, S);
-  const int* sb = kSeg ? seg + static_cast<size_t>(b) * S : nullptr;
-  // Query tiles that can see this key tile (segments: a prefix of rows).
-  const int n_q = (q_rows<kSeg>(sb, k0, S) + kBQ - 1) / kBQ;
-  const int n_live = n_q - first_q;            // >= 1: row k0 sees key k0
-  const int n_iter = G * n_live;               // (head of group, q tile)
-
-  // Issue the loads of iteration `it` into buffer `buf`.
-  auto load_q = [&](int it, int buf) {
-    const int h = hk * G + it / n_live;
-    const int qt0 = (first_q + it % n_live) * kBQ;
-    const size_t qoff = static_cast<size_t>(b) * S * qs + h * D;
-    stage<D>(Qs + buf * kBQ * LD, q + qoff, qs, qt0, kBQ, S);
-    stage<D>(dOs + buf * kBQ * LD, dout + qoff, qs, qt0, kBQ, S);
-    const int r = threadIdx.x;
-    if (r < kBQ) {
-      const size_t lo = (static_cast<size_t>(b) * Hq + h) * S;
-      const bool ok = qt0 + r < S;
-      Ls[buf * kBQ + r] = ok ? lse[lo + qt0 + r] : 0.f;
-      Ds[buf * kBQ + r] = ok ? delta[lo + qt0 + r] : 0.f;
-      if constexpr (kSeg) Ss[buf * kBQ + r] = seg_start<kSeg>(sb, qt0 + r, S);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * kWG);
     }
-  };
-  if (n_iter > 0) load_q(0, 0);
-  cp_async_commit();
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    dk_acc[dt][0] = dk_acc[dt][1] = dk_acc[dt][2] = dk_acc[dt][3] = 0.f;
-    dv_acc[dt][0] = dv_acc[dt][1] = dv_acc[dt][2] = dv_acc[dt][3] = 0.f;
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&kvfull[s], 1);
+      mbar_init(&kvempty[s], 2 * kWG);
+    }
+    fence_mbar_init();
   }
-  const int key0 = k0 + warp * 16 + g;   // this thread's keys: key0, key0+8
-  // The key bias is a function of the key alone: two registers a thread.
-  float kbias[2] = {0.f, 0.f};
-  if constexpr (kBias) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int key = key0 + i * 8;
-      if (key < S) kbias[i] = bias[static_cast<size_t>(b) * S + key];
-    }
-  }
+  __syncthreads();
 
-  for (int it = 0; it < n_iter; ++it) {
-    if (it + 1 < n_iter) {
-      load_q(it + 1, (it + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int buf = it & 1;
-    const bf16* Qt = Qs + buf * kBQ * LD;
-    const bf16* dOt = dOs + buf * kBQ * LD;
-    const float* Lt = Ls + buf * kBQ;
-    const float* Dt = Ds + buf * kBQ;
-    const int* St = Ss + buf * kBQ;
-    const int qt0 = (first_q + it % n_live) * kBQ;
-
-    float s[kBQ / 8][4], dp[kBQ / 8][4];
-    scores_kq<D>(s, Ks + warp * 16 * LD, Qt, lane);    // (q . k^T)^T
-    scores_kq<D>(dp, Vs + warp * 16 * LD, dOt, lane);  // (dout . v^T)^T
-#pragma unroll
-    for (int nt = 0; nt < kBQ / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key0 + (e >> 1) * 8;
-        const int c = nt * 8 + t * 2 + (e & 1);
-        const int qrow = qt0 + c;
-        float x = s[nt][e] * sm_scale;
-        if constexpr (kBias) {
-          if (causal && key > qrow) x = kNegInf;
-          x += kbias[e >> 1];
-          if (qrow >= S) x = kNegInf;
-        } else if (qrow >= S || (causal && key > qrow) ||
-                   (kSeg && key < St[c])) {
-          x = kNegInf;
+  if (threadIdx.x < kWG) {   // producer: the first warp
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      int it = 0;   // query tiles loaded so far: the ring's position
+      for (int n = 0, i; (i = snake_item(n, n_items)) < n_items; ++n) {
+        const DkvItem w = dkv_item<kSeg>(i, seg, B, S, Hkv, causal);
+        const int kb = n & 1;
+        mbar_wait(&kvempty[kb], ((n >> 1) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&kvfull[kb], 2 * L::kTileKV);
+          tma_rows<D, kDkvN>(Ks + kb * kDkvN * D, &tk, &kvfull[kb], w.hk,
+                             w.k0, w.b);
+          tma_rows<D, kDkvN>(Vs + kb * kDkvN * D, &tv, &kvfull[kb], w.hk,
+                             w.k0, w.b);
         }
-        const float p = expf(x - Lt[c]);
-        s[nt][e] = p;
-        dp[nt][e] = p * (dp[nt][e] - Dt[c]) * sm_scale;   // dS^T
+        const int* sb = kSeg ? seg + static_cast<size_t>(w.b) * S : nullptr;
+        for (int q = 0; q < G * w.n_live; ++q, ++it) {
+          const int h = w.hk * G + q / w.n_live;
+          const int qt0 = (w.first_q + q % w.n_live) * kDkvM;
+          const int s = it % kStages;
+          // The tile's lse, delta (and segment starts), by the lanes, read
+          // before the stage frees: a TMA box must start 16-byte aligned,
+          // and (b, h, qt0)'s row of [B, Hq, S] fp32 does not unless S % 4
+          // == 0.  Rows past S: 0.
+          const size_t r = (static_cast<size_t>(w.b) * Hq + h) * S;
+          float lv[kDkvM / 32], dl[kDkvM / 32];
+          int sv[kDkvM / 32];
+#pragma unroll
+          for (int c = 0; c < kDkvM / 32; ++c) {
+            const int row = qt0 + c * 32 + lane;
+            lv[c] = row < S ? lse[r + row] * kLog2e : 0.f;
+            dl[c] = row < S ? delta[r + row] * sm_scale : 0.f;
+            sv[c] = seg_start<kSeg>(sb, row, S);
+          }
+          mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+#pragma unroll
+          for (int c = 0; c < kDkvM / 32; ++c) {
+            Ls[s * kDkvM + c * 32 + lane] = lv[c];
+            Ds[s * kDkvM + c * 32 + lane] = dl[c];
+            if constexpr (kSeg) Ss[s * kDkvM + c * 32 + lane] = sv[c];
+          }
+          __syncwarp();
+          if (lane == 0) {   // its arrival releases the lanes' stores too
+            mbar_expect_tx(&full[s], 2 * L::kTileQ);
+            tma_rows<D, kDkvM>(Qs + s * kDkvM * D, &tq, &full[s], h, qt0,
+                               w.b);
+            tma_rows<D, kDkvM>(dOs + s * kDkvM * D, &tdo, &full[s], h, qt0,
+                               w.b);
+          }
+        }
       }
     }
-    acc_xty<D>(dv_acc, s, dOt, lane);    // dv += P^T . dout
-    acc_xty<D>(dk_acc, dp, Qt, lane);    // dk += dS^T . q
-    __syncthreads();
+    return;
   }
+  regs_inc<kConsumerRegs>();
+
+  const int cw = threadIdx.x / kWG - 1;   // consumer warpgroup: 64 keys
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t kv_stride = static_cast<size_t>(Hkv) * D;
+  const float scale2 = sm_scale * kLog2e;
+  int it = 0;
+  for (int n = 0, i; (i = snake_item(n, n_items)) < n_items; ++n) {
+    const DkvItem w = dkv_item<kSeg>(i, seg, B, S, Hkv, causal);
+    const int k_first = w.k0 + cw * 64;        // the warpgroup's first key
+    const int key0 = k_first + warp * 16 + g;  // this thread's: key0, +8
+    // The key bias is a function of the key alone: two registers a thread.
+    float kbias[2] = {0.f, 0.f};
+    if constexpr (kBias) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = key0 + r * 8;
+        if (key < S)
+          kbias[r] = bias[static_cast<size_t>(w.b) * S + key] * kLog2e;
+      }
+    }
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int k = 0; k < D / 2; ++k) dk_acc[k] = dv_acc[k] = 0.f;
+    const int kb = n & 1;
+    const bf16* Kt = Ks + kb * kDkvN * D;
+    const bf16* Vt = Vs + kb * kDkvN * D;
+
+    mbar_wait(&kvfull[kb], (n >> 1) & 1);
+    for (int q = 0; q < G * w.n_live; ++q, ++it) {
+      const int s = it % kStages;
+      const int qt0 = (w.first_q + q % w.n_live) * kDkvM;
+      mbar_wait(&full[s], (it / kStages) & 1);
+      // Causal: a tile whose every row precedes this warpgroup's first key
+      // adds nothing (the second warpgroup on the diagonal tile).
+      if (!causal || k_first <= qt0 + kDkvM - 1) {
+        const bf16* Qt = Qs + s * kDkvM * D;
+        const bf16* dOt = dOs + s * kDkvM * D;
+        const float* Lt = Ls + s * kDkvM;
+        const float* Dt = Ds + s * kDkvM;
+        const int* St = Ss + s * kDkvM;
+
+        float sc[kDkvM / 2];   // S^T = K . Q^T, then P^T
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks)
+          mma_ss(sc, desc_k<kDkvN>(Kt, cw * 64, ks),
+                 desc_k<kDkvM>(Qt, 0, ks), ks);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(sc);
+
+        const bool edge =
+            qt0 + kDkvM > S || (causal && k_first + 63 > qt0);
+#pragma unroll
+        for (int nt = 0; nt < kDkvM / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = nt * 8 + t * 2 + (e & 1);
+            const int key = key0 + (e >> 1) * 8, qrow = qt0 + c;
+            // 2^(s * scale - lse), in one FFMA on a tile with no mask.
+            float x = sc[nt * 4 + e];
+            if constexpr (kBias) {   // the reference's order: causal, bias
+              x = edge && causal && key > qrow ? kNegInf2 + kbias[e >> 1]
+                                               : fmaf(x, scale2, kbias[e >> 1]);
+              if (edge && qrow >= S) x = kNegInf2;
+              x -= Lt[c];
+            } else if (kSeg || edge) {
+              x *= scale2;
+              if (qrow >= S || (causal && key > qrow) ||
+                  (kSeg && key < St[c]))
+                x = kNegInf2;
+              x -= Lt[c];
+            } else {
+              x = fmaf(x, scale2, -Lt[c]);
+            }
+            sc[nt * 4 + e] = ex2(x);
+          }
+        }
+        uint32_t pa[kDkvM / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kDkvM / 16; ++kk) pack_a(pa[kk], sc, kk);
+
+        float dp[kDkvM / 2];   // dP^T = V . dO^T; dV += P^T . dO
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks)
+          mma_ss(dp, desc_k<kDkvN>(Vt, cw * 64, ks),
+                 desc_k<kDkvM>(dOt, 0, ks), ks);
+#pragma unroll
+        for (int kk = 0; kk < kDkvM / 16; ++kk)
+          mma_rs(dv_acc, pa[kk], desc_mn<kDkvM>(dOt, kk));
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(dp);
+        fence_regs(dv_acc);
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = key0 + i * 8;
-    if (key >= S) continue;
-    const size_t o = (static_cast<size_t>(b) * S + key) * ks + hk * D;
+        for (int nt = 0; nt < kDkvM / 8; ++nt) {
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(dk + o + dt * 8 + t * 2) =
-          pack_bf16(dk_acc[dt][2 * i], dk_acc[dt][2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(dv + o + dt * 8 + t * 2) =
-          pack_bf16(dv_acc[dt][2 * i], dv_acc[dt][2 * i + 1]);
+          for (int e = 0; e < 4; ++e) {
+            const int k = nt * 4 + e, c = nt * 8 + t * 2 + (e & 1);
+            sc[k] *= fmaf(dp[k], sm_scale, -Dt[c]);   // dS^T (Dt: delta·scale)
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < kDkvM / 16; ++kk) pack_a(pa[kk], sc, kk);
+        wgmma_fence();   // dK += dS^T . Q
+#pragma unroll
+        for (int kk = 0; kk < kDkvM / 16; ++kk)
+          mma_rs(dk_acc, pa[kk], desc_mn<kDkvM>(Qt, kk));
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(dk_acc);
+      }
+      mbar_arrive(&empty[s]);
+    }
+    mbar_arrive(&kvempty[kb]);
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + r * 8;
+      if (key >= S) continue;
+      const size_t o = (static_cast<size_t>(w.b) * S + key) * kv_stride +
+                       w.hk * D;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        *reinterpret_cast<uint32_t*>(dk + o + dt * 8 + t * 2) =
+            pack_bf16(dk_acc[dt * 4 + 2 * r], dk_acc[dt * 4 + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dv + o + dt * 8 + t * 2) =
+            pack_bf16(dv_acc[dt * 4 + 2 * r], dv_acc[dt * 4 + 2 * r + 1]);
+      }
     }
   }
 }
@@ -798,7 +1307,7 @@ __global__ void __launch_bounds__(kBM)
   const float* bb = kBias ? bias + static_cast<size_t>(b) * S : nullptr;
   const int st = seg_start<kSeg>(sb, row, S);
 
-  for (int j = first_tile<kSeg>(sb, q0); j < n_live; ++j) {
+  for (int j = first_tile<kSeg, kBN>(sb, q0); j < n_live; ++j) {
     __syncthreads();
     stage_f32<D>(Ks, D, kb, ks, j * kBN, kBN, S, kBM);
     stage_f32<D>(Vs, D, vb, ks, j * kBN, kBN, S, kBM);
@@ -888,7 +1397,7 @@ __global__ void __launch_bounds__(kBM)
   const float* bb = kBias ? bias + static_cast<size_t>(b) * S : nullptr;
   const int st = seg_start<kSeg>(sb, row, S);
 
-  for (int j = first_tile<kSeg>(sb, q0); j < n_live; ++j) {
+  for (int j = first_tile<kSeg, kBN>(sb, q0); j < n_live; ++j) {
     __syncthreads();
     stage_f32<D>(Ks, D, kb, ks, j * kBN, kBN, S, kBM);
     stage_f32<D>(Vs, D, vb, ks, j * kBN, kBN, S, kBM);
@@ -954,7 +1463,7 @@ __global__ void __launch_bounds__(2 * kBN)
   const float kbias =
       kBias && key < S ? bias[static_cast<size_t>(b) * S + key] : 0.f;
   const int* sb = kSeg ? seg + static_cast<size_t>(b) * S : nullptr;
-  const int n_q = (q_rows<kSeg>(sb, k0, S) + kBQ - 1) / kBQ;
+  const int n_q = (q_rows<kSeg, kBN>(sb, k0, S) + kBQ - 1) / kBQ;
   const int first_q = causal ? k0 / kBQ : 0;
 
   stage_f32<D>(Ks, D + 1, k + koff, ks, k0, kBN, S, 2 * kBN);
@@ -1018,7 +1527,6 @@ __global__ void __launch_bounds__(2 * kBN)
     for (int d = 0; d < D; ++d) o[d] = acc[d];
   }
 }
-
 // ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
@@ -1048,24 +1556,88 @@ Kernel pick(const Args& a, Kernel dense, Kernel segments, Kernel key_bias) {
   return a.seg ? segments : a.bias ? key_bias : dense;
 }
 
-// Shared memory for the key-bias tile (forward and dq only).
+// Shared memory for the key-bias tile (fp32 forward and dq).
 size_t bias_smem(const Args& a) { return a.bias ? kBN * sizeof(float) : 0; }
+
+constexpr int kMapError = -2;   // a TMA map could not be encoded
+
+// CTAs of a Hopper kernel's grid: persistent, one an SM, when there are
+// items enough for the static split to balance (4 an SM or more); else one
+// an item, which the hardware hands to SMs as they free up (a few items
+// of data-dependent work, as packed rows give dk/dv).
+int grid_ctas(int items) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return items >= 4 * sms ? sms : items;
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 4-D map (D, H, S, B) of a contiguous bf16 [B, S, H, D] tensor, in
+// 128-byte-swizzled boxes of 64 columns x `rows` rows of one head and one
+// batch row; rows past S are zero-filled.
+bool rows_map(CUtensorMap* map, const void* p, const Args& a, int H, int D,
+              int rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(a.S),
+                              static_cast<cuuint64_t>(a.B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(H) * D * sizeof(bf16);
+  const cuuint64_t strides[3] = {D * sizeof(bf16), row, row * a.S};
+  const cuuint32_t box[4] = {kSwz, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
+             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 template <int D>
 int fwd(const Args& a, int dtype) {
-  const dim3 grid((a.S + kBM - 1) / kBM, a.B * a.Hq);
   if (dtype == 1) {
-    const size_t smem =
-        (kBM + 4 * kBN) * (D + kPad) * sizeof(bf16) + bias_smem(a);
+    CUtensorMap tq{}, tk{}, tv{};
+    if (!rows_map(&tq, a.q, a, a.Hq, D, kFwdM) ||
+        !rows_map(&tk, a.k, a, a.Hkv, D, kFwdN) ||
+        !rows_map(&tv, a.v, a, a.Hkv, D, kFwdN))
+      return kMapError;
+    const int items = a.B * a.Hq * ((a.S + kFwdM - 1) / kFwdM);
+    const size_t smem = FwdSmem<D>::kBytes;
     auto kernel = pick(a, fwd_bf16<D, kDense>, fwd_bf16<D, kSegments>,
                        fwd_bf16<D, kKeyBias>);
     if (int err = prepare(kernel, smem)) return err;
-    kernel<<<grid, kThreads, smem, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out),
-        static_cast<float*>(a.lse_out), a.seg, a.bias, a.S, a.Hq, a.Hkv,
-        a.sm_scale, a.causal);
+    kernel<<<grid_ctas(items), kHThreads, smem, a.stream>>>(
+        tq, tk, tv, static_cast<bf16*>(a.out),
+        static_cast<float*>(a.lse_out), a.seg, a.bias, a.B, a.S, a.Hq,
+        a.Hkv, a.sm_scale, a.causal);
   } else {
+    const dim3 grid((a.S + kBM - 1) / kBM, a.B * a.Hq);
     const size_t smem =
         (kBM * (D + 1) + 2 * kBN * D + kBM * (kBN + 1)) * sizeof(float) +
         bias_smem(a);
@@ -1114,20 +1686,25 @@ int bwd_dq(const Args& a, int dtype) {
 
 template <int D>
 int bwd_dkv(const Args& a, int dtype) {
-  const dim3 grid((a.S + kBN - 1) / kBN, a.B * a.Hkv);
   if (dtype == 1) {
-    const size_t smem = (2 * kBN + 4 * kBQ) * (D + kPad) * sizeof(bf16) +
-                        4 * kBQ * sizeof(float) + 2 * kBQ * sizeof(int);
+    CUtensorMap tq{}, tk{}, tv{}, tdo{};
+    if (!rows_map(&tq, a.q, a, a.Hq, D, kDkvM) ||
+        !rows_map(&tdo, a.dout, a, a.Hq, D, kDkvM) ||
+        !rows_map(&tk, a.k, a, a.Hkv, D, kDkvN) ||
+        !rows_map(&tv, a.v, a, a.Hkv, D, kDkvN))
+      return kMapError;
+    const int items = a.B * a.Hkv * ((a.S + kDkvN - 1) / kDkvN);
+    const size_t smem = DkvSmem<D>::kBytes;
     auto kernel = pick(a, bwd_dkv_bf16<D, kDense>, bwd_dkv_bf16<D, kSegments>,
                        bwd_dkv_bf16<D, kKeyBias>);
     if (int err = prepare(kernel, smem)) return err;
-    kernel<<<grid, kThreads, smem, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.seg, a.bias,
-        a.S, a.Hq, a.Hkv, a.sm_scale, a.causal);
+    kernel<<<grid_ctas(items), kHThreads, smem, a.stream>>>(
+        tq, tk, tv, tdo, static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<bf16*>(a.dk),
+        static_cast<bf16*>(a.dv), a.seg, a.bias, a.B, a.S, a.Hq, a.Hkv,
+        a.sm_scale, a.causal);
   } else {
+    const dim3 grid((a.S + kBN - 1) / kBN, a.B * a.Hkv);
     const size_t smem =
         (2 * kBN * (D + 1) + 2 * kBQ * D + 2 * kBQ) * sizeof(float) +
         kBQ * sizeof(int);
@@ -1162,9 +1739,10 @@ int dispatch(const Args& a, int D, int dtype) {
 // at most one non-null: seg, the contiguous int32 [B, S] segment starts of
 // packed causal rows (each row's nondecreasing, seg[b, r] <= r); bias, the
 // contiguous fp32 [B, S] additive key bias (0 valid, -1e30 masked).  D is
-// 64 or 128.  All on the current device; launches on `stream`, allocates
-// nothing.  Returns 0, a cudaError_t from the launch, or -1 for an
-// unsupported dtype, head dim, shape or pair of sidebands.
+// 64 or 128; every pointer 16-byte aligned.  All on the current device;
+// launches on `stream`, allocates nothing.  Returns 0, a cudaError_t from
+// the launch, -1 for an unsupported dtype, head dim, shape or pair of
+// sidebands, or -2 if a bf16 kernel's TMA map could not be encoded.
 extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, const void* seg,
                              const void* bias, int B, int S, int Hq, int Hkv,

@@ -18,8 +18,10 @@ device:
   — or an exception, never a quiet fallback;
 * on CPU tensors, the plain PyTorch versions :func:`_fwd_blockwise`,
   :func:`_bwd_dq_blockwise` and :func:`_bwd_dkv_blockwise`, which walk the
-  kernels' tiles in the kernels' order with the kernels' roundings.  The
-  CPU tests hold them against the JAX package's Pallas kernels, and
+  kernels' tiles in the kernels' order with the kernels' roundings (but
+  the reference's ``exp``, where the bf16 forward and dK/dV kernels take
+  2^x of log2-unit scores: a few fp32 ulps of P apart).  The CPU tests
+  hold them against the JAX package's Pallas kernels, and
   ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 
 A ``torch.autograd.Function`` ties them together; ``delta = rowsum(dO·O)
@@ -66,12 +68,14 @@ __all__ = ["flash_attention", "flash_attention_fn", "flash_attention_lse",
 _NEG_INF = -1e30   # the reference kernels' mask value and initial max
 _TINY = 1e-30      # the reference's floor on the softmax denominator
 
-#: The kernels' tiles: query rows per CTA and keys per step (forward and
-#: dQ), query rows per step of the dK/dV kernel.  The plain versions walk
-#: the same tiles, so both skip the same causal tiles.
-BLOCK_M = 64
-BLOCK_N = 64
-BLOCK_Q_DKV = 32
+#: The kernels' tiles, by input dtype (bf16 runs the Hopper wgmma kernels,
+#: fp32 the FMA ones).  The plain versions walk the same tiles, so both
+#: skip the same causal tiles and take the online softmax's steps at the
+#: same keys.  Forward and dQ: (query rows per CTA, keys per step); dK/dV:
+#: (keys per CTA, query rows per step).
+FWD_TILES = {torch.bfloat16: (128, 128), torch.float32: (64, 64)}
+DQ_TILES = (64, 64)
+DKV_TILES = {torch.bfloat16: (128, 64), torch.float32: (64, 32)}
 
 _KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -122,10 +126,16 @@ def _rows(x: torch.Tensor, B: int, S: int, H: int, D: int) -> torch.Tensor:
     return x.reshape(B, H, S, D).permute(0, 2, 1, 3).contiguous()
 
 
-def _causal_first_row(k0: int) -> int:
-    """First query row whose tile reaches key tile starting at ``k0``: tile
-    i walks key tiles j < ceil((i+1)·BLOCK_M / BLOCK_N)."""
-    return (k0 // BLOCK_M) * BLOCK_M
+def _tiles(table, dtype):
+    """The tiles of ``table`` (FWD_TILES or DKV_TILES) for inputs of
+    ``dtype``; any dtype without a bf16 kernel walks the fp32 kernel's."""
+    return table.get(dtype, table[torch.float32])
+
+
+def _causal_first_row(k0: int, block_m: int) -> int:
+    """First query row whose tile reaches the key tile starting at ``k0``:
+    query tile i walks the key tiles j < ceil((i+1)·block_m / block_n)."""
+    return (k0 // block_m) * block_m
 
 
 def _mask(s, q0, q1, k0, k1, causal, seg, bias=None):
@@ -160,11 +170,12 @@ def _scores(qf, kf, r0, k0, k1, causal, sm_scale, seg, bias=None):
 
 
 def _fwd_blockwise(q, k, v, causal: bool, sm_scale: float, seg=None,
-                   bias=None):
+                   bias=None, tiles=None):
     """Plain version of ``hvd_flash_fwd``: (out [B, S, Hq, D] in q.dtype,
-    lse [B, Hq, S] fp32).  Online softmax over BLOCK_N-key tiles; rows of
+    lse [B, Hq, S] fp32).  Online softmax over block_n-key tiles; rows of
     query tiles the causal loop bound excludes are not touched.  P is
-    rounded to v.dtype before P·V.
+    rounded to v.dtype before P·V.  ``tiles``: (block_m, block_n), by
+    default the kernel's for q's dtype (:data:`FWD_TILES`).
 
     With segment starts ``seg``, the key tiles the kernel skips below a
     query tile's first start are masked here instead.  That gives the same
@@ -175,13 +186,14 @@ def _fwd_blockwise(q, k, v, causal: bool, sm_scale: float, seg=None,
     plain_calls["flash_fwd"] += 1
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
+    block_m, block_n = tiles or _tiles(FWD_TILES, q.dtype)
     qf, kf, vf = _heads(q, Hkv), _kv(k), _kv(v)
     m = torch.full(qf.shape[:-1], _NEG_INF, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros_like(qf)
-    for k0 in range(0, S, BLOCK_N):
-        k1 = min(S, k0 + BLOCK_N)
-        r0 = _causal_first_row(k0) if causal else 0
+    for k0 in range(0, S, block_n):
+        k1 = min(S, k0 + block_n)
+        r0 = _causal_first_row(k0, block_m) if causal else 0
         s = _scores(qf, kf, r0, k0, k1, causal, sm_scale, seg, bias)
         m_old = m[..., r0:]
         m_new = torch.maximum(m_old, s.amax(dim=-1))
@@ -210,10 +222,11 @@ def _bwd_dq_blockwise(q, k, v, dout, lse, delta, causal: bool,
     qf, dof, kf, vf = _heads(q, Hkv), _heads(dout, Hkv), _kv(k), _kv(v)
     lse = lse.reshape(B, Hkv, Hq // Hkv, S)
     delta = delta.reshape(B, Hkv, Hq // Hkv, S)
+    block_m, block_n = DQ_TILES
     dq = torch.zeros_like(qf)
-    for k0 in range(0, S, BLOCK_N):
-        k1 = min(S, k0 + BLOCK_N)
-        r0 = _causal_first_row(k0) if causal else 0
+    for k0 in range(0, S, block_n):
+        k1 = min(S, k0 + block_n)
+        r0 = _causal_first_row(k0, block_m) if causal else 0
         s = _scores(qf, kf, r0, k0, k1, causal, sm_scale, seg, bias)
         p = torch.exp(s - lse[..., r0:, None])
         dp = torch.einsum("bhgqd,bhkd->bhgqk", dof[..., r0:, :],
@@ -225,32 +238,35 @@ def _bwd_dq_blockwise(q, k, v, dout, lse, delta, causal: bool,
 
 
 def _bwd_dkv_blockwise(q, k, v, dout, lse, delta, causal: bool,
-                       sm_scale: float, seg=None, bias=None):
+                       sm_scale: float, seg=None, bias=None, tiles=None):
     """Plain version of ``hvd_flash_bwd_dkv``: (dk, dv) [B, S, Hkv, D] in
     k/v's dtype.  For each query head of the group, then each
-    BLOCK_Q_DKV-row query tile, every key tile at or left of the diagonal
+    block_q-row query tile, every key block at or left of the diagonal
     accumulates dV += Pᵀ·dO (P rounded to dout.dtype) and dK += dSᵀ·Q (dS
     rounded to q.dtype), in fp32 across the whole group.  With segment
     starts, the query tiles the kernel skips past the last row that sees a
-    key tile are masked here (P = 0: exact zeros)."""
+    key block are masked here (P = 0: exact zeros).  ``tiles``: (block_n
+    keys per CTA, block_q query rows per step), by default the kernel's
+    for q's dtype (:data:`DKV_TILES`)."""
     plain_calls["flash_bwd_dkv"] += 1
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
+    block_n, block_q = tiles or _tiles(DKV_TILES, q.dtype)
     qf, dof, kf, vf = _heads(q, Hkv), _heads(dout, Hkv), _kv(k), _kv(v)
     lse = lse.reshape(B, Hkv, G, S)
     delta = delta.reshape(B, Hkv, G, S)
     dk = torch.zeros_like(kf)
     dv = torch.zeros_like(vf)
     for gi in range(G):
-        for q0 in range(0, S, BLOCK_Q_DKV):
-            q1 = min(S, q0 + BLOCK_Q_DKV)
-            # Key tile j walks query tiles from floor(j·BLOCK_N / BLOCK_Q),
-            # so this query tile reaches key tiles j < ceil((q0 +
-            # BLOCK_Q) / BLOCK_N).
+        for q0 in range(0, S, block_q):
+            q1 = min(S, q0 + block_q)
+            # Key block j walks query tiles from floor(j·block_n /
+            # block_q), so this query tile reaches key blocks j <
+            # ceil((q0 + block_q) / block_n).
             kv_end = S
             if causal:
-                kv_end = min(S, -(-(q0 + BLOCK_Q_DKV) // BLOCK_N) * BLOCK_N)
+                kv_end = min(S, -(-(q0 + block_q) // block_n) * block_n)
             qt, dot = qf[:, :, gi, q0:q1], dof[:, :, gi, q0:q1]
             s = torch.einsum("bhqd,bhkd->bhqk", qt, kf[:, :, :kv_end])
             s = _mask(s * sm_scale, q0, q1, 0, kv_end, causal, seg, bias)

@@ -129,11 +129,11 @@ def _flash_inputs(dev, dtype, B, S, Hq, Hkv, D, seed):
             .to(dev, dtype) for s in shapes]
 
 
-def _flash_agree(got, ref, dtype, grad):
+def _flash_agree(got, ref, dtype, grad, floor=0.0):
     """fp32: the reference's 2e-5 (out) / 5e-4 (grads).  bf16: out within
     2 bf16 ULPs of max(1, |ref|); grads within 3e-2 of each tensor's max
     (dS is rounded to bf16 before two products, so errors scale with the
-    tensor, not the element)."""
+    tensor, not the element), or within ``floor`` where that max is 0."""
     got, ref = got.float().cpu(), ref.float().cpu()
     assert torch.isfinite(got).all()
     if dtype == torch.float32:
@@ -141,7 +141,7 @@ def _flash_agree(got, ref, dtype, grad):
         torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
     elif grad:
         assert float((got - ref).abs().max()) <= \
-            3e-2 * float(ref.abs().max())
+            max(3e-2 * float(ref.abs().max()), floor)
     else:
         assert bool(((got - ref).abs()
                      <= 2.0 ** -7 * ref.abs().clamp(min=1.0)).all())
@@ -256,6 +256,123 @@ def test_flash_kernels_with_segments_match_plain_versions(dev, dtype, B, S,
         _flash_agree(got, ref, dtype, grad=True)
     assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
                            "flash_bwd_dkv": 1}
+
+
+# ---------------------------------------------------------------------------
+# The bf16 forward and dK/dV main loops (wgmma, TMA, 128-row tiles)
+# ---------------------------------------------------------------------------
+
+def _holed(B, S):
+    """bool [B, S]: the last row ragged (37 keys short, when S allows) and
+    a run of masked keys across the 64- and 128-key tile edges."""
+    mask = torch.ones((B, S), dtype=torch.bool)
+    if S > 64:
+        mask[-1, S - 37:] = False
+        mask[:, S // 4 - 20:S // 4 + 70] = False
+    return mask
+
+
+HOPPER_CASES = [
+    # (S, D, G, causal, kind): S around the 128-row tile (and the 64-row
+    # one), D 64 and 128, G 1 and 4, causal and bidirectional; packed rows
+    # with boundaries inside a 128-row tile; a key mask with holes.
+    (1, 64, 1, True, "dense"),
+    (1, 128, 4, False, "dense"),
+    (127, 64, 4, True, "dense"),
+    (127, 128, 1, False, "dense"),
+    (128, 64, 1, False, "dense"),
+    (128, 128, 4, True, "dense"),
+    (129, 64, 4, False, "dense"),
+    (129, 128, 1, True, "dense"),
+    (333, 64, 1, True, "dense"),
+    (333, 128, 4, False, "dense"),
+    (2048, 128, 4, True, "dense"),
+    (333, 64, 4, True, "packed"),
+    (333, 128, 1, True, "packed"),
+    (2048, 128, 4, True, "packed"),
+    (333, 64, 1, False, "holed"),
+    (333, 128, 4, False, "holed"),
+    (512, 64, 1, False, "holed"),
+    (256, 64, 4, True, "holed"),
+]
+
+
+@pytest.mark.parametrize("S,D,G,causal,kind", HOPPER_CASES)
+def test_hopper_flash_kernels_cover_their_tile_edges(dev, S, D, G, causal,
+                                                     kind):
+    """bf16 forward, dQ and dK/dV against their plain versions across the
+    tiles' edges (out and lse on the valid rows, the cotangent zero on the
+    others); dK/dV is bitwise the same on a second run (no atomics)."""
+    B = 1 if S > 1000 else 2
+    Hkv = 2
+    q, k, v, do = _flash_inputs(dev, torch.bfloat16, B, S, G * Hkv, Hkv, D,
+                                seed=S + D + G)
+    seg = bias = None
+    rows = torch.ones((B, S), dtype=torch.bool, device=dev)
+    if kind == "packed":
+        seg = _starts(B, S, 120, seed=S).to(dev)
+    elif kind == "holed":
+        rows = _holed(B, S).to(dev)
+        bias = fa._key_bias(rows)
+        do = do * rows[:, :, None, None].to(do.dtype)
+    scale = D ** -0.5
+    fa.reset_launches()
+    out, lse = fa.flash_fwd(q, k, v, causal, scale, seg, bias)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa._fwd_blockwise(q, k, v, causal, scale, seg, bias)
+    _flash_agree(out[rows], ref_out[rows], torch.bfloat16, grad=False)
+    torch.testing.assert_close(lse.transpose(1, 2)[rows].cpu(),
+                               ref_lse.transpose(1, 2)[rows].cpu(),
+                               rtol=1e-5, atol=1e-3)
+    delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2)
+    args = (q, k, v, do, ref_lse, delta.contiguous(), causal, scale, seg,
+            bias)
+    dq = fa.flash_bwd_dq(*args)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    dk2, dv2 = fa.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    # With one key dS = P·(dP − delta) is 0 in exact arithmetic; the kernels
+    # leave fp32 rounding of dP − delta (~1e-6), so S 1 needs a floor.
+    floor = 1e-5 if S == 1 else 0.0
+    _flash_agree(dq, fa._bwd_dq_blockwise(*args), torch.bfloat16, grad=True,
+                 floor=floor)
+    for got, ref in zip((dk, dv), fa._bwd_dkv_blockwise(*args)):
+        _flash_agree(got, ref, torch.bfloat16, grad=True, floor=floor)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                           "flash_bwd_dkv": 2}
+
+
+@pytest.mark.parametrize("D,masked", [(16, False), (96, False), (16, True),
+                                      (96, True)])
+def test_hopper_flash_pads_head_dims_in_bf16(dev, D, masked):
+    """bf16 D 16 and 96 through the autograd wrapper (zero-padded to 64
+    and 128 with the true scale) on the card against the same call on the
+    CPU's plain versions: out and the three grads."""
+    q, k, v, do = _flash_inputs(dev, torch.bfloat16, 2, 200, 8, 2, D, D)
+    mask = _holed(2, 200).to(dev) if masked else None
+    if masked:
+        do = do * mask[:, :, None, None].to(do.dtype)
+    got = []
+    for path in ("kernel", "plain"):
+        xs = [t.detach().clone() for t in (q, k, v)]
+        m = mask
+        if path == "plain":
+            xs = [t.cpu() for t in xs]
+            m = None if mask is None else mask.cpu()
+        xs = [t.requires_grad_(True) for t in xs]
+        fa.reset_launches()
+        out = fa.flash_attention(*xs, causal=not masked, key_padding_mask=m)
+        (out.float() * do.to(out.device).float()).sum().backward()
+        if path == "kernel":
+            torch.cuda.synchronize()
+            assert fa.launches == dict.fromkeys(fa.launches, 1)
+        rows = torch.ones(out.shape[:2], dtype=torch.bool) if m is None \
+            else m.cpu()
+        got.append([out.cpu()[rows]] + [t.grad.cpu() for t in xs])
+    _flash_agree(got[0][0], got[1][0], torch.bfloat16, grad=False)
+    for a, b in zip(got[0][1:], got[1][1:]):
+        _flash_agree(a, b, torch.bfloat16, grad=True)
 
 
 # ---------------------------------------------------------------------------

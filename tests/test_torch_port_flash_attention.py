@@ -6,8 +6,10 @@ interpret mode as the JAX package's own tests run them on the CPU.  The
 same numpy-seeded inputs and cotangents go to both; the tolerances are
 the reference's own (tests/test_flash_attention.py): fp32 out and lse
 2e-5, fp32 grads 5e-4, bf16 3e-2.  Only the summation order differs
-(the port walks 64-key tiles, the reference up to 512), and in bf16 the
-kernels round P and dS at the same points.  Packed rows (``segment_ids``)
+(the port walks its kernels' tiles: 128-key forward steps and 64-row
+dK/dV query tiles in bf16, 64-key steps and 32-row tiles in fp32; the
+reference up to 512), and in bf16 the kernels round P and dS at the
+same points.  Packed rows (``segment_ids``)
 are held the same way; the reference pads a ragged S with a fresh
 trailing segment, the port masks the tail.  Key-padding masks (the
 additive key-bias sideband) are held on the reference's own cases
@@ -372,3 +374,155 @@ def test_unported_sidebands_raise_on_every_device():
     assert tfa.flash_lse_supported(64, 256, device="cpu")
     wide = [torch.cat([t] * 4, -1) for t in (tq, tk, tv)]
     assert tfa.flash_attention_lse(*wide)[0].shape == (1, 64, 4, 256)
+
+
+# ---------------------------------------------------------------------------
+# The plain versions at each kernel's tiles
+# ---------------------------------------------------------------------------
+
+#: (forward tiles, dK/dV tiles) of the bf16 (Hopper) and fp32 kernels.
+NEW_TILES = (tfa.FWD_TILES[torch.bfloat16], tfa.DKV_TILES[torch.bfloat16])
+OLD_TILES = (tfa.FWD_TILES[torch.float32], tfa.DKV_TILES[torch.float32])
+
+
+def _sidebands(case, B, S):
+    """(segment ids or None, bool key mask or None) as numpy: packed rows
+    with a boundary inside a 128-row tile (and one on a 64-row edge), or
+    a key mask with a hole across the 64- and 128-key tile edges."""
+    if case == "packed":
+        ids = np.zeros((B, S), np.int32)
+        for bd in (64, 100, 150, 200):
+            ids[:, bd:] += 1
+        return ids, None
+    if case == "holed":
+        mask = np.arange(S)[None, :] < np.array([S, S - 37])[:B, None]
+        mask[:, 50:140] = False
+        return None, mask
+    return None, None
+
+
+def _plain(tq, tk, tv, tg, causal, ids, mask, tiles):
+    """out, (dk, dv) of the plain forward and dK/dV at ``tiles`` =
+    (forward tiles, dK/dV tiles); dout is ``tg``, zero on rows whose
+    query is padding."""
+    D = tq.shape[-1]
+    seg = None if ids is None else tfa._segment_starts(torch.from_numpy(ids))
+    bias = None if mask is None else tfa._key_bias(torch.from_numpy(mask))
+    if mask is not None:
+        tg = tg * torch.from_numpy(mask)[:, :, None, None].to(tg.dtype)
+    out, lse = tfa._fwd_blockwise(tq, tk, tv, causal, D ** -0.5, seg, bias,
+                                  tiles=tiles[0])
+    delta = (tg.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    grads = tfa._bwd_dkv_blockwise(tq, tk, tv, tg, lse, delta, causal,
+                                   D ** -0.5, seg, bias, tiles=tiles[1])
+    return out, lse, grads
+
+
+TILE_CASES = [
+    # (case, B, S, Hq, Hkv, D, causal, dtype): S on both sides of the
+    # 128-row tile and the 64-row one, D 64 and 128, G 1 and 4, causal and
+    # bidirectional, packed rows and a holed key mask.
+    ("dense", 1, 333, 4, 1, 128, True, "float32"),
+    ("dense", 2, 129, 4, 4, 64, False, "float32"),
+    ("dense", 1, 127, 4, 4, 64, True, "float32"),
+    ("dense", 1, 128, 4, 1, 64, True, "float32"),
+    ("dense", 2, 256, 8, 2, 64, True, "bfloat16"),
+    ("packed", 2, 256, 4, 1, 64, True, "float32"),
+    ("holed", 2, 200, 4, 2, 128, False, "float32"),
+]
+
+
+@pytest.mark.parametrize("case,B,S,Hq,Hkv,D,causal,dtype", TILE_CASES)
+def test_plain_versions_at_the_hopper_tiles_match_jax(case, B, S, Hq, Hkv, D,
+                                                      causal, dtype):
+    """The plain forward and dK/dV walking the bf16 kernels' tiles (128-row
+    query blocks and 128-key steps; 128-key blocks and 64-row query tiles)
+    against the JAX package, out on the valid rows and dK, dV, at the
+    reference's tolerances."""
+    (jq, jk, jv, jg, _), (tq, tk, tv, tg, _) = _inputs(
+        B, S, Hq, Hkv, D, dtype, seed=41 + S + D)
+    ids, mask = _sidebands(case, B, S)
+    rows = np.ones((B, S), bool) if mask is None else mask
+    w = rows[:, :, None, None].astype(np.float32)
+    kwargs = {"causal": causal}
+    if ids is not None:
+        kwargs["segment_ids"] = jnp.asarray(ids)
+    if mask is not None:
+        kwargs["key_padding_mask"] = jnp.asarray(mask)
+
+    def jloss(q, k, v):
+        out = jfa.flash_attention(q, k, v, **kwargs).astype(jnp.float32)
+        return jnp.sum(out * jg.astype(jnp.float32) * w)
+
+    jout = jfa.flash_attention(jq, jk, jv, **kwargs)
+    _, jdk, jdv = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    out, _, (dk, dv) = _plain(tq, tk, tv, tg, causal, ids, mask, NEW_TILES)
+    out_tol, grad_tol = TOL[dtype]
+    np.testing.assert_allclose(_np(out)[rows], _np(jout)[rows],
+                               atol=out_tol, rtol=out_tol)
+    for name, a, b in (("dk", jdk, dk), ("dv", jdv, dv)):
+        assert b.dtype == _DT[dtype][1]
+        np.testing.assert_allclose(_np(b), _np(a), atol=grad_tol,
+                                   rtol=grad_tol, err_msg=name)
+
+
+ACROSS_CASES = [
+    # (case, B, S, Hq, Hkv, D, causal, dtype)
+    ("dense", 1, 1, 4, 4, 64, True, "bfloat16"),
+    ("dense", 1, 127, 4, 1, 128, True, "bfloat16"),
+    ("dense", 2, 129, 4, 4, 64, False, "bfloat16"),
+    ("dense", 1, 333, 8, 2, 128, True, "bfloat16"),
+    ("packed", 2, 333, 4, 1, 64, True, "bfloat16"),
+    ("holed", 2, 256, 4, 2, 64, False, "bfloat16"),
+    ("dense", 1, 333, 8, 2, 64, True, "float32"),
+    ("packed", 1, 256, 4, 4, 128, True, "float32"),
+    ("holed", 2, 200, 4, 1, 64, False, "float32"),
+]
+
+
+@pytest.mark.parametrize("case,B,S,Hq,Hkv,D,causal,dtype", ACROSS_CASES)
+def test_plain_versions_agree_across_tiles(case, B, S, Hq, Hkv, D, causal,
+                                           dtype):
+    """The plain versions at the bf16 kernels' tiles against themselves at
+    the fp32 kernels' (the tiles every kernel had before): the same
+    function, other online-softmax steps and summation orders.  bf16 out
+    within 2 ulps of max(1, |ref|), dK/dV within 3e-2 of each tensor's
+    largest; fp32 out and lse 2e-5, grads 5e-4 — today's tolerances."""
+    _, (tq, tk, tv, tg, _) = _inputs(B, S, Hq, Hkv, D, dtype, seed=S + Hq)
+    ids, mask = _sidebands(case, B, S)
+    rows = torch.ones((B, S), dtype=torch.bool) if mask is None \
+        else torch.from_numpy(mask)
+    new = _plain(tq, tk, tv, tg, causal, ids, mask, NEW_TILES)
+    old = _plain(tq, tk, tv, tg, causal, ids, mask, OLD_TILES)
+    out_n, out_o = new[0].float()[rows], old[0].float()[rows]
+    lse_n = new[1].transpose(1, 2)[rows]
+    lse_o = old[1].transpose(1, 2)[rows]
+    if dtype == "float32":
+        torch.testing.assert_close(out_n, out_o, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(lse_n, lse_o, rtol=2e-5, atol=2e-5)
+        for a, b in zip(new[2], old[2]):
+            torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-4)
+    else:
+        assert bool(((out_n - out_o).abs()
+                     <= 2.0 ** -7 * out_o.abs().clamp(min=1.0)).all())
+        assert float((lse_n - lse_o).abs().max()) <= 1e-3
+        for a, b in zip(new[2], old[2]):
+            a, b = a.float(), b.float()
+            assert float((a - b).abs().max()) <= 3e-2 * float(b.abs().max())
+
+
+def test_plain_versions_default_to_each_dtypes_kernel_tiles():
+    """Without ``tiles`` the plain versions walk the tiles of the kernel
+    the dtype runs: bit for bit the explicit call."""
+    for dtype, tiles in (("bfloat16", NEW_TILES), ("float32", OLD_TILES)):
+        _, (tq, tk, tv, tg, _) = _inputs(1, 200, 4, 2, 64, dtype, seed=9)
+        scale = 64 ** -0.5
+        out, lse = tfa._fwd_blockwise(tq, tk, tv, True, scale)
+        out_t, lse_t = tfa._fwd_blockwise(tq, tk, tv, True, scale,
+                                          tiles=tiles[0])
+        assert torch.equal(out, out_t) and torch.equal(lse, lse_t)
+        delta = (tg.float() * out.float()).sum(-1).transpose(1, 2)
+        args = (tq, tk, tv, tg, lse, delta.contiguous(), True, scale)
+        for a, b in zip(tfa._bwd_dkv_blockwise(*args),
+                        tfa._bwd_dkv_blockwise(*args, tiles=tiles[1])):
+            assert torch.equal(a, b)
