@@ -362,23 +362,25 @@ def phase_kernels(dev, flush, seed):
     kernel = lambda: pa.paged_attention_decode(*timed)  # noqa: E731
     ms = graph_ms(kernel, 50, flush)
     call_ms = cuda_ms(kernel, 50, flush)
-    ranges_ms = {}
-    chosen = pa.RANGE_TOKENS
-    for tokens in (64, 128, 256):
-        pa.RANGE_TOKENS = tokens
-        ranges_ms[tokens] = graph_ms(kernel, 50, flush)
-    pa.RANGE_TOKENS = chosen
     plain_ms = cuda_ms(lambda: pa._decode_blockwise(*timed), 10, flush)
     library_ms = graph_ms(sdpa_yardstick(*timed), 50, flush)
     bound_ms, bound_by = decode_bound(q, pk, tables, pos)
+    # The grid: a CTA per (range of the kernel's slots, kv head, row), those
+    # with a live token, and one launch (the merge is inside it).
+    tokens = pa.range_tokens()
+    slots = tables.shape[1] * pk.shape[1]
+    splits = -(-slots // tokens)
+    n_live = torch.clamp(pos.long() + 1, max=slots)
+    grid = {"ctas": pk.shape[2] * q.shape[0] * splits, "splits": splits,
+            "live_ctas": pk.shape[2] * int((-(-n_live // tokens)).sum()),
+            "range_tokens": tokens, "launches_a_call": 1}
     entry = {"name": "paged_attention_decode", "route": "cuda",
              "source": "horovod_tpu_torch/csrc/paged_attention.cu",
              "replaces": "horovod_tpu/ops/paged_attention.py:176",
              "launches": None, "max_abs_err": max_err, "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": library_ms}
-    emit("kernel_time", **entry, call_ms=call_ms,
-         range_tokens=chosen, ms_by_range_tokens=ranges_ms,
+    emit("kernel_time", **entry, call_ms=call_ms, grid=grid,
          timed_shape={"B": 8, "Hq": 32, "Hkv": 8, "D": 128, "BS": 16,
                       "maxb": 128, "pos": [int(p) for p in pos.tolist()],
                       "dtype": "bfloat16"})
@@ -578,22 +580,21 @@ def flash_bound(name, B, S, Hq, Hkv, D, causal, seg=None, mask=None):
 
 
 #: Each flash wrapper's bf16 kernel (ptxas's name for it), query or key
-#: rows per CTA, and the heads its grid spans.
+#: rows per work item, and the heads its grid spans.
 FLASH_GRIDS = {"flash_fwd": ("fwd_bf16", 128, "Hq"),
-               "flash_bwd_dq": ("bwd_dq_bf16", 64, "Hq"),
+               "flash_bwd_dq": ("bwd_dq_bf16", 128, "Hq"),
                "flash_bwd_dkv": ("bwd_dkv_bf16", 128, "Hkv")}
 
 
 def flash_grid(name, B, S, Hq, Hkv, D):
     """The bf16 kernel's grid at a shape: work items (row blocks of a
-    head), CTAs launched and the card's SMs.  The Hopper kernels (forward,
-    dK/dV) fit one CTA on an SM and launch one per SM, each walking
-    several items, when there are 4 items an SM or more (else one an
-    item); dQ launches one CTA an item."""
+    head), CTAs launched and the card's SMs.  The Hopper kernels fit one
+    CTA on an SM and launch one per SM, each walking several items, when
+    there are 4 items an SM or more (else one an item)."""
     _, rows, heads = FLASH_GRIDS[name]
     items = B * {"Hq": Hq, "Hkv": Hkv}[heads] * -(-S // rows)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    persistent = name != "flash_bwd_dq" and items >= 4 * sms
+    persistent = items >= 4 * sms
     ctas = sms if persistent else items
     return {"items": items, "ctas": ctas, "sms": sms,
             "items_per_cta": items / ctas}

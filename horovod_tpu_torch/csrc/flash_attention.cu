@@ -11,16 +11,16 @@
 // the running max starts at -1e30; probabilities are rounded to v's dtype
 // before P.V (forward) and to dout's dtype before P^T.dout (dV); dS is
 // rounded to the q/k dtype before dS.K and dS^T.Q; out = acc / max(l,
-// 1e-30) and lse = m + log(max(l, 1e-30)).  The bf16 forward and dk/dv
-// take their exponentials as 2^x of scores in log2 units (log2(e) folded
-// into the scale, the key bias and lse: one FFMA and one ex2.approx a
-// score, where expf costs about ten instructions and the softmax, not the
-// products, bounds them); the plain versions keep the reference's exp of
+// 1e-30) and lse = m + log(max(l, 1e-30)).  The bf16 kernels take their
+// exponentials as 2^x of scores in log2 units (log2(e) folded into the
+// scale, the key bias and lse: one FFMA and one ex2.approx a score, where
+// expf costs about ten instructions and the softmax, not the products,
+// bounds them); the plain versions keep the reference's exp of
 // natural-unit scores.  The two differ by a few fp32 ulps of P, which the
 // bf16 rounding of P and the tolerances that hold each kernel to its
-// plain version absorb.  dq and the fp32 kernels use expf.  Causal
-// key tiles above the diagonal are skipped by the loop bound, not masked,
-// for any ratio of query tile to key tile.  Packed rows (optional int32
+// plain version absorb.  The fp32 kernels use expf.  Causal key tiles
+// above the diagonal are skipped by the loop bound, not masked, for any
+// ratio of query tile to key tile.  Packed rows (optional int32
 // segment starts, the reference's seg_ref) add the mask key < start[query]
 // and skip the key tiles below a query tile's first start (forward, dq)
 // and the query tiles past the last row that can see a key tile (dk/dv),
@@ -52,7 +52,7 @@
 // a byte, so there the bound is bytes, ~0.03 ms.  The design is about
 // feeding the tensor cores, with the score matrix never leaving registers:
 //
-//   * bf16 forward and dk/dv (Hopper): warpgroup-wide wgmma.m64nNk16 with
+//   * bf16 forward, dq and dk/dv (Hopper): warpgroup-wide wgmma.m64nNk16 with
 //     fp32 accumulators in registers, fed by TMA.  A CTA is three
 //     warpgroups: the first warp of the first (the producer, its registers
 //     cut to 24 by setmaxnreg) issues every load, cp.async.bulk.tensor into
@@ -79,15 +79,16 @@
 //     of a head, or a key block of a KV head) the grid is persistent: one
 //     CTA per SM walks the items sorted heaviest first, in a snake order
 //     that pairs heavy causal items with light ones, and its producer loads
-//     the next item's Q (or K/V, double-buffered) while the consumers finish
-//     the current one, so an item's prologue and epilogue hide behind the
-//     neighbour's products (at BERT's shape an item is a few us of
-//     products).  With fewer, one CTA an item, which the hardware schedules
-//     as SMs free up: a static split of ~2 items a CTA balances data-
-//     dependent (packed) work badly.  What bounds them in practice is the
-//     softmax's per-score instructions, not the products (a 128 x 128 tile
-//     took about as long at D 64 as at D 128): hence 2^x with the scale
-//     folded into one FFMA, and the scale left out of tiles with no mask.
+//     the next item's Q (and dO; or K/V, double-buffered) while the
+//     consumers finish the current one, so an item's prologue and
+//     epilogue hide behind the neighbour's products (at BERT's shape an
+//     item is a few us of products).  With fewer, one CTA an item, which
+//     the hardware schedules as SMs free up: a static split of ~2 items a
+//     CTA balances data-dependent (packed) work badly.  What bounds them
+//     in practice is the softmax's per-score instructions, not the
+//     products (a 128 x 128 tile took about as long at D 64 as at D 128):
+//     hence 2^x with the scale folded into one FFMA, and the scale left
+//     out of tiles with no mask.
 //     Ordering the two consumers' products against each other (named-barrier
 //     ping-pong) and issuing the next tile's S with this tile's P.V were
 //     both slower on the card.
@@ -107,12 +108,19 @@
 //     order S^T = K.Q^T; P^T; dP^T = V.dO^T with dV += P^T.dO; dS^T; dK
 //     += dS^T.Q, so no more than one transient 64x64 pair is live beside
 //     the accumulators.
-//   * dq (bf16): warp-level mma.sync.m16n8k16 (fp32 accumulate), one CTA
-//     of 4 warps per (64 query rows, batch, head), 64-key tiles staged by
-//     cp.async two stages deep, ldmatrix fragments from padded shared
-//     memory, dS fed back from the accumulators as the next A operand.
-//     dq stays a kernel of its own (the reference's split), so there are
-//     no atomics for dq either.
+//   * dq: items of (128 query rows, batch, head), the forward's items and
+//     order, 64-key steps: the producer loads the item's Q and dO tiles
+//     once (double-buffered across items, with the rows' lse and delta by
+//     its lanes) and streams 64-key K/V tiles through the ring; each
+//     consumer runs S = Q.K^T and dP = dO.V^T (both operands K-major in
+//     shared memory), P = 2^(S*scale*log2(e) - lse*log2(e)) with the
+//     kind's mask, dS = P*(dP - delta)*scale rounded to bf16 in registers,
+//     and dQ += dS.K with K as the MN-major operand (the contraction runs
+//     over the tile's rows, as dS^T.Q in dk/dv).  64 keys a step keep S
+//     and dP at 32 registers each beside the 64 x D fp32 dQ accumulator (64
+//     at D 128) and the packed dS (16); 128 keys would need 192 + 32 and
+//     spill.  Each item owns its rows' dQ: no atomics, deterministic.  dq
+//     stays a kernel of its own (the reference's split).
 //   * fp32 inputs: the tensor cores would round them to TF32, so fp32 runs
 //     a plain FMA kernel per function (one thread per query row, or per key
 //     row and role for dk/dv) on 64-row tiles.  It exists for exactness,
@@ -134,12 +142,10 @@ typedef __nv_bfloat16 bf16;
 
 constexpr float kNegInf = -1e30f;   // the reference's mask value
 constexpr float kTiny = 1e-30f;     // the reference's floor on l
-constexpr int kThreads = 128;       // 4 warps (dq, mma.sync)
-constexpr int kBM = 64;             // query rows per CTA (dq, fp32 fwd)
-constexpr int kBN = 64;             // keys per tile (dq, fp32 fwd) or per
+constexpr int kBM = 64;             // query rows per CTA (fp32 fwd, dq)
+constexpr int kBN = 64;             // keys per tile (fp32 fwd, dq) or per
                                     // CTA (fp32 dkv)
 constexpr int kBQ = 32;             // query rows per tile (fp32 dkv)
-constexpr int kPad = 8;             // bf16 padding per shared-memory row
 
 // Sideband kinds: each kernel is instantiated once per kind.
 constexpr int kDense = 0;      // none
@@ -154,78 +160,11 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte async copy; pred false writes 16 zero bytes and reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) . b (16x8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // Two floats rounded to nearest-even bf16 (as jnp.astype); lo in the low
 // half, the lower column index of an mma fragment.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A operand: the 16x16 tile at `p` of a row-major [rows][ld] array.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* p,
-                                       int ld, int lane) {
-  ldsm_x4(a, p + (lane & 15) * ld + (lane >> 4) * 8);
-}
-
-// B operand (k x n = 16 x 8) stored as [n][k] rows: the 8 rows at `p`,
-// columns k..k+15.  Used where the product contracts over D.
-__device__ __forceinline__ void load_b(uint32_t (&b)[2], const bf16* p,
-                                       int ld, int lane) {
-  ldsm_x2(b, p + (lane & 7) * ld + ((lane >> 3) & 1) * 8);
-}
-
-// B operand (k x n = 16 x 8) stored as [k][n] rows: the 16 rows at `p`,
-// columns n..n+7.  Used where the product contracts over the tile's rows.
-__device__ __forceinline__ void load_bt(uint32_t (&b)[2], const bf16* p,
-                                        int ld, int lane) {
-  ldsm_x2_t(b, p + (lane & 15) * ld);
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -236,22 +175,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Stage `rows` rows of D bf16 (row i at src + (row0 + i) * stride) into
-// dst [rows][D + kPad]; rows at or past S are zero-filled.
-template <int D>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* src,
-                                      size_t stride, int row0, int rows,
-                                      int S) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < rows * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const bool ok = row0 + r < S;
-    cp_async16(dst + r * (D + kPad) + col,
-               src + static_cast<size_t>(ok ? row0 + r : 0) * stride + col,
-               ok);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -295,175 +218,7 @@ __device__ __forceinline__ int q_rows(const int* sb, int k0, int S) {
   return lo;
 }
 
-// ---------------------------------------------------------------------------
-// bf16 dq kernel (warp-level tensor cores)
-// ---------------------------------------------------------------------------
 
-// Scores of one warp's 16 query rows against kBN keys: s = Qw . Kt^T.
-template <int D>
-__device__ __forceinline__ void scores_qk(float (&s)[kBN / 8][4],
-                                          const bf16* Qw, const bf16* Kt,
-                                          int lane) {
-  constexpr int LD = D + kPad;
-#pragma unroll
-  for (int nt = 0; nt < kBN / 8; ++nt)
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    uint32_t a[4];
-    load_a(a, Qw + ks * 16, LD, lane);
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-      uint32_t b[2];
-      load_b(b, Kt + nt * 8 * LD + ks * 16, LD, lane);
-      mma(s[nt], a, b);
-    }
-  }
-}
-
-// acc[16 x D] += P[16 x kBN] (fp32 C fragments, rounded here) . Vt[kBN x D].
-template <int D>
-__device__ __forceinline__ void acc_pv(float (&acc)[D / 8][4],
-                                       const float (&p)[kBN / 8][4],
-                                       const bf16* Vt, int lane) {
-  constexpr int LD = D + kPad;
-#pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    a[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    a[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    a[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      uint32_t b[2];
-      load_bt(b, Vt + kk * 16 * LD + dt * 8, LD, lane);
-      mma(acc[dt], a, b);
-    }
-  }
-}
-
-// hvd_flash_bwd_dq (bf16) <- _bwd_dq_kernel, flash_attention.py:272.
-// Bound by operations: Q.K^T again, dO.V^T and dS.K, 6 * D FLOPs per live
-// pair.  Same tiling as the forward; P is rebuilt from the saved lse, and
-// dS goes from the accumulators straight into the dS.K product.
-template <int D, int kSide>
-__global__ void __launch_bounds__(kThreads)
-    bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, bf16* __restrict__ dq,
-                const int* __restrict__ seg, const float* __restrict__ bias,
-                int S, int Hq, int Hkv, float sm_scale, int causal) {
-  constexpr bool kSeg = kSide == kSegments, kBias = kSide == kKeyBias;
-  constexpr int LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);   // [kBM][LD]
-  bf16* dOs = Qs + kBM * LD;                   // [kBM][LD]
-  bf16* Ks = dOs + kBM * LD;                   // [2][kBN][LD]
-  bf16* Vs = Ks + 2 * kBN * LD;                // [2][kBN][LD]
-  float* Bs = reinterpret_cast<float*>(Vs + 2 * kBN * LD);   // [kBN] (kBias)
-
-  const int qi = gridDim.x - 1 - blockIdx.x;
-  const int b = blockIdx.y / Hq, h = blockIdx.y % Hq, hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t qs = static_cast<size_t>(Hq) * D;
-  const size_t ks = static_cast<size_t>(Hkv) * D;
-  const size_t qoff = static_cast<size_t>(b) * S * qs + h * D;
-  const bf16* kb = k + static_cast<size_t>(b) * S * ks + hk * D;
-  const bf16* vb = v + static_cast<size_t>(b) * S * ks + hk * D;
-  const int q0 = qi * kBM;
-  const int n_tiles = (S + kBN - 1) / kBN;
-  const int n_live =
-      causal ? min((q0 + kBM + kBN - 1) / kBN, n_tiles) : n_tiles;
-
-  const int* sb = kSeg ? seg + static_cast<size_t>(b) * S : nullptr;
-  const float* bb = kBias ? bias + static_cast<size_t>(b) * S : nullptr;
-  const int j0 = first_tile<kSeg, kBN>(sb, q0);
-
-  stage<D>(Qs, q + qoff, qs, q0, kBM, S);
-  stage<D>(dOs, dout + qoff, qs, q0, kBM, S);
-  stage<D>(Ks, kb, ks, j0 * kBN, kBN, S);
-  stage<D>(Vs, vb, ks, j0 * kBN, kBN, S);
-  cp_async_commit();
-
-  const int row0 = q0 + warp * 16 + g;
-  const int st[2] = {seg_start<kSeg>(sb, row0, S),
-                     seg_start<kSeg>(sb, row0 + 8, S)};
-  const float* lrow = lse + (static_cast<size_t>(b) * Hq + h) * S;
-  const float* drow = delta + (static_cast<size_t>(b) * Hq + h) * S;
-  float lr[2], dr[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + i * 8;
-    lr[i] = row < S ? lrow[row] : 0.f;
-    dr[i] = row < S ? drow[row] : 0.f;
-  }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-  for (int j = j0; j < n_live; ++j) {
-    const int buf = (j - j0) & 1;
-    if (j + 1 < n_live) {
-      const int nb = buf ^ 1;
-      stage<D>(Ks + nb * kBN * LD, kb, ks, (j + 1) * kBN, kBN, S);
-      stage<D>(Vs + nb * kBN * LD, vb, ks, (j + 1) * kBN, kBN, S);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    // Tile j's key bias; the last reads of Bs were before the previous
-    // iteration's closing barrier.
-    if (kBias && threadIdx.x < kBN) {
-      const int c = j * kBN + threadIdx.x;
-      Bs[threadIdx.x] = c < S ? bb[c] : 0.f;
-    }
-    __syncthreads();
-    const bf16* Kt = Ks + buf * kBN * LD;
-    const bf16* Vt = Vs + buf * kBN * LD;
-
-    float s[kBN / 8][4], dp[kBN / 8][4];
-    scores_qk<D>(s, Qs + warp * 16 * LD, Kt, lane);
-    scores_qk<D>(dp, dOs + warp * 16 * LD, Vt, lane);   // dout . v^T
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int row = row0 + i * 8;
-        const int col = j * kBN + nt * 8 + t * 2 + (e & 1);
-        float x = s[nt][e] * sm_scale;
-        if constexpr (kBias) {
-          if (causal && col > row) x = kNegInf;
-          x += Bs[nt * 8 + t * 2 + (e & 1)];
-          if (col >= S) x = kNegInf;
-        } else if (col >= S || (causal && col > row) ||
-                   (kSeg && col < st[i])) {
-          x = kNegInf;
-        }
-        const float p = expf(x - lr[i]);
-        s[nt][e] = p * (dp[nt][e] - dr[i]) * sm_scale;   // dS
-      }
-    }
-    acc_pv<D>(acc, s, Kt, lane);   // dq += dS . k
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + i * 8;
-    if (row >= S) continue;
-    bf16* o = dq + (static_cast<size_t>(b) * S + row) * qs + h * D;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(o + dt * 8 + t * 2) =
-          pack_bf16(acc[dt][2 * i], acc[dt][2 * i + 1]);
-  }
-}
 // ---------------------------------------------------------------------------
 // Hopper building blocks: mbarriers, TMA, wgmma
 // ---------------------------------------------------------------------------
@@ -477,6 +232,7 @@ constexpr int kFwdM = 128;            // query rows per CTA (forward)
 constexpr int kFwdN = 128;            // keys per tile (forward)
 constexpr int kDkvN = 128;            // keys per CTA (dk/dv)
 constexpr int kDkvM = 64;             // query rows per tile (dk/dv)
+constexpr int kDqN = 64;              // keys per step (dq)
 constexpr int kStages = 2;            // depth of the TMA ring (4 at D 64
                                       // measured no faster)
 constexpr float kLog2e = 1.4426950408889634f;
@@ -507,6 +263,25 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
 
 __device__ __forceinline__ void fence_mbar_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The barriers of a Hopper kernel, laid out [full][empty] for the ring's
+// kStages stages and then [full][empty] for the double buffer's 2: a full
+// one completes on the producer's one arrival (with its TMA bytes), an
+// empty one on the two consumer warpgroups' 256.  Thread 0 initialises
+// them; the caller synchronises.
+__device__ __forceinline__ void init_barriers(uint64_t* full) {
+  if (threadIdx.x != 0) return;
+  uint64_t* empty = full + kStages;
+  for (int s = 0; s < kStages; ++s) {
+    mbar_init(&full[s], 1);
+    mbar_init(&empty[s], 2 * kWG);
+  }
+  for (int s = 0; s < 2; ++s) {
+    mbar_init(&empty[kStages + s], 1);
+    mbar_init(&empty[kStages + 2 + s], 2 * kWG);
+  }
+  fence_mbar_init();
 }
 
 // One arrival that also announces `bytes` of TMA traffic for this phase.
@@ -729,23 +504,25 @@ struct FwdSmem {
 };
 
 // The forward's work item i: query block q0 of (batch b, head h), the
-// last (heaviest causal) block of every head first.
+// last (heaviest causal) block of every head first, with its key tiles of
+// kKeys keys: from j0, up to n_live.  dq walks the same items in 64-key
+// steps.
 struct FwdItem {
   int b, h, q0, j0, n_live;
 };
 
-template <bool kSeg>
+template <bool kSeg, int kKeys = kFwdN>
 __device__ __forceinline__ FwdItem fwd_item(int i, const int* seg, int B,
                                             int S, int Hq, int causal) {
   const int BH = B * Hq, n_qb = (S + kFwdM - 1) / kFwdM;
-  const int n_tiles = (S + kFwdN - 1) / kFwdN;
+  const int n_tiles = (S + kKeys - 1) / kKeys;
   FwdItem w;
   w.b = (i % BH) / Hq;
   w.h = (i % BH) % Hq;
   w.q0 = (n_qb - 1 - i / BH) * kFwdM;
   w.n_live =
-      causal ? min((w.q0 + kFwdM + kFwdN - 1) / kFwdN, n_tiles) : n_tiles;
-  w.j0 = first_tile<kSeg, kFwdN>(
+      causal ? min((w.q0 + kFwdM + kKeys - 1) / kKeys, n_tiles) : n_tiles;
+  w.j0 = first_tile<kSeg, kKeys>(
       kSeg ? seg + static_cast<size_t>(w.b) * S : nullptr, w.q0);
   return w;
 }
@@ -779,17 +556,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
   uint64_t* qempty = qfull + 2;        // [2]
   const int n_items = B * Hq * ((S + kFwdM - 1) / kFwdM);
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 2 * kWG);
-    }
-    for (int s = 0; s < 2; ++s) {
-      mbar_init(&qfull[s], 1);
-      mbar_init(&qempty[s], 2 * kWG);
-    }
-    fence_mbar_init();
-  }
+  init_barriers(full);
   __syncthreads();
 
   if (threadIdx.x < kWG) {   // producer: the first warp
@@ -1042,17 +809,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
   const int G = Hq / Hkv;
   const int n_items = B * Hkv * ((S + kDkvN - 1) / kDkvN);
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 2 * kWG);
-    }
-    for (int s = 0; s < 2; ++s) {
-      mbar_init(&kvfull[s], 1);
-      mbar_init(&kvempty[s], 2 * kWG);
-    }
-    fence_mbar_init();
-  }
+  init_barriers(full);
   __syncthreads();
 
   if (threadIdx.x < kWG) {   // producer: the first warp
@@ -1243,6 +1000,232 @@ __global__ void __launch_bounds__(kHThreads, 1)
         *reinterpret_cast<uint32_t*>(dv + o + dt * 8 + t * 2) =
             pack_bf16(dv_acc[dt * 4 + 2 * r], dv_acc[dt * 4 + 2 * r + 1]);
       }
+    }
+  }
+}
+
+// Shared memory of dq, byte offsets from the 1024-aligned base.
+template <int D>
+struct DqSmem {
+  static constexpr int kTileQ = kFwdM * D * 2;
+  static constexpr int kTileKV = kDqN * D * 2;
+  static constexpr int kQ = 0;                                // [2] Q tiles
+  static constexpr int kO = kQ + 2 * kTileQ;                  // [2] dout tiles
+  static constexpr int kK = kO + 2 * kTileQ;                  // [kStages] tiles
+  static constexpr int kV = kK + kStages * kTileKV;           // [kStages] tiles
+  static constexpr int kL = kV + kStages * kTileKV;           // [2] lse·log2e
+  static constexpr int kDl = kL + 2 * kFwdM * 4;              // [2] delta·scale
+  static constexpr int kB = kDl + 2 * kFwdM * 4;              // bias x log2(e)
+  static constexpr int kBar = kB + kStages * kDqN * 4;        // full, empty, q
+  static constexpr int kBytes = kBar + (2 * kStages + 4) * 8 + 1024;
+};
+
+// hvd_flash_bwd_dq (bf16) <- _bwd_dq_kernel, flash_attention.py:272.
+// Bound by operations: Q.K^T again, dO.V^T and dS.K, 6 * D FLOPs per live
+// pair.  The forward's work items (128 query rows of one (batch, head)) in
+// 64-key steps: each consumer warpgroup keeps its 64 rows' dQ in fp32
+// registers while the producer streams K/V tiles (and the key bias)
+// through the ring, and the next item's Q, dO, lse and delta into the
+// other of two buffers.
+template <int D, int kSide>
+__global__ void __launch_bounds__(kHThreads, 1)
+    bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, bf16* __restrict__ dq,
+                const int* __restrict__ seg, const float* __restrict__ bias,
+                int B, int S, int Hq, int Hkv, float sm_scale, int causal) {
+  using L = DqSmem<D>;
+  constexpr bool kSeg = kSide == kSegments, kBias = kSide == kKeyBias;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(sm + L::kQ);
+  bf16* dOs = reinterpret_cast<bf16*>(sm + L::kO);
+  bf16* Ks = reinterpret_cast<bf16*>(sm + L::kK);
+  bf16* Vs = reinterpret_cast<bf16*>(sm + L::kV);
+  float* Ls = reinterpret_cast<float*>(sm + L::kL);
+  float* Ds = reinterpret_cast<float*>(sm + L::kDl);
+  float* Bs = reinterpret_cast<float*>(sm + L::kB);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* empty = full + kStages;
+  uint64_t* qfull = empty + kStages;   // [2]
+  uint64_t* qempty = qfull + 2;        // [2]
+  const int n_items = B * Hq * ((S + kFwdM - 1) / kFwdM);
+
+  init_barriers(full);
+  __syncthreads();
+
+  if (threadIdx.x < kWG) {   // producer: the first warp
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      int it = 0;   // K/V tiles loaded so far: the ring's position
+      for (int n = 0, i; (i = snake_item(n, n_items)) < n_items; ++n) {
+        const FwdItem w = fwd_item<kSeg, kDqN>(i, seg, B, S, Hq, causal);
+        const int qb = n & 1, hk = w.h / (Hq / Hkv);
+        // The item's lse and delta, by the lanes, read before the buffer
+        // frees: a TMA box must start 16-byte aligned, and (b, h, q0)'s
+        // row of [B, Hq, S] fp32 does not unless S % 4 == 0.  Rows past S:
+        // 0.
+        const size_t r = (static_cast<size_t>(w.b) * Hq + w.h) * S;
+        float lv[kFwdM / 32], dl[kFwdM / 32];
+#pragma unroll
+        for (int c = 0; c < kFwdM / 32; ++c) {
+          const int row = w.q0 + c * 32 + lane;
+          lv[c] = row < S ? lse[r + row] * kLog2e : 0.f;
+          dl[c] = row < S ? delta[r + row] * sm_scale : 0.f;
+        }
+        mbar_wait(&qempty[qb], ((n >> 1) & 1) ^ 1);
+#pragma unroll
+        for (int c = 0; c < kFwdM / 32; ++c) {
+          Ls[qb * kFwdM + c * 32 + lane] = lv[c];
+          Ds[qb * kFwdM + c * 32 + lane] = dl[c];
+        }
+        __syncwarp();
+        if (lane == 0) {   // its arrival releases the lanes' stores too
+          mbar_expect_tx(&qfull[qb], 2 * L::kTileQ);
+          tma_rows<D, kFwdM>(Qs + qb * kFwdM * D, &tq, &qfull[qb], w.h, w.q0,
+                             w.b);
+          tma_rows<D, kFwdM>(dOs + qb * kFwdM * D, &tdo, &qfull[qb], w.h,
+                             w.q0, w.b);
+        }
+        const float* bb =
+            kBias ? bias + static_cast<size_t>(w.b) * S : nullptr;
+        for (int j = w.j0; j < w.n_live; ++j, ++it) {
+          const int s = it % kStages;
+          float bv[kDqN / 32];
+          if constexpr (kBias) {
+#pragma unroll
+            for (int c = 0; c < kDqN / 32; ++c) {
+              const int key = j * kDqN + c * 32 + lane;
+              bv[c] = key < S ? bb[key] * kLog2e : 0.f;
+            }
+          }
+          mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+          if constexpr (kBias) {
+#pragma unroll
+            for (int c = 0; c < kDqN / 32; ++c)
+              Bs[s * kDqN + c * 32 + lane] = bv[c];
+            __syncwarp();
+          }
+          if (lane == 0) {
+            mbar_expect_tx(&full[s], 2 * L::kTileKV);
+            tma_rows<D, kDqN>(Ks + s * kDqN * D, &tk, &full[s], hk,
+                              j * kDqN, w.b);
+            tma_rows<D, kDqN>(Vs + s * kDqN * D, &tv, &full[s], hk,
+                              j * kDqN, w.b);
+          }
+        }
+      }
+    }
+    return;
+  }
+  regs_inc<kConsumerRegs>();
+
+  const int cw = threadIdx.x / kWG - 1;   // consumer warpgroup: 64 rows
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t qs = static_cast<size_t>(Hq) * D;
+  const float scale2 = sm_scale * kLog2e;
+  const int rl = cw * 64 + warp * 16 + g;   // this thread's rows: rl, rl + 8
+  int it = 0;
+  for (int n = 0, i; (i = snake_item(n, n_items)) < n_items; ++n) {
+    const FwdItem w = fwd_item<kSeg, kDqN>(i, seg, B, S, Hq, causal);
+    const int* sb = kSeg ? seg + static_cast<size_t>(w.b) * S : nullptr;
+    const int r_first = w.q0 + cw * 64;   // the warpgroup's first row
+    const int row0 = w.q0 + rl;
+    const int st[2] = {seg_start<kSeg>(sb, row0, S),
+                       seg_start<kSeg>(sb, row0 + 8, S)};
+    float dq_acc[D / 2];
+#pragma unroll
+    for (int k = 0; k < D / 2; ++k) dq_acc[k] = 0.f;
+    const int qb = n & 1;
+    const bf16* Qt = Qs + qb * kFwdM * D;
+    const bf16* dOt = dOs + qb * kFwdM * D;
+
+    mbar_wait(&qfull[qb], (n >> 1) & 1);
+    const float lr[2] = {Ls[qb * kFwdM + rl], Ls[qb * kFwdM + rl + 8]};
+    const float dr[2] = {Ds[qb * kFwdM + rl], Ds[qb * kFwdM + rl + 8]};
+    for (int j = w.j0; j < w.n_live; ++j, ++it) {
+      const int s = it % kStages;
+      const int k_first = j * kDqN;
+      mbar_wait(&full[s], (it / kStages) & 1);
+      // Causal: a tile whose every key follows this warpgroup's last row
+      // adds nothing (the first warpgroup on the diagonal's second half).
+      if (!causal || k_first <= r_first + 63) {
+        const bf16* Kt = Ks + s * kDqN * D;
+        const bf16* Vt = Vs + s * kDqN * D;
+        const float* Bt = Bs + s * kDqN;
+
+        float sc[kDqN / 2], dp[kDqN / 2];   // S = Q.K^T, dP = dO.V^T
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks)
+          mma_ss(sc, desc_k<kFwdM>(Qt, cw * 64, ks), desc_k<kDqN>(Kt, 0, ks),
+                 ks);
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks)
+          mma_ss(dp, desc_k<kFwdM>(dOt, cw * 64, ks),
+                 desc_k<kDqN>(Vt, 0, ks), ks);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        const bool edge = k_first + kDqN > S ||
+                          (causal && k_first + kDqN - 1 > r_first);
+#pragma unroll
+        for (int nt = 0; nt < kDqN / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int k = nt * 4 + e, c = nt * 8 + t * 2 + (e & 1);
+            const int row = row0 + (e >> 1) * 8, col = k_first + c;
+            // 2^(s * scale - lse), in one FFMA on a tile with no mask.
+            float x = sc[k];
+            if constexpr (kBias) {   // the reference's order: causal, bias
+              x = edge && causal && col > row ? kNegInf2 + Bt[c]
+                                              : fmaf(x, scale2, Bt[c]);
+              if (edge && col >= S) x = kNegInf2;
+              x -= lr[e >> 1];
+            } else if (kSeg || edge) {
+              x *= scale2;
+              if (col >= S || (causal && col > row) ||
+                  (kSeg && col < st[e >> 1]))
+                x = kNegInf2;
+              x -= lr[e >> 1];
+            } else {
+              x = fmaf(x, scale2, -lr[e >> 1]);
+            }
+            // dS = P (dP - delta) scale  (dr: delta x scale)
+            sc[k] = ex2(x) * fmaf(dp[k], sm_scale, -dr[e >> 1]);
+          }
+        }
+        uint32_t pa[kDqN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kDqN / 16; ++kk) pack_a(pa[kk], sc, kk);
+        wgmma_fence();   // dQ += dS . K
+#pragma unroll
+        for (int kk = 0; kk < kDqN / 16; ++kk)
+          mma_rs(dq_acc, pa[kk], desc_mn<kDqN>(Kt, kk));
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(dq_acc);
+      }
+      mbar_arrive(&empty[s]);
+    }
+    mbar_arrive(&qempty[qb]);
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + r * 8;
+      if (row >= S) continue;
+      bf16* o = dq + (static_cast<size_t>(w.b) * S + row) * qs + w.h * D;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt)
+        *reinterpret_cast<uint32_t*>(o + dt * 8 + t * 2) =
+            pack_bf16(dq_acc[dt * 4 + 2 * r], dq_acc[dt * 4 + 2 * r + 1]);
     }
   }
 }
@@ -1655,20 +1638,24 @@ int fwd(const Args& a, int dtype) {
 
 template <int D>
 int bwd_dq(const Args& a, int dtype) {
-  const dim3 grid((a.S + kBM - 1) / kBM, a.B * a.Hq);
   if (dtype == 1) {
-    const size_t smem =
-        (2 * kBM + 4 * kBN) * (D + kPad) * sizeof(bf16) + bias_smem(a);
+    CUtensorMap tq{}, tk{}, tv{}, tdo{};
+    if (!rows_map(&tq, a.q, a, a.Hq, D, kFwdM) ||
+        !rows_map(&tdo, a.dout, a, a.Hq, D, kFwdM) ||
+        !rows_map(&tk, a.k, a, a.Hkv, D, kDqN) ||
+        !rows_map(&tv, a.v, a, a.Hkv, D, kDqN))
+      return kMapError;
+    const int items = a.B * a.Hq * ((a.S + kFwdM - 1) / kFwdM);
+    const size_t smem = DqSmem<D>::kBytes;
     auto kernel = pick(a, bwd_dq_bf16<D, kDense>, bwd_dq_bf16<D, kSegments>,
                        bwd_dq_bf16<D, kKeyBias>);
     if (int err = prepare(kernel, smem)) return err;
-    kernel<<<grid, kThreads, smem, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<bf16*>(a.dq), a.seg, a.bias, a.S, a.Hq, a.Hkv,
-        a.sm_scale, a.causal);
+    kernel<<<grid_ctas(items), kHThreads, smem, a.stream>>>(
+        tq, tk, tv, tdo, static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<bf16*>(a.dq), a.seg,
+        a.bias, a.B, a.S, a.Hq, a.Hkv, a.sm_scale, a.causal);
   } else {
+    const dim3 grid((a.S + kBM - 1) / kBM, a.B * a.Hq);
     const size_t smem =
         (2 * kBM * (D + 1) + 2 * kBN * D) * sizeof(float) + bias_smem(a);
     auto kernel = pick(a, bwd_dq_f32<D, kDense>, bwd_dq_f32<D, kSegments>,

@@ -19,8 +19,8 @@ device:
 * on CPU tensors, the plain PyTorch versions :func:`_fwd_blockwise`,
   :func:`_bwd_dq_blockwise` and :func:`_bwd_dkv_blockwise`, which walk the
   kernels' tiles in the kernels' order with the kernels' roundings (but
-  the reference's ``exp``, where the bf16 forward and dK/dV kernels take
-  2^x of log2-unit scores: a few fp32 ulps of P apart).  The CPU tests
+  the reference's ``exp``, where the bf16 kernels take 2^x of log2-unit
+  scores: a few fp32 ulps of P apart).  The CPU tests
   hold them against the JAX package's Pallas kernels, and
   ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 
@@ -70,11 +70,11 @@ _TINY = 1e-30      # the reference's floor on the softmax denominator
 
 #: The kernels' tiles, by input dtype (bf16 runs the Hopper wgmma kernels,
 #: fp32 the FMA ones).  The plain versions walk the same tiles, so both
-#: skip the same causal tiles and take the online softmax's steps at the
-#: same keys.  Forward and dQ: (query rows per CTA, keys per step); dK/dV:
-#: (keys per CTA, query rows per step).
+#: skip the same causal tiles and take the online softmax's steps (and
+#: dQ's sums) at the same keys.  Forward and dQ: (query rows per work
+#: item, keys per step); dK/dV: (keys per work item, query rows per step).
 FWD_TILES = {torch.bfloat16: (128, 128), torch.float32: (64, 64)}
-DQ_TILES = (64, 64)
+DQ_TILES = {torch.bfloat16: (128, 64), torch.float32: (64, 64)}
 DKV_TILES = {torch.bfloat16: (128, 64), torch.float32: (64, 32)}
 
 _KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -127,8 +127,9 @@ def _rows(x: torch.Tensor, B: int, S: int, H: int, D: int) -> torch.Tensor:
 
 
 def _tiles(table, dtype):
-    """The tiles of ``table`` (FWD_TILES or DKV_TILES) for inputs of
-    ``dtype``; any dtype without a bf16 kernel walks the fp32 kernel's."""
+    """The tiles of ``table`` (FWD_TILES, DQ_TILES or DKV_TILES) for
+    inputs of ``dtype``; any dtype without a bf16 kernel walks the fp32
+    kernel's."""
     return table.get(dtype, table[torch.float32])
 
 
@@ -211,18 +212,21 @@ def _fwd_blockwise(q, k, v, causal: bool, sm_scale: float, seg=None,
 
 
 def _bwd_dq_blockwise(q, k, v, dout, lse, delta, causal: bool,
-                      sm_scale: float, seg=None, bias=None):
+                      sm_scale: float, seg=None, bias=None, tiles=None):
     """Plain version of ``hvd_flash_bwd_dq``: dq [B, S, Hq, D] in q.dtype.
-    dS = P·(dO·Vᵀ − delta)·scale, rounded to k.dtype before dS·K.  A
-    masked pair has P = exp(-1e30 - lse) = 0, so the tiles the kernel
-    skips below a segment start add exact zeros here."""
+    dS = P·(dO·Vᵀ − delta)·scale, rounded to k.dtype before dS·K, summed
+    over block_n-key steps in key order; rows of query tiles the causal
+    loop bound excludes are not touched.  A masked pair has P = exp(-1e30
+    - lse) = 0, so the tiles the kernel skips below a segment start add
+    exact zeros here.  ``tiles``: (block_m, block_n), by default the
+    kernel's for q's dtype (:data:`DQ_TILES`)."""
     plain_calls["flash_bwd_dq"] += 1
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     qf, dof, kf, vf = _heads(q, Hkv), _heads(dout, Hkv), _kv(k), _kv(v)
     lse = lse.reshape(B, Hkv, Hq // Hkv, S)
     delta = delta.reshape(B, Hkv, Hq // Hkv, S)
-    block_m, block_n = DQ_TILES
+    block_m, block_n = tiles or _tiles(DQ_TILES, q.dtype)
     dq = torch.zeros_like(qf)
     for k0 in range(0, S, block_n):
         k1 = min(S, k0 + block_n)

@@ -14,12 +14,14 @@ Two implementations of one function, chosen by the tensors' device:
 
 * on a CUDA tensor, the hand-written Hopper kernel
   ``csrc/paged_attention.cu`` (built with nvcc at first use,
-  ``ops/_build.py``) — or an exception, never a quiet fallback;
+  ``ops/_build.py``; one launch a call, which merges each row's token
+  ranges itself) — or an exception, never a quiet fallback;
 * on a CPU tensor, :func:`_decode_blockwise`, the plain PyTorch version:
-  the table walked block by block in the kernel's order, the same masked
-  fp32 online softmax.  The CPU tests hold it against the JAX package's
-  Pallas kernel, and ``chip_smoke.py`` holds the CUDA kernel against it
-  on the card.
+  the table walked block by block with a masked fp32 online softmax (the
+  kernel takes the softmax of each range of slots and merges the ranges:
+  the same function, summed in another order).  The CPU tests hold it
+  against the JAX package's Pallas kernel, and ``chip_smoke.py`` holds
+  the CUDA kernel against it on the card.
 
 Both are numerically equivalent to the gather oracle, not bitwise: the
 online softmax re-associates the reduction over keys (the reference's
@@ -36,7 +38,8 @@ import ctypes
 
 import torch
 
-__all__ = ["paged_attention_decode", "launches", "reset_launches"]
+__all__ = ["paged_attention_decode", "launches", "range_tokens",
+           "reset_launches"]
 
 _NEG_INF = -1e30   # the reference kernel's mask value
 
@@ -46,11 +49,13 @@ launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128, 256)
-#: Table slots one CTA walks: each row's table is cut into ranges of this
-#: many slots, merged afterwards; ranges past a row's pos exit at once.
-#: chip_smoke.py times 64/128/256 at the llama3_8b decode geometry.
-RANGE_TOKENS = 128
 _fn = None
+#: Per device: the kernel's int32 counters of finished ranges, one per
+#: (sequence, KV head), zero between calls (the kernel's last range of a
+#: row resets its own).  Kept allocated, so a captured CUDA graph can
+#: replay the decode; a grown buffer keeps the old one alive for graphs
+#: that captured it.
+_counters = {}
 
 
 def reset_launches() -> None:
@@ -105,11 +110,20 @@ def _kernel_fn():
         from horovod_tpu_torch.ops import _build
 
         fn = _build.load("paged_attention").hvd_paged_attention_decode
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def range_tokens() -> int:
+    """Table slots one CTA of the kernel takes: each row's table is cut
+    into ranges of this many slots, which the kernel merges in range
+    order; ranges past a row's pos exit at once."""
+    from horovod_tpu_torch.ops import _build
+
+    return _build.load("paged_attention").hvd_paged_attention_range_tokens()
 
 
 def _check(q, pool_k, pool_v, tables, pos):
@@ -153,6 +167,19 @@ def _check(q, pool_k, pool_v, tables, pos):
         if not t.is_contiguous():
             raise ValueError(f"paged_attention_decode: {name} is not "
                              "contiguous")
+        if name in ("q", "pool_k", "pool_v") and t.data_ptr() % 16:
+            raise ValueError(f"paged_attention_decode: {name} is not "
+                             "16-byte aligned")
+
+
+def _range_counters(device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters on ``device`` that outlive the
+    call (a fresh ``torch.zeros`` would be a second launch)."""
+    kept = _counters.setdefault(device, [])
+    if not kept or kept[-1].numel() < n:
+        kept.append(torch.zeros(max(n, 1024), dtype=torch.int32,
+                                device=device))
+    return kept[-1]
 
 
 def _decode_cuda(q, pool_k, pool_v, tables, pos):
@@ -164,19 +191,22 @@ def _decode_cuda(q, pool_k, pool_v, tables, pos):
     out = torch.empty_like(q)
     if B == 0:
         return out
-    splits = -(-tables.shape[1] * BS // RANGE_TOKENS)
+    splits = -(-tables.shape[1] * BS // range_tokens())
+    # The partials of rows with more than one live range, which the same
+    # launch reads back to merge them.
     part_ml = torch.empty((B, Hkv, splits, G, 2), dtype=torch.float32,
                           device=q.device)
     part_acc = torch.empty((B, Hkv, splits, G, D), dtype=torch.float32,
                            device=q.device)
+    counters = _range_counters(q.device, B * Hkv)
     fn = _kernel_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
                  tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                 part_ml.data_ptr(), part_acc.data_ptr(), B, Hkv, G, D, BS,
-                 tables.shape[1], splits, RANGE_TOKENS, _DTYPES[q.dtype],
-                 stream)
+                 part_ml.data_ptr(), part_acc.data_ptr(),
+                 counters.data_ptr(), B, Hkv, G, D, BS, tables.shape[1],
+                 _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_attention_decode kernel launch failed "
                            f"(error {err})")

@@ -76,6 +76,66 @@ def test_kernel_matches_plain_version(dev, dtype, Hkv, G, D, BS):
     _agree(got, pa._decode_blockwise(*args), dtype)
 
 
+#: (Hkv, G, D, dtype): the paged decode's groups, head dims and dtypes.
+DECODE_GROUPS = [(8, 1, 128, torch.bfloat16), (4, 2, 64, torch.bfloat16),
+                 (8, 4, 128, torch.bfloat16), (2, 8, 64, torch.bfloat16),
+                 (2, 4, 128, torch.float32), (1, 8, 64, torch.float32)]
+
+
+@pytest.mark.parametrize("Hkv,G,D,dtype", DECODE_GROUPS)
+def test_decode_kernel_at_range_and_page_edges(dev, Hkv, G, D, dtype):
+    """One launch a call against the plain version with each row's pos on
+    a page or range edge: 0, BS - 1, BS, a range's last token and the
+    next one, two ranges' end, and the table's last slot (maxb·BS - 1),
+    beside a padded row (pos 0, all-trash table)."""
+    BS, maxb = 16, 40
+    R = pa.range_tokens()
+    edges = [0, BS - 1, BS, R - 1, R, 2 * R - 1, maxb * BS - 1]
+    B = len(edges) + 1
+    rng = np.random.default_rng(G * D + Hkv)
+    nb = B * maxb + 1
+    q = torch.from_numpy(rng.standard_normal((B, 1, Hkv * G, D), np.float32))
+    pk = torch.from_numpy(rng.standard_normal((nb, BS, Hkv, D), np.float32))
+    pv = torch.from_numpy(rng.standard_normal((nb, BS, Hkv, D), np.float32))
+    pos = np.zeros((B,), np.int32)
+    tables = np.zeros((B, maxb), np.int32)
+    for i, p in enumerate(edges):
+        pos[i] = p
+        tables[i, :p // BS + 1] = rng.permutation(np.arange(1, nb))[
+            :p // BS + 1]
+    args = ([t.to(dev, dtype) for t in (q, pk, pv)]
+            + [torch.from_numpy(a).to(dev) for a in (tables, pos)])
+    before = pa.launches
+    got = pa.paged_attention_decode(*args)
+    torch.cuda.synchronize()
+    assert pa.launches == before + 1
+    _agree(got, pa._decode_blockwise(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_row_alone_and_beside_batch_mates_is_bitwise_equal(dev,
+                                                                   dtype):
+    """A row's output depends on its own pos and the table width alone:
+    decoded alone and as row 3 of 8 (longer, shorter and padded
+    batch-mates), the bits agree; so do two calls."""
+    args = _case(dev, dtype, B=8, Hkv=8, G=4, D=128, BS=16, maxb=64,
+                 seed=11)
+    q, pk, pv, tables, pos = args
+    pos[3] = 700   # 6 ranges of 128, the last partial
+    tables[3, :pos[3] // 16 + 1] = torch.arange(
+        1, int(pos[3]) // 16 + 2, dtype=torch.int32, device=dev)
+    full = pa.paged_attention_decode(q, pk, pv, tables, pos)
+    again = pa.paged_attention_decode(q, pk, pv, tables, pos)
+    alone = pa.paged_attention_decode(q[3:4].contiguous(), pk, pv,
+                                      tables[3:4].contiguous(),
+                                      pos[3:4].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(full, again)
+    assert torch.equal(full[3:4], alone)
+    _agree(alone, pa._decode_blockwise(q[3:4], pk, pv, tables[3:4],
+                                       pos[3:4]), dtype)
+
+
 def test_kernel_rejects_what_it_cannot_run(dev):
     q, pk, pv, tables, pos = _case(dev, torch.float32, B=2, Hkv=2, G=2,
                                    D=16, BS=16, maxb=4, seed=0)
@@ -274,10 +334,16 @@ def _holed(B, S):
 
 HOPPER_CASES = [
     # (S, D, G, causal, kind): S around the 128-row tile (and the 64-row
-    # one), D 64 and 128, G 1 and 4, causal and bidirectional; packed rows
-    # with boundaries inside a 128-row tile; a key mask with holes.
+    # one, dQ's key step), D 64 and 128, G 1 and 4, causal and
+    # bidirectional; packed rows with boundaries inside a 128-row tile; a
+    # key mask with holes.
     (1, 64, 1, True, "dense"),
     (1, 128, 4, False, "dense"),
+    (63, 128, 1, True, "dense"),
+    (64, 64, 4, False, "dense"),
+    (65, 128, 4, True, "dense"),
+    (65, 64, 1, False, "holed"),
+    (130, 128, 4, True, "packed"),
     (127, 64, 4, True, "dense"),
     (127, 128, 1, False, "dense"),
     (128, 64, 1, False, "dense"),
@@ -302,7 +368,8 @@ def test_hopper_flash_kernels_cover_their_tile_edges(dev, S, D, G, causal,
                                                      kind):
     """bf16 forward, dQ and dK/dV against their plain versions across the
     tiles' edges (out and lse on the valid rows, the cotangent zero on the
-    others); dK/dV is bitwise the same on a second run (no atomics)."""
+    others); dQ and dK/dV are bitwise the same on a second run (no
+    atomics)."""
     B = 1 if S > 1000 else 2
     Hkv = 2
     q, k, v, do = _flash_inputs(dev, torch.bfloat16, B, S, G * Hkv, Hkv, D,
@@ -328,6 +395,7 @@ def test_hopper_flash_kernels_cover_their_tile_edges(dev, S, D, G, causal,
     args = (q, k, v, do, ref_lse, delta.contiguous(), causal, scale, seg,
             bias)
     dq = fa.flash_bwd_dq(*args)
+    dq2 = fa.flash_bwd_dq(*args)
     dk, dv = fa.flash_bwd_dkv(*args)
     dk2, dv2 = fa.flash_bwd_dkv(*args)
     torch.cuda.synchronize()
@@ -338,8 +406,9 @@ def test_hopper_flash_kernels_cover_their_tile_edges(dev, S, D, G, causal,
                  floor=floor)
     for got, ref in zip((dk, dv), fa._bwd_dkv_blockwise(*args)):
         _flash_agree(got, ref, torch.bfloat16, grad=True, floor=floor)
+    assert torch.equal(dq, dq2)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
-    assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
+    assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 2,
                            "flash_bwd_dkv": 2}
 
 

@@ -6,10 +6,10 @@ interpret mode as the JAX package's own tests run them on the CPU.  The
 same numpy-seeded inputs and cotangents go to both; the tolerances are
 the reference's own (tests/test_flash_attention.py): fp32 out and lse
 2e-5, fp32 grads 5e-4, bf16 3e-2.  Only the summation order differs
-(the port walks its kernels' tiles: 128-key forward steps and 64-row
-dK/dV query tiles in bf16, 64-key steps and 32-row tiles in fp32; the
-reference up to 512), and in bf16 the kernels round P and dS at the
-same points.  Packed rows (``segment_ids``)
+(the port walks its kernels' tiles: 128-key forward steps, 64-key dQ
+steps and 64-row dK/dV query tiles in bf16, 64-key steps and 32-row
+tiles in fp32; the reference up to 512), and in bf16 the kernels round
+P and dS at the same points.  Packed rows (``segment_ids``)
 are held the same way; the reference pads a ragged S with a fresh
 trailing segment, the port masks the tail.  Key-padding masks (the
 additive key-bias sideband) are held on the reference's own cases
@@ -380,9 +380,12 @@ def test_unported_sidebands_raise_on_every_device():
 # The plain versions at each kernel's tiles
 # ---------------------------------------------------------------------------
 
-#: (forward tiles, dK/dV tiles) of the bf16 (Hopper) and fp32 kernels.
-NEW_TILES = (tfa.FWD_TILES[torch.bfloat16], tfa.DKV_TILES[torch.bfloat16])
-OLD_TILES = (tfa.FWD_TILES[torch.float32], tfa.DKV_TILES[torch.float32])
+#: (forward tiles, dQ tiles, dK/dV tiles) of the bf16 (Hopper) and fp32
+#: kernels.
+NEW_TILES = tuple(t[torch.bfloat16] for t in (tfa.FWD_TILES, tfa.DQ_TILES,
+                                              tfa.DKV_TILES))
+OLD_TILES = tuple(t[torch.float32] for t in (tfa.FWD_TILES, tfa.DQ_TILES,
+                                             tfa.DKV_TILES))
 
 
 def _sidebands(case, B, S):
@@ -402,9 +405,9 @@ def _sidebands(case, B, S):
 
 
 def _plain(tq, tk, tv, tg, causal, ids, mask, tiles):
-    """out, (dk, dv) of the plain forward and dK/dV at ``tiles`` =
-    (forward tiles, dK/dV tiles); dout is ``tg``, zero on rows whose
-    query is padding."""
+    """out, lse, (dq, dk, dv) of the plain forward, dQ and dK/dV at
+    ``tiles`` = (forward tiles, dQ tiles, dK/dV tiles); dout is ``tg``,
+    zero on rows whose query is padding."""
     D = tq.shape[-1]
     seg = None if ids is None else tfa._segment_starts(torch.from_numpy(ids))
     bias = None if mask is None else tfa._key_bias(torch.from_numpy(mask))
@@ -413,9 +416,10 @@ def _plain(tq, tk, tv, tg, causal, ids, mask, tiles):
     out, lse = tfa._fwd_blockwise(tq, tk, tv, causal, D ** -0.5, seg, bias,
                                   tiles=tiles[0])
     delta = (tg.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    grads = tfa._bwd_dkv_blockwise(tq, tk, tv, tg, lse, delta, causal,
-                                   D ** -0.5, seg, bias, tiles=tiles[1])
-    return out, lse, grads
+    args = (tq, tk, tv, tg, lse, delta, causal, D ** -0.5, seg, bias)
+    dq = tfa._bwd_dq_blockwise(*args, tiles=tiles[1])
+    dk, dv = tfa._bwd_dkv_blockwise(*args, tiles=tiles[2])
+    return out, lse, (dq, dk, dv)
 
 
 TILE_CASES = [
@@ -429,16 +433,24 @@ TILE_CASES = [
     ("dense", 2, 256, 8, 2, 64, True, "bfloat16"),
     ("packed", 2, 256, 4, 1, 64, True, "float32"),
     ("holed", 2, 200, 4, 2, 128, False, "float32"),
+    # dQ's 64-key steps: S on both sides of 64, D 128 with S % 4 != 0,
+    # packed rows at D 128 and a holed mask with G 4.
+    ("dense", 1, 63, 4, 1, 64, True, "float32"),
+    ("dense", 2, 65, 4, 4, 128, False, "float32"),
+    ("dense", 1, 199, 8, 2, 128, True, "float32"),
+    ("packed", 1, 333, 4, 2, 128, True, "float32"),
+    ("holed", 2, 256, 8, 2, 64, False, "float32"),
 ]
 
 
 @pytest.mark.parametrize("case,B,S,Hq,Hkv,D,causal,dtype", TILE_CASES)
 def test_plain_versions_at_the_hopper_tiles_match_jax(case, B, S, Hq, Hkv, D,
                                                       causal, dtype):
-    """The plain forward and dK/dV walking the bf16 kernels' tiles (128-row
-    query blocks and 128-key steps; 128-key blocks and 64-row query tiles)
-    against the JAX package, out on the valid rows and dK, dV, at the
-    reference's tolerances."""
+    """The plain forward, dQ and dK/dV walking the bf16 kernels' tiles
+    (128-row query blocks and 128-key steps; 128-row query blocks and
+    64-key steps; 128-key blocks and 64-row query tiles) against the JAX
+    package, out on the valid rows and dQ, dK, dV, at the reference's
+    tolerances."""
     (jq, jk, jv, jg, _), (tq, tk, tv, tg, _) = _inputs(
         B, S, Hq, Hkv, D, dtype, seed=41 + S + D)
     ids, mask = _sidebands(case, B, S)
@@ -455,12 +467,13 @@ def test_plain_versions_at_the_hopper_tiles_match_jax(case, B, S, Hq, Hkv, D,
         return jnp.sum(out * jg.astype(jnp.float32) * w)
 
     jout = jfa.flash_attention(jq, jk, jv, **kwargs)
-    _, jdk, jdv = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
-    out, _, (dk, dv) = _plain(tq, tk, tv, tg, causal, ids, mask, NEW_TILES)
+    jdq, jdk, jdv = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    out, _, (dq, dk, dv) = _plain(tq, tk, tv, tg, causal, ids, mask,
+                                  NEW_TILES)
     out_tol, grad_tol = TOL[dtype]
     np.testing.assert_allclose(_np(out)[rows], _np(jout)[rows],
                                atol=out_tol, rtol=out_tol)
-    for name, a, b in (("dk", jdk, dk), ("dv", jdv, dv)):
+    for name, a, b in (("dq", jdq, dq), ("dk", jdk, dk), ("dv", jdv, dv)):
         assert b.dtype == _DT[dtype][1]
         np.testing.assert_allclose(_np(b), _np(a), atol=grad_tol,
                                    rtol=grad_tol, err_msg=name)
@@ -486,8 +499,9 @@ def test_plain_versions_agree_across_tiles(case, B, S, Hq, Hkv, D, causal,
     """The plain versions at the bf16 kernels' tiles against themselves at
     the fp32 kernels' (the tiles every kernel had before): the same
     function, other online-softmax steps and summation orders.  bf16 out
-    within 2 ulps of max(1, |ref|), dK/dV within 3e-2 of each tensor's
-    largest; fp32 out and lse 2e-5, grads 5e-4 — today's tolerances."""
+    within 2 ulps of max(1, |ref|), dQ, dK and dV within 3e-2 of each
+    tensor's largest; fp32 out and lse 2e-5, grads 5e-4 — today's
+    tolerances."""
     _, (tq, tk, tv, tg, _) = _inputs(B, S, Hq, Hkv, D, dtype, seed=S + Hq)
     ids, mask = _sidebands(case, B, S)
     rows = torch.ones((B, S), dtype=torch.bool) if mask is None \
@@ -523,6 +537,8 @@ def test_plain_versions_default_to_each_dtypes_kernel_tiles():
         assert torch.equal(out, out_t) and torch.equal(lse, lse_t)
         delta = (tg.float() * out.float()).sum(-1).transpose(1, 2)
         args = (tq, tk, tv, tg, lse, delta.contiguous(), True, scale)
+        assert torch.equal(tfa._bwd_dq_blockwise(*args),
+                           tfa._bwd_dq_blockwise(*args, tiles=tiles[1]))
         for a, b in zip(tfa._bwd_dkv_blockwise(*args),
-                        tfa._bwd_dkv_blockwise(*args, tiles=tiles[1])):
+                        tfa._bwd_dkv_blockwise(*args, tiles=tiles[2])):
             assert torch.equal(a, b)
