@@ -24,14 +24,16 @@ Builds every CUDA kernel of the port from ``horovod_tpu_torch/csrc``
                timing lines carry ptxas's registers and spills of the
                kernel and its grid's CTAs per SM;
    rms_kernels — the RMSNorm forward and backward at the packed training
-               shape (R 4096, H 4096, bf16), a ragged fp32 R and an
-               off-tile H;
+               shape (R 4096, H 4096, bf16), a ragged fp32 R, an
+               off-tile H and both sides of the backward's ring (H 8192
+               and 8200); the backward timed alone and with the sum of
+               its partials, F.rms_norm's backward as a graph replay;
    conv_bn_kernels — the 1x1 convolution with BatchNorm statistics at the
                spike's shape (ResNet-50's stage-2 1x1, x [200704, 512] ·
                w [512, 128], bf16), a ragged N, half a column block (C 64)
-               and two (C 256), K and C off the tiles; with F.conv2d alone
-               (channels-last bf16) as its library time and F.conv2d plus
-               the fp32 statistics beside it;
+               and two (C 256), K and C off the tiles, K at MAX_K (640);
+               with F.conv2d alone (channels-last bf16) as its library
+               time and F.conv2d plus the fp32 statistics beside it;
    conv_bn_spike — the spike's three chained arms (``experiments/
                conv_bn_spike``: kernel, library, conv_only; 12 dependent
                iterations a call) and its check: B7's launches;
@@ -802,12 +804,16 @@ def phase_flash_kernels(dev, flush, seed):
 
 RMS_EPS = 1e-5
 #: (case, R, H, x dtype, y/dy dtype): the packed training shape (R = B·S
-#: rows of Llama-3-8B's hidden 4096, bf16), a ragged fp32 R, off-tile H.
+#: rows of Llama-3-8B's hidden 4096, bf16), a ragged fp32 R, off-tile H,
+#: and the backward's dispatch line: H 8192, the ring's widest row, and
+#: 8200, one step past it (the two-pass kernel), with fewer rows than CTAs.
 RMS_CASES = (
     ("path", 4096, 4096, torch.bfloat16, torch.bfloat16),
     ("ragged", 1000, 4096, torch.float32, torch.float32),
     ("off_tile_h", 64, 100, torch.bfloat16, torch.bfloat16),
     ("off_tile_h", 37, 100, torch.float32, torch.float32),
+    ("ring_widest", 100, 8192, torch.bfloat16, torch.bfloat16),
+    ("past_ring", 100, 8200, torch.float32, torch.float32),
 )
 
 
@@ -888,15 +894,28 @@ def phase_rms_kernels(dev, flush, seed):
     R, H = x.shape
     # Library yardstick: F.rms_norm with the scale in x's dtype (with an
     # fp32 weight it does not take its fused kernel); backward by autograd
-    # for x and the weight.  The port never calls it.
+    # for x and the weight, timed as SDPA's backward is (graph replay, cold
+    # L2): forward and backward captured as one graph, less the forward
+    # alone with grad.  The port never calls it.
     w = scale.to(x.dtype)
     with torch.no_grad():
         lib_fwd_ms = graph_ms(lambda: F.rms_norm(x, (H,), w, RMS_EPS), 50,
                               flush)
     xl, wl = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
-    yl = F.rms_norm(xl, (H,), wl, RMS_EPS)
-    lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-        yl, (xl, wl), dy, retain_graph=True), 50, flush)
+    lib_fwd_grad_ms = autograd_graph_ms(
+        lambda: F.rms_norm(xl, (H,), wl, RMS_EPS), 50, flush)
+    lib_fwd_bwd_ms = autograd_graph_ms(lambda: torch.autograd.grad(
+        F.rms_norm(xl, (H,), wl, RMS_EPS), (xl, wl), dy), 50, flush)
+    lib_bwd_ms = lib_fwd_bwd_ms - lib_fwd_grad_ms
+    # What streaming the same bytes costs under the same convention: one
+    # elementwise call that reads each input once and writes one output
+    # (forward: x -> [R, H]; backward: x, dy -> [R, H]).
+    out = torch.empty_like(x)
+    same_bytes = {"rms_fwd": graph_ms(lambda: torch.neg(x, out=out), 50,
+                                      flush),
+                  "rms_bwd": graph_ms(lambda: torch.add(x, dy, out=out), 50,
+                                      flush)}
+    del out
     runs = {"rms_fwd": (lambda: rn.rms_fwd(x, scale, RMS_EPS, x.dtype),
                         lambda: rn._fwd_rows(x, scale, RMS_EPS, x.dtype),
                         lib_fwd_ms, "horovod_tpu/ops/rms_norm.py:46"),
@@ -913,9 +932,22 @@ def phase_rms_kernels(dev, flush, seed):
                  "ms": graph_ms(kernel, 50, flush),
                  "plain_ms": cuda_ms(plain, 10, flush), "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": lib_ms}
-        emit("kernel_time", **entry,
+        extra = {"same_bytes_ms": same_bytes[name],
+                 "same_bytes_call": "torch.neg(x)" if name == "rms_fwd"
+                 else "torch.add(x, dy)"}
+        if name == "rms_bwd":
+            # The function's whole output: dx and dscale [H], the kernel
+            # and the sum of its per-block partials in one graph.
+            extra["ms_with_sum"] = graph_ms(
+                lambda: rn.rms_bwd(x, scale, rstd, dy)[1].sum(0), 50, flush)
+            extra.update(partials=-(-R // rn.block_rows(R)),
+                         library_fwd_bwd_ms=lib_fwd_bwd_ms,
+                         library_fwd_grad_ms=lib_fwd_grad_ms)
+        emit("kernel_time", **entry, **extra,
              library_call="torch.nn.functional.rms_norm (bf16 weight)" + (
-                 " backward (dx, dweight)" if name == "rms_bwd" else ""),
+                 " backward (dx, dweight), graph replay of forward + "
+                 "backward less the forward with grad"
+                 if name == "rms_bwd" else ""),
              timed_shape={"R": R, "H": H, "x": "bfloat16", "y": "bfloat16",
                           "scale": "float32",
                           "row_block": rn.block_rows(R)})
@@ -930,13 +962,15 @@ def phase_rms_kernels(dev, flush, seed):
 #: (case, N, K, C): ResNet-50's 1x1 convolutions at batch 256 — the
 #: spike's stage-2 shape, the stage-1 reduce (C 64: half of the kernel's
 #: 128-channel column block) and the stage-3 reduce (C 256: two blocks) —
-#: a ragged N, and K and C off the kernel's tiles.
+#: a ragged N, K and C off the kernel's tiles, and MAX_K (the x ring at
+#: its shallowest, 2 stages, beside w's 160 KB column block).
 CONV_BN_CASES = (
     ("spike", 200704, 512, 128),
     ("ragged", 1000, 512, 128),
     ("stage1_reduce", 802816, 256, 64),
     ("stage3_reduce", 200704, 512, 256),
     ("off_tile", 333, 72, 40),
+    ("max_k", 4099, 640, 136),
 )
 
 
@@ -1720,7 +1754,8 @@ def phase_train_profile(phase, build, batch, labels=None):
 #: Kernel groups of a training step's profile, by a substring of the
 #: kernel's name (first match wins).
 KERNEL_GROUPS = (("flash", ("fwd_bf16", "bwd_dq_bf16", "bwd_dkv_bf16")),
-                 ("rms_norm", ("rms_fwd_kernel", "rms_bwd_kernel")),
+                 ("rms_norm", ("rms_fwd_kernel", "rms_bwd_kernel",
+                               "rms_bwd_ring")),
                  ("layer_norm", ("layer_norm",)),
                  ("conv", ("fprop", "dgrad", "wgrad", "conv")),
                  ("gemm", ("nvjet", "gemm", "cutlass", "sm90_")),

@@ -136,9 +136,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "hopper.cuh"
 
-typedef __nv_bfloat16 bf16;
+namespace {
 
 constexpr float kNegInf = -1e30f;   // the reference's mask value
 constexpr float kTiny = 1e-30f;     // the reference's floor on l
@@ -151,21 +151,6 @@ constexpr int kBQ = 32;             // query rows per tile (fp32 dkv)
 constexpr int kDense = 0;      // none
 constexpr int kSegments = 1;   // int32 [B, S] segment starts (packed rows)
 constexpr int kKeyBias = 2;    // fp32 [B, S] additive key bias (key padding)
-
-// ---------------------------------------------------------------------------
-// PTX helpers
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Two floats rounded to nearest-even bf16 (as jnp.astype); lo in the low
-// half, the lower column index of an mma fragment.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -218,16 +203,10 @@ __device__ __forceinline__ int q_rows(const int* sb, int k0, int S) {
   return lo;
 }
 
-
 // ---------------------------------------------------------------------------
-// Hopper building blocks: mbarriers, TMA, wgmma
+// Tiles of the bf16 kernels (the Hopper building blocks are hopper.cuh's)
 // ---------------------------------------------------------------------------
 
-constexpr int kWG = 128;              // threads of a warpgroup
-constexpr int kHThreads = 3 * kWG;    // producer warpgroup + two consumers
-constexpr int kProducerRegs = 24;     // setmaxnreg: 128 * 24 + 256 * 240
-constexpr int kConsumerRegs = 240;    //   = 64512 of the SM's 65536
-constexpr int kSwz = 64;              // bf16 columns of a 128-byte swizzle row
 constexpr int kFwdM = 128;            // query rows per CTA (forward)
 constexpr int kFwdN = 128;            // keys per tile (forward)
 constexpr int kDkvN = 128;            // keys per CTA (dk/dv)
@@ -245,24 +224,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// The dynamic shared memory rounded up to 1024 bytes: a 128-byte swizzle
-// repeats every 8 rows of 128 bytes, and the wgmma descriptors below
-// assume each box starts on that period.
-__device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
-  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void fence_mbar_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
 // The barriers of a Hopper kernel, laid out [full][empty] for the ring's
@@ -284,49 +245,6 @@ __device__ __forceinline__ void init_barriers(uint64_t* full) {
   fence_mbar_init();
 }
 
-// One arrival that also announces `bytes` of TMA traffic for this phase.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// Spin until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// TMA: the box of `map` at the given coordinates (innermost first) into
-// shared memory at `dst`, counted on `bar`.
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // kRows rows (from row0) of one head of a [B, S, H, D] tensor through its
 // 4-D map: D / 64 swizzled boxes of [kRows][64], one after the other.
 template <int D, int kRows>
@@ -336,144 +254,6 @@ __device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map,
 #pragma unroll
   for (int c = 0; c < D / kSwz; ++c)
     tma_load_4d(dst + c * kRows * kSwz, map, bar, c * kSwz, head, row0, b);
-}
-
-template <int N>
-__device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-template <int N>
-__device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout type 1
-// (128-byte swizzle).
-__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
-// K-major operand (the product contracts over D): k-step ks (16 columns)
-// of the 64 rows from r0 of a tile of D / 64 boxes of [kRows][64].  Rows
-// step 1024 bytes per 8; inside a box a k-step is 32 bytes.
-template <int kRows>
-__device__ __forceinline__ uint64_t desc_k(const bf16* tile, int r0,
-                                           int ks) {
-  return gmma_desc(tile + (ks / 4) * kRows * kSwz + r0 * kSwz + (ks % 4) * 16,
-                   16, 1024);
-}
-
-// MN-major operand (the product contracts over the tile's rows): k-step kk
-// (16 rows) of the same tile; its N (D) steps 64 columns to the next box,
-// the leading byte offset, and 8 rows per 1024 bytes, the stride offset.
-template <int kRows>
-__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int kk) {
-  return gmma_desc(tile + kk * 16 * kSwz, kRows * kSwz * 2, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Ties the accumulators to the preceding wait: no read of them moves above
-// it, no write below the next wgmma.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define HVD_F8(i)                                                       \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (+)= A . B, m64n64k16: A and B K-major in shared memory; `acc` 0
-// overwrites d.
-__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a,
-                                       uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : HVD_F8(0), HVD_F8(8), HVD_F8(16), HVD_F8(24)
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-// m64n128k16 of the same.
-__device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t a,
-                                       uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, "
-      "1, 0, 0;\n}\n"
-      : HVD_F8(0), HVD_F8(8), HVD_F8(16), HVD_F8(24), HVD_F8(32),
-        HVD_F8(40), HVD_F8(48), HVD_F8(56)
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-// d += A . B, m64n64k16: A the bf16 register fragment a, B MN-major in
-// shared memory (transpose bit set).
-__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                       uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : HVD_F8(0), HVD_F8(8), HVD_F8(16), HVD_F8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// m64n128k16 of the same.
-__device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                       uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, "
-      "%67}, %68, p, 1, 1, 1;\n}\n"
-      : HVD_F8(0), HVD_F8(8), HVD_F8(16), HVD_F8(24), HVD_F8(32),
-        HVD_F8(40), HVD_F8(48), HVD_F8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-#undef HVD_F8
-
-// The register A fragment of k-step kk (16 columns) from fp32 accumulator
-// values of the same rows, rounded to bf16: columns 16kk..16kk+15 are the
-// accumulator's n8 blocks 2kk and 2kk+1.
-template <int N>
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&x)[N],
-                                       int kk) {
-  a[0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
-  a[1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
-  a[2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
-  a[3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
 }
 
 // ---------------------------------------------------------------------------
@@ -1553,32 +1333,6 @@ int grid_ctas(int items) {
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   return items >= 4 * sms ? sms : items;
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // The 4-D map (D, H, S, B) of a contiguous bf16 [B, S, H, D] tensor, in

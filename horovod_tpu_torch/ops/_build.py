@@ -9,9 +9,10 @@ build takes seconds, not minutes::
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
 Libraries land in ``horovod_tpu_torch/_build/`` (ignored by git), named by
-a hash of the source and the flags, so an edited source is never served
-by a stale library.  ``ptxas``'s register/shared-memory report is kept
-beside each library (``.log``).  A build failure raises with nvcc's
+a hash of the source, every shared header (``csrc/*.cuh``, which the
+sources include) and the flags, so an edited source or header is never
+served by a stale library.  ``ptxas``'s register/shared-memory report is
+kept beside each library (``.log``).  A build failure raises with nvcc's
 output; there is no fallback.
 """
 
@@ -58,8 +59,11 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 

@@ -13,7 +13,8 @@ are XLA's); the port's spike counterpart,
 One kernel with two implementations chosen by the tensors' device:
 
 * on CUDA tensors, the hand-written Hopper kernel of
-  ``csrc/conv_bn_stats.cu`` (``hvd_conv_bn_stats``; built with nvcc at
+  ``csrc/conv_bn_stats.cu`` (``hvd_conv_bn_stats``: warp-specialised
+  ``wgmma`` fed by TMA, one persistent CTA per SM; built with nvcc at
   first use by ``ops/_build.py``), which writes one fp32 partial of each
   sum per row CTA that :func:`conv_stats` adds up — or an exception,
   never a quiet fallback;
@@ -42,9 +43,11 @@ __all__ = ["conv_bn_stats", "conv_stats", "launches", "plain_calls",
 _NAME = "conv_bn_stats"
 #: Rows per CTA tile and channels per column block of the kernel.
 TILE_ROWS, BLOCK_COLS = 128, 128
-#: Largest K: the [K, 128] bf16 column block of w (rows padded to 136)
-#: and three [128, 72] x stages must fit in a CTA's 227 KB of shared
-#: memory (``smem_bytes`` in ``csrc/conv_bn_stats.cu``).
+#: Largest K: the [K, 128] bf16 column block of w, at least two 16 KB
+#: stages of the x ring and the two 16 KB y staging tiles must fit in a
+#: CTA's 227 KB of shared memory (``stages_for`` in
+#: ``csrc/conv_bn_stats.cu``: 4 stages up to K 512, 3 up to 576, 2 up to
+#: 640).
 MAX_K = 640
 
 #: Kernel launches (a plain integer per kernel, reset by

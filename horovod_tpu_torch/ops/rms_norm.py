@@ -11,7 +11,11 @@ Two kernels, each with two implementations chosen by the tensors' device:
 
 * on CUDA tensors, the hand-written Hopper kernels of ``csrc/rms_norm.cu``
   (``hvd_rms_fwd``, ``hvd_rms_bwd``; built with nvcc at first use by
-  ``ops/_build.py``) — or an exception, never a quiet fallback;
+  ``ops/_build.py``) — or an exception, never a quiet fallback.  The
+  backward streams rows of 16-byte multiples up to H 8192 through a
+  shared-memory ring (each row of x and dy read from HBM once) and takes
+  a two-pass kernel for other rows, a dispatch by shape in the C entry
+  point;
 * on CPU tensors, the plain PyTorch versions :func:`_fwd_rows` and
   :func:`_bwd_rows`, which walk the backward kernel's row blocks in its
   order.  The CPU tests hold them against the JAX package's Pallas
@@ -39,9 +43,10 @@ __all__ = ["rms_norm", "launches", "plain_calls", "reset_launches",
 
 _KERNELS = ("rms_fwd", "rms_bwd")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: Row blocks of the backward: about two per SM of an H100 (132 SMs), so
-#: the grid fills the card and the partial dscale stays ~264 x H floats.
-TARGET_BLOCKS = 264
+#: Row blocks of the backward: about one per SM of an H100 (132 SMs), each
+#: a CTA that streams its rows through a shared-memory ring and writes one
+#: partial, so the partial dscale stays ~132 x H floats.
+TARGET_BLOCKS = 132
 #: Widest row the kernels take: the backward keeps one fp32 partial per
 #: column in shared memory.
 MAX_H = 48 * 1024

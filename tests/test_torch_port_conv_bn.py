@@ -127,7 +127,8 @@ def test_plain_matches_xla_conv_stats_on_the_nhwc_view():
 
 
 @pytest.mark.parametrize("N,K,C", [(1000, 512, 128), (333, 72, 40),
-                                   (1, 8, 8)])
+                                   (1, 8, 8), (129, 640, 136),
+                                   (127, 576, 120), (128, 16, 256)])
 def test_plain_at_ragged_shapes_follows_its_own_math(N, K, C):
     """Ragged N (and K, C off the kernel's 64 / 128 tiles): y is the fp64
     product rounded once to bf16 (within one ulp), Σy and Σy² its fp32

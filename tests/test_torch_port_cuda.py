@@ -509,6 +509,49 @@ def test_rms_norm_autograd_runs_the_kernels(dev):
         rn.rms_fwd(x.detach(), scale.detach().cpu(), 1e-5, torch.bfloat16)
 
 
+@pytest.mark.parametrize("R,H,xdt,ydt", [
+    (1, 4096, torch.bfloat16, torch.bfloat16),     # R 1: one CTA, one row
+    (100, 8192, torch.bfloat16, torch.bfloat16),   # R < CTAs; widest ring
+    (100, 8200, torch.bfloat16, torch.bfloat16),   # one chunk past: 2 passes
+    (131, 8192, torch.float32, torch.float32),     # fp32 ring, 3 stages
+    (131, 8200, torch.float32, torch.float32),
+    (133, 8192, torch.float32, torch.bfloat16),    # 2-row blocks, mixed
+    (300, 4104, torch.bfloat16, torch.bfloat16),   # 8 chunks, the last part
+    (7, 1032, torch.bfloat16, torch.float32),      # 2 chunks, the last part
+    (4096, 4096, torch.bfloat16, torch.bfloat16),  # the training shape
+    (5, 24, torch.float32, torch.float32),         # a tiny ring row
+])
+def test_rms_bwd_ring_edges_match_plain_and_repeat(dev, R, H, xdt, ydt):
+    """The backward at the ring's edges (H 8192, its widest row, and 8200,
+    one 8-column step past it, which takes the two-pass kernel; R 1 and R
+    below the CTA count; bf16, fp32 and mixed; partial 1024-column chunks):
+    dx within 2e-2 (bf16) / 1e-5 (fp32) of its max, the partials one per
+    block of block_rows(R) rows and within rel 1e-4, and a second run
+    bitwise equal to the first (fixed-order sums, no atomics)."""
+    from horovod_tpu_torch.ops import rms_norm as rn
+
+    rng = np.random.default_rng(R * 7 + H)
+    x = torch.from_numpy(rng.standard_normal((R, H), np.float32)).to(dev, xdt)
+    dy = torch.from_numpy(rng.standard_normal((R, H), np.float32)).to(dev, ydt)
+    scale = torch.from_numpy(rng.standard_normal(H).astype(np.float32)
+                             + 1.0).to(dev)
+    rstd = rn._fwd_rows(x, scale, 1e-5, xdt)[1]
+    rn.reset_launches()
+    dx, parts = rn.rms_bwd(x, scale, rstd, dy)
+    dx2, parts2 = rn.rms_bwd(x, scale, rstd, dy)
+    torch.cuda.synchronize()
+    assert rn.launches["rms_bwd"] == 2 and rn.plain_calls["rms_bwd"] == 0
+    rows = rn.block_rows(R)
+    assert parts.shape == (-(-R // rows), H) and dx.dtype == xdt
+    assert parts.shape[0] <= rn.TARGET_BLOCKS
+    rdx, rparts = rn._bwd_rows(x, scale, rstd, dy)
+    tol = 2e-2 if xdt == torch.bfloat16 else 1e-5
+    assert float((dx.float() - rdx.float()).abs().max()) <= \
+        tol * float(rdx.float().abs().max())
+    torch.testing.assert_close(parts, rparts, rtol=1e-4, atol=1e-4)
+    assert torch.equal(dx, dx2) and torch.equal(parts, parts2)
+
+
 # ---------------------------------------------------------------------------
 # flash attention with the key-bias sideband (key padding)
 # ---------------------------------------------------------------------------
@@ -636,6 +679,62 @@ def test_conv_bn_stats_kernel_matches_plain_version(dev, N, K, C):
     torch.testing.assert_close(mean, r1 / N, rtol=0, atol=1e-5)
     torch.testing.assert_close(var, r2 / N - (r1 / N) ** 2, rtol=1e-4,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("C", [8, 64, 120, 136, 256])
+@pytest.mark.parametrize("K", [16, 72, 512, 576, 640])
+@pytest.mark.parametrize("N", [1, 127, 128, 129])
+def test_conv_bn_stats_tile_edges_match_plain_and_repeat(dev, N, K, C):
+    """B7 at its tiles' edges: N around one 128-row tile, K from one
+    16-step to MAX_K (4, 3 and 2 ring stages at K 512, 576 and 640; 72 a
+    partial 64-k chunk), C inside, at and past 128-channel column blocks.
+    y and Σy at the tolerances of the test above; Σy² within 1e-5 of
+    itself plus what y's own e = 1e-5·Σ_k|x_k·w_k| term allows each of
+    its terms (2·|y|·e + e²: with one row, Σy² is one y², and a y that
+    cancels to near zero moves by more than its ulp, as the y tolerance
+    says); a
+    second run bitwise equal to the first (fixed-order sums, no
+    atomics)."""
+    from horovod_tpu_torch.ops import conv_bn_stats as cbs
+
+    gen = torch.Generator(device=dev).manual_seed(N * 1000 + K + C)
+    x = torch.randn((N, K), generator=gen, device=dev).to(torch.bfloat16)
+    w = (0.05 * torch.randn((K, C), generator=gen, device=dev)).to(
+        torch.bfloat16)
+    cbs.reset_launches()
+    y, s1, s2 = cbs.conv_stats(x, w)
+    y2, t1, t2 = cbs.conv_stats(x, w)
+    torch.cuda.synchronize()
+    assert cbs.launches == {"conv_bn_stats": 2}
+    assert y.shape == (N, C) and y.dtype == torch.bfloat16
+    ry, r1, r2 = cbs._conv_stats_rows(x, w)
+    d = (y.float() - ry.float()).abs()
+    mag = x.float().abs() @ w.float().abs()
+    assert bool((d <= 2.0 ** -7 * ry.float().abs() + 1e-5 * mag).all()), \
+        float(d.max())
+    y32 = x.float() @ w.float()
+    assert float((s1 - r1).abs().max()) <= 1e-5 * float(
+        y32.abs().sum(0).max())
+    slack = (2e-5 * y32.abs() * mag + 1e-10 * mag * mag).sum(0)
+    assert bool(((s2 - r2).abs() <= 1e-5 * r2 + slack).all()), \
+        float(((s2 - r2).abs() / (1e-5 * r2 + slack)).max())
+    assert torch.equal(y, y2) and torch.equal(s1, t1) and torch.equal(s2, t2)
+
+
+@pytest.mark.parametrize("N,K,C", [(200704, 512, 128), (802816, 256, 64)])
+def test_conv_bn_stats_sums_repeat_bitwise_at_full_size(dev, N, K, C):
+    """Across every persistent CTA: two runs give the same y, Σy and Σy²
+    bit for bit."""
+    from horovod_tpu_torch.ops import conv_bn_stats as cbs
+
+    gen = torch.Generator(device=dev).manual_seed(N + K)
+    x = torch.randn((N, K), generator=gen, device=dev).to(torch.bfloat16)
+    w = (0.05 * torch.randn((K, C), generator=gen, device=dev)).to(
+        torch.bfloat16)
+    a = cbs.conv_stats(x, w)
+    b = cbs.conv_stats(x, w)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
 def test_conv_bn_stats_rejects_what_it_cannot_run(dev):

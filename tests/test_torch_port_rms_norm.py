@@ -76,14 +76,14 @@ def test_gradients_match_jax(shape, seed):
 
 
 def test_multi_rowblock_dscale():
-    """512 rows: two of the reference's 256-row blocks, two of the port's
-    2-row blocks (block_rows(512) = 2): every partial must be summed."""
+    """512 rows: two of the reference's 256-row blocks, 128 of the port's
+    4-row blocks (block_rows(512) = 4): every partial must be summed."""
     jx, js, tx, ts = _data((512, 128), seed=3)
     gs = jax.grad(lambda s: jnp.sum(
         jax_rms_norm(jx, s, use_kernel=True) ** 2))(js)
     s = ts.clone().requires_grad_(True)
     (trn.rms_norm(tx, s) ** 2).sum().backward()
-    assert trn.block_rows(512) == 2
+    assert trn.block_rows(512) == 4
     np.testing.assert_allclose(_np(s.grad), _np(gs), atol=1e-4, rtol=1e-5)
 
 
@@ -110,9 +110,9 @@ def test_plain_backward_partials_follow_the_row_blocks():
     y, rstd = trn._fwd_rows(x, scale, 1e-5, torch.float32)
     dx, parts = trn._bwd_rows(x, scale, rstd, dy)
     rows = trn.block_rows(R)
-    assert rows == 4 and parts.shape == (250, H)
+    assert rows == 8 and parts.shape == (125, H)
     xhat = x * rstd[:, None]
-    torch.testing.assert_close(parts[7], (dy * xhat)[28:32].sum(0))
+    torch.testing.assert_close(parts[7], (dy * xhat)[56:64].sum(0))
     torch.testing.assert_close(parts.sum(0), (dy * xhat).sum(0), rtol=1e-5,
                                atol=1e-5)
     xb = x.to(torch.bfloat16).requires_grad_(True)
@@ -121,3 +121,28 @@ def test_plain_backward_partials_follow_the_row_blocks():
     assert xb.grad.dtype == torch.bfloat16 and s.grad.dtype == torch.float32
     with pytest.raises(ValueError, match="does not match"):
         trn.rms_norm(x, scale[:-1])
+
+
+@pytest.mark.parametrize("R", [1, 100, 131, 132, 133, 264, 4096, 10000])
+def test_backward_blocks_are_at_most_one_per_sm(R):
+    """The backward's row blocks: contiguous, covering every row, at most
+    TARGET_BLOCKS (one per SM of an H100) of them, the last one ragged;
+    the plain backward writes one partial per block, and each is its
+    block's Σ dy·x̂."""
+    rng = np.random.default_rng(R)
+    H = 16
+    x = torch.from_numpy(rng.standard_normal((R, H)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((R, H)).astype(np.float32))
+    scale = torch.from_numpy(rng.standard_normal(H).astype(np.float32))
+    rows = trn.block_rows(R)
+    n_blocks = -(-R // rows)
+    assert trn.TARGET_BLOCKS == 132
+    assert n_blocks <= trn.TARGET_BLOCKS and (n_blocks - 1) * rows < R
+    assert rows == 1 or (rows - 1) * trn.TARGET_BLOCKS < R
+    _, rstd = trn._fwd_rows(x, scale, 1e-5, torch.float32)
+    dx, parts = trn._bwd_rows(x, scale, rstd, dy)
+    assert parts.shape == (n_blocks, H)
+    xhat = x * rstd[:, None]
+    last = (n_blocks - 1) * rows
+    torch.testing.assert_close(parts[-1], (dy * xhat)[last:].sum(0))
+    torch.testing.assert_close(parts[0], (dy * xhat)[:rows].sum(0))
