@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed N]
 
 Builds every CUDA kernel of the port from ``horovod_tpu_torch/csrc``
-(one nvcc per source, all started together), then:
+(one nvcc per source, all started together) and, beside them, the eager
+engine from ``horovod_tpu_torch/cpp`` (g++), then:
 
 1. device    — ``nvidia-smi`` name and power limit, torch device, build s;
 2. kernels   — each kernel against its plain PyTorch version on the card
@@ -17,7 +18,9 @@ Builds every CUDA kernel of the port from ``horovod_tpu_torch/csrc``
                the packed training shape and a ragged fp32 shape, and
                with the key-padding bias at BERT-base's shape (bf16,
                bidirectional, B 32 x S 512, 12 heads of 64, the BERT
-               batch's lengths), a holed fp32 mask and a padded D 16;
+               batch's lengths), a holed fp32 mask and a padded D 16; and
+               at ``bench --model llama``'s shape (bf16, B 8 x S 2048, 8
+               heads of 128, no GQA, causal);
                SDPA's backward is timed as the kernels are, a graph
                replay (forward and backward captured as one graph, less
                the forward), with the backend SDPA chose; the flash
@@ -98,8 +101,28 @@ Builds every CUDA kernel of the port from ``horovod_tpu_torch/csrc``
                3 warm-up and 10 timed steps on a fixed batch (the loss
                must fall and the running statistics move), then one
                eval-mode forward, which must use the running statistics;
-9. train_profile, train_packed_profile, train_bert_profile,
-               train_resnet_profile — where one step of each goes
+9. bench_llama — ``bench.py --model llama`` through
+               ``horovod_tpu_torch.bench.llama_result`` at its full config
+               (vocab 32000, hidden 1024, 16 layers, 8 heads of 128, FFN
+               4096, B 8 x S 2048, bf16 weights, ``MasterWeights(AdamW)``):
+               every bench key; the loss must fall and each layer's
+               attention go through the three flash kernels (48 launches a
+               step, no plain call);
+10. engine   — the eager native engine on CUDA tensors: two ranks on the one
+               card (this script, ``--engine-worker RANK``, started by the
+               phase; no torch.distributed collective runs): ResNet-50's
+               161 gradients (25,557,032 fp32 values) through
+               ``grouped_allreduce`` bitwise against their host copies and
+               timed, one 256 MiB allreduce, the ``wire_bf16`` wire within
+               its envelope, allgather / broadcast / reducescatter /
+               alltoall on bf16 and int64 tensors against a host
+               computation, allreduce Sum and Average on fp32, bf16 and
+               int64 bitwise against the host copies, and the ready event
+               (an allreduce enqueued right behind the GEMM that writes its
+               input); staging and engine times, the plane, the pinned pool;
+11. train_profile, train_packed_profile, train_bert_profile,
+               train_resnet_profile, bench_llama_profile — where one step
+               of each goes
                (torch.profiler), after every phase was timed: once the
                profiler has traced a step, the process launches kernels
                more slowly; then train_packed_vs_train, the device time
@@ -109,7 +132,9 @@ Builds every CUDA kernel of the port from ``horovod_tpu_torch/csrc``
                time of the three stage-2 1x1 512→128 convolutions and of
                the BatchNorms beside them: the spike's question inside the
                real step;
-10. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+               and the flash kernels' ``kernel_time_bench`` lines with
+               bench_llama's launches a step;
+12. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints one JSON line; any failed check raises (exit != 0) and
@@ -126,10 +151,14 @@ import functools
 import gc
 import json
 import math
+import os
 import re
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -138,7 +167,7 @@ import torch
 import torch.nn.functional as F
 
 import horovod_tpu_torch as hvd
-from horovod_tpu_torch import bench as resnet_bench
+from horovod_tpu_torch import bench
 from horovod_tpu_torch.examples import bert_pretraining_fsdp as bert_example
 from horovod_tpu_torch.examples.llama_packed_pretraining import (
     boundary_mask, make_packed_batch, packed_lm_loss)
@@ -149,7 +178,8 @@ from horovod_tpu_torch.models.generation import (generate, paged_decode_step,
                                                  paged_prefill)
 from horovod_tpu_torch.models.llama import (LlamaConfig, LlamaModel, RMSNorm,
                                             attend, causal_attention)
-from horovod_tpu_torch.models.resnet import ResNetConfig
+from horovod_tpu_torch.common import native_build
+from horovod_tpu_torch.models.resnet import ResNet, ResNetConfig
 from horovod_tpu_torch.ops import _build
 from horovod_tpu_torch.ops import conv_bn_stats as cbs
 from horovod_tpu_torch.ops import flash_attention as fa
@@ -158,6 +188,8 @@ from horovod_tpu_torch.ops import rms_norm as rn
 from horovod_tpu_torch.ops.losses import softmax_cross_entropy
 from horovod_tpu_torch.ops.mixed_precision import MasterWeights
 from horovod_tpu_torch.parallel.mesh import build_mesh
+from horovod_tpu_torch.runtime import staging
+from horovod_tpu_torch.runtime.engine import get_engine
 from horovod_tpu_torch.serve.config import ServeConfig
 from horovod_tpu_torch.serve.engine import ModelRunner
 from horovod_tpu_torch.serve.kv_cache import TRASH_BLOCK
@@ -713,11 +745,15 @@ def holed_mask(B, S) -> torch.Tensor:
 #: BERT-base's attention at train_bert's shape: B 32 x S 512, 12 heads of
 #: 64 (no GQA), bidirectional.
 FLASH_KPM_SHAPE = dict(B=32, S=512, Hq=12, Hkv=12, D=64)
+#: bench --model llama's attention: B 8 x S 2048, 8 heads of 128, causal.
+FLASH_BENCH_SHAPE = dict(B=8, S=2048, Hq=8, Hkv=8, D=128)
 
 
 def phase_flash_kernels(dev, flush, seed):
     """The flash cases and times.  Returns (kernels-line entries, the
-    key-bias times at (a_kpm), which train_bert's launches complete)."""
+    key-bias times at (a_kpm), which train_bert's launches complete, and
+    the times at the bench's shape (a_bench), which bench_llama's
+    complete)."""
     packed = packed_starts(seed)
     bert_mask = bert_batch(seed).attention_mask.bool()
     cases = [
@@ -744,6 +780,11 @@ def phase_flash_kernels(dev, flush, seed):
     for name, err in flash_padded_check(dev, seed + 21, case="c_kpm", B=2,
                                         D=16,
                                         mask=holed_mask(2, 200)).items():
+        max_err[name] = max(max_err[name], err)
+    bench_err = flash_case_check(dev, dict(case="a_bench",
+                                           dtype=torch.bfloat16, causal=True,
+                                           **FLASH_BENCH_SHAPE), seed + 22)
+    for name, err in bench_err.items():
         max_err[name] = max(max_err[name], err)
 
     shape = FLASH_TRAIN_SHAPE
@@ -795,7 +836,19 @@ def phase_flash_kernels(dev, flush, seed):
                                        if name != "flash_fwd" else ""),
             timed_shape={**FLASH_KPM_SHAPE, "causal": False,
                          "dtype": "bfloat16", "key_bias": True})
-    return entries, kpm
+    at_bench = flash_times(dev, flush, seed, shape=FLASH_BENCH_SHAPE)
+    for name in at_bench:
+        at_bench[name].update(
+            max_abs_err=bench_err[name], dense_ms=dense[name]["ms"],
+            ptxas=ptxas_entry(name, FLASH_BENCH_SHAPE["D"], 0),
+            pairs=attn_pairs(causal=True, **{k: FLASH_BENCH_SHAPE[k]
+                                             for k in ("B", "S", "Hq")}),
+            library_call="scaled_dot_product_attention forward, is_causal"
+            if name == "flash_fwd" else
+            "scaled_dot_product_attention backward (dQ, dK, dV together)",
+            timed_shape={**FLASH_BENCH_SHAPE, "causal": True,
+                         "dtype": "bfloat16"})
+    return entries, kpm, at_bench
 
 
 # ---------------------------------------------------------------------------
@@ -1395,20 +1448,6 @@ def lm_loss(model, tokens):
     return softmax_cross_entropy(logits, tokens[:, 1:])
 
 
-def train_flops(cfg, B, S, seg=None):
-    """6 x (non-embedding params + lm_head) x tokens + 3 x the attention
-    forward: two products of 2·D FLOPs per live (query, key) pair, head
-    and layer — S²/2 pairs a row causal (the dense count), or with segment
-    starts each document's own causal triangle (:func:`attn_pairs`)."""
-    D, H = cfg.head_dim, cfg.hidden_size
-    per_layer = (H * cfg.num_heads * D * 2 + H * cfg.num_kv_heads * D * 2
-                 + 3 * H * cfg.intermediate_size + 2 * H)
-    dense = cfg.num_layers * per_layer + H + cfg.vocab_size * H
-    pairs = (B * cfg.num_heads * S * S // 2 if seg is None
-             else attn_pairs(B, S, cfg.num_heads, True, seg))
-    return 6 * dense * B * S + 3 * cfg.num_layers * 4 * D * pairs
-
-
 def set_attention(model, fn):
     for layer in model.layers:
         layer.attn.attention_fn = fn
@@ -1558,7 +1597,7 @@ def phase_train(dev, seed):
     losses, step_ms, launches, plain_calls, _, _ = timed_steps(step, tokens,
                                                                dev)
     plan = opt.last_plan
-    emit("train", **step_metrics(cfg, step_ms, train_flops(
+    emit("train", **step_metrics(cfg, step_ms, bench.llama_flops_per_step(
         cfg, TRAIN_B, TRAIN_S), dev), params=n_params, losses=losses,
          fused_buckets=len(plan.buckets),
          fused_bytes=sum(b.nbytes for b in plan.buckets),
@@ -1676,8 +1715,12 @@ def phase_train_packed(dev, seed):
         timed_steps(step, (tokens, seg), dev)
     starts = fa._segment_starts(seg)
     valid = boundary_mask(seg)
-    emit("train_packed", **step_metrics(cfg, step_ms, train_flops(
-        cfg, TRAIN_B, TRAIN_S, starts), dev), fused_rmsnorm=True,
+    # Each document's own causal triangle (attn_pairs) in the FLOP count.
+    flops = bench.llama_flops_per_step(
+        cfg, TRAIN_B, TRAIN_S, attn_pairs(TRAIN_B, TRAIN_S, cfg.num_heads,
+                                          True, starts))
+    emit("train_packed", **step_metrics(cfg, step_ms, flops, dev),
+         fused_rmsnorm=True,
          mean_doc=PACKED_MEAN_DOC, segments=n_segments(starts),
          loss_tokens=int(valid.sum()),
          attention_pairs_vs_causal=attn_pairs(TRAIN_B, TRAIN_S, 1, True,
@@ -1706,13 +1749,16 @@ def phase_train_profile(phase, build, batch, labels=None):
     device time of its kernels (torch.profiler), the top kernels, device
     time by kernel group, and the idle share of the card.  ``build()``
     makes the model, optimizer and step afresh (a timed phase frees its
-    own before the next, which needs the memory); the first step, which
+    own before the next, which needs the memory), and ``batch=None`` takes
+    the one ``build`` leaves in ``build.batch``; the first step, which
     creates the optimizer's state, is an untraced warm step.
     ``labels(model)``: opens named ranges in the model and returns their
     names; each range's forward device time is reported."""
     from torch.profiler import ProfilerActivity, profile
 
     model, opt, step = build()
+    if batch is None:
+        batch = build.batch
     names = labels(model) if labels else ()
     step(batch)
     torch.cuda.synchronize()
@@ -1988,7 +2034,7 @@ def resnet_factory(seed):
     ``make_step_and_state`` on ResNet-50 (bf16) at B 256 x 224²; the
     bench's fixed batch is left in ``build.batch``."""
     def build():
-        step, model, opt, build.batch = resnet_bench.make_step_and_state(
+        step, model, opt, build.batch = bench.make_step_and_state(
             ResNetConfig.resnet50(), RESNET_B, RESNET_SIZE, seed=seed)
         return model, opt, step
     return build
@@ -2044,7 +2090,7 @@ def phase_train_resnet(dev, seed):
              float((probe.var - var0).abs().max()))
     evl = resnet_eval_check(model, batch[0])
     p50 = statistics.median(step_ms)
-    flops = resnet_bench.model_flops_per_step(cfg, RESNET_SIZE, RESNET_B)
+    flops = bench.model_flops_per_step(cfg, RESNET_SIZE, RESNET_B)
     buffers = [b for b in model.buffers() if b.is_floating_point()]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
@@ -2073,6 +2119,353 @@ def phase_train_resnet(dev, seed):
           "train_resnet: the running statistics did not move")
     del model, opt, step
     return build, batch
+
+
+# ---------------------------------------------------------------------------
+# phase 9: bench.py --model llama through horovod_tpu_torch.bench
+# ---------------------------------------------------------------------------
+
+def smi_now() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+
+
+def phase_bench_llama(dev):
+    """``bench --model llama`` at its full config through the bench's own
+    function (``bench.llama_result``), with the launch counters reset just
+    before and read just after.  Returns the flash launches a step."""
+    hvd.init()
+    cfg = bench.llama_config()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launches()
+    rn.reset_launches()
+    result = bench.llama_result()
+    launches, plain_calls = dict(fa.launches), dict(fa.plain_calls)
+    steps = result["warmup_steps"] + result["steps"]
+    emit("bench_llama", **result, steps_run=steps,
+         launches_per_step={k: v / steps for k, v in launches.items()},
+         kernel_launches=launches, plain_calls=plain_calls,
+         rms_norm_launches=dict(rn.launches),
+         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+         nvidia_smi_after=smi_now())
+    check(result["device"] == torch.cuda.get_device_name(dev),
+          "bench_llama: not on the card")
+    check(all(launches.get(name, 0) > 0 for name, *_ in FLASH_KERNELS),
+          f"bench_llama: a flash kernel was not launched: {launches}")
+    check_training("bench_llama", result["losses"], launches,
+                   dict.fromkeys(launches, cfg.num_layers * steps),
+                   plain_calls)
+    return {k: v // steps for k, v in launches.items()}
+
+
+def bench_llama_factory():
+    """bench_llama's model, optimizer and step, afresh; the bench's fixed
+    batch is left in ``build.batch``."""
+    def build():
+        step, model, opt, build.batch = bench.make_llama_step(
+            bench.llama_config(), 8, 2048)
+        return model, opt, step
+    return build
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the eager native engine on CUDA tensors, two ranks on one card
+# ---------------------------------------------------------------------------
+
+ENGINE_RANKS = 2
+ENGINE_TIMEOUT_S = 300
+ENGINE_ITERS = 5
+ENGINE_BIG_VALUES = 64 << 20          # one fp32 tensor of 256 MiB
+#: tests/test_compression.py's envelope for the bf16 wire: max |out -
+#: fp32 result| / max |fp32 result|.
+WIRE_BF16_TOL = 2e-2
+#: Rows each rank sends each rank in the alltoall: uneven, one of them 0.
+A2A_SPLITS = ((1, 3), (2, 0))
+
+
+def free_port() -> int:
+    """A free port whose + 64 (the torch group's rendezvous) is free too."""
+    while True:
+        with socket.socket() as s, socket.socket() as t:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+            try:
+                t.bind(("127.0.0.1", port + 64))
+            except OSError:
+                continue
+            return port
+
+
+def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and bytes(a.view(torch.uint8).numpy())
+            == bytes(b.view(torch.uint8).numpy()))
+
+
+def host_input(rank, dtype, shape):
+    """Rank ``rank``'s seeded input, made on the host (every rank can make
+    every rank's, for the expected results)."""
+    gen = torch.Generator().manual_seed(7000 + rank)
+    if dtype == torch.int64:
+        return torch.randint(-1000, 1000, shape, generator=gen)
+    return torch.randn(shape, generator=gen).to(dtype)
+
+
+def engine_checks(dev, rank, size):
+    """Allgather (ragged), broadcast from rank 1, reducescatter and
+    alltoall (uneven splits) on bf16 and int64 tensors on ``dev`` against a
+    host computation; allreduce Sum and Average of fp32, bf16 and int64
+    against the same call on the tensor's host copy, bit for bit."""
+    done = []
+    for dtype in (torch.bfloat16, torch.int64):
+        name = str(dtype).replace("torch.", "")
+        xs = [host_input(r, dtype, (r + 2, 3)) for r in range(size)]
+        got = hvd.allgather(xs[rank].to(dev), name=f"ag.{name}")
+        check(got.device == dev and bitwise_equal(got, torch.cat(xs)),
+              f"engine: allgather {name}")
+        xs = [host_input(r, dtype, (4, 3)) for r in range(size)]
+        got = hvd.broadcast(xs[rank].to(dev), 1, name=f"bc.{name}")
+        check(got.device == dev and bitwise_equal(got, xs[1]),
+              f"engine: broadcast {name}")
+        xs = [host_input(r, dtype, (5, 4)) for r in range(size)]
+        total = xs[0]
+        for x in xs[1:]:
+            total = total + x
+        rows = torch.tensor_split(total, size)[rank]
+        got = hvd.reducescatter(xs[rank].to(dev), name=f"rs.{name}")
+        check(got.device == dev and bitwise_equal(got, rows),
+              f"engine: reducescatter {name}")
+        xs = [host_input(r, dtype, (sum(A2A_SPLITS[r]), 2))
+              for r in range(size)]
+        want = torch.cat([torch.split(xs[j], list(A2A_SPLITS[j]))[rank]
+                          for j in range(size)])
+        got = hvd.alltoall(xs[rank].to(dev), name=f"a2a.{name}",
+                           splits=A2A_SPLITS[rank])
+        check(got.device == dev and bitwise_equal(got, want),
+              f"engine: alltoall {name}")
+        done += [f"allgather.{name}", f"broadcast.{name}",
+                 f"reducescatter.{name}", f"alltoall.{name}"]
+    for dtype in (torch.float32, torch.bfloat16, torch.int64):
+        name = str(dtype).replace("torch.", "")
+        x = host_input(rank, dtype, (1000,))
+        for op in (hvd.Sum, hvd.Average):
+            got = hvd.allreduce(x.to(dev), op=op, name=f"ar.{name}.{op.value}")
+            want = hvd.allreduce(x, op=op, name=f"ar.{name}.{op.value}.host")
+            check(got.device == dev and bitwise_equal(got, want),
+                  f"engine: allreduce {name} {op.value} on {dev} differs from "
+                  "the host copy's")
+            done.append(f"allreduce.{name}.{op.value}")
+    return done
+
+
+def engine_worker(rank: int, device: str) -> dict:
+    """One rank of the engine phase.  Returns its measurements; any failed
+    check raises."""
+    hvd.init(device=device)
+    dev, size, eng = hvd.device(), hvd.size(), get_engine()
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out = {"rank": hvd.rank(), "size": size, "device": str(dev)}
+
+    # ResNet-50's gradient set: 161 fp32 tensors, seeded per rank.
+    shapes = [p.shape for p in ResNet(ResNetConfig.resnet50(),
+                                      device="meta").parameters()]
+    gen = torch.Generator(device=dev).manual_seed(1000 + rank)
+    grads = [torch.randn(sh, generator=gen, device=dev) for sh in shapes]
+    n_values = sum(g.numel() for g in grads)
+    check(len(grads) == 161 and n_values == 25_557_032,
+          f"engine: ResNet-50 has {len(grads)} tensors, {n_values} values")
+    got = hvd.grouped_allreduce(grads, name="rn50")
+    host = hvd.grouped_allreduce([g.cpu() for g in grads], name="rn50.host")
+    check(all(a.device == dev and bitwise_equal(a, b)
+              for a, b in zip(got, host)),
+          "engine: grouped allreduce on the card differs from the host "
+          "copies'")
+    st0, eg0 = staging.stats(), eng.stats()
+    walls = []
+    for _ in range(ENGINE_ITERS):
+        sync()
+        t = time.perf_counter()
+        hvd.grouped_allreduce(grads, name="rn50")
+        sync()
+        walls.append((time.perf_counter() - t) * 1e3)
+    st1, eg1 = staging.stats(), eng.stats()
+    ar_ns = eg1["allreduce_ns"] - eg0["allreduce_ns"]
+    ar_bytes = eg1["allreduce_bytes"] - eg0["allreduce_bytes"]
+    out["grouped_allreduce"] = {
+        "tensors": len(grads), "values": n_values, "bytes": 4 * n_values,
+        "iters": ENGINE_ITERS, "wall_ms": walls,
+        "wall_ms_median": statistics.median(walls),
+        "d2h_ms": (st1["d2h_ms"] - st0["d2h_ms"]) / ENGINE_ITERS,
+        "h2d_ms": (st1["h2d_ms"] - st0["h2d_ms"]) / ENGINE_ITERS,
+        "engine_allreduce_ms": ar_ns / 1e6 / ENGINE_ITERS,
+        "bus_gb_per_s": ar_bytes * 2 * (size - 1) / size / ar_ns
+        if ar_ns else None,
+        "responses": (eg1["responses"] - eg0["responses"]) / ENGINE_ITERS,
+        "pinned_allocs_timed": st1["pinned_allocs"] - st0["pinned_allocs"],
+        "bitwise_vs_host": True}
+
+    # One 256 MiB fp32 tensor, for bandwidth.
+    big = torch.randn(ENGINE_BIG_VALUES, generator=gen, device=dev)
+    check(bitwise_equal(hvd.allreduce(big, name="big"),
+                        hvd.allreduce(big.cpu(), name="big.host")),
+          "engine: 256 MiB allreduce on the card differs from the host's")
+    st0, eg0 = staging.stats(), eng.stats()
+    walls = []
+    for _ in range(3):
+        sync()
+        t = time.perf_counter()
+        hvd.allreduce(big, name="big")
+        sync()
+        walls.append((time.perf_counter() - t) * 1e3)
+    st1, eg1 = staging.stats(), eng.stats()
+    ar_ns = eg1["allreduce_ns"] - eg0["allreduce_ns"]
+    ar_bytes = eg1["allreduce_bytes"] - eg0["allreduce_bytes"]
+    out["big_allreduce"] = {
+        "bytes": 4 * ENGINE_BIG_VALUES, "wall_ms": walls,
+        "wall_ms_median": statistics.median(walls),
+        "d2h_ms": (st1["d2h_ms"] - st0["d2h_ms"]) / 3,
+        "h2d_ms": (st1["h2d_ms"] - st0["h2d_ms"]) / 3,
+        "engine_allreduce_ms": ar_ns / 1e6 / 3,
+        "bus_gb_per_s": ar_bytes * 2 * (size - 1) / size / ar_ns
+        if ar_ns else None}
+    del big
+
+    # wire_bf16 on the gradient set, against the fp32 result.
+    c0 = eng.stats()["wire_bf16_count"]
+    wired = hvd.grouped_allreduce(grads, name="rn50.wire_bf16",
+                                  compression=hvd.Compression.wire_bf16)
+    ref = torch.cat([h.reshape(-1) for h in host])
+    err = float((torch.cat([w.reshape(-1).cpu() for w in wired]) - ref)
+                .abs().max() / ref.abs().max())
+    out["wire_bf16"] = {"rel_err": err, "tol": WIRE_BF16_TOL,
+                        "responses": eng.stats()["wire_bf16_count"] - c0}
+    check(err < WIRE_BF16_TOL and out["wire_bf16"]["responses"] > 0,
+          f"engine: wire_bf16 error {err}")
+
+    out["checked"] = engine_checks(dev, rank, size)
+
+    # The ready event: enqueue right behind a GEMM (fp32, ~1 ms once warm)
+    # that writes the input.
+    a = torch.randn(4096, 4096, generator=gen, device=dev)
+    b = torch.randn(4096, 4096, generator=gen, device=dev)
+    x = torch.matmul(a, b)
+    x.fill_(float("nan"))
+    sync()
+    t0 = torch.cuda.Event(enable_timing=True) if on_card else None
+    t1 = torch.cuda.Event(enable_timing=True) if on_card else None
+    if on_card:
+        t0.record()
+    torch.matmul(a, b, out=x)
+    if on_card:
+        t1.record()
+    first = hvd.synchronize(hvd.allreduce_async(x, name="ready"))
+    sync()
+    again = hvd.allreduce(x, name="ready.synced")
+    check(bool(torch.isfinite(first).all()) and bitwise_equal(first, again),
+          "engine: an allreduce enqueued behind a GEMM read its input early")
+    # A batch behind GEMMs: a contiguous tensor and two transposed views,
+    # whose gathers queue after the first tensor's.
+    outs = [torch.full((4096, 4096), float("nan"), device=dev)
+            for _ in range(3)]
+    sync()
+    for i, o in enumerate(outs):
+        torch.matmul(a, b * (i + 1), out=o)
+    batch = [outs[0], outs[1].t(), outs[2].t()]
+    got = hvd.grouped_allreduce(batch, name="ready.batch")
+    sync()
+    want = hvd.grouped_allreduce([t.cpu() for t in batch],
+                                 name="ready.batch.cpu")
+    check(all(bool(torch.isfinite(g).all()) and bitwise_equal(g.cpu(), w)
+              for g, w in zip(got, want)),
+          "engine: a grouped allreduce behind GEMMs read a view early")
+    out["ready_event"] = {"gemm_ms": t0.elapsed_time(t1) if on_card else None,
+                          "batch_of_views": True, "ok": True}
+
+    st, pool = eng.stats(), staging.stats()
+    out["plane"] = {"shm_enabled": st["config"]["shm_enabled"],
+                    "shm_bytes_tx": st["shm_bytes_tx"],
+                    "data_bytes_tx": st["data_bytes_tx"],
+                    "num_channels": st["config"]["num_channels"],
+                    "fusion_threshold": st["config"]["fusion_threshold"],
+                    "topology": st["topology"]}
+    out["pinned_pool"] = {k: pool[k] for k in (
+        "pinned_allocs", "pinned_alloc_bytes", "pinned_reuses",
+        "d2h_copies", "h2d_copies")}
+    hvd.shutdown()
+    return out
+
+
+def phase_engine():
+    """Two ranks of the eager engine on the one card, each a process of
+    this script (``--engine-worker RANK``) on cuda:0.  No torch.distributed
+    collective runs (NCCL refuses two ranks on one device; the group is
+    created lazily).  Any worker's failure or timeout fails the phase.
+    ``HOROVOD_SHM_DISABLE`` alone of the caller's ``HOROVOD_*`` variables
+    reaches the workers; their output goes to files, so no worker blocks
+    on a full pipe while another is waited on."""
+    port = free_port()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
+    shm_disable = os.environ.get("HOROVOD_SHM_DISABLE", "0")
+    env.update(HOROVOD_SIZE=str(ENGINE_RANKS),
+               HOROVOD_LOCAL_SIZE=str(ENGINE_RANKS),
+               HOROVOD_COORDINATOR=f"127.0.0.1:{port}",
+               HOROVOD_SHM_DISABLE=shm_disable)
+    logs = tempfile.mkdtemp(prefix="chip_smoke_engine_")
+    files = [(open(os.path.join(logs, f"rank{r}.out"), "w+"),
+              open(os.path.join(logs, f"rank{r}.err"), "w+"))
+             for r in range(ENGINE_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--engine-worker",
+         str(r)], env=dict(env, HOROVOD_RANK=str(r),
+                           HOROVOD_LOCAL_RANK=str(r)),
+        stdout=files[r][0], stderr=files[r][1], text=True)
+        for r in range(ENGINE_RANKS)]
+    t0 = time.monotonic()
+
+    def tail(r, n=4000):
+        files[r][1].seek(0)
+        return files[r][1].read()[-n:]
+
+    try:
+        # Poll all workers together: the first to fail ends the phase
+        # with its own error, not with its peer's hang.
+        while any(p.poll() is None for p in procs):
+            for r, p in enumerate(procs):
+                check(p.poll() in (None, 0), f"engine rank {r} exited "
+                                             f"{p.returncode}:\n{tail(r)}")
+            if time.monotonic() - t0 > ENGINE_TIMEOUT_S:
+                raise RuntimeError(
+                    f"chip_smoke check failed: engine ranks "
+                    f"{[r for r, p in enumerate(procs) if p.poll() is None]}"
+                    f" timed out after {ENGINE_TIMEOUT_S} s:\n"
+                    + "\n".join(tail(r, 2000) for r in range(ENGINE_RANKS)))
+            time.sleep(0.2)
+        results = []
+        for r, p in enumerate(procs):
+            check(p.returncode == 0, f"engine rank {r} exited "
+                                     f"{p.returncode}:\n{tail(r)}")
+            files[r][0].seek(0)
+            results.append(json.loads(files[r][0].read().strip()
+                                      .splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for fo, fe in files:
+            fo.close()
+            fe.close()
+        shutil.rmtree(logs, ignore_errors=True)
+    shm = shutil.disk_usage("/dev/shm")
+    emit("engine", ranks=ENGINE_RANKS, wall_s=time.monotonic() - t0,
+         dev_shm_bytes=shm.total, dev_shm_free_bytes=shm.free,
+         shm_disable=shm_disable, per_rank=results,
+         nvidia_smi_after=smi_now())
 
 
 def label_forward(module, name):
@@ -2122,29 +2515,54 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of weights, requests and kernel inputs")
+    # One rank of the engine phase, started by the phase itself.
+    parser.add_argument("--engine-worker", type=int, default=None,
+                        metavar="RANK", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); this script measures the port on a GPU",
               file=sys.stderr)
         return 2
+    if args.engine_worker is not None:
+        print(json.dumps(engine_worker(args.engine_worker, "cuda:0")),
+              flush=True)
+        return 0
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    # The engine (g++) builds beside the kernels (one nvcc each).
+    engine_build = {}
+
+    def build_engine():
+        t = time.monotonic()
+        try:
+            engine_build["lib"] = str(native_build.build())
+        except Exception as e:  # noqa: BLE001 -- raised after the join
+            engine_build["error"] = e
+        engine_build["s"] = time.monotonic() - t
+
+    engine_thread = threading.Thread(target=build_engine)
+    engine_thread.start()
     build_s = _build.build()
+    engine_thread.join()
+    if "error" in engine_build:
+        raise engine_build["error"]
     ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
                     if re.search(r"registers|spill", ln)]
              for name in _build.sources()}
     emit("device", nvidia_smi=smi, torch_device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, build_s=build_s,
+         engine_build_s=engine_build["s"], engine_lib=engine_build["lib"],
          kernels=sorted(_build.sources()), ptxas=ptxas)
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     entry = phase_kernels(dev, flush, args.seed)
-    flash_entries, kpm_times = phase_flash_kernels(dev, flush, args.seed)
+    flash_entries, kpm_times, bench_times = phase_flash_kernels(dev, flush,
+                                                                args.seed)
     rms_entries = phase_rms_kernels(dev, flush, args.seed)
     x2d, w2d = conv_bn_spike.make_inputs(dev, args.seed)
     conv_entry = phase_conv_bn_kernels(dev, flush, x2d, w2d, args.seed)
@@ -2179,6 +2597,10 @@ def main(argv=None) -> int:
     resnet_build, resnet_data = phase_train_resnet(dev, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
+    bench_launches = phase_bench_llama(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_engine()
     compare_profiles(
         phase_train_profile("train_profile",
                             llama_factory(args.seed, *train[:3]), train[3]),
@@ -2188,8 +2610,12 @@ def main(argv=None) -> int:
     phase_train_profile("train_bert_profile", bert_build, bert_data)
     phase_train_profile("train_resnet_profile", resnet_build, resnet_data,
                         labels=label_spike_layers)
+    phase_train_profile("bench_llama_profile", bench_llama_factory(), None)
     for name, t in kpm_times.items():
         emit("kernel_time_kpm", name=name, launches=bert_launches[name], **t)
+    for name, t in bench_times.items():
+        emit("kernel_time_bench", name=name,
+             launches_per_step=bench_launches[name], **t)
     hvd.shutdown()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

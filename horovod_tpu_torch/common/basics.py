@@ -6,18 +6,32 @@ launcher's environment, read in the reference's order: ``HOROVOD_RANK`` /
 the ``OMPI_COMM_WORLD_*`` and ``PMI_*`` names.  With none set, the world
 is one process.  Queries raise before :func:`init`, as the reference's do.
 
-The communicator is ``torch.distributed``'s default process group: NCCL
-when the process runs on the card, gloo on the CPU.  :func:`init` creates
-it even for a world of one, so a step's allreduce really goes through
-NCCL.  Its rendezvous address is ``HOROVOD_COORDINATOR`` (``host:port``);
-a world of one without it picks a free port on localhost.  The
-reference's eager native engine (``libhorovod_core.so``) is not ported:
-every collective is a ``torch.distributed`` call
-(``ops/collective_ops.py``).
+:func:`init` brings up two communicators, at every size:
+
+* the eager native engine (``libhorovod_core``, built from the port's own
+  ``cpp/`` at first use by ``common/native_build.py``), as the reference's
+  ``init`` does: its rank-0 coordinator listens on ``HOROVOD_COORDINATOR``
+  (``host:port``), the reference's meaning of the variable.  It carries
+  the eager collectives on named tensors, ``hvd.allreduce``,
+  ``allgather``, ``broadcast``, ``reducescatter``, ``alltoall`` and their
+  handles (``runtime/eager.py``, ``runtime/mpi_ops.py``);
+* ``torch.distributed``'s default process group, NCCL when the process
+  runs on the card and gloo on the CPU, the counterpart of the traced
+  ``psum``: ``make_train_step``, ``DistributedOptimizer``,
+  ``allreduce_gradients`` and ``broadcast_parameters`` reduce through it
+  (``ops/collective_ops.py``).  It rendezvous at the coordinator's port
+  + 64, where the reference puts its second rendezvous (JAX's); comm
+  subsets of the reference take port + 1 + min(comm), below it.  A world
+  of one without ``HOROVOD_COORDINATOR`` picks a free port.
+
+A world of one needs no coordinator for the engine, whose collectives are
+then identities.  The engine library fails loudly: a build or load error
+raises with the compiler's or loader's text.
 """
 
 from __future__ import annotations
 
+import atexit
 import os
 import socket
 import threading
@@ -29,7 +43,11 @@ import torch.distributed as dist
 from horovod_tpu_torch.common.device import resolve_device
 
 __all__ = ["init", "shutdown", "is_initialized", "rank", "size",
-           "local_rank", "local_size", "device"]
+           "local_rank", "local_size", "device", "epoch",
+           "mpi_threads_supported"]
+
+#: The torch group's rendezvous port, relative to HOROVOD_COORDINATOR's.
+TORCH_PORT_OFFSET = 64
 
 # Env vars for rank discovery, in the reference's priority order.
 _RANK_ENV = ("HOROVOD_RANK", "OMPI_COMM_WORLD_RANK", "PMI_RANK")
@@ -39,6 +57,7 @@ _LOCAL_SIZE_ENV = ("HOROVOD_LOCAL_SIZE", "OMPI_COMM_WORLD_LOCAL_SIZE")
 
 _lock = threading.Lock()
 _state: dict = {}
+_atexit_registered = False
 
 
 def _env_int(names: Sequence[str]) -> Optional[int]:
@@ -55,15 +74,28 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _init_method(size: int) -> str:
-    addr = os.environ.get("HOROVOD_COORDINATOR", "")
+def _init_method(addr: str) -> str:
+    """The torch group's rendezvous: the coordinator's host at its port
+    + ``TORCH_PORT_OFFSET``, or a free local port without a coordinator."""
     if not addr:
-        if size > 1:
-            raise ValueError(
-                "a world of more than one process needs a rendezvous "
-                "address: set HOROVOD_COORDINATOR=host:port")
-        addr = f"127.0.0.1:{_free_port()}"
-    return f"tcp://{addr}"
+        return f"tcp://127.0.0.1:{_free_port()}"
+    host, _, port = addr.rpartition(":")
+    return f"tcp://{host}:{int(port) + TORCH_PORT_OFFSET}"
+
+
+def _start_engine(rank: int, size: int, local_rank: int, local_size: int,
+                  addr: str):
+    """Load the engine library and start it (``horovod_init``); raises
+    with the engine's own error text."""
+    from horovod_tpu_torch.runtime.engine import get_engine
+
+    lib = get_engine().lib
+    if lib.horovod_init(rank, size, local_rank, local_size,
+                        addr.encode()) != 0:
+        detail = lib.horovod_last_error().decode(errors="replace")
+        raise RuntimeError("native horovod_init failed"
+                           + (f": {detail}" if detail else ""))
+    return lib
 
 
 def init(device: Optional[Union[str, torch.device]] = None) -> None:
@@ -102,18 +134,42 @@ def init(device: Optional[Union[str, torch.device]] = None) -> None:
             dev = torch.device("cuda", local_rank if dev.index is None
                                or device is None else dev.index)
             torch.cuda.set_device(dev)
-        dist.init_process_group(
-            "nccl" if dev.type == "cuda" else "gloo",
-            init_method=_init_method(size), world_size=size, rank=rank)
+        addr = os.environ.get("HOROVOD_COORDINATOR", "")
+        if size > 1 and not addr:
+            raise ValueError(
+                "a world of more than one process needs a rendezvous "
+                "address: set HOROVOD_COORDINATOR=host:port")
+        lib = _start_engine(rank, size, local_rank, local_size, addr)
+        if os.environ.get("HOROVOD_ELASTIC", "") not in ("", "0"):
+            # The coordinator may have re-formed the world: adopt the
+            # committed identity.
+            rank, size = int(lib.horovod_rank()), int(lib.horovod_size())
+        try:
+            dist.init_process_group(
+                "nccl" if dev.type == "cuda" else "gloo",
+                init_method=_init_method(addr), world_size=size, rank=rank)
+        except BaseException:
+            lib.horovod_shutdown()
+            raise
         _state.update(rank=rank, size=size, local_rank=local_rank,
                       local_size=local_size, device=dev)
+        global _atexit_registered
+        if not _atexit_registered:
+            atexit.register(shutdown)
+            _atexit_registered = True
 
 
 def shutdown() -> None:
-    """Destroy the process group :func:`init` created; queries raise
-    again until the next :func:`init`."""
+    """Stop the engine and destroy the process group :func:`init`
+    created; queries raise again until the next :func:`init`."""
     with _lock:
-        if _state and dist.is_initialized():
+        if not _state:
+            return
+        from horovod_tpu_torch.runtime.engine import (get_engine,
+                                                      reset_engine_naming)
+        get_engine().lib.horovod_shutdown()
+        reset_engine_naming()
+        if dist.is_initialized():
             dist.destroy_process_group()
         _state.clear()
 
@@ -148,3 +204,19 @@ def local_size() -> int:
 def device() -> torch.device:
     """The device :func:`init` bound this process to."""
     return _get("device")
+
+
+def epoch() -> int:
+    """The engine's committed membership epoch: bumped by every successful
+    rendezvous commit; 0 before the first :func:`init`."""
+    if not _state:
+        return 0
+    from horovod_tpu_torch.runtime.engine import get_engine
+    return get_engine().epoch()
+
+
+def mpi_threads_supported() -> bool:
+    """There is no MPI; the engine's threading is unconditional (the
+    reference's answer)."""
+    _get("rank")
+    return True

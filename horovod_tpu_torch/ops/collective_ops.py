@@ -1,11 +1,12 @@
-"""Collectives over the default process group: allreduce, grouped
-allreduce and broadcast.
+"""Collectives over the default process group: allreduce.
 
 Counterpart of ``horovod_tpu/ops/collective_ops.py``.  The reference's
 collectives are XLA ops over a named mesh axis inside ``jit``; here there
 is no mesh, and the default ``torch.distributed`` group (``hvd.init()``)
-is the data axis.  Each call returns a new tensor and leaves its input
-as it was, like the reference's functional ops.
+is the data axis.  ``make_train_step``, ``DistributedOptimizer`` and
+``allreduce_gradients`` reduce through it (``frontend.py``); the eager
+collectives on named tensors, ``hvd.allreduce`` and the rest, are the
+native engine's (``runtime/eager.py``).
 
 ``Average`` is the reference's ``pmean``: NCCL's AVG where the backend
 has it, else (gloo) SUM followed by a division by the world size.
@@ -16,16 +17,15 @@ as the reference does, which is exact for every dtype.
 from __future__ import annotations
 
 import enum
-from typing import List, Optional, Sequence
+from typing import Optional
 
 import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch.ops.compression import Compression
-from horovod_tpu_torch.ops.fusion import fuse_apply
 
 __all__ = ["ReduceOp", "Sum", "Average", "Min", "Max", "Product",
-           "allreduce", "allreduce_", "grouped_allreduce", "broadcast"]
+           "allreduce", "allreduce_"]
 
 
 class ReduceOp(enum.Enum):
@@ -79,18 +79,3 @@ def allreduce(tensor: torch.Tensor, *, op: ReduceOp = Average,
         wire = tensor.clone()
     return compression.decompress(allreduce_(wire, op), ctx)
 
-
-def grouped_allreduce(tensors: Sequence[torch.Tensor], *,
-                      op: ReduceOp = Average, compression=Compression.none
-                      ) -> List[torch.Tensor]:
-    """Allreduce a list of tensors as one collective per fused same-dtype
-    bucket (``ops/fusion.py``)."""
-    return fuse_apply(list(tensors), lambda buf: allreduce(
-        buf, op=op, compression=compression))
-
-
-def broadcast(tensor: torch.Tensor, root_rank: int = 0) -> torch.Tensor:
-    """Every rank receives root's value (a new tensor)."""
-    out = tensor.detach().clone()
-    dist.broadcast(out, src=root_rank)
-    return out

@@ -2,9 +2,14 @@
 
 Counterpart of ``horovod_tpu/ops/compression.py``.  ``Compression.none``,
 ``fp16`` and ``bf16`` are the reference's frontend casts.  The wire-level
-compressors (``wire_fp16``/``wire_bf16``/``wire_int8``/``wire_fp8``) and
-``topk`` belong to the reference's eager native engine, which is not
-ported (ROADMAP.md Queue A, items A1-A2): they raise when used.
+compressors (``wire_fp16``/``wire_bf16``/``wire_int8``/``wire_fp8``) leave
+the tensor as it is and ask the eager engine for that wire format: the
+engine quantizes on send and dequantizes, reduces and requantizes on the
+ring with per-chunk scales (``runtime/eager.py``; fp32 payloads only).  On
+the ``torch.distributed`` path of ``make_train_step`` they are identities,
+as on the reference's traced path.  ``topk`` needs the sparse plane
+(``runtime/sparse.py``), which is not ported (ROADMAP.md Queue A): it
+raises.
 """
 
 from __future__ import annotations
@@ -12,10 +17,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["Compressor", "NoneCompressor", "FP16Compressor",
-           "BF16Compressor", "Compression"]
-
-_ENGINE = ("needs the eager native engine, which is not ported yet "
-           "(ROADMAP.md Queue A, A1-A2)")
+           "BF16Compressor", "WireCompressor", "Compression"]
 
 
 class Compressor:
@@ -71,16 +73,25 @@ class BF16Compressor(_CastCompressor):
     wire_dtype = torch.bfloat16
 
 
-class _EngineCompressor(Compressor):
-    name = "wire compression"
+class WireCompressor(Compressor):
+    """Wire-level compression: the tensor stays as it is in user code
+    (identity compress/decompress) and the engine carries it in
+    ``engine_wire_dtype``."""
+
+    engine_wire_dtype: str = "fp32"
 
     @classmethod
     def compress(cls, tensor):
-        raise NotImplementedError(f"Compression.{cls.name} {_ENGINE}")
+        return tensor, None
+
+    @classmethod
+    def decompress(cls, tensor, ctx):
+        return tensor
 
 
-def _engine_only(name: str):
-    return type(f"_{name}", (_EngineCompressor,), {"name": name})
+def _wire(dtype: str):
+    return type(f"_Wire{dtype.upper()}", (WireCompressor,),
+                {"engine_wire_dtype": dtype})
 
 
 class Compression:
@@ -89,11 +100,13 @@ class Compression:
     none = NoneCompressor
     fp16 = FP16Compressor
     bf16 = BF16Compressor
-    wire_fp16 = _engine_only("wire_fp16")
-    wire_bf16 = _engine_only("wire_bf16")
-    wire_int8 = _engine_only("wire_int8")
-    wire_fp8 = _engine_only("wire_fp8")
+    wire_fp16 = _wire("fp16")
+    wire_bf16 = _wire("bf16")
+    wire_int8 = _wire("int8")
+    wire_fp8 = _wire("fp8")
 
     @staticmethod
     def topk(ratio=None, error_feedback: bool = True):
-        raise NotImplementedError(f"Compression.topk {_ENGINE}")
+        raise NotImplementedError(
+            "Compression.topk needs the sparse plane (runtime/sparse.py), "
+            "which is not ported yet (ROADMAP.md Queue A)")

@@ -759,3 +759,211 @@ def test_conv_bn_spike_check_on_the_card(dev):
     from horovod_tpu_torch.experiments import conv_bn_spike
 
     conv_bn_spike.check(*conv_bn_spike.make_inputs(dev))
+
+
+# ---------------------------------------------------------------------------
+# The eager engine's staging of CUDA tensors (runtime/staging.py)
+# ---------------------------------------------------------------------------
+
+ENGINE_DTYPES = [torch.uint8, torch.int8, torch.int16, torch.int32,
+                 torch.int64, torch.float16, torch.float32, torch.float64,
+                 torch.bool, torch.bfloat16]
+
+
+@pytest.fixture
+def engine(dev, monkeypatch):
+    """The port's engine at size 1 (enqueued directly: the eager ops are
+    identities at size 1, the engine itself still runs its collectives)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.runtime.engine import get_engine
+
+    for name in (basics._RANK_ENV + basics._SIZE_ENV + basics._LOCAL_RANK_ENV
+                 + basics._LOCAL_SIZE_ENV + ("HOROVOD_COORDINATOR",)):
+        monkeypatch.delenv(name, raising=False)
+    hvd.init(device="cuda")
+    yield get_engine()
+    hvd.shutdown()
+
+
+def _seeded(dtype, shape, seed):
+    gen = torch.Generator().manual_seed(seed)
+    if dtype == torch.bool:
+        return torch.randint(0, 2, shape, generator=gen).bool()
+    if dtype.is_floating_point:
+        return torch.randn(shape, generator=gen).to(dtype)
+    info = torch.iinfo(dtype)
+    return torch.randint(max(info.min, -1000), min(info.max, 1000), shape,
+                         generator=gen).to(dtype)
+
+
+def _bits(t):
+    return bytes(t.detach().cpu().contiguous().view(torch.uint8).numpy())
+
+
+@pytest.mark.parametrize("contiguous", [True, False])
+@pytest.mark.parametrize("dtype", ENGINE_DTYPES)
+def test_staging_every_dtype_matches_the_cpu_path(engine, dev, dtype,
+                                                  contiguous):
+    """A CUDA tensor (contiguous or a transposed view) staged through the
+    pinned pool, through the engine and back gives the bytes its CPU copy
+    gives through the same engine."""
+    from horovod_tpu_torch.runtime import staging
+
+    x = _seeded(dtype, (37, 24), 5).to(dev)
+    if not contiguous:
+        x = x.t()
+    (host, lease), = staging.to_host([x])
+    assert host.is_pinned() and _bits(host) == _bits(x)
+    name = f"stage.{dtype}.{contiguous}"
+    got = engine.synchronize(engine.enqueue_allreduce(host, name=name))
+    back = staging.to_device(got, lease, x.device)
+    want = engine.synchronize(engine.enqueue_allreduce(
+        x.cpu().contiguous(), name=name + ".cpu"))
+    assert back.device == x.device and _bits(back) == _bits(want)
+
+
+def test_staging_waits_on_the_ready_event(engine, dev):
+    """Staged right behind a GEMM that writes the tensor on the current
+    stream, the host copy holds the GEMM's result, not the NaNs before it."""
+    from horovod_tpu_torch.runtime import staging
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn(4096, 4096, generator=gen, device=dev)
+    b = torch.randn(4096, 4096, generator=gen, device=dev)
+    x = torch.full((4096, 4096), float("nan"), device=dev)
+    torch.cuda.synchronize()
+    torch.matmul(a, b, out=x)
+    (host, lease), = staging.to_host([x])
+    assert torch.isfinite(host).all()
+    torch.cuda.synchronize()
+    assert _bits(host) == _bits(x)
+    staging.pool().give(lease)
+
+
+def test_staging_a_batch_waits_for_every_gather(engine, dev):
+    """One ``to_host`` call stages a contiguous tensor and two transposed
+    views, each written by a GEMM on the current stream just before: the
+    gathers that make the views contiguous are queued after the first
+    tensor, and the side stream must wait for all of them.  A long GEMM
+    on a stream of higher priority holds the SMs meanwhile, so a gather
+    starts late while the copy engine does not, and the blocks the
+    gathers land in held NaNs before.  The host copies and their
+    allreduce through the engine match, bit for bit, the CPU path of the
+    same tensors."""
+    from horovod_tpu_torch.runtime import staging
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(1)
+    a = torch.randn(4096, 4096, generator=gen, device=dev)
+    b = torch.randn(4096, 4096, generator=gen, device=dev)
+    # bf16: cuBLAS's Hopper GEMM fills an SM's registers, so no gather
+    # block fits beside it.
+    big = torch.randn(16384, 16384, generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+    scaled = [b * (i + 1) for i in range(3)]
+    outs = [torch.full((4096, 4096), float("nan"), device=dev)
+            for _ in range(3)]
+    busy = torch.cuda.Stream(priority=-1)   # its blocks go first
+
+    def views():
+        return [outs[0], outs[1].t(), outs[2].t()]
+
+    # Warm-up: the pool holds pinned buffers of these sizes, and the
+    # gather's and the hog's kernels are loaded.  A first allocation or
+    # launch may wait for the card, which would hide the race.
+    with torch.cuda.stream(busy):
+        torch.matmul(big, big)
+    for _, lease in staging.to_host(views()):
+        staging.pool().give(lease)
+    torch.cuda.synchronize()
+    for _ in range(2):
+        stale = [torch.full((4096, 4096), float("nan"), device=dev)
+                 for _ in range(2)]
+        torch.cuda.synchronize()
+        del stale           # their blocks take the gathers' outputs
+        for o, bi in zip(outs, scaled):
+            torch.matmul(a, bi, out=o)
+        busy.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(busy):
+            hog = torch.matmul(big, big)
+        staged = staging.to_host(views())
+        torch.cuda.synchronize()
+        del hog
+        for t, (host, lease) in zip(views(), staged):
+            assert torch.isfinite(host).all() and _bits(host) == _bits(t)
+            got = engine.synchronize(engine.enqueue_allreduce(host))
+            want = engine.synchronize(engine.enqueue_allreduce(
+                t.cpu().contiguous()))
+            assert _bits(got) == _bits(want)
+            staging.pool().give(lease)
+
+
+def test_staging_copies_under_the_tensors_device_guard(engine, dev,
+                                                       monkeypatch):
+    """Every staging copy runs under ``torch.cuda.device(t.device)`` and on
+    that device's streams, whatever the current device is.  One card
+    cannot show a fault across devices, so the guard's use is checked
+    directly: ``torch.cuda.device`` and ``current_stream`` are wrapped,
+    and each guard staging enters and each stream it asks for must be the
+    tensor's device's."""
+    from horovod_tpu_torch.runtime import staging
+
+    entered, asked = [], []
+    real_current = torch.cuda.current_stream
+
+    class guard(torch.cuda.device):     # torch checks isinstance against it
+        def __init__(self, d):
+            if d is not None:           # None: torch's own calls
+                entered.append(torch.device("cuda", d) if isinstance(d, int)
+                               else torch.device(d))
+            super().__init__(d)
+
+    def current_stream(device=None):
+        if device is not None:      # None: torch's own calls
+            asked.append(torch.device(device))
+        return real_current(device)
+
+    monkeypatch.setattr(torch.cuda, "device", guard)
+    monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
+    x = torch.arange(12, dtype=torch.float32, device=dev)
+    (host, lease), = staging.to_host([x])
+    back = staging.to_device(host, lease, x.device)
+    torch.cuda.synchronize()
+    assert len(entered) >= 3 and len(asked) >= 2
+    assert all(d.index == x.device.index for d in entered + asked)
+    assert staging.pool().stream(x.device).device == x.device
+    assert torch.equal(back, x)
+
+
+def test_result_copy_runs_on_the_callers_stream(engine, dev):
+    """The host-to-device copy of a result is ordered on the caller's
+    current stream; its pinned buffer returns to the pool behind it."""
+    from horovod_tpu_torch.runtime import staging
+
+    x = torch.randn(1 << 20, device=dev)
+    (host, lease), = staging.to_host([x])
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        back = staging.to_device(host, lease, x.device)
+        y = back * 2
+    side.synchronize()
+    assert torch.equal(y, x * 2)
+
+
+def test_pinned_pool_reuses_its_buffers(engine, dev):
+    from horovod_tpu_torch.runtime import staging
+
+    x = torch.randn(3, 1000, device=dev)
+    before = staging.stats()
+    for _ in range(4):
+        (host, lease), = staging.to_host([x])
+        staging.to_device(host, lease, x.device)
+        torch.cuda.synchronize()
+    after = staging.stats()
+    assert after["pinned_allocs"] - before["pinned_allocs"] <= 1
+    assert after["pinned_reuses"] - before["pinned_reuses"] >= 3
+    assert after["d2h_copies"] - before["d2h_copies"] == 4
+    assert after["h2d_copies"] - before["h2d_copies"] == 4
+    assert after["d2h_bytes"] - before["d2h_bytes"] == 4 * x.numel() * 4

@@ -2,8 +2,8 @@
 the entry points' device rule.
 
 ``common/basics.py`` reads the reference's env names in its order and
-raises before ``init()``; the collectives and the cast compressors act
-as the reference's on a world of one (gloo); ``MasterWeights`` keeps the
+raises before ``init()``; the collectives and the cast and wire
+compressors act as the reference's on a world of one; ``MasterWeights`` keeps the
 bf16 params within one bf16 ulp of the JAX package's ``master_weights``
 (the port copies the rounded master; the reference adds a bf16 delta)
 and its masters equal the reference's in fp32; the entry points raise
@@ -73,10 +73,13 @@ def test_collectives_and_compression_on_one_rank(clean_env):
     assert [o.dtype for o in outs] == [torch.float32, torch.float64,
                                        torch.float32]
     assert torch.equal(hvd.broadcast(x, 0), x)
+    # The wire compressors ask the engine for a wire format; at size 1
+    # they are identities, as in the reference.  Top-k needs the sparse
+    # plane, which is not ported.
     for comp in (Compression.wire_int8, Compression.wire_bf16):
-        with pytest.raises(NotImplementedError, match="A1-A2"):
-            hvd.allreduce(x, compression=comp)
-    with pytest.raises(NotImplementedError, match="A1-A2"):
+        out = hvd.allreduce(x, compression=comp)
+        assert torch.equal(out, x) and out is not x
+    with pytest.raises(NotImplementedError, match="runtime/sparse.py"):
         Compression.topk(0.01)
 
 

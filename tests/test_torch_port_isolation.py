@@ -42,7 +42,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 33, out.stdout
+    assert n_modules >= 45, out.stdout
 
 
 _TRAINING_MODULES = ["common.basics", "ops.collective_ops", "ops.compression",
@@ -52,7 +52,9 @@ _TRAINING_MODULES = ["common.basics", "ops.collective_ops", "ops.compression",
                      "parallel.mesh", "parallel.api",
                      "examples.bert_pretraining_fsdp", "ops.conv_bn_stats",
                      "experiments.conv_bn_spike", "models.resnet",
-                     "models.convert", "bench"]
+                     "models.convert", "bench", "common.native_build",
+                     "runtime", "runtime.engine", "runtime.staging",
+                     "runtime.mpi_ops", "runtime.eager"]
 #: A call of PyTorch's own RMSNorm (``F.rms_norm``, ``torch.rms_norm``,
 #: ``torch.nn.functional.rms_norm``): a library kernel, not the port's.
 _LIBRARY_RMS_NORM = re.compile(r"\b(F|functional|torch)\.rms_norm\b")
@@ -80,6 +82,47 @@ def test_training_slice_imports_no_jax_and_finds_no_library_attention():
                 assert "scaled_dot_product_attention" not in text, name
                 assert not _LIBRARY_RMS_NORM.search(text), name
     assert _LIBRARY_RMS_NORM.search("y = F.rms_norm(x, (4096,))")
+
+
+_ALONE = """
+import sys, torch
+from horovod_tpu_torch.common import native_build
+lib = native_build.lib_path()
+assert lib.is_file() and str(lib).startswith(sys.argv[1]), lib
+stamp = lib.stat().st_mtime_ns
+import horovod_tpu_torch as hvd
+hvd.init(device="cpu")
+x = torch.arange(6.0)
+out = hvd.allreduce(x, name="alone")
+assert torch.equal(out, x) and out.data_ptr() != x.data_ptr()
+assert native_build.load()._name == str(lib)
+hvd.shutdown()
+assert lib.stat().st_mtime_ns == stamp
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "horovod_tpu"))
+assert not bad, bad
+print("alone ok")
+"""
+
+
+def test_engine_builds_and_runs_from_the_package_alone(tmp_path):
+    """A copy of ``horovod_tpu_torch/`` with no ``horovod_tpu/`` beside it
+    (and the library already built here, so nothing is compiled twice)
+    loads its engine and runs ``init`` and an allreduce at size 1."""
+    from horovod_tpu_torch.common import native_build
+
+    native_build.build()
+    shutil.copytree(os.path.join(REPO, "horovod_tpu_torch"),
+                    tmp_path / "horovod_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__", "*.lock"))
+    assert sorted(os.listdir(tmp_path)) == ["horovod_tpu_torch"]
+    env = {k: v for k, v in _env().items()
+           if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
+    out = subprocess.run([sys.executable, "-c", _ALONE, str(tmp_path)],
+                         cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "alone ok" in out.stdout
 
 
 def test_chip_smoke_fails_without_gpu():
