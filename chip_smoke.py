@@ -44,18 +44,35 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                + ``ReplicaServer``, driven through ``ServeClient`` over
                TCP) on Llama-3-8B at its published widths (bf16, 32
                layers, seeded random weights) with the fused
-               paged-attention decode: 8 concurrent requests, a shared
-               256-token prefix; launch counts prove every decode layer
-               went through the kernel;
+               paged-attention decode, every decode step a replay of the
+               width's CUDA graph (4 captured at warm-up: widths 1, 2, 4,
+               8): 8 concurrent requests, a shared 256-token prefix;
+               launch counts (per replay) prove every decode layer went
+               through the kernel;
 4. oracle    — fused decode against the gather oracle on the same pools
                at full width, plus batch invariance: a row decoded alone
                and beside batch-mates through ``ModelRunner.decode`` must
                agree bit for bit; and each of the 8 served streams
                against its own offline ``generate`` at the pinned cache
                length (how many part from it, and where);
+   serve_graph — each decode graph against the eager step: widths 1, 2,
+               4 and 8 at the kernel table's positions, logits and written
+               K/V bit for bit on the same inputs and pools;
    profile   — where a batch-8 decode step's time goes (host wall time,
-               device busy time and top kernels from torch.profiler);
-5. train     — with the replica freed: the data-parallel training step
+               device busy time and top kernels from torch.profiler), for
+               the graph step and the eager step on the same inputs, and
+               the graph's replay alone between CUDA events;
+   fleet     — with the replica freed: ``python -m horovod_tpu_torch.run
+               --serve --replicas 2 --device cuda`` (Llama-3-8B as in
+               serve, both replicas on the one card), driven by
+               ``bench_serve.run_load``: 16 requests of 64-512 random
+               tokens, 32 new tokens each, Poisson arrivals at 4/s; then
+               the same plan with replica 1 killed at its 10th decode step
+               and relaunched (``--restart-on-failure 1``): every request
+               completes, some are requeued, each request's tokens equal
+               the fault-free run's, the router exits 0, and no replica
+               process, listen socket or /dev/shm entry is left;
+5. train     — with the fleet gone: the data-parallel training step
                (``hvd.init()`` over NCCL, ``make_train_step``,
                ``DistributedOptimizer`` over ``MasterWeights(AdamW)``,
                flash attention, ``softmax_cross_entropy``) on Llama-3-8B
@@ -167,7 +184,7 @@ import torch
 import torch.nn.functional as F
 
 import horovod_tpu_torch as hvd
-from horovod_tpu_torch import bench
+from horovod_tpu_torch import bench, bench_serve
 from horovod_tpu_torch.examples import bert_pretraining_fsdp as bert_example
 from horovod_tpu_torch.examples.llama_packed_pretraining import (
     boundary_mask, make_packed_batch, packed_lm_loss)
@@ -191,7 +208,7 @@ from horovod_tpu_torch.parallel.mesh import build_mesh
 from horovod_tpu_torch.runtime import staging
 from horovod_tpu_torch.runtime.engine import get_engine
 from horovod_tpu_torch.serve.config import ServeConfig
-from horovod_tpu_torch.serve.engine import ModelRunner
+from horovod_tpu_torch.serve.engine import ModelRunner, build_model_config
 from horovod_tpu_torch.serve.kv_cache import TRASH_BLOCK
 from horovod_tpu_torch.serve.scheduler import Scheduler
 from horovod_tpu_torch.serve.server import ReplicaServer, ServeClient
@@ -1191,6 +1208,8 @@ def phase_serve(dev, seed):
     t0 = time.monotonic()
     buckets = runner.warmup(max_tokens=1024)
     warmup_s = time.monotonic() - t0
+    check(runner.captures == 4, f"{runner.captures} decode graphs captured "
+                                "at warm-up, not 4 (widths 1, 2, 4, 8)")
 
     decode_ms = []
     inner_decode = runner.decode
@@ -1240,6 +1259,9 @@ def phase_serve(dev, seed):
     check(stats["prefix_hits"] > 0, "the shared prefix never hit")
     check(stats["kv_blocks_in_use"] == 0, "KV blocks leaked")
     check(stats["fused_attn_steps"] == steps, "a decode step skipped fusion")
+    # Every decode step is a graph replay, which runs the layers' kernel
+    # launches it captured (counted per replay).
+    check(runner.captures == 4, "a decode width was captured while serving")
     check(launches == mcfg.num_layers * steps,
           f"kernel launches {launches} != layers x decode steps "
           f"{mcfg.num_layers} x {steps}")
@@ -1255,7 +1277,9 @@ def phase_serve(dev, seed):
          prefill_tokens_saved=stats["prefill_tokens_saved"],
          preemptions=stats["preemptions"],
          kv_blocks_in_use=stats["kv_blocks_in_use"], init_s=init_s,
-         warmup_s=warmup_s, warmup_buckets=buckets,
+         warmup_s=warmup_s, warmup_programs=buckets,
+         graphs_captured=runner.captures,
+         capture_s=runner.capture_seconds,
          peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
     cli.shutdown()
     srv.join(timeout=30)
@@ -1395,36 +1419,235 @@ def phase_oracle(runner, served, seed):
          first_divergent_index=divergent)
 
 
-def phase_profile(runner):
-    """Where one decode step's time goes at batch 8: host wall time of
-    ``ModelRunner.decode`` against the device time of its kernels
-    (``torch.profiler``), the top kernels by device time, and the idle
-    share of the card."""
+#: The kernel table's decode positions (PERF.md section 6), a row each.
+GRAPH_POS = [2047, 1087, 600, 320, 100, 0, 16, 0]
+
+
+def graph_rows(runner, width, seed):
+    """``width`` live rows at GRAPH_POS: tokens, [maxb] tables, positions.
+    Rows read shared blocks below their last one; each last block (where
+    the row's K/V is written) is a row's own, so no two rows write one
+    slot."""
+    bs, maxb = runner.block_size, runner.max_blocks_per_seq
+    shared = runner.num_blocks - 1 - 8
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, runner.model_cfg.vocab_size, width).tolist()
+    pos = GRAPH_POS[:width]
+    tables = []
+    for i, p in enumerate(pos):
+        t = np.full((maxb,), TRASH_BLOCK, np.int32)
+        last = p // bs
+        t[:last] = 1 + np.arange(last) % shared
+        t[last] = 1 + shared + i
+        tables.append(t)
+    return tokens, tables, pos
+
+
+def eager_decode(runner, tokens, tables, pos):
+    """``ModelRunner.decode`` without its graph: the same padding, the
+    ``paged_decode_step`` body run eagerly, fp32 logits to the host."""
+    dev, maxb = runner.device, runner.max_blocks_per_seq
+    width = 1 << max(0, len(tokens) - 1).bit_length()
+    t = np.zeros((width,), np.int64)
+    t[:len(tokens)] = tokens
+    tb = np.full((width, maxb), TRASH_BLOCK, np.int32)
+    tb[:len(tables)] = tables
+    p = np.zeros((width,), np.int32)
+    p[:len(pos)] = pos
+    logits, _, _ = paged_decode_step(
+        runner.model, torch.from_numpy(t).to(dev), runner.pool_k,
+        runner.pool_v, torch.from_numpy(tb).to(dev),
+        torch.from_numpy(p).to(dev), fused=runner.fused_attn)
+    return logits[:len(tokens)].float().cpu().numpy()
+
+
+def phase_serve_graph(runner, seed):
+    """The decode graph of each width against the eager step: at widths
+    1, 2, 4 and 8, on the same inputs and pools (random K/V), the graph's
+    logits and the K/V it writes must equal ``paged_decode_step``'s bit
+    for bit."""
+    gen = torch.Generator(device=runner.device).manual_seed(seed)
+    for pool in (runner.pool_k, runner.pool_v):
+        pool[:, 1:].normal_(generator=gen)
+    rows = {}
+    for width in (1, 2, 4, 8):
+        tokens, tables, pos = graph_rows(runner, width, seed + width)
+        k0, v0 = runner.pool_k.clone(), runner.pool_v.clone()
+        got = runner.decode(tokens, tables, pos)
+        gk, gv = runner.pool_k.clone(), runner.pool_v.clone()
+        runner.pool_k.copy_(k0)
+        runner.pool_v.copy_(v0)
+        want = eager_decode(runner, tokens, tables, pos)
+        check(bool(np.isfinite(got).all()), f"width {width}: graph logits "
+                                            "not finite")
+        rows[width] = {
+            "logits_bitwise": bool(np.array_equal(got, want)),
+            "max_abs_diff": float(np.abs(got - want).max()),
+            "kv_bitwise": bool(torch.equal(gk, runner.pool_k)
+                               and torch.equal(gv, runner.pool_v))}
+        del k0, v0, gk, gv
+    emit("serve_graph", widths=rows, pos=GRAPH_POS,
+         graphs_captured=runner.captures,
+         capture_s=runner.capture_seconds,
+         graph_kernel_launches={w: runner._decode_fn(w).kernel_launches
+                                for w in (1, 2, 4, 8)})
+    for width, r in rows.items():
+        check(r["logits_bitwise"] and r["kv_bitwise"],
+              f"width {width}: the decode graph is not the eager step bit "
+              f"for bit (max |dlogit| {r['max_abs_diff']})")
+    check(runner.captures == 4, "serve_graph captured another graph")
+
+
+def step_profile(step, reps):
+    """(host wall ms, device busy ms, kernels) a step of ``step``."""
     from torch.profiler import ProfilerActivity, profile
 
-    maxb = runner.max_blocks_per_seq
-    table = np.arange(1, maxb + 1, dtype=np.int32)      # one long row
-    width, pos, reps = 8, 1000, 5
-    args = ([1] * width, [table] * width, [pos] * width)
-    runner.decode(*args)
+    step()
     t0 = time.perf_counter()
     for _ in range(reps):
-        runner.decode(*args)
+        step()
     wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            runner.decode(*args)
+            step()
     kernels, _ = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    return wall_ms, busy_ms, kernels
+
+
+def phase_profile(runner):
+    """Where one decode step's time goes at batch 8: host wall time of
+    ``ModelRunner.decode`` (the graph replay with its copies) against the
+    device time of its kernels (``torch.profiler``), the top kernels by
+    device time and the idle share of the card; the same for the eager
+    step on the same inputs; and the graph's replay alone between CUDA
+    events."""
+    maxb = runner.max_blocks_per_seq
+    table = np.arange(1, maxb + 1, dtype=np.int32)      # one long row
+    width, pos, reps = 8, 1000, 5
+    args = ([1] * width, [table] * width, [pos] * width)
+    wall_ms, busy_ms, kernels = step_profile(
+        lambda: runner.decode(*args), reps)
+    eager_wall, eager_busy, eager_kernels = step_profile(
+        lambda: eager_decode(runner, *args), reps)
+    graph = runner._decode_fn(width).graph
+    span_ms = cuda_ms(graph.replay, 20, torch.empty(
+        L2_FLUSH_BYTES, dtype=torch.uint8, device=runner.device))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     emit("profile", batch=width, pos=pos, fused=runner.fused_attn,
          step_wall_ms=wall_ms, device_busy_ms=busy_ms,
          idle_share=1.0 - busy_ms / wall_ms,
          kernels_per_step=sum(e.count for e in kernels) / reps,
+         graph_replay_ms=span_ms,
+         eager_step_wall_ms=eager_wall, eager_device_busy_ms=eager_busy,
+         eager_idle_share=1.0 - eager_busy / eager_wall,
+         eager_kernels_per_step=sum(e.count for e in eager_kernels) / reps,
          top=[{"name": e.key[:80],
                "ms_per_step": e.self_device_time_total / 1e3 / reps,
                "calls_per_step": e.count / reps} for e in top])
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the router fleet on llama3_8b
+# ---------------------------------------------------------------------------
+
+FLEET_REQUESTS, FLEET_RATE_HZ, FLEET_NEW_TOKENS = 16, 4.0, 32
+#: Replica 1's decode step at which the fault run kills it: early in its
+#: first requests' 32 tokens, so it owes requests when it dies.
+FLEET_FAULT_STEP = 10
+FLEET_TIMEOUT_S = 300
+
+
+def fleet_run(env, plan, restart, wait_ready):
+    """One ``run.py --serve --replicas 2 --device cuda`` fleet driven by
+    ``bench_serve.run_load``; returns (aggregate, records, log, router
+    exit code, failures).  ``wait_ready``: how many READY lines replica 1
+    must print before the fleet is shut down."""
+    shm_before = set(os.listdir("/dev/shm")) if os.path.isdir("/dev/shm") \
+        else set()
+    proc, port, log = bench_serve.start_fleet(
+        2, device="cuda", env=env, restart=restart, timeout=FLEET_TIMEOUT_S)
+    cli = None
+    try:
+        cli, records, agg = bench_serve.run_load(port, plan,
+                                                 timeout=FLEET_TIMEOUT_S)
+        deadline = time.monotonic() + FLEET_TIMEOUT_S
+        while time.monotonic() < deadline and sum(
+                "[replica 1] SERVE_REPLICA_READY" in ln
+                for ln in list(log)) < wait_ready:
+            time.sleep(0.5)
+    finally:
+        rc = bench_serve.stop_fleet(proc, cli, timeout=120)
+    failures = bench_serve.leaks({proc.pid}, shm_before, [port])
+    bench_serve.kill_fleet(proc)        # whatever leaked goes now
+    return agg, records, list(log), rc, failures
+
+
+def replica_times(log):
+    """The replicas' SERVE_REPLICA_TIMES lines, in order."""
+    out = []
+    for ln in log:
+        m = re.search(r"SERVE_REPLICA_TIMES replica=(\d+) init_sec=([\d.]+) "
+                      r"captures=(\d+) capture_sec=([\d.]+)", ln)
+        if m:
+            out.append({"replica": int(m.group(1)),
+                        "init_s": float(m.group(2)),
+                        "captures": int(m.group(3)),
+                        "capture_s": float(m.group(4))})
+    return out
+
+
+def phase_fleet(seed):
+    """The router fleet (``python -m horovod_tpu_torch.run --serve
+    --replicas 2 --device cuda``) on Llama-3-8B, both replicas on the one
+    card, under ``bench_serve.run_load``'s open-loop Poisson load; then
+    the same plan with replica 1 killed mid-stream and relaunched."""
+    env = dict(SERVE_ENV, HOROVOD_SERVE_PARAM_SEED=str(seed),
+               HOROVOD_SERVE_WARMUP="512")
+    vocab = build_model_config(ServeConfig.from_env(env)).vocab_size
+    plan = bench_serve.make_plan(
+        FLEET_REQUESTS, FLEET_RATE_HZ, seed=seed, vocab=vocab,
+        prompt_lo=64, prompt_hi=512, max_tokens_lo=FLEET_NEW_TOKENS,
+        max_tokens_hi=FLEET_NEW_TOKENS)
+    runs = {}
+    for name, extra, restart, ready in (
+            ("clean", {}, 0, 1),
+            ("fault", {"HOROVOD_FAULT_INJECT":
+                       f"1:{FLEET_FAULT_STEP}:exit"}, 1, 2)):
+        agg, records, log, rc, failures = fleet_run(
+            dict(env, **extra), plan, restart, ready)
+        runs[name] = (agg, records, log, rc, failures)
+        keep = ("tokens_per_sec", "ttft_ms_p50", "ttft_ms_p99",
+                "req_latency_ms_p50", "req_latency_ms_p99",
+                "batch_occupancy", "completed", "requests", "requeued",
+                "tokens", "wall_s", "preemptions", "prefix_hits",
+                "fused_attn_steps", "kv_blocks_in_use_final")
+        emit("fleet", run=name, replicas=2, device="cuda:0 (both)",
+             rate_hz=FLEET_RATE_HZ, new_tokens=FLEET_NEW_TOKENS,
+             prompt_tokens=[64, 512], router_rc=rc,
+             router=agg["router"], replica_times=replica_times(log),
+             replica1_ready=sum("[replica 1] SERVE_REPLICA_READY" in ln
+                                for ln in log),
+             leaks=failures, **{k: agg[k] for k in keep})
+    clean, fault = runs["clean"], runs["fault"]
+    for name, (agg, records, log, rc, failures) in runs.items():
+        check(agg["completed"] == FLEET_REQUESTS,
+              f"fleet {name}: {agg['completed']} of {FLEET_REQUESTS} "
+              f"requests completed\n" + "".join(log[-30:]))
+        check(rc == 0, f"fleet {name}: router exited {rc}")
+        check(not failures, f"fleet {name}: {failures}")
+        check(agg["kv_blocks_in_use_final"] == 0,
+              f"fleet {name}: KV blocks in use after the run")
+        check(agg["fused_attn_steps"] > 0, f"fleet {name}: no fused step")
+    check(clean[0]["requeued"] == 0, "the fault-free fleet requeued")
+    check(fault[0]["requeued"] > 0, "replica 1 died owing no request")
+    check(sum("[replica 1] SERVE_REPLICA_READY" in ln for ln in fault[2])
+          == 2, "replica 1 was not relaunched once")
+    differ = [rid for rid, rec in clean[1].items()
+              if rec["tokens"] != fault[1][rid]["tokens"]]
+    check(not differ, f"requests {differ} streamed other tokens after the "
+                      "requeue than in the fault-free run")
 
 
 # ---------------------------------------------------------------------------
@@ -2577,10 +2800,12 @@ def main(argv=None) -> int:
     runner, launches, served = phase_serve(dev, args.seed)
     entry["launches"] = launches
     phase_oracle(runner, served, args.seed)
+    phase_serve_graph(runner, args.seed)
     phase_profile(runner)
-    del runner, served               # training needs the memory
+    del runner, served               # the fleet and training need the memory
     gc.collect()
     torch.cuda.empty_cache()
+    phase_fleet(args.seed)
     train_launches, train = phase_train(dev, args.seed)
     for e in flash_entries:
         e["launches"] = train_launches[e["name"]]

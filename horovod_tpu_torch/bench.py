@@ -38,8 +38,14 @@ where the reference asks XLA's cost analysis.  With ``--smoke`` it runs
 run merges these keys into the ResNet line under ``llama_`` (and
 ``llama_error`` if the Llama run fails), as the reference's does.
 
-Not ported: ``scaling_efficiency_8dev`` and the ``engine_*`` (``bench_engine.py``)
-and ``serve_*`` sub-benches.
+The default run also merges the serving benchmark
+(``horovod_tpu_torch.bench_serve``: open-loop Poisson load on a
+2-replica fleet of the tiny model, on the same device) under ``serve_``
+(``serve_bench_error`` if it fails; ``HOROVOD_SKIP_SERVE_BENCH=1`` skips
+it), as the reference's does.
+
+Not ported: ``scaling_efficiency_8dev`` and the ``engine_*``
+(``bench_engine.py``) sub-bench.
 """
 
 from __future__ import annotations
@@ -47,6 +53,8 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
+import subprocess
 import sys
 import time
 from typing import Optional, Tuple
@@ -58,7 +66,8 @@ import torch.nn.functional as F
 __all__ = ["make_step_and_state", "loss_fn", "run_steps", "time_step",
            "model_flops_per_step", "llama_config", "llama_loss_fn",
            "make_llama_step", "llama_flops_per_step", "llama_result",
-           "main", "PEAK_BF16_FLOPS", "REFERENCE_IMG_PER_SEC_PER_DEVICE"]
+           "serve_result", "main", "PEAK_BF16_FLOPS",
+           "REFERENCE_IMG_PER_SEC_PER_DEVICE"]
 
 #: docs/benchmarks.md:22-37: tf_cnn_benchmarks ResNet-101, 1656.82 images/s
 #: on 16 Pascal GPUs — the reference's only published absolute throughput.
@@ -346,9 +355,29 @@ def main(argv=None) -> int:
                     result[base if k == "value" else f"llama_{k}"] = v
         except Exception as e:  # noqa: BLE001 -- reported as llama_error
             result["llama_error"] = f"{type(e).__name__}: {e}"
+    device = hvd.device().type
     hvd.shutdown()
+    if args.model == "resnet50" and \
+            os.environ.get("HOROVOD_SKIP_SERVE_BENCH") != "1":
+        result.update(serve_result(device))
     print(json.dumps(result), flush=True)
     return 0
+
+
+def serve_result(device: str) -> dict:
+    """The serving benchmark's line under ``serve_`` keys, or
+    ``serve_bench_error``."""
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.bench_serve",
+             "--device", device], capture_output=True, timeout=900,
+            text=True)
+        srv = json.loads(proc.stdout.strip().splitlines()[-1])
+        return {f"serve_{k}": v for k, v in srv.items()
+                if k not in ("metric", "router")}
+    except (OSError, subprocess.SubprocessError, ValueError,
+            IndexError) as e:
+        return {"serve_bench_error": f"{type(e).__name__}: {e}"}
 
 
 if __name__ == "__main__":

@@ -28,8 +28,12 @@ online softmax re-associates the reduction over keys (the reference's
 contract: fp32 within 1e-4 of dense attention; through the bf16 model,
 logits within 4 bf16 ULPs and argmax-stable).
 
-:data:`launches` counts kernel launches (CUDA path only), so a run can
-show that its decode steps went through the kernel.
+:data:`launches` counts the kernel's launches (CUDA path only), so a run
+can show that its decode steps went through the kernel.  Under a CUDA
+graph capture a call records its launch into the graph instead
+(:data:`captured`); the graph's owner adds the launches it holds to
+:data:`launches` at every replay (:func:`count_replay`), where the kernel
+really runs.
 """
 
 from __future__ import annotations
@@ -38,14 +42,17 @@ import ctypes
 
 import torch
 
-__all__ = ["paged_attention_decode", "launches", "range_tokens",
-           "reset_launches"]
+__all__ = ["paged_attention_decode", "launches", "captured", "count_replay",
+           "range_tokens", "reset_launches"]
 
 _NEG_INF = -1e30   # the reference kernel's mask value
 
-#: Number of times the CUDA kernel was launched (plain integer, reset by
+#: Number of times the CUDA kernel ran: eager calls plus the launches
+#: replayed from CUDA graphs (plain integer, reset by
 #: :func:`reset_launches`).
 launches = 0
+#: Launches recorded into CUDA graphs while capturing (they run at replay).
+captured = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -61,6 +68,13 @@ _counters = {}
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+def count_replay(n: int) -> None:
+    """One replay of a CUDA graph that captured ``n`` launches of the
+    kernel: they ran now."""
+    global launches
+    launches += n
 
 
 def _decode_blockwise(q, pool_k, pool_v, tables, pos):
@@ -174,16 +188,23 @@ def _check(q, pool_k, pool_v, tables, pos):
 
 def _range_counters(device, n: int) -> torch.Tensor:
     """At least ``n`` zeroed int32 counters on ``device`` that outlive the
-    call (a fresh ``torch.zeros`` would be a second launch)."""
+    call (a fresh ``torch.zeros`` would be a second launch).  They are
+    allocated outside a capture, by the eager run that precedes it: a
+    buffer allocated inside would belong to the graph's private pool, and
+    its zeroing would be captured."""
     kept = _counters.setdefault(device, [])
     if not kept or kept[-1].numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "paged_attention_decode: no range counters for this width "
+                "before the capture; run the call once outside it first")
         kept.append(torch.zeros(max(n, 1024), dtype=torch.int32,
                                 device=device))
     return kept[-1]
 
 
 def _decode_cuda(q, pool_k, pool_v, tables, pos):
-    global launches
+    global launches, captured
     _check(q, pool_k, pool_v, tables, pos)
     B, _, Hq, D = q.shape
     _, BS, Hkv, _ = pool_k.shape
@@ -210,7 +231,10 @@ def _decode_cuda(q, pool_k, pool_v, tables, pos):
     if err != 0:
         raise RuntimeError(f"paged_attention_decode kernel launch failed "
                            f"(error {err})")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return out
 
 

@@ -1,12 +1,22 @@
 """Inference serving on the port: paged KV cache, continuous batching,
-JSON-lines replica (counterpart of ``horovod_tpu/serve/``).
+JSON-lines replicas and the multi-replica router (counterpart of
+``horovod_tpu/serve/``).
 
-Ported: ``config``, ``kv_cache``, ``engine`` (``ModelRunner``),
-``scheduler``, ``server`` (``ReplicaServer``/``ServeClient``) and
-``replica``.  The router and the serve autotuner come later.
+Ported: ``config``, ``kv_cache``, ``engine`` (``ModelRunner``, the decode
+step as one CUDA graph per pow2 width), ``scheduler``, ``server``
+(``ReplicaServer``/``ServeClient``, router sessions), ``replica`` (fault
+schedule, engine world) and ``router`` (``Router``/``serve_main``).  The
+serve autotuner, live weight pushes and checkpoint restore come with the
+autotune and checkpoint planes.
+
+Entry points: ``python -m horovod_tpu_torch.run --serve`` (router +
+replicas), ``python -m horovod_tpu_torch.serve.replica`` (one replica),
+``python -m horovod_tpu_torch.bench_serve`` (Poisson open-loop load).
 """
 
 from horovod_tpu_torch.serve.config import ServeConfig
 from horovod_tpu_torch.serve.kv_cache import TRASH_BLOCK, PagedKVCache
+from horovod_tpu_torch.serve.router import Router, serve_main
 
-__all__ = ["ServeConfig", "PagedKVCache", "TRASH_BLOCK"]
+__all__ = ["ServeConfig", "PagedKVCache", "TRASH_BLOCK", "Router",
+           "serve_main"]

@@ -13,10 +13,23 @@ scheduler drives:
 The geometry is the reference's: power-of-two padding buckets (prompt
 span for prefill, batch width for decode), padded batch rows pointing at
 the trash block, and every forward attending a physical cache of exactly
-``max_blocks_per_seq * block_size`` slots.  Eager PyTorch has no jit to
-key on those buckets; they keep the shapes the kernels see identical to
-the reference's.  The pools are updated in place (the reference donates
-them to its jitted programs).
+``max_blocks_per_seq * block_size`` slots.  The pools are updated in
+place (the reference donates them to its jitted programs).
+
+The decode step is one program per pow2 width (:meth:`ModelRunner.
+_decode_fn`, the counterpart of the reference's jitted ``_decode_fn``):
+static int32 inputs fed by one host-to-device copy from pinned staging,
+the ``paged_decode_step`` body, and a static fp32 logits output read back
+by one device-to-host copy into pinned memory.  On CUDA the body is
+captured once into a CUDA graph, after one eager warm-up run on the
+capture stream, at :meth:`ModelRunner.warmup` or at the width's first
+use, and every later step of that width is a replay.  On the CPU the same
+body runs eagerly on the same buffers.  A capture or replay error
+raises; there is no eager fallback on the card.  Prefill stays eager, one
+bucket per pow2 span.  ``compilations`` counts the programs as the
+reference counts its jit compilations: a decode program per width (a
+graph captured on CUDA; ``captures`` counts those alone) and a prefill
+program per bucket.
 
 Weights are seeded from ``HOROVOD_SERVE_PARAM_SEED`` on the target
 device (``models/convert.init_params``): every port replica with the
@@ -28,7 +41,9 @@ which is not ported yet, and raises.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+import os
+import time
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,12 +54,37 @@ from horovod_tpu_torch.models.generation import (paged_decode_step,
                                                  paged_prefill,
                                                  paged_prefill_suffix)
 from horovod_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from horovod_tpu_torch.ops import paged_attention
 from horovod_tpu_torch.serve.config import ServeConfig, _pow2_at_least
 from horovod_tpu_torch.serve.kv_cache import TRASH_BLOCK
 
-__all__ = ["ModelRunner", "build_model_config"]
+__all__ = ["ModelRunner", "build_model_config",
+           "serve_collective_priority", "SERVE_DECODE_BAND"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+#: The band serve-plane collectives stamp: 0 = most urgent, so decode
+#: traffic preempts bulk gradient fusion when a replica shares an engine
+#: world with training.
+SERVE_DECODE_BAND = 0
+
+
+def serve_collective_priority(environ=None) -> Optional[int]:
+    """Priority the serve engine stamps on its collectives, or None when
+    stamping does not apply (no engine world, or priority bands off).
+
+    Only meaningful under ``HOROVOD_SERVE_ENGINE=1`` (the replica is an
+    engine world) with ``HOROVOD_PRIORITY_BANDS>0``; serve decode then
+    always takes band :data:`SERVE_DECODE_BAND`.
+    """
+    env = os.environ if environ is None else environ
+    if env.get("HOROVOD_SERVE_ENGINE") != "1":
+        return None
+    try:
+        bands = int(env.get("HOROVOD_PRIORITY_BANDS", "0") or "0")
+    except ValueError:
+        bands = 0
+    return SERVE_DECODE_BAND if bands > 0 else None
 
 
 def build_model_config(serve_cfg: ServeConfig) -> LlamaConfig:
@@ -61,6 +101,96 @@ def build_model_config(serve_cfg: ServeConfig) -> LlamaConfig:
                              f"{serve_cfg.dtype!r}")
         cfg = dataclasses.replace(cfg, dtype=dt, logits_dtype=dt)
     return cfg
+
+
+class _DecodeProgram:
+    """The decode step at one pow2 batch width.
+
+    Static buffers, allocated once: ``inputs`` on the device holds the
+    block tables, tokens and positions ([width, MAXB] + [width] + [width]
+    int32), filled by one copy from ``staging`` (pinned on CUDA); the body
+    writes fp32 ``logits`` [width, V], read back by one copy into
+    ``host_logits`` (pinned on CUDA).  On CUDA the body is a captured CUDA
+    graph; on the CPU it runs eagerly on the same buffers.
+    """
+
+    def __init__(self, runner: "ModelRunner", width: int):
+        self.runner = runner
+        self.width = width
+        dev = runner.device
+        self.cuda = dev.type == "cuda"
+        maxb = runner.max_blocks_per_seq
+        n = width * (maxb + 2)
+        self.staging = torch.empty(n, dtype=torch.int32, pin_memory=self.cuda)
+        self.inputs = torch.zeros(n, dtype=torch.int32, device=dev)
+        self.tables = self.inputs[:width * maxb].view(width, maxb)
+        self.tokens = self.inputs[width * maxb:width * (maxb + 1)]
+        self.pos = self.inputs[width * (maxb + 1):]
+        stage = self.staging.numpy()
+        self._stage_tables = stage[:width * maxb].reshape(width, maxb)
+        self._stage_tokens = stage[width * maxb:width * (maxb + 1)]
+        self._stage_pos = stage[width * (maxb + 1):]
+        vocab = runner.model_cfg.vocab_size
+        self.logits = torch.empty((width, vocab), dtype=torch.float32,
+                                  device=dev)
+        self.host_logits = (torch.empty((width, vocab), dtype=torch.float32,
+                                        pin_memory=True)
+                            if self.cuda else None)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        #: paged-decode kernel launches the graph holds (one a layer when
+        #: the decode is fused)
+        self.kernel_launches = 0
+
+    def body(self) -> None:
+        """The step on the static buffers: what the graph captures."""
+        r = self.runner
+        logits, _, _ = paged_decode_step(
+            r.model, self.tokens.long(), r.pool_k, r.pool_v, self.tables,
+            self.pos, fused=r.fused_attn)
+        self.logits.copy_(logits)
+
+    def capture(self) -> None:
+        """One eager run of the body on the capture stream (PyTorch's
+        warm-up before a capture: it allocates the kernel's counters and
+        cuBLAS's workspace outside the graph), then the capture."""
+        r = self.runner
+        stream = r.capture_stream
+        t0 = time.perf_counter()
+        stream.wait_stream(torch.cuda.current_stream(r.device))
+        with torch.cuda.stream(stream):
+            self.body()
+        torch.cuda.current_stream(r.device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        before = paged_attention.captured
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            self.body()
+        self.kernel_launches = paged_attention.captured - before
+        self.graph = graph
+        r.captures += 1
+        r.capture_seconds += time.perf_counter() - t0
+
+    def run(self, tokens: Sequence[int], tables: Sequence[np.ndarray],
+            pos: Sequence[int]) -> np.ndarray:
+        b = len(tokens)
+        self._stage_tables[:] = TRASH_BLOCK
+        for i, t in enumerate(tables):
+            self._stage_tables[i] = t
+        self._stage_tokens[:] = 0
+        self._stage_tokens[:b] = np.asarray(tokens, np.int32)
+        self._stage_pos[:] = 0
+        self._stage_pos[:b] = np.asarray(pos, np.int32)
+        self.inputs.copy_(self.staging, non_blocking=self.cuda)
+        if not self.cuda:
+            self.body()
+            return self.logits[:b].numpy().copy()
+        if self.graph is None:
+            self.capture()
+        self.graph.replay()
+        paged_attention.count_replay(self.kernel_launches)
+        self.host_logits.copy_(self.logits, non_blocking=True)
+        torch.cuda.current_stream(self.runner.device).synchronize()
+        return self.host_logits[:b].numpy().copy()
 
 
 class ModelRunner:
@@ -92,8 +222,19 @@ class ModelRunner:
                  mcfg.num_kv_heads, mcfg.head_dim)
         self.pool_k = torch.zeros(shape, dtype=mcfg.dtype, device=self.device)
         self.pool_v = torch.zeros(shape, dtype=mcfg.dtype, device=self.device)
-        #: fused paged-attention decode (HOROVOD_SERVE_FUSED_ATTN)
+        #: fused paged-attention decode (HOROVOD_SERVE_FUSED_ATTN) —
+        #: static per runner, baked into every decode program.
         self.fused_attn = bool(serve_cfg.fused_attn)
+        self._decode_fns: Dict[int, _DecodeProgram] = {}
+        self._prefill_buckets: set = set()
+        #: programs built: decode widths and prefill buckets
+        self.compilations = 0
+        #: CUDA graphs captured (decode widths on the card) and the
+        #: seconds their warm-up runs and captures took
+        self.captures = 0
+        self.capture_seconds = 0.0
+        self.capture_stream = (torch.cuda.Stream(self.device)
+                               if self.device.type == "cuda" else None)
 
     @property
     def cache_len(self) -> int:
@@ -104,26 +245,44 @@ class ModelRunner:
         return torch.from_numpy(np.ascontiguousarray(arr, np.int32)).to(
             self.device)
 
+    # -- program caches --
+
+    def _decode_fn(self, b_pad: int) -> _DecodeProgram:
+        """The decode program of one pow2 width, built at first use."""
+        fn = self._decode_fns.get(b_pad)
+        if fn is None:
+            fn = _DecodeProgram(self, b_pad)
+            self._decode_fns[b_pad] = fn
+            self.compilations += 1
+        return fn
+
+    def _prefill_bucket(self, key) -> None:
+        """Count a prefill bucket's first use, keyed as the reference keys
+        its prefill programs."""
+        if key not in self._prefill_buckets:
+            self._prefill_buckets.add(key)
+            self.compilations += 1
+
     # -- host API --
 
     def warmup(self, max_tokens: int = 0) -> int:
-        """Run every bucket steady-state serving will use once — each
-        pow2 decode batch width up to ``max_batch`` and each pow2 prefill
-        span up to ``max_tokens`` (0 = the ``HOROVOD_SERVE_WARMUP``
-        knob), plus the prefix-hit suffix path when prefix caching is on
-        — so the kernel build and cuBLAS's first-call set-up land before
-        the replica takes traffic.  Every K/V write goes to the trash
-        block.  Returns the number of buckets run."""
+        """Build the programs steady-state serving will need — every pow2
+        decode width up to ``max_batch`` (each captured into its CUDA
+        graph on the card) and every pow2 prefill span up to
+        ``max_tokens`` (0 = the ``HOROVOD_SERVE_WARMUP`` knob), plus the
+        prefix-hit suffix path when prefix caching is on — so captures,
+        the kernel build and cuBLAS's first-call set-up land before the
+        replica takes traffic.  Every K/V write goes to the trash block.
+        Returns the number of programs built."""
         cap = int(max_tokens) or self.serve_cfg.warmup_tokens
         if cap <= 0:
             return 0
-        runs = 0
+        before = self.compilations
         tbl = np.full((self.max_blocks_per_seq,), TRASH_BLOCK, np.int32)
         b = 1
         while True:
-            zeros = np.zeros((b,), np.int32)
-            self.decode(zeros.tolist(), [tbl] * b, zeros.tolist())
-            runs += 1
+            zeros = [0] * b
+            self.decode(zeros, [tbl] * b, zeros)
             if b >= self.serve_cfg.max_batch:
                 break
             b *= 2
@@ -131,14 +290,12 @@ class ModelRunner:
         top = min(_pow2_at_least(cap, self.block_size), self.cache_len)
         while s <= top:
             self.prefill([0] * s, [])
-            runs += 1
             if self.serve_cfg.prefix_cache and \
                     self.block_size + s <= self.cache_len:
                 self.prefill([0] * (self.block_size + s), [],
                              start=self.block_size)
-                runs += 1
             s *= 2
-        return runs
+        return self.compilations - before
 
     def prefill(self, prompt: Sequence[int], table: Sequence[int],
                 *, start: int = 0) -> np.ndarray:
@@ -154,8 +311,13 @@ class ModelRunner:
         if start % self.block_size or not 0 <= start < s0:
             raise ValueError(f"start {start} not block-aligned in [0, {s0})")
         # Pow2 bucket of the computed span, clipped to the pinned cache.
-        s_pad = min(_pow2_at_least(s0 - start, self.block_size),
-                    cache_len - start)
+        s_pad = _pow2_at_least(s0 - start, self.block_size)
+        if start and start + s_pad <= cache_len:
+            self._prefill_bucket(("sfx", s_pad))
+        else:
+            s_pad = min(s_pad, cache_len - start)
+            self._prefill_bucket(s_pad if start == 0 else
+                                 (s_pad, start // self.block_size))
         prompt_pad = np.zeros((1, s_pad), np.int32)
         prompt_pad[0, :s0 - start] = np.asarray(prompt[start:], np.int32)
         tbl = np.full((self.max_blocks_per_seq,), TRASH_BLOCK, np.int32)
@@ -174,18 +336,7 @@ class ModelRunner:
     def decode(self, tokens: Sequence[int], tables: Sequence[np.ndarray],
                pos: Sequence[int]) -> np.ndarray:
         """One token per running sequence; ``tables[i]`` is a
-        [max_blocks_per_seq] int32 array.  Returns fp32 logits [B, V]."""
-        b = len(tokens)
-        b_pad = _pow2_at_least(b, 1)
-        toks = np.zeros((b_pad,), np.int32)
-        toks[:b] = np.asarray(tokens, np.int32)
-        tbls = np.full((b_pad, self.max_blocks_per_seq), TRASH_BLOCK,
-                       np.int32)
-        for i, t in enumerate(tables):
-            tbls[i] = t
-        ps = np.zeros((b_pad,), np.int32)
-        ps[:b] = np.asarray(pos, np.int32)
-        logits, _, _ = paged_decode_step(
-            self.model, self._ints(toks).long(), self.pool_k, self.pool_v,
-            self._ints(tbls), self._ints(ps), fused=self.fused_attn)
-        return logits[:b].float().cpu().numpy()
+        [max_blocks_per_seq] int32 array.  Returns fp32 logits [B, V] on
+        the host."""
+        return self._decode_fn(_pow2_at_least(len(tokens), 1)).run(
+            tokens, tables, pos)

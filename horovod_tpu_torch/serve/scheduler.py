@@ -103,7 +103,8 @@ def _sample(logits: np.ndarray, temperature: float, seed: int,
 class Scheduler:
     """Continuous-batching scheduler over one :class:`ModelRunner`."""
 
-    def __init__(self, runner: ModelRunner, serve_cfg: ServeConfig):
+    def __init__(self, runner: ModelRunner, serve_cfg: ServeConfig,
+                 step_hook: Optional[Callable[[int], None]] = None):
         if serve_cfg.autotune:
             raise NotImplementedError(
                 "HOROVOD_SERVE_AUTOTUNE=1: the serve autotuner needs "
@@ -121,6 +122,9 @@ class Scheduler:
         # cannot tear a batch).
         self.max_batch = serve_cfg.max_batch
         self.prefill_waves = serve_cfg.prefill_waves
+        #: called with the decode-step counter after every decode step
+        #: (the replica's fault schedule rides it)
+        self._step_hook = step_hook
 
         self._lock = threading.Lock()
         self._wake = threading.Condition(self._lock)
@@ -390,6 +394,8 @@ class Scheduler:
                 self._running.remove(seq)
                 self.kv.free(seq.sid)
                 self._finish(seq)
+        if self._step_hook is not None:
+            self._step_hook(self._c["decode_steps"])
 
     def _pick_victim(self, exclude: Sequence[_Seq]) -> Optional[_Seq]:
         """Preemption policy: evict the YOUNGEST running sequence (vLLM's

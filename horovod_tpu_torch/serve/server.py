@@ -22,12 +22,24 @@ Streamed responses (interleaved across in-flight requests)::
     {"event": "stats", "stats": {...}}
     {"event": "pong", "sched_age_sec": 0.004,
      "counters": {"prefix_hits": 0, ...}}
+    {"event": "requeued", "id": "r1"}   # via the router: the stream
+                                        # restarts on a survivor
 
 Not ported yet, and answered with an error frame (``"id": null``): the
-``weights`` push (it needs the checkpoint plane) and the router's
-``hello`` session handshake (it comes with the router).  A client that
-disconnects has its in-flight requests cancelled, so it cannot keep
-burning pool blocks.
+``weights`` push (it needs the checkpoint plane, ROADMAP.md Queue A item
+6).  A plain client that disconnects has its in-flight requests
+cancelled, so it cannot keep burning pool blocks.
+
+Router sessions (link healing): a connection whose FIRST frame is
+``{"op": "hello", "role": "router", "session": "<token>", "last_seq": N}``
+gets durable stream state — a :class:`_RouterSession` owning the live
+request set and a sequence-stamped event history.  On socket loss the
+session PARKS (generation keeps running, events accumulate) for a grace
+window instead of cancelling; the router reconnects, replays its token
+in a new hello, and the replica re-sends exactly the events with
+``seq > last_seq``.  A hello the replica cannot resume faithfully
+(history aged out, or an unknown token with ``last_seq > 0``) answers
+``resume: false`` so the router escalates to its kill/requeue path.
 
 :class:`ServeClient` is a small blocking client (reader thread +
 per-request queues) for tests and simple callers.
@@ -47,12 +59,44 @@ from horovod_tpu_torch.serve.scheduler import Request, Scheduler
 
 __all__ = ["ReplicaServer", "ServeClient"]
 
-_NOT_PORTED = {
-    "weights": "weights push failed: live weight pushes are not ported "
-               "yet (they come with the checkpoint plane)",
-    "hello": "router sessions are not ported yet (they come with the "
-             "router)",
-}
+#: The error frame's text for a live weight push (replica or router).
+WEIGHTS_NOT_PORTED = ("weights push failed: live weight pushes are not "
+                      "ported yet (they come with the checkpoint plane, "
+                      "ROADMAP.md Queue A item 6)")
+_NOT_PORTED = {"weights": WEIGHTS_NOT_PORTED}
+
+#: How long a parked router session survives without a reconnect before
+#: its live requests are cancelled (pool blocks must not leak behind a
+#: router that never comes back).  Above the router's whole retry
+#: schedule (``resolve_link_retries`` attempts with sub-second backoff).
+_PARK_GRACE_SEC = 15.0
+
+
+class _RouterSession:
+    """One router's durable stream state, surviving socket loss.
+
+    ``seq`` stamps every stream event (token/done/error/cancelled) in
+    emission order; ``history`` keeps the recent tail so a reconnecting
+    router replays exactly the events it missed.  Control replies
+    (stats/pong/hello_ack/bye) are connection-scoped and never recorded.
+    """
+
+    def __init__(self, token: str):
+        self.token = token
+        self.live: set = set()
+        self.seq = 0
+        self.history: deque = deque(maxlen=4096)
+        #: the attached connection's queue; None while parked
+        self.outbox: Optional[asyncio.Queue] = None
+        self.park_handle: Optional[asyncio.TimerHandle] = None
+
+
+def _request(msg: dict) -> Request:
+    return Request(id=str(msg.get("id", "")),
+                   prompt=[int(t) for t in msg["prompt"]],
+                   max_tokens=int(msg["max_tokens"]),
+                   temperature=float(msg.get("temperature", 0.0)),
+                   seed=int(msg.get("seed", 0)))
 
 
 class ReplicaServer:
@@ -64,8 +108,11 @@ class ReplicaServer:
         self.port: Optional[int] = None
         self._shutdown = asyncio.Event()
         self._conns: set = set()
+        self._sessions: Dict[str, _RouterSession] = {}
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
 
     async def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
+        self._loop = asyncio.get_running_loop()
         self._server = await asyncio.start_server(self._handle, host, port,
                                                   limit=1 << 26)
         self.port = self._server.sockets[0].getsockname()[1]
@@ -83,15 +130,264 @@ class ReplicaServer:
                 writer.close()
             except OSError:
                 pass
+        # Parked sessions must not outlive the server: their live
+        # requests release pool blocks now, not at park expiry.
+        for token in list(self._sessions):
+            self._end_session(self._sessions[token])
         await asyncio.sleep(0)
         self.scheduler.stop()
 
     def shutdown(self) -> None:
         self._shutdown.set()
 
+    def drop_connections(self) -> None:
+        """Abort every open connection (fault injection: a transient link
+        reset).  Router sessions park and heal; plain clients see the
+        cancel-on-disconnect.  Threadsafe — callable from the scheduler
+        thread's fault hook."""
+        loop = self._loop
+        if loop is None:
+            return
+
+        def _abort() -> None:
+            for w in list(self._conns):
+                try:
+                    tr = w.transport
+                    if tr is not None:
+                        tr.abort()   # RST, not FIN: a real reset
+                    else:
+                        w.close()
+                except (OSError, RuntimeError):
+                    pass
+
+        try:
+            loop.call_soon_threadsafe(_abort)
+        except RuntimeError:
+            pass   # loop already gone — nothing left to drop
+
+    # -- router sessions --
+
+    def _end_session(self, sess: _RouterSession) -> None:
+        """Forget the session and cancel whatever it still owns."""
+        self._sessions.pop(sess.token, None)
+        if sess.park_handle is not None:
+            sess.park_handle.cancel()
+            sess.park_handle = None
+        for rid in list(sess.live):
+            self.scheduler.cancel(rid)
+        sess.live.clear()
+
+    def _expire_session(self, token: str) -> None:
+        sess = self._sessions.get(token)
+        if sess is None or sess.outbox is not None:
+            return   # reattached while the park timer was pending
+        self._end_session(sess)
+
+    def _session_emit(self, loop, sess: _RouterSession,
+                      rid: str) -> Callable[[dict], None]:
+        def emit(ev: dict) -> None:
+            def push(ev=dict(ev)) -> None:
+                if ev["event"] in ("done", "error", "cancelled"):
+                    sess.live.discard(rid)
+                sess.seq += 1
+                ev["seq"] = sess.seq
+                sess.history.append(ev)
+                if sess.outbox is not None:
+                    sess.outbox.put_nowait(ev)
+            try:
+                loop.call_soon_threadsafe(push)
+            except RuntimeError:
+                pass   # loop torn down mid-shutdown
+        return emit
+
+    # -- connections --
+
     async def _handle(self, reader: asyncio.StreamReader,
                       writer: asyncio.StreamWriter) -> None:
         self._conns.add(writer)
+        try:
+            try:
+                first = await reader.readline()
+            except (ConnectionResetError, asyncio.IncompleteReadError):
+                first = b""
+            hello = None
+            if first:
+                try:
+                    parsed = json.loads(first)
+                    if isinstance(parsed, dict) \
+                            and parsed.get("op") == "hello":
+                        hello = parsed
+                except json.JSONDecodeError:
+                    pass
+            if hello is not None:
+                await self._handle_router(hello, reader, writer)
+            else:
+                await self._handle_plain(first, reader, writer)
+        finally:
+            self._conns.discard(writer)
+            try:
+                writer.close()
+                await writer.wait_closed()
+            except (ConnectionResetError, BrokenPipeError, OSError):
+                pass
+
+    @staticmethod
+    async def _write_loop(outbox: asyncio.Queue,
+                          writer: asyncio.StreamWriter) -> None:
+        try:
+            while True:
+                ev = await outbox.get()
+                if ev is None:
+                    break
+                writer.write((json.dumps(ev) + "\n").encode())
+                await writer.drain()
+        except (ConnectionResetError, BrokenPipeError, OSError):
+            pass   # a session's events live on in its history
+
+    async def _serve_ops(self, lines, outbox: asyncio.Queue,
+                         submit: Callable[[Request], None]) -> bool:
+        """Answer the frames of one connection until EOF or ``shutdown``;
+        True when the connection asked for shutdown."""
+        async for line in lines:
+            try:
+                msg = json.loads(line)
+            except json.JSONDecodeError:
+                outbox.put_nowait({"event": "error", "id": None,
+                                   "error": "malformed frame"})
+                continue
+            op = msg.get("op")
+            if op == "generate":
+                try:
+                    req = _request(msg)
+                except (KeyError, TypeError, ValueError) as e:
+                    outbox.put_nowait({"event": "error",
+                                       "id": str(msg.get("id", "")),
+                                       "error": f"bad request: {e}"})
+                    continue
+                submit(req)
+            elif op == "cancel":
+                self.scheduler.cancel(str(msg.get("id", "")))
+            elif op == "stats":
+                outbox.put_nowait({"event": "stats",
+                                   "stats": self.scheduler.stats()})
+            elif op == "ping":
+                # The pong carries the scheduler heartbeat's age: the
+                # front-end answers even when the scheduler THREAD is
+                # wedged, so a probe must judge the scheduler, not the
+                # socket (Router._probe_loop).
+                outbox.put_nowait({
+                    "event": "pong",
+                    "sched_age_sec": round(
+                        time.monotonic() - self.scheduler.last_beat, 3),
+                    "counters": self.scheduler.metrics_counters()})
+            elif op in _NOT_PORTED:
+                outbox.put_nowait({"event": "error", "id": None,
+                                   "error": _NOT_PORTED[op]})
+            elif op == "shutdown":
+                outbox.put_nowait({"event": "bye"})
+                self.shutdown()
+                return True
+            elif op == "hello":
+                pass   # a duplicate hello on a live link: ignore
+            else:
+                outbox.put_nowait({"event": "error", "id": None,
+                                   "error": f"unknown op {op!r}"})
+        return False
+
+    @staticmethod
+    async def _lines(reader: asyncio.StreamReader, first: bytes = b""):
+        """The connection's frames, ``first`` (already read) leading."""
+        if first:
+            yield first
+        try:
+            while True:
+                line = await reader.readline()
+                if not line:
+                    return
+                yield line
+        except (ConnectionResetError, asyncio.IncompleteReadError):
+            return
+
+    @staticmethod
+    async def _close_outbox(outbox: asyncio.Queue,
+                            wtask: asyncio.Future) -> None:
+        outbox.put_nowait(None)
+        try:
+            await asyncio.wait_for(wtask, timeout=5)
+        except (asyncio.TimeoutError, ConnectionResetError,
+                BrokenPipeError):
+            wtask.cancel()
+
+    async def _handle_router(self, hello: dict,
+                             reader: asyncio.StreamReader,
+                             writer: asyncio.StreamWriter) -> None:
+        loop = asyncio.get_running_loop()
+        token = str(hello.get("session", ""))
+        try:
+            last_seq = int(hello.get("last_seq", 0) or 0)
+        except (TypeError, ValueError):
+            last_seq = 0
+        sess = self._sessions.get(token)
+        if sess is None and last_seq <= 0:
+            sess = _RouterSession(token)
+            self._sessions[token] = sess
+        if sess is not None and sess.park_handle is not None:
+            sess.park_handle.cancel()
+            sess.park_handle = None
+        # A session we no longer hold (park expired, or a restarted
+        # replica), or one whose missed events aged out of the history,
+        # cannot be made whole: refuse, so the router escalates.
+        oldest = sess.history[0]["seq"] if sess is not None and \
+            sess.history else (sess.seq + 1 if sess is not None else 0)
+        if sess is None or (last_seq < sess.seq and oldest > last_seq + 1):
+            if sess is not None:
+                self._end_session(sess)
+            try:
+                writer.write((json.dumps(
+                    {"event": "hello_ack", "session": token,
+                     "resume": False}) + "\n").encode())
+                await writer.drain()
+            except (ConnectionResetError, BrokenPipeError, OSError):
+                pass
+            return
+        outbox: asyncio.Queue = asyncio.Queue()
+        sess.outbox = outbox
+        # The ack carries the live set so the router re-sends generates
+        # the replica never received (lost in flight during the reset);
+        # the replay pushes exactly the unseen stream events, in order.
+        outbox.put_nowait({"event": "hello_ack", "session": token,
+                           "resume": True, "seq": sess.seq,
+                           "live": sorted(sess.live)})
+        for ev in sess.history:
+            if ev["seq"] > last_seq:
+                outbox.put_nowait(ev)
+        wtask = asyncio.ensure_future(self._write_loop(outbox, writer))
+
+        def submit(req: Request) -> None:
+            sess.live.add(req.id)
+            self.scheduler.submit(req, self._session_emit(loop, sess,
+                                                          req.id))
+
+        ended = False
+        try:
+            ended = await self._serve_ops(self._lines(reader), outbox,
+                                          submit)
+        finally:
+            if sess.outbox is outbox:
+                sess.outbox = None
+            await self._close_outbox(outbox, wtask)
+            if ended or self._shutdown.is_set():
+                self._end_session(sess)
+            elif sess.outbox is None and token in self._sessions:
+                # Park: generation keeps running and events accumulate in
+                # the history; the grace timer bounds how long a router
+                # that never returns pins pool blocks.
+                sess.park_handle = loop.call_later(
+                    _PARK_GRACE_SEC, self._expire_session, token)
+
+    async def _handle_plain(self, first: bytes,
+                            reader: asyncio.StreamReader,
+                            writer: asyncio.StreamWriter) -> None:
         loop = asyncio.get_running_loop()
         outbox: asyncio.Queue = asyncio.Queue()
         live: set = set()
@@ -108,86 +404,18 @@ class ReplicaServer:
                     pass
             return emit
 
-        async def write_loop() -> None:
-            while True:
-                ev = await outbox.get()
-                if ev is None:
-                    break
-                writer.write((json.dumps(ev) + "\n").encode())
-                await writer.drain()
+        def submit(req: Request) -> None:
+            live.add(req.id)
+            self.scheduler.submit(req, emit_threadsafe(req.id))
 
-        wtask = asyncio.ensure_future(write_loop())
+        wtask = asyncio.ensure_future(self._write_loop(outbox, writer))
         try:
-            while True:
-                line = await reader.readline()
-                if not line:
-                    break
-                try:
-                    msg = json.loads(line)
-                except json.JSONDecodeError:
-                    outbox.put_nowait({"event": "error", "id": None,
-                                       "error": "malformed frame"})
-                    continue
-                op = msg.get("op")
-                if op == "generate":
-                    rid = str(msg.get("id", ""))
-                    try:
-                        req = Request(
-                            id=rid,
-                            prompt=[int(t) for t in msg["prompt"]],
-                            max_tokens=int(msg["max_tokens"]),
-                            temperature=float(msg.get("temperature", 0.0)),
-                            seed=int(msg.get("seed", 0)))
-                    except (KeyError, TypeError, ValueError) as e:
-                        outbox.put_nowait({"event": "error", "id": rid,
-                                           "error": f"bad request: {e}"})
-                        continue
-                    live.add(rid)
-                    self.scheduler.submit(req, emit_threadsafe(rid))
-                elif op == "cancel":
-                    self.scheduler.cancel(str(msg.get("id", "")))
-                elif op == "stats":
-                    outbox.put_nowait({"event": "stats",
-                                       "stats": self.scheduler.stats()})
-                elif op == "ping":
-                    # The pong carries the scheduler heartbeat's age: the
-                    # front-end answers even when the scheduler THREAD is
-                    # wedged, so a probe must judge the scheduler, not the
-                    # socket.
-                    outbox.put_nowait({
-                        "event": "pong",
-                        "sched_age_sec": round(
-                            time.monotonic() - self.scheduler.last_beat,
-                            3),
-                        "counters": self.scheduler.metrics_counters()})
-                elif op in _NOT_PORTED:
-                    outbox.put_nowait({"event": "error", "id": None,
-                                       "error": _NOT_PORTED[op]})
-                elif op == "shutdown":
-                    outbox.put_nowait({"event": "bye"})
-                    self.shutdown()
-                    break
-                else:
-                    outbox.put_nowait({"event": "error", "id": None,
-                                       "error": f"unknown op {op!r}"})
-        except (ConnectionResetError, asyncio.IncompleteReadError):
-            pass
+            await self._serve_ops(self._lines(reader, first), outbox, submit)
         finally:
             # A vanished client must not keep burning pool blocks.
             for rid in list(live):
                 self.scheduler.cancel(rid)
-            outbox.put_nowait(None)
-            try:
-                await asyncio.wait_for(wtask, timeout=5)
-            except (asyncio.TimeoutError, ConnectionResetError,
-                    BrokenPipeError):
-                wtask.cancel()
-            self._conns.discard(writer)
-            try:
-                writer.close()
-                await writer.wait_closed()
-            except (ConnectionResetError, BrokenPipeError, OSError):
-                pass
+            await self._close_outbox(outbox, wtask)
 
 
 class ServeClient:

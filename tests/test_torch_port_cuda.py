@@ -178,6 +178,70 @@ def test_fused_decode_step_tracks_oracle_on_the_card(dev):
     assert float((lf.float() - lo.float()).abs().max()) < 0.125
 
 
+_GRAPH_ENV = {"HOROVOD_SERVE_MAX_MODEL_LEN": "256",
+              "HOROVOD_SERVE_BLOCK_SIZE": "16", "HOROVOD_SERVE_MAX_BATCH": "8",
+              "HOROVOD_SERVE_KV_BLOCKS": "64", "HOROVOD_SERVE_FUSED_ATTN": "1",
+              "HOROVOD_SERVE_WARMUP": "64"}
+
+
+def test_decode_graphs_replay_the_eager_step_bitwise(dev):
+    """``ModelRunner``'s decode graph per pow2 width (tiny bf16 model):
+    four captured at warm-up, each replay equal to the eager
+    ``paged_decode_step`` bit for bit, logits and written K/V, and the
+    kernel's launches counted per replay."""
+    from horovod_tpu_torch.serve.config import ServeConfig
+    from horovod_tpu_torch.serve.engine import ModelRunner
+
+    runner = ModelRunner(ServeConfig.from_env(_GRAPH_ENV), device=dev)
+    runner.warmup()
+    assert runner.captures == 4
+    for pool in (runner.pool_k, runner.pool_v):
+        pool[:, 1:].normal_()
+    cfg, maxb = runner.model_cfg, runner.max_blocks_per_seq
+    for width in (1, 2, 4, 8):
+        pos = [255, 0, 15, 16, 100, 31, 32, 200][:width]
+        tables = np.zeros((width, maxb), np.int32)
+        for i, p in enumerate(pos):      # shared reads, own last block
+            tables[i, :p // 16] = 1 + np.arange(p // 16) % 48
+            tables[i, p // 16] = 49 + i
+        tokens = list(range(3, 3 + width))
+        k0, v0 = runner.pool_k.clone(), runner.pool_v.clone()
+        before = pa.launches
+        got = runner.decode(tokens, list(tables), pos)
+        assert pa.launches == before + cfg.num_layers
+        gk, gv = runner.pool_k.clone(), runner.pool_v.clone()
+        runner.pool_k.copy_(k0)
+        runner.pool_v.copy_(v0)
+        want, _, _ = generation.paged_decode_step(
+            runner.model, torch.tensor(tokens, device=dev), runner.pool_k,
+            runner.pool_v, torch.from_numpy(tables).to(dev),
+            torch.tensor(pos, dtype=torch.int32, device=dev), fused=True)
+        np.testing.assert_array_equal(got, want.float().cpu().numpy())
+        assert torch.equal(gk, runner.pool_k) and torch.equal(gv,
+                                                              runner.pool_v)
+    assert runner.captures == 4
+
+
+def test_range_counters_do_not_grow_inside_a_capture(dev, monkeypatch):
+    q, pk, pv, tables, pos = _case(dev, torch.bfloat16, B=3, Hkv=2, G=2,
+                                   D=64, BS=16, maxb=4, seed=3)
+    monkeypatch.setattr(pa, "_counters", {})
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="before the capture"):
+        with torch.cuda.graph(graph):
+            pa.paged_attention_decode(q, pk, pv, tables, pos)
+    pa.paged_attention_decode(q, pk, pv, tables, pos)   # allocates them
+    graph = torch.cuda.CUDAGraph()
+    captured, launches = pa.captured, pa.launches
+    with torch.cuda.graph(graph):
+        out = pa.paged_attention_decode(q, pk, pv, tables, pos)
+    assert (pa.captured, pa.launches) == (captured + 1, launches)
+    graph.replay()
+    _agree(out, pa._decode_blockwise(*[t.cpu() for t in
+                                       (q, pk, pv, tables, pos)]),
+           torch.bfloat16)
+
+
 # ---------------------------------------------------------------------------
 # flash attention: hvd_flash_fwd / hvd_flash_bwd_dq / hvd_flash_bwd_dkv
 # ---------------------------------------------------------------------------

@@ -10,6 +10,7 @@ tight enough to force preemption.
 """
 
 import asyncio
+import dataclasses
 import functools
 import os
 import subprocess
@@ -24,15 +25,27 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch.utils._python_dispatch import TorchDispatchMode
+
 from horovod_tpu.models.generation import generate as jax_generate
+from horovod_tpu.models.generation import \
+    paged_decode_step as jax_paged_decode_step
 from horovod_tpu.serve.config import ServeConfig as JaxServeConfig
 from horovod_tpu.serve.config import \
     resolved_serve_config as jax_resolved_serve_config
+from horovod_tpu.serve.engine import SERVE_DECODE_BAND as JAX_DECODE_BAND
 from horovod_tpu.serve.engine import ModelRunner as JaxModelRunner
+from horovod_tpu.serve.engine import \
+    serve_collective_priority as jax_serve_collective_priority
+from horovod_tpu.serve.replica import \
+    parse_fault_schedule as jax_parse_fault_schedule
 from horovod_tpu_torch.models.convert import params_from_jax
+from horovod_tpu_torch.models.generation import paged_decode_step
 from horovod_tpu_torch.models.llama import LlamaModel
 from horovod_tpu_torch.serve.config import ServeConfig, resolved_serve_config
-from horovod_tpu_torch.serve.engine import ModelRunner
+from horovod_tpu_torch.serve.engine import (SERVE_DECODE_BAND, ModelRunner,
+                                            serve_collective_priority)
+from horovod_tpu_torch.serve.replica import parse_fault_schedule
 from horovod_tpu_torch.serve.kv_cache import TRASH_BLOCK, PagedKVCache
 from horovod_tpu_torch.serve.scheduler import Request, Scheduler
 from horovod_tpu_torch.serve.server import ReplicaServer, ServeClient
@@ -384,6 +397,230 @@ def test_runner_refuses_without_gpu_and_unported_knobs(monkeypatch, runner):
 
 
 # ---------------------------------------------------------------------------
+# the decode program per pow2 width (what a CUDA graph captures on the card)
+# ---------------------------------------------------------------------------
+
+#: Pools wide enough for 7 live rows of distinct blocks at width 8.
+DECODE_ENV = dict(SERVE_ENV, HOROVOD_SERVE_KV_BLOCKS="40",
+                  HOROVOD_SERVE_MAX_BATCH="8")
+#: Live rows' positions: block edges (block 4) and the table's last slot.
+DECODE_POS = [63, 0, 3, 4, 7, 8, 15, 33]
+FP32_ATOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def decode_runners():
+    """{fused: port runner} on the JAX runner's weights, and the JAX
+    runner, with random pools (the same values on both sides)."""
+    cfg = ServeConfig.from_env(DECODE_ENV)
+    jrunner = JaxModelRunner(JaxServeConfig.from_env(DECODE_ENV))
+    rng = np.random.default_rng(3)
+    runners = {}
+    for fused in (0, 1):
+        r = ModelRunner(dataclasses.replace(cfg, fused_attn=fused),
+                        device="cpu")
+        r.model = LlamaModel.from_state_dict(
+            r.model_cfg, params_from_jax(jrunner.variables, r.model_cfg,
+                                         "cpu"))
+        if not runners:
+            pools = [torch.from_numpy(rng.standard_normal(
+                tuple(r.pool_k.shape)).astype(np.float32))
+                for _ in range(2)]
+        r.pool_k.copy_(pools[0])
+        r.pool_v.copy_(pools[1])
+        runners[fused] = r
+    return runners, jrunner
+
+
+def _decode_inputs(runner, width):
+    """``width - 1`` live rows (one for width 1) at DECODE_POS, each on
+    its own blocks, as the scheduler hands them to ``decode``, and the
+    padded [width] arrays the program runs on."""
+    live = max(1, width - 1)
+    bs, maxb = runner.block_size, runner.max_blocks_per_seq
+    rng = np.random.default_rng(width)
+    tokens = rng.integers(0, runner.model_cfg.vocab_size, live).tolist()
+    pos = DECODE_POS[:live]
+    tables, nxt = [], 1
+    for p in pos:
+        t = np.full((maxb,), TRASH_BLOCK, np.int32)
+        t[:p // bs + 1] = np.arange(nxt, nxt + p // bs + 1)
+        nxt += p // bs + 1
+        tables.append(t)
+    full = (np.zeros((width,), np.int32),
+            np.full((width, maxb), TRASH_BLOCK, np.int32),
+            np.zeros((width,), np.int32))
+    full[0][:live] = tokens
+    full[1][:live] = tables
+    full[2][:live] = pos
+    return tokens, tables, pos, full
+
+
+@pytest.mark.parametrize("fused", [0, 1])
+@pytest.mark.parametrize("width", [1, 2, 4, 8])
+def test_decode_program_is_the_eager_step_bitwise(decode_runners, width,
+                                                  fused):
+    """The program's body on its static buffers equals
+    ``paged_decode_step`` on the same inputs and pools bit for bit:
+    logits and the K/V it writes, across block boundaries."""
+    runner = decode_runners[0][fused]
+    tokens, tables, pos, full = _decode_inputs(runner, width)
+    k0, v0 = runner.pool_k.clone(), runner.pool_v.clone()
+    try:
+        prog = runner._decode_fn(width)
+        got = prog.run(tokens, tables, pos)
+        assert got.dtype == np.float32 and got.shape == \
+            (len(tokens), runner.model_cfg.vocab_size)
+        assert prog.inputs.dtype == torch.int32
+        pk, pv = k0.clone(), v0.clone()
+        want, _, _ = paged_decode_step(
+            runner.model, torch.from_numpy(full[0]).long(), pk, pv,
+            torch.from_numpy(full[1]), torch.from_numpy(full[2]),
+            fused=bool(fused))
+        np.testing.assert_array_equal(got, want[:len(tokens)].numpy())
+        assert torch.equal(runner.pool_k, pk)
+        assert torch.equal(runner.pool_v, pv)
+        # A second run (a replay on the card) rewrites the same K/V and
+        # gives the same bits.
+        assert prog.run(tokens, tables, pos).tobytes() == got.tobytes()
+        assert torch.equal(runner.pool_k, pk)
+    finally:
+        runner.pool_k.copy_(k0)
+        runner.pool_v.copy_(v0)
+
+
+@pytest.mark.parametrize("fused", [0, 1])
+@pytest.mark.parametrize("width", [1, 2, 4, 8])
+def test_decode_program_matches_jax_paged_decode_step(decode_runners, width,
+                                                      fused):
+    """The same program against JAX's ``paged_decode_step`` on the same
+    weights, inputs and pools: logits and written pools within fp32's
+    1e-5, gather oracle and fused alike."""
+    runners, jrunner = decode_runners
+    runner = runners[fused]
+    tokens, tables, pos, full = _decode_inputs(runner, width)
+    k0, v0 = runner.pool_k.clone(), runner.pool_v.clone()
+    try:
+        got = runner._decode_fn(width).run(tokens, tables, pos)
+        want, wk, wv = jax_paged_decode_step(
+            jrunner.model_cfg, jrunner.variables, jnp.asarray(full[0]),
+            jnp.asarray(k0.numpy()), jnp.asarray(v0.numpy()),
+            jnp.asarray(full[1]), jnp.asarray(full[2]), fused=bool(fused))
+        np.testing.assert_allclose(got, np.asarray(want)[:len(tokens)],
+                                   rtol=0, atol=FP32_ATOL)
+        np.testing.assert_allclose(runner.pool_k.numpy(), np.asarray(wk),
+                                   rtol=0, atol=FP32_ATOL)
+        np.testing.assert_allclose(runner.pool_v.numpy(), np.asarray(wv),
+                                   rtol=0, atol=FP32_ATOL)
+    finally:
+        runner.pool_k.copy_(k0)
+        runner.pool_v.copy_(v0)
+
+
+class _HostReads(TorchDispatchMode):
+    """Records ops that read a tensor's value to the host or size their
+    output by its data — what a CUDA graph cannot capture.  The fused
+    decode's plain CPU version (``_decode_blockwise``) reads pos to bound
+    its loop on the CPU only (the kernel never does), so its frames are
+    exempt."""
+
+    _OPS = {"aten::_local_scalar_dense", "aten::nonzero",
+            "aten::masked_select", "aten::_unique2", "aten::unique_dim",
+            "aten::unique_consecutive", "aten::repeat_interleave"}
+
+    def __init__(self):
+        super().__init__()
+        self.hits = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func._schema.name in self._OPS:
+            frame = sys._getframe()
+            while frame is not None and \
+                    frame.f_code.co_name != "_decode_blockwise":
+                frame = frame.f_back
+            if frame is None:
+                self.hits.append(func._schema.name)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("fused", [0, 1])
+def test_decode_body_reads_nothing_back_to_the_host(decode_runners, fused):
+    runner = decode_runners[0][fused]
+    tokens, tables, pos, _ = _decode_inputs(runner, 8)
+    k0, v0 = runner.pool_k.clone(), runner.pool_v.clone()
+    prog = runner._decode_fn(8)
+    prog.run(tokens, tables, pos)          # fills the static inputs
+    probe = _HostReads()
+    try:
+        with probe:
+            prog.body()
+        assert probe.hits == []
+        with probe:
+            int(torch.tensor([3, 1]).max())
+        assert probe.hits == ["aten::_local_scalar_dense"]
+    finally:
+        runner.pool_k.copy_(k0)
+        runner.pool_v.copy_(v0)
+
+
+@pytest.mark.parametrize("env", [
+    {"HOROVOD_SERVE_BLOCK_SIZE": "4", "HOROVOD_SERVE_MAX_MODEL_LEN": "16",
+     "HOROVOD_SERVE_MAX_BATCH": "2", "HOROVOD_SERVE_KV_BLOCKS": "8",
+     "HOROVOD_SERVE_WARMUP": "16", "HOROVOD_SERVE_FUSED_ATTN": "1"},
+    {"HOROVOD_SERVE_BLOCK_SIZE": "4", "HOROVOD_SERVE_MAX_MODEL_LEN": "32",
+     "HOROVOD_SERVE_MAX_BATCH": "3", "HOROVOD_SERVE_KV_BLOCKS": "8",
+     "HOROVOD_SERVE_WARMUP": "8", "HOROVOD_SERVE_PREFIX_CACHE": "0"},
+])
+def test_warmup_builds_the_reference_programs(env):
+    """``warmup()`` builds as many programs as the reference's compiles,
+    and ``compilations`` stays level with the reference's through a
+    decode width and prefill buckets met after it (a prefix-hit suffix
+    and the static path near the cache's end)."""
+    ours = ModelRunner(ServeConfig.from_env(env), device="cpu")
+    theirs = JaxModelRunner(JaxServeConfig.from_env(env))
+    assert ours.warmup() == theirs.warmup()
+    assert ours.compilations == theirs.compilations
+    tbl = np.arange(1, ours.max_blocks_per_seq + 1, dtype=np.int32)
+    end = ours.cache_len - ours.block_size
+    for runner in (ours, theirs):
+        runner.decode([1] * 3, [tbl] * 3, [5] * 3)
+        runner.prefill(list(range(1, 14)), tbl[:4].tolist(), start=4)
+        runner.prefill(list(range(1, end + 2)), tbl.tolist(), start=end)
+    assert ours.compilations == theirs.compilations
+    assert ours.captures == 0           # graphs are captured on CUDA only
+
+
+_FAULT_SCHEDULES = [
+    None, "", "1:4:exit", "0:4:exit", "1:4:hang", "1:7:conn-reset",
+    "2:0:exit", "1:4:boom", "1:x:exit", "1:4", "a:4:exit", "1:4:exit:9",
+    "0:1:exit,1:9:hang", " 1:2:exit , 0:3:hang", "1:-3:exit",
+    "1:4:exit,1:5:hang", "1:4:conn_reset", ",,", "1::exit",
+]
+
+
+@pytest.mark.parametrize("raw", _FAULT_SCHEDULES)
+def test_parse_fault_schedule_like_the_reference(raw):
+    for replica in (0, 1, 2):
+        assert parse_fault_schedule(raw, replica) == \
+            jax_parse_fault_schedule(raw, replica), (raw, replica)
+
+
+@pytest.mark.parametrize("env", [
+    {}, {"HOROVOD_SERVE_ENGINE": "1"},
+    {"HOROVOD_SERVE_ENGINE": "1", "HOROVOD_PRIORITY_BANDS": "2"},
+    {"HOROVOD_SERVE_ENGINE": "1", "HOROVOD_PRIORITY_BANDS": "0"},
+    {"HOROVOD_SERVE_ENGINE": "1", "HOROVOD_PRIORITY_BANDS": "x"},
+    {"HOROVOD_SERVE_ENGINE": "1", "HOROVOD_PRIORITY_BANDS": ""},
+    {"HOROVOD_SERVE_ENGINE": "0", "HOROVOD_PRIORITY_BANDS": "3"},
+    {"HOROVOD_PRIORITY_BANDS": "1"},
+])
+def test_serve_collective_priority_like_the_reference(env):
+    assert serve_collective_priority(env) == \
+        jax_serve_collective_priority(env)
+    assert SERVE_DECODE_BAND == JAX_DECODE_BAND
+
+
+# ---------------------------------------------------------------------------
 # protocol: in-process asyncio server + blocking client, and the entry point
 # ---------------------------------------------------------------------------
 
@@ -455,31 +692,65 @@ def _replica_env():
     return env
 
 
+def _serve_one_request(proc):
+    """Read the replica's lines up to READY, serve one request, shut it
+    down; returns the lines before READY."""
+    lines = []
+    port = None
+    deadline = time.time() + 120
+    while port is None and time.time() < deadline:
+        line = proc.stdout.readline()
+        if not line:
+            break
+        lines.append(line.strip())
+        if line.startswith("SERVE_REPLICA_READY"):
+            port = int(line.split("port=")[1].split()[0])
+    assert port is not None, (lines, proc.stderr.read())
+    cli = ServeClient("127.0.0.1", port, timeout=60)
+    evs = cli.generate("x", [3, 1, 4, 1, 5], max_tokens=4, timeout=60)
+    assert evs[-1]["event"] == "done" and len(evs[-1]["tokens"]) == 4
+    cli.shutdown()
+    assert proc.wait(timeout=60) == 0
+    cli.close()
+    return lines
+
+
+def _replica(env, *args):
+    return subprocess.Popen(
+        [sys.executable, "-m", "horovod_tpu_torch.serve.replica", "--port",
+         "0", *args], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
 def test_replica_entry_point_serves_on_cpu():
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "horovod_tpu_torch.serve.replica", "--device",
-         "cpu", "--port", "0"], cwd=REPO, env=_replica_env(),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    proc = _replica(_replica_env(), "--device", "cpu")
     try:
-        lines = []
-        port = None
-        deadline = time.time() + 120
-        while port is None and time.time() < deadline:
-            line = proc.stdout.readline()
-            if not line:
-                break
-            lines.append(line.strip())
-            if line.startswith("SERVE_REPLICA_READY"):
-                port = int(line.split("port=")[1].split()[0])
-        assert port is not None, (lines, proc.stderr.read())
+        lines = _serve_one_request(proc)
         # decode widths 1, 2, 4, 8; prefill spans 4, 8; suffix spans 4, 8
         assert lines[0] == "SERVE_REPLICA_WARMUP replica=0 programs=8"
-        cli = ServeClient("127.0.0.1", port, timeout=60)
-        evs = cli.generate("x", [3, 1, 4, 1, 5], max_tokens=4, timeout=60)
-        assert evs[-1]["event"] == "done" and len(evs[-1]["tokens"]) == 4
-        cli.shutdown()
-        assert proc.wait(timeout=60) == 0
-        cli.close()
+        assert lines[1].startswith("SERVE_REPLICA_TIMES replica=0 ")
+        assert "captures=0 " in lines[1]      # no CUDA graph on the CPU
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        proc.stdout.close()
+        proc.stderr.close()
+
+
+def test_engine_world_replica_serves_on_cpu():
+    """``HOROVOD_SERVE_ENGINE=1``: the replica starts the port's engine
+    (``hvd.init``, a world of one) and serves."""
+    env = _replica_env()
+    env["HOROVOD_SERVE_ENGINE"] = "1"
+    for key in [k for k in env if k.startswith(("OMPI_", "PMI_"))] + [
+            "HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_LOCAL_RANK",
+            "HOROVOD_LOCAL_SIZE", "HOROVOD_COORDINATOR"]:
+        env.pop(key, None)
+    proc = _replica(env, "--device", "cpu")
+    try:
+        lines = _serve_one_request(proc)
+        assert lines[0] == "SERVE_REPLICA_ENGINE replica=0 rank=0 size=1"
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -489,16 +760,14 @@ def test_replica_entry_point_serves_on_cpu():
 
 
 def test_replica_entry_point_refuses_without_gpu_or_with_engine():
+    """Without a GPU and without ``--device cpu`` the replica refuses to
+    start, an engine world too (``hvd.init`` asks for the device)."""
     env = _replica_env()
     env["CUDA_VISIBLE_DEVICES"] = ""
-    out = subprocess.run(
-        [sys.executable, "-m", "horovod_tpu_torch.serve.replica"], cwd=REPO,
-        env=env, capture_output=True, text=True, timeout=120)
-    assert out.returncode != 0
-    assert "device='cpu'" in out.stderr and "READY" not in out.stdout
-    env["HOROVOD_SERVE_ENGINE"] = "1"
-    out = subprocess.run(
-        [sys.executable, "-m", "horovod_tpu_torch.serve.replica", "--device",
-         "cpu"], cwd=REPO, env=env, capture_output=True, text=True,
-        timeout=120)
-    assert out.returncode != 0 and "engine binding" in out.stderr
+    for engine in ("0", "1"):
+        env["HOROVOD_SERVE_ENGINE"] = engine
+        out = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.serve.replica"],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert "device='cpu'" in out.stderr and "READY" not in out.stdout
