@@ -137,7 +137,30 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                int64 bitwise against the host copies, and the ready event
                (an allreduce enqueued right behind the GEMM that writes its
                input); staging and engine times, the plane, the pinned pool;
-11. train_profile, train_packed_profile, train_bert_profile,
+11. engine_train — the engine-driven optimizers (``torch_frontend``)
+               training ``bench_llama``'s model at its full config on two
+               ranks of the engine on the one card (``--train-worker
+               RANK``, through ``run_ranks``, the engine phase's
+               launcher), B 4 x S 2048 each, the rows of the bench's
+               ``default_rng(0)`` batch, weights broadcast from rank 0 by
+               ``torch_frontend.broadcast_parameters``; four parts, 2
+               warm-up and 5 timed steps each: ``hook`` (the hook form
+               over ``MasterWeights(AdamW)``; ``synchronize()``'s wait
+               after the backward), ``zero1`` (``sharded=True``, AdamW on
+               the bf16 model), ``fsdp`` (``fsdp=True``, 17 units) and
+               ``local_sgd`` (the hook form, ``local_sgd_steps=4``, 8
+               steps); each checks that its loss falls, the ranks'
+               parameters agree bit for bit (an allgather of
+               per-tensor digests; for local SGD right after steps 4 and
+               8 only, with 2 syncs counted), 48 flash launches a step and
+               no plain call, and a bitwise anchor at 2 layers: the hook
+               step against ``grouped_allreduce`` of the same gradients
+               and the same inner step, ZeRO-1 (fp32, SGD) against the
+               unsharded flat step, FSDP (fp32, SGD) against the dense
+               replicated loop; one line per part with step ms, tokens/s,
+               peak memory, the engine's and the staging's counters a
+               step;
+12. train_profile, train_packed_profile, train_bert_profile,
                train_resnet_profile, bench_llama_profile — where one step
                of each goes
                (torch.profiler), after every phase was timed: once the
@@ -151,7 +174,7 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                real step;
                and the flash kernels' ``kernel_time_bench`` lines with
                bench_llama's launches a step;
-12. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+13. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints one JSON line; any failed check raises (exit != 0) and
@@ -184,7 +207,7 @@ import torch
 import torch.nn.functional as F
 
 import horovod_tpu_torch as hvd
-from horovod_tpu_torch import bench, bench_serve
+from horovod_tpu_torch import bench, bench_serve, torch_frontend
 from horovod_tpu_torch.examples import bert_pretraining_fsdp as bert_example
 from horovod_tpu_torch.examples.llama_packed_pretraining import (
     boundary_mask, make_packed_batch, packed_lm_loss)
@@ -2622,30 +2645,29 @@ def engine_worker(rank: int, device: str) -> dict:
     return out
 
 
-def phase_engine():
-    """Two ranks of the eager engine on the one card, each a process of
-    this script (``--engine-worker RANK``) on cuda:0.  No torch.distributed
-    collective runs (NCCL refuses two ranks on one device; the group is
-    created lazily).  Any worker's failure or timeout fails the phase.
-    ``HOROVOD_SHM_DISABLE`` alone of the caller's ``HOROVOD_*`` variables
-    reaches the workers; their output goes to files, so no worker blocks
-    on a full pipe while another is waited on."""
+def run_ranks(flag: str, phase: str, timeout_s: float) -> list:
+    """Start this script once per rank (``flag RANK``, every rank on
+    cuda:0) and return each rank's last stdout line, parsed.  No
+    torch.distributed collective runs in them (NCCL refuses two ranks on
+    one device; the group is created lazily).  Any rank's failure or
+    timeout fails the phase.  ``HOROVOD_SHM_DISABLE`` alone of the
+    caller's ``HOROVOD_*`` variables reaches the ranks; their output goes
+    to files, so no rank blocks on a full pipe while another is waited
+    on."""
     port = free_port()
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
-    shm_disable = os.environ.get("HOROVOD_SHM_DISABLE", "0")
     env.update(HOROVOD_SIZE=str(ENGINE_RANKS),
                HOROVOD_LOCAL_SIZE=str(ENGINE_RANKS),
                HOROVOD_COORDINATOR=f"127.0.0.1:{port}",
-               HOROVOD_SHM_DISABLE=shm_disable)
-    logs = tempfile.mkdtemp(prefix="chip_smoke_engine_")
+               HOROVOD_SHM_DISABLE=os.environ.get("HOROVOD_SHM_DISABLE", "0"))
+    logs = tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_")
     files = [(open(os.path.join(logs, f"rank{r}.out"), "w+"),
               open(os.path.join(logs, f"rank{r}.err"), "w+"))
              for r in range(ENGINE_RANKS)]
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--engine-worker",
-         str(r)], env=dict(env, HOROVOD_RANK=str(r),
-                           HOROVOD_LOCAL_RANK=str(r)),
+        [sys.executable, os.path.abspath(__file__), flag, str(r)],
+        env=dict(env, HOROVOD_RANK=str(r), HOROVOD_LOCAL_RANK=str(r)),
         stdout=files[r][0], stderr=files[r][1], text=True)
         for r in range(ENGINE_RANKS)]
     t0 = time.monotonic()
@@ -2655,22 +2677,22 @@ def phase_engine():
         return files[r][1].read()[-n:]
 
     try:
-        # Poll all workers together: the first to fail ends the phase
-        # with its own error, not with its peer's hang.
+        # Poll all ranks together: the first to fail ends the phase with
+        # its own error, not with its peer's hang.
         while any(p.poll() is None for p in procs):
             for r, p in enumerate(procs):
-                check(p.poll() in (None, 0), f"engine rank {r} exited "
+                check(p.poll() in (None, 0), f"{phase} rank {r} exited "
                                              f"{p.returncode}:\n{tail(r)}")
-            if time.monotonic() - t0 > ENGINE_TIMEOUT_S:
+            if time.monotonic() - t0 > timeout_s:
                 raise RuntimeError(
-                    f"chip_smoke check failed: engine ranks "
+                    f"chip_smoke check failed: {phase} ranks "
                     f"{[r for r, p in enumerate(procs) if p.poll() is None]}"
-                    f" timed out after {ENGINE_TIMEOUT_S} s:\n"
+                    f" timed out after {timeout_s} s:\n"
                     + "\n".join(tail(r, 2000) for r in range(ENGINE_RANKS)))
             time.sleep(0.2)
         results = []
         for r, p in enumerate(procs):
-            check(p.returncode == 0, f"engine rank {r} exited "
+            check(p.returncode == 0, f"{phase} rank {r} exited "
                                      f"{p.returncode}:\n{tail(r)}")
             files[r][0].seek(0)
             results.append(json.loads(files[r][0].read().strip()
@@ -2684,11 +2706,457 @@ def phase_engine():
             fo.close()
             fe.close()
         shutil.rmtree(logs, ignore_errors=True)
+    return results
+
+
+def phase_engine():
+    """Two ranks of the eager engine on the one card, each a process of
+    this script (``--engine-worker RANK``) on cuda:0."""
+    t0 = time.monotonic()
+    results = run_ranks("--engine-worker", "engine", ENGINE_TIMEOUT_S)
     shm = shutil.disk_usage("/dev/shm")
     emit("engine", ranks=ENGINE_RANKS, wall_s=time.monotonic() - t0,
          dev_shm_bytes=shm.total, dev_shm_free_bytes=shm.free,
-         shm_disable=shm_disable, per_rank=results,
-         nvidia_smi_after=smi_now())
+         shm_disable=os.environ.get("HOROVOD_SHM_DISABLE", "0"),
+         per_rank=results, nvidia_smi_after=smi_now())
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the engine-driven optimizers, training bench_llama's model on
+# two ranks of the eager engine on the one card
+# ---------------------------------------------------------------------------
+
+TRAIN_RANKS_TIMEOUT_S = 600
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+LOCAL_SGD_H, LOCAL_SGD_STEPS = 4, 8
+#: The anchors' depth (bench_llama's widths).
+ANCHOR_LAYERS = 2
+#: SGD of the ZeRO-1 and FSDP anchors (tests/sharded_worker.py's).
+ANCHOR_SGD = dict(lr=0.05, momentum=0.9)
+
+
+def param_digest(params) -> torch.Tensor:
+    """[P, 2] int64 on the card: each tensor's bits summed plainly and
+    weighted by position, to tell ranks' parameters apart."""
+    rows = []
+    for p in params:
+        bits = p.detach().reshape(-1).view(
+            {2: torch.int16, 4: torch.int32}[p.element_size()]).long()
+        pos = torch.arange(1, bits.numel() + 1, device=bits.device) % 65521
+        rows.append(torch.stack([bits.sum(), (bits * pos).sum()]))
+    return torch.stack(rows)
+
+
+def ranks_agree(params, name: str) -> bool:
+    """Whether every rank's ``params`` are bitwise equal (an allgather of
+    the digests)."""
+    every = hvd.allgather(param_digest(params).unsqueeze(0), name=name)
+    return bool((every == every[:1]).all())
+
+
+def grad_snapshots(named):
+    """Clone each gradient as its post-accumulate hook fires.  Registered
+    before an optimizer's hooks, so it sees the local gradient."""
+    snap = {}
+    for n, p in named:
+        p.register_post_accumulate_grad_hook(
+            lambda p, n=n: snap.__setitem__(n, p.grad.detach().clone()))
+    return snap
+
+
+def time_calls(obj, method: str, into: list, sync) -> None:
+    """Wrap ``obj.method`` (on the instance) so each call's wall ms, from
+    a device sync before it to one after it, lands in ``into``."""
+    inner = getattr(obj, method)
+
+    def timed(*args, **kwargs):
+        sync()
+        t = time.perf_counter()
+        out = inner(*args, **kwargs)
+        sync()
+        into.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    setattr(obj, method, timed)
+
+
+def bits_equal(xs, ys) -> bool:
+    return all(bitwise_equal(x, y) for x, y in zip(xs, ys))
+
+
+class TrainPart:
+    """One part's timed run: step wall, the engine's and the staging's
+    counter deltas, peak memory and the flash launches, with the counts
+    reset just before the timed steps and read just after."""
+
+    def __init__(self, dev, tokens_per_step):
+        self.dev, self.tokens = dev, tokens_per_step
+        self.losses, self.walls, self.agree = [], [], []
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def sync(self):
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+
+    def run(self, step, n_warmup, n_timed, params, name, before_timed=None):
+        """``step() -> loss`` n_warmup + n_timed times; after each, whether
+        the ranks' ``params`` agree."""
+        for i in range(n_warmup + n_timed):
+            if i == n_warmup:
+                self.sync()
+                fa.reset_launches()
+                self.eng0, self.st0 = get_engine().stats(), staging.stats()
+                if before_timed is not None:
+                    before_timed()
+            self.sync()
+            t = time.perf_counter()
+            loss = step()
+            self.sync()
+            if i >= n_warmup:
+                self.walls.append((time.perf_counter() - t) * 1e3)
+            self.losses.append(loss.item())
+            self.agree.append(ranks_agree(params(), f"{name}.agree.{i}"))
+        self.launches = dict(fa.launches)
+        self.plain = dict(fa.plain_calls)
+        self.eng1, self.st1 = get_engine().stats(), staging.stats()
+
+    def report(self, n_layers, **extra) -> dict:
+        n = len(self.walls)
+        eng = {k: (self.eng1[k] - self.eng0[k]) / n for k in (
+            "responses", "tensors", "allreduce_ns", "allreduce_bytes",
+            "reducescatter_ns", "reducescatter_bytes", "data_bytes_tx",
+            "sharded_steps", "local_sgd_syncs")}
+        p50 = statistics.median(self.walls)
+        on_card = self.dev.type == "cuda"
+        out = {"step_ms": self.walls, "step_ms_p50": p50,
+               "step_ms_max": max(self.walls),
+               "tokens_per_s_rank": self.tokens / (p50 / 1e3),
+               "tokens_per_s_both": ENGINE_RANKS * self.tokens / (p50 / 1e3),
+               "losses": self.losses, "ranks_agree": self.agree,
+               "peak_mem_gib": torch.cuda.max_memory_allocated(self.dev)
+               / 2 ** 30 if on_card else None,
+               "engine_per_step": eng,
+               "d2h_ms_per_step":
+               (self.st1["d2h_ms"] - self.st0["d2h_ms"]) / n,
+               "h2d_ms_per_step":
+               (self.st1["h2d_ms"] - self.st0["h2d_ms"]) / n,
+               "flash_launches_per_step": {k: v / n for k, v in
+                                           self.launches.items()},
+               "flash_plain_calls": self.plain}
+        if on_card:
+            check(all(v == n_layers * n for v in self.launches.values())
+                  and not any(self.plain.values()),
+                  f"engine_train: flash launches {self.launches}, plain "
+                  f"calls {self.plain} in {n} steps of {n_layers} layers")
+        out.update(extra)
+        return out
+
+
+def train_model(cfg, dev, seed=0):
+    """bench_llama's model (``init_params(cfg, seed)``), broadcast from
+    rank 0 through the hook-form frontend's engine broadcast."""
+    model = LlamaModel.from_state_dict(cfg, init_params(cfg, seed, dev),
+                                       attention_fn=fa.flash_attention_fn)
+    torch_frontend.broadcast_parameters(model.state_dict(), root_rank=0)
+    return model
+
+
+def masterweights(model):
+    return MasterWeights(model.parameters(), torch.optim.AdamW,
+                         lr=bench.LLAMA_LR, **bench.LLAMA_ADAMW)
+
+
+def free_memory():
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def part_hook(cfg, batch, dev) -> dict:
+    """The hook form over MasterWeights(AdamW): the gradients' allreduces
+    enqueued from the backward; ``synchronize()``'s wait after the
+    backward ended is timed."""
+    model = train_model(cfg, dev)
+    opt = torch_frontend.DistributedOptimizer(
+        masterweights(model), named_parameters=model.named_parameters())
+    part = TrainPart(dev, batch.numel() - batch.shape[0])
+    # synchronize()'s wait once the backward has ended on the device.
+    waits = []
+    time_calls(opt, "synchronize", waits, part.sync)
+
+    def step():
+        opt.zero_grad()
+        loss = bench.llama_loss_fn(model, batch)
+        loss.backward()
+        opt.step()
+        return loss
+
+    part.run(step, TRAIN_WARMUP, TRAIN_TIMED, model.parameters, "hook",
+             before_timed=waits.clear)
+    out = part.report(cfg.num_layers, sync_wait_ms=waits,
+                      sync_wait_ms_p50=statistics.median(waits))
+    del model, opt
+    free_memory()
+
+    # Anchor at 2 layers: the hook-form step equals the same gradients
+    # through hvd.grouped_allreduce and the same inner step, bit for bit.
+    cfg2 = dataclasses.replace(cfg, num_layers=ANCHOR_LAYERS)
+    model = train_model(cfg2, dev)
+    twin = LlamaModel.from_state_dict(
+        cfg2, {k: v.detach().clone() for k, v in model.state_dict().items()},
+        attention_fn=fa.flash_attention_fn)
+    named = list(model.named_parameters())
+    snap = grad_snapshots(named)
+    opt = torch_frontend.DistributedOptimizer(masterweights(model),
+                                              named_parameters=named)
+    ref = masterweights(twin)
+    for i in range(2):
+        opt.zero_grad()
+        bench.llama_loss_fn(model, batch).backward()
+        opt.step()
+        reduced = hvd.grouped_allreduce([snap[n] for n, _ in named],
+                                        name=f"anchor.hook.{i}")
+        for p, g in zip(twin.parameters(), reduced):
+            p.grad = g
+        ref.step()
+        check(bits_equal(model.parameters(), twin.parameters())
+              and bits_equal(opt.masters, ref.masters),
+              f"engine_train hook: step {i} differs from grouped_allreduce "
+              "and the same inner step")
+    out["anchor"] = {"layers": ANCHOR_LAYERS, "steps": 2, "bitwise": True}
+    return out
+
+
+def part_zero1(cfg, batch, dev) -> dict:
+    """ZeRO-1 on the bf16 model: fp32 master shards and AdamW state for
+    half the parameters on each rank."""
+    model = train_model(cfg, dev)
+    opt = torch_frontend.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=bench.LLAMA_LR,
+                          **bench.LLAMA_ADAMW), sharded=True)
+    part = TrainPart(dev, batch.numel() - batch.shape[0])
+    # The step's halves: the engine counts no allgather time.
+    rs_ms, ag_ms = [], []
+    time_calls(opt.sharder, "reduce_grads", rs_ms, part.sync)
+    time_calls(opt.sharder, "gather_updates", ag_ms, part.sync)
+
+    def step():
+        opt.zero_grad()
+        loss = bench.llama_loss_fn(model, batch)
+        loss.backward()
+        opt.step()
+        return loss
+
+    part.run(step, TRAIN_WARMUP, TRAIN_TIMED, model.parameters, "zero1",
+             before_timed=lambda: (rs_ms.clear(), ag_ms.clear()))
+    n = sum(p.numel() for p in model.parameters())
+    # Unsharded: fp32 masters and AdamW's m and v, 12 bytes a value.
+    half = 12 * n / ENGINE_RANKS
+    state = opt.state_bytes()
+    check(abs(state - half) <= 12 + 4,
+          f"engine_train zero1: state_bytes {state} is not half of "
+          f"{12 * n}")
+    out = part.report(cfg.num_layers, state_bytes=state,
+                      unsharded_state_bytes=12 * n,
+                      reducescatter_wall_ms=rs_ms, allgather_wall_ms=ag_ms)
+    del model, opt
+    free_memory()
+
+    # Anchor at 2 layers in fp32 with SGD (tests/sharded_worker.py): the
+    # sharded step equals the unsharded flat step, bit for bit.
+    cfg2 = dataclasses.replace(cfg, num_layers=ANCHOR_LAYERS,
+                               dtype=torch.float32,
+                               logits_dtype=torch.float32)
+    model = train_model(cfg2, dev)
+    params = list(model.parameters())
+    opt = torch_frontend.DistributedOptimizer(
+        torch.optim.SGD(params, **ANCHOR_SGD), sharded=True)
+    flat = torch.nn.Parameter(torch.cat([p.detach().reshape(-1)
+                                         for p in params]))
+    flat_opt = torch.optim.SGD([flat], **ANCHOR_SGD)
+    for i in range(2):
+        opt.zero_grad()
+        bench.llama_loss_fn(model, batch).backward()
+        grads = torch.cat([p.grad.reshape(-1) for p in params])
+        opt.step()
+        flat.grad = hvd.allreduce(grads, name=f"anchor.zero1.{i}")
+        flat_opt.step()
+        check(bitwise_equal(torch.cat([p.detach().reshape(-1)
+                                       for p in params]), flat.detach()),
+              f"engine_train zero1: step {i} differs from the unsharded "
+              "flat step")
+    out["anchor"] = {"layers": ANCHOR_LAYERS, "dtype": "float32",
+                     "steps": 2, "bitwise": True}
+    return out
+
+
+def fsdp_groups(model):
+    """One param group per decoder layer, and one for the embedding, the
+    final norm and the head: 17 units at bench_llama's depth."""
+    rest = [p for n, p in model.named_parameters()
+            if not n.startswith("layers.")]
+    return ([{"params": rest}]
+            + [{"params": list(layer.parameters())}
+               for layer in model.layers])
+
+
+def part_fsdp(cfg, batch, dev) -> dict:
+    """FSDP units: each unit's reducescatter fires from the backward's
+    hooks; the masters return through the band-0 gather pipeline."""
+    from horovod_tpu_torch.runtime.fsdp import fsdp_stats, reset_fsdp_stats
+
+    reset_fsdp_stats()
+    model = train_model(cfg, dev)
+    opt = torch_frontend.DistributedOptimizer(
+        torch.optim.AdamW(fsdp_groups(model), lr=bench.LLAMA_LR,
+                          **bench.LLAMA_ADAMW), fsdp=True)
+    check(opt.plane.n_units == cfg.num_layers + 1,
+          f"engine_train fsdp: {opt.plane.n_units} units")
+    part = TrainPart(dev, batch.numel() - batch.shape[0])
+    # In step(): the wait for each unit's reducescatter (enqueued from
+    # the backward) and each unit's gather.
+    wait_ms, gather_ms = [], []
+    time_calls(opt.plane, "wait_grads", wait_ms, part.sync)
+    time_calls(opt.plane, "gather", gather_ms, part.sync)
+
+    def step():
+        opt.zero_grad()
+        loss = bench.llama_loss_fn(model, batch)
+        loss.backward()
+        opt.step()
+        return loss
+
+    part.run(step, TRAIN_WARMUP, TRAIN_TIMED, model.parameters, "fsdp",
+             before_timed=lambda: (wait_ms.clear(), gather_ms.clear()))
+    out = part.report(cfg.num_layers, units=opt.plane.n_units,
+                      state_bytes=opt.state_bytes(),
+                      rs_wait_ms_per_step=sum(wait_ms) / TRAIN_TIMED,
+                      gather_ms_per_step=sum(gather_ms) / TRAIN_TIMED,
+                      **fsdp_stats())
+    del model, opt
+    free_memory()
+
+    # Anchor at 2 layers in fp32 (tests/fsdp_worker.py): the step equals
+    # the dense replicated loop (each unit's flat gradient allreduced,
+    # the same SGD on the flat vector), bit for bit.
+    cfg2 = dataclasses.replace(cfg, num_layers=ANCHOR_LAYERS,
+                               dtype=torch.float32,
+                               logits_dtype=torch.float32)
+    model = train_model(cfg2, dev)
+    groups = fsdp_groups(model)
+    named = list(model.named_parameters())
+    snap = grad_snapshots(named)
+    name_of = {id(p): n for n, p in named}
+    opt = torch_frontend.DistributedOptimizer(
+        torch.optim.SGD(groups, **ANCHOR_SGD), fsdp=True)
+    flats = [torch.nn.Parameter(torch.cat([p.detach().reshape(-1)
+                                           for p in g["params"]]))
+             for g in groups]
+    flat_opts = [torch.optim.SGD([f], **ANCHOR_SGD) for f in flats]
+    for i in range(2):
+        opt.zero_grad()
+        bench.llama_loss_fn(model, batch).backward()
+        check(all(p.grad is None for p in model.parameters()),
+              "engine_train fsdp: a unit's gradients outlived its "
+              "reduction")
+        opt.step()
+        for gi, (g, f, fo) in enumerate(zip(groups, flats, flat_opts)):
+            f.grad = hvd.allreduce(torch.cat(
+                [snap[name_of[id(p)]].reshape(-1) for p in g["params"]]),
+                name=f"anchor.fsdp.{i}.{gi}")
+            fo.step()
+            check(bitwise_equal(torch.cat([p.detach().reshape(-1)
+                                           for p in g["params"]]),
+                                f.detach()),
+                  f"engine_train fsdp: step {i} unit {gi} differs from "
+                  "the dense replicated loop")
+    out["anchor"] = {"layers": ANCHOR_LAYERS, "dtype": "float32",
+                     "steps": 2, "bitwise": True}
+    return out
+
+
+def part_local_sgd(cfg, batch, dev) -> dict:
+    """The hook form with ``local_sgd_steps=4`` over MasterWeights(AdamW):
+    8 steps, the ranks' models equal right after steps 4 and 8 only."""
+    model = train_model(cfg, dev)
+    opt = torch_frontend.DistributedOptimizer(
+        masterweights(model), named_parameters=model.named_parameters(),
+        local_sgd_steps=LOCAL_SGD_H)
+    part = TrainPart(dev, batch.numel() - batch.shape[0])
+
+    def step():
+        opt.zero_grad()
+        loss = bench.llama_loss_fn(model, batch)
+        loss.backward()
+        opt.step()
+        return loss
+
+    part.run(step, 0, LOCAL_SGD_STEPS, model.parameters, "local_sgd")
+    synced = [(i + 1) % LOCAL_SGD_H == 0 for i in range(LOCAL_SGD_STEPS)]
+    check(part.agree == synced,
+          f"engine_train local_sgd: ranks agree after {part.agree}, want "
+          f"{synced}")
+    syncs = part.eng1["local_sgd_syncs"] - part.eng0["local_sgd_syncs"]
+    check(opt._local_sgd.sync_count == syncs == 2,
+          f"engine_train local_sgd: {opt._local_sgd.sync_count} syncs "
+          f"({syncs} counted by the engine)")
+    out = part.report(cfg.num_layers, syncs=syncs,
+                      anchor={"agree_after": synced})
+    del model, opt
+    free_memory()
+    return out
+
+
+def train_worker(rank: int, device: str, cfg=None) -> dict:
+    """One rank of the engine_train phase: bench_llama's model (``cfg``,
+    default ``bench.llama_config()``) at B 4 x S 2048, this rank's 4 rows
+    of the bench's ``default_rng(0)`` batch of 8.  Each part's failed
+    check raises."""
+    hvd.init(device=device)
+    dev = hvd.device()
+    cfg = cfg or bench.llama_config()
+    rows = 8 // hvd.size()
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, 2049 if cfg.max_seq_len >= 2048
+                            else cfg.max_seq_len + 1), dtype=np.int32)
+    batch = torch.from_numpy(tokens[rank * rows:(rank + 1) * rows]).long() \
+        .to(dev)
+    out = {"rank": hvd.rank(), "size": hvd.size(), "device": str(dev),
+           "batch": list(batch.shape)}
+    t0 = time.monotonic()
+    for name, part in (("hook", part_hook), ("zero1", part_zero1),
+                       ("fsdp", part_fsdp), ("local_sgd", part_local_sgd)):
+        t = time.monotonic()
+        out[name] = part(cfg, batch, dev)
+        out[name]["part_s"] = time.monotonic() - t
+        losses = out[name]["losses"]
+        check(all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0],
+              f"engine_train {name}: the loss did not fall: {losses}")
+        if name != "local_sgd":
+            check(all(out[name]["ranks_agree"]),
+                  f"engine_train {name}: ranks' parameters differ: "
+                  f"{out[name]['ranks_agree']}")
+    out["wall_s"] = time.monotonic() - t0
+    hvd.shutdown()
+    return out
+
+
+def phase_engine_train():
+    """bench_llama's model trained by the engine-driven optimizers, on two
+    ranks of the eager engine on the one card: the hook form, ZeRO-1,
+    FSDP units and local SGD.  Prints one line per part."""
+    t0 = time.monotonic()
+    results = run_ranks("--train-worker", "engine_train",
+                        TRAIN_RANKS_TIMEOUT_S)
+    smi = smi_now()
+    for part in ("hook", "zero1", "fsdp", "local_sgd"):
+        emit("engine_train", part=part, ranks=ENGINE_RANKS,
+             batch_per_rank=results[0]["batch"],
+             per_rank=[r[part] for r in results], nvidia_smi_after=smi)
+    emit("engine_train", part="phase", wall_s=time.monotonic() - t0,
+         worker_wall_s=[r["wall_s"] for r in results])
 
 
 def label_forward(module, name):
@@ -2741,6 +3209,9 @@ def main(argv=None) -> int:
     # One rank of the engine phase, started by the phase itself.
     parser.add_argument("--engine-worker", type=int, default=None,
                         metavar="RANK", help=argparse.SUPPRESS)
+    # One rank of the engine_train phase.
+    parser.add_argument("--train-worker", type=int, default=None,
+                        metavar="RANK", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2749,6 +3220,10 @@ def main(argv=None) -> int:
         return 2
     if args.engine_worker is not None:
         print(json.dumps(engine_worker(args.engine_worker, "cuda:0")),
+              flush=True)
+        return 0
+    if args.train_worker is not None:
+        print(json.dumps(train_worker(args.train_worker, "cuda:0")),
               flush=True)
         return 0
     dev = torch.device("cuda", 0)
@@ -2826,6 +3301,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_engine()
+    phase_engine_train()
     compare_profiles(
         phase_train_profile("train_profile",
                             llama_factory(args.seed, *train[:3]), train[3]),

@@ -25,7 +25,14 @@ and ``hvd.make_train_step``; packed and BERT pretraining
 throughput bench (``python -m horovod_tpu_torch.bench``); and the conv +
 BatchNorm-statistics spike (``experiments/conv_bn_spike.py``); the Llama
 causal-LM bench (``python -m horovod_tpu_torch.bench --model llama``); and
-the eager native engine (``runtime/``).
+the eager native engine (``runtime/``); and the engine-driven
+optimizers: the reference torch frontend's hook form
+(``hvd.torch_frontend.DistributedOptimizer``: gradient hooks that
+enqueue each gradient's allreduce during the backward), ZeRO-1
+(``runtime/sharded.py``), FSDP units (``runtime/fsdp.py``) and local SGD
+(``hvd.elastic.LocalSGD``), which the JAX-form
+``hvd.DistributedOptimizer(sharded=, fsdp=, local_sgd_steps=)`` reaches
+through the same classes.
 
 Two communicators, as ``common/basics.py`` sets out:
 
@@ -38,7 +45,9 @@ Two communicators, as ``common/basics.py`` sets out:
 * ``make_train_step``, ``DistributedOptimizer``, ``allreduce_gradients``
   and ``broadcast_parameters`` reduce over ``torch.distributed``'s default
   group (NCCL on the card), the counterpart of the reference's traced
-  ``psum`` (``ops/collective_ops.py``).
+  ``psum`` (``ops/collective_ops.py``); ``DistributedOptimizer``'s
+  sharded, FSDP and local-SGD rungs, and all of ``torch_frontend``, go
+  through the engine.
 """
 
 from horovod_tpu_torch.common.basics import (device, epoch, init,
@@ -46,6 +55,7 @@ from horovod_tpu_torch.common.basics import (device, epoch, init,
                                              local_size,
                                              mpi_threads_supported, rank,
                                              shutdown, size)
+from horovod_tpu_torch import elastic, torch_frontend
 from horovod_tpu_torch.common.device import resolve_device
 from horovod_tpu_torch.frontend import (DistributedOptimizer,
                                         allreduce_gradients,
@@ -81,4 +91,4 @@ __all__ = ["__version__", "resolve_device", "init", "shutdown",
            "alltoall_async", "poll", "synchronize", "Compression",
            "allreduce_gradients", "DistributedOptimizer",
            "broadcast_parameters", "broadcast_optimizer_state",
-           "make_train_step"]
+           "make_train_step", "torch_frontend", "elastic"]

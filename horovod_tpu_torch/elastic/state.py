@@ -1,0 +1,159 @@
+"""The local-SGD policy (``LocalSGD``) and its env default.
+
+Counterpart of ``horovod_tpu/elastic/state.py:181-435``.  Trees hold
+torch tensors on any device (and Python numbers); the outer sync is one
+grouped allreduce of the tensors as they are, through the eager engine,
+so a CUDA model is staged through pinned memory behind its ready event
+(``runtime/staging.py``) and comes back on its device.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from horovod_tpu_torch.common import basics
+from horovod_tpu_torch.runtime import mpi_ops
+from horovod_tpu_torch.runtime.engine import StepSkipped, note_local_sgd_sync
+
+__all__ = ["LocalSGD", "default_local_sgd_steps"]
+
+
+def _walk(obj, path, visit):
+    """Rebuild a tree, calling ``visit(path, leaf)`` on every tensor or
+    number leaf.  Dict keys traverse in sorted order, so cross-rank
+    collective names meet."""
+    if isinstance(obj, dict):
+        return {k: _walk(obj[k], f"{path}.{k}", visit)
+                for k in sorted(obj, key=str)}
+    if isinstance(obj, tuple):
+        vals = [_walk(v, f"{path}.{i}", visit) for i, v in enumerate(obj)]
+        if hasattr(obj, "_fields"):
+            return type(obj)(*vals)
+        return tuple(vals)
+    if isinstance(obj, list):
+        return [_walk(v, f"{path}.{i}", visit) for i, v in enumerate(obj)]
+    if isinstance(obj, (torch.Tensor, bool, int, float)):
+        return visit(path, obj)
+    return obj
+
+
+def default_local_sgd_steps() -> int:
+    """The ``HOROVOD_LOCAL_SGD_STEPS`` env default (H local steps per
+    outer sync; 1 = fully synchronous)."""
+    raw = os.environ.get("HOROVOD_LOCAL_SGD_STEPS", "")
+    try:
+        v = int(raw) if raw else 1
+    except ValueError:
+        v = 1
+    return max(1, v)
+
+
+class LocalSGD:
+    """Periodic sync (local SGD, DiLoCo): ``H`` purely local optimizer
+    steps, then one outer allreduce of the model.
+
+    Each rank ships its current model ``P_r`` and adopts the participants'
+    average, which over an agreed anchor is the delta-average outer step
+    ``anchor + avg(P_r - anchor)`` but needs no anchor values: a rank
+    whose anchor was perturbed lands on the consensus at its next
+    successful sync.  The anchor is a cadence and epoch marker.
+
+    * **Epoch re-anchor.**  The anchor is stamped with the membership
+      epoch; when the epoch moved, the next :meth:`maybe_sync` re-anchors
+      to the current model instead of syncing a dead incarnation's delta.
+    * **StepSkipped.**  A sync that left this rank out (a backup-worker
+      partial commit) keeps the local model, re-anchors to it, and is not
+      counted.
+
+    ``compression=Compression.topk(...)`` (the reference's sparse outer
+    sync) needs ``runtime/sparse.py``: ROADMAP.md Queue A 4e.
+    """
+
+    def __init__(self, local_sgd_steps: int | None = None,
+                 compression=None):
+        if type(compression).__name__ == "TopKCompressor":
+            raise NotImplementedError(
+                "LocalSGD(compression=Compression.topk(...)): the top-k "
+                "sparse outer sync (runtime/sparse.py) is not ported yet "
+                "(ROADMAP.md Queue A 4e)")
+        self.steps = max(1, int(local_sgd_steps)
+                         if local_sgd_steps is not None
+                         else default_local_sgd_steps())
+        self._local_steps = 0
+        self._anchored = False
+        self._anchor_epoch: int | None = None
+        #: Completed outer syncs (mirror of the engine's cumulative
+        #: ``local_sgd_syncs``).
+        self.sync_count = 0
+
+    @staticmethod
+    def _epoch() -> int:
+        return basics.epoch() if basics.is_initialized() else 0
+
+    def begin(self, params=None) -> None:
+        """Anchor the outer model: call once before the first local step.
+        ``params`` is accepted for clarity and not stored."""
+        self._anchor_epoch = self._epoch()
+        self._local_steps = 0
+        self._anchored = True
+
+    def reset(self) -> None:
+        """Drop the anchor; the next :meth:`maybe_sync` re-anchors without
+        syncing."""
+        self._anchored = False
+        self._anchor_epoch = None
+        self._local_steps = 0
+
+    def maybe_sync(self, params):
+        """Count one completed local step; on the ``H``-th, allreduce the
+        model and return the synced tree, otherwise ``params`` itself (the
+        same object: callers tell a sync by identity)."""
+        if not self._anchored or self._anchor_epoch != self._epoch():
+            self.begin(params)
+            return params
+        self._local_steps += 1
+        if self._local_steps < self.steps:
+            return params
+        if not basics.is_initialized() or basics.size() == 1:
+            # A world of one: the sync is an identity, the cadence holds.
+            self.begin(params)
+            self.sync_count += 1
+            note_local_sgd_sync()
+            return params
+
+        paths, sends = [], []
+
+        def collect(path, leaf):
+            t = leaf.detach() if isinstance(leaf, torch.Tensor) \
+                else torch.tensor(leaf)
+            paths.append(path)
+            sends.append(t.reshape(1) if t.dim() == 0 else t)
+            return leaf
+
+        _walk(params, "p", collect)
+        # Every leaf enqueued before any is drained: the engine fuses the
+        # burst; the average divides by the participants.
+        handles = mpi_ops._enqueue_many(
+            "allreduce", sends, average=True,
+            names=[f"local_sgd.sync.{p}" for p in paths])
+        try:
+            outs = iter(mpi_ops._drain(handles))
+        except StepSkipped:
+            # Left out of the outer sync: keep the local model; the next
+            # successful sync heals it (the average is anchor-free).
+            self.begin(params)
+            return params
+
+        def adopt(path, leaf):
+            new = next(outs)
+            if isinstance(leaf, torch.Tensor):
+                return new.reshape(leaf.shape).to(leaf.dtype)
+            return type(leaf)(new.reshape(()).item())
+
+        synced = _walk(params, "p", adopt)
+        self.begin(synced)
+        self.sync_count += 1
+        note_local_sgd_sync()
+        return synced

@@ -12,7 +12,10 @@ step; here it wraps a ``torch.optim`` optimizer (or
 ``ops.mixed_precision.MasterWeights``) and reduces the gradients in
 place, in fused same-dtype buckets, in the gradients' own dtype (bf16
 for a bf16 model: the JAX step reduces before ``master_weights``
-upcasts).
+upcasts).  Its ``sharded=``, ``fsdp=`` and ``local_sgd_steps=`` rungs
+run through the eager engine on the classes of the hook-form frontend,
+``torch_frontend.py``, the counterpart of the reference's torch
+frontend.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import torch
 import torch.nn as nn
 
 from horovod_tpu_torch.common import basics
-from horovod_tpu_torch.ops.collective_ops import Average, allreduce, allreduce_
+from horovod_tpu_torch.ops.collective_ops import (Average, Sum, allreduce,
+                                                  allreduce_)
 from horovod_tpu_torch.ops.compression import Compression
 from horovod_tpu_torch.ops.fusion import FusionPlan, fuse_apply, plan_fusion
 
@@ -77,36 +81,93 @@ class DistributedOptimizer:
     steps the inner optimizer.  ``reduce_gradients=False`` keeps only the
     step.  ``last_plan`` is the fusion plan of the last reduction.
 
-    ``sharded=`` (ZeRO-1), ``fsdp=`` and ``local_sgd_steps > 1`` of the
-    reference are not ported yet and raise.
+    The reference's other rungs run through the eager engine, on the same
+    classes as the hook-form frontend (``torch_frontend.py``):
+
+    * ``sharded=True`` (default ``HOROVOD_SHARDED``): ZeRO-1, the inner
+      optimizer wrapped in ``torch_frontend._ShardedOptimizer``;
+    * ``fsdp=True`` (default ``HOROVOD_FSDP``): FSDP units, wrapped in
+      ``torch_frontend._FsdpOptimizer``.  The units are the top-level
+      names of ``named_parameters`` (the part before the first ``.``),
+      sorted as the reference's param-tree keys, or ``fsdp_units=[[name
+      prefixes], ...]`` (each top-level name exactly once); without
+      ``named_parameters``, one unit per param group.  Gathers prefetch
+      ``fsdp_prefetch`` units (default ``HOROVOD_FSDP_PREFETCH``);
+    * ``local_sgd_steps=H`` (default ``HOROVOD_LOCAL_SGD_STEPS``): no
+      per-step reduction; ``elastic.LocalSGD`` syncs the model every ``H``
+      steps after the inner step.
+
+    They keep the JAX frontend's refusals: fsdp with sharded, either with
+    local SGD or with ``reduce_gradients=False``, and any op but Sum or
+    Average.  With none of them, gradients go over ``torch.distributed``
+    as before.
     """
 
     def __init__(self, optimizer, *, op=Average,
                  compression=Compression.none,
                  fusion_threshold_bytes: Optional[int] = None,
                  reduce_gradients: bool = True, sharded=None, fsdp=None,
-                 local_sgd_steps=None):
-        for name, value, later in (
-                ("sharded", sharded, "ZeRO-1 over the eager engine"),
-                ("fsdp", fsdp, "FSDP units over the eager engine")):
-            if value:
-                raise NotImplementedError(
-                    f"DistributedOptimizer({name}=True): {later} is not "
-                    "ported yet (ROADMAP.md Queue A)")
-        if local_sgd_steps is not None and int(local_sgd_steps) > 1:
-            raise NotImplementedError(
-                "DistributedOptimizer(local_sgd_steps>1): local SGD is not "
-                "ported yet (ROADMAP.md Queue A)")
+                 fsdp_units=None, fsdp_prefetch=None, local_sgd_steps=None,
+                 named_parameters=None):
+        from horovod_tpu_torch.elastic.state import (LocalSGD,
+                                                     default_local_sgd_steps)
+        from horovod_tpu_torch.runtime.fsdp import fsdp_default
+        from horovod_tpu_torch.runtime.sharded import sharded_default
+
         self.inner = optimizer
         self._op = op
         self._compression = compression
         self._threshold = fusion_threshold_bytes
         self._reduce = reduce_gradients
         self.last_plan: Optional[FusionPlan] = None
+        self._local_sgd_steps = (default_local_sgd_steps()
+                                 if local_sgd_steps is None
+                                 else max(1, int(local_sgd_steps)))
+        sharded = sharded_default() if sharded is None else bool(sharded)
+        fsdp = fsdp_default() if fsdp is None else bool(fsdp)
+        if fsdp and sharded:
+            raise ValueError(
+                "fsdp=True and sharded=True are mutually exclusive: "
+                "FSDP subsumes the ZeRO-1 step (pick one rung of the "
+                "ladder; see docs/zero.md)")
+        if (sharded or fsdp) and self._local_sgd_steps > 1:
+            raise ValueError(
+                "sharded/fsdp and local_sgd_steps>1 are mutually "
+                "exclusive: local SGD skips the per-step reduction the "
+                "sharded step is built around")
+        if (sharded or fsdp) and not reduce_gradients:
+            raise ValueError(
+                "sharded/fsdp requires reduce_gradients=True: the ZeRO "
+                "step IS the reduction (reducescatter -> shard update "
+                "-> allgather); without it the shard-sized state cannot "
+                "apply and ranks would silently diverge")
+        if (sharded or fsdp) and op not in (Average, Sum):
+            raise ValueError(
+                "sharded/fsdp reduces gradients with SUM/AVERAGE only")
+        self._named = (None if named_parameters is None
+                       else list(named_parameters))
+        #: The sharded rung (ZeRO-1 or FSDP) that steps, or None.
+        self.zero = None
+        if sharded:
+            from horovod_tpu_torch.torch_frontend import _ShardedOptimizer
+            self.zero = _ShardedOptimizer(optimizer, compression,
+                                          average=op is Average)
+        elif fsdp:
+            from horovod_tpu_torch.torch_frontend import (
+                _FsdpOptimizer, _refuse_master_weights)
+            _refuse_master_weights("fsdp=True", optimizer)
+            self.zero = _FsdpOptimizer(
+                _regroup(optimizer, _fsdp_units(optimizer, self._named,
+                                                fsdp_units)),
+                compression, fsdp_prefetch, average=op is Average)
+        #: The periodic-sync policy (None when H <= 1).
+        self.local_sgd = (LocalSGD(self._local_sgd_steps,
+                                   compression=compression)
+                          if self._local_sgd_steps > 1 else None)
 
     @property
     def state(self):
-        return self.inner.state
+        return (self.zero or self.inner).state
 
     def grad_params(self) -> List[nn.Parameter]:
         """The parameters whose ``.grad`` the backward fills."""
@@ -117,7 +178,7 @@ class DistributedOptimizer:
         return params
 
     def zero_grad(self, set_to_none: bool = True) -> None:
-        self.inner.zero_grad(set_to_none=set_to_none)
+        (self.zero or self.inner).zero_grad(set_to_none=set_to_none)
 
     def synchronize(self) -> None:
         """Reduce the gradients now (``step`` calls it)."""
@@ -125,10 +186,83 @@ class DistributedOptimizer:
         self.last_plan = plan_fusion(grads, self._threshold)
         _reduce_(grads, self._op, self._compression, self.last_plan)
 
+    def _named_params(self):
+        names = ({id(p): n for n, p in self._named}
+                 if self._named is not None else {})
+        params = self.grad_params()
+        named = [(names.get(id(p), f"localsgd.p{i}"), p)
+                 for i, p in enumerate(params)]
+        masters = getattr(self.inner, "masters", None)
+        if masters is not None:
+            named = [(n, m) for (n, _), m in zip(named, masters)]
+        return named
+
     def step(self) -> None:
+        if self.zero is not None:
+            self.zero.step()
+            return
+        if self.local_sgd is not None:
+            from horovod_tpu_torch.torch_frontend import local_sgd_step
+            local_sgd_step(self.local_sgd, self._named_params(),
+                           self.inner.step,
+                           getattr(self.inner, "rederive", None))
+            return
         if self._reduce:
             self.synchronize()
         self.inner.step()
+
+
+def _fsdp_units(optimizer, named, fsdp_units) -> List[List[nn.Parameter]]:
+    """FSDP unit boundaries, as the reference's ``_fsdp_unit_groups``:
+    one unit per top-level name (sorted), or the explicit groups of
+    ``fsdp_units``; one per param group without names."""
+    if named is None:
+        if fsdp_units is not None:
+            raise ValueError("fsdp_units grouping needs named_parameters")
+        return [list(g["params"]) for g in optimizer.param_groups]
+    spans: dict = {}
+    for name, p in named:
+        spans.setdefault(name.split(".")[0], []).append(p)
+    keys = sorted(spans)
+    if fsdp_units is None:
+        return [spans[k] for k in keys]
+    groups, seen = [], set()
+    for group in fsdp_units:
+        params = []
+        for k in group:
+            if k not in spans:
+                raise ValueError(f"fsdp_units names unknown top-level key "
+                                 f"{k!r} (have {keys})")
+            if k in seen:
+                raise ValueError(f"fsdp_units lists key {k!r} twice")
+            seen.add(k)
+            params.extend(spans[k])
+        if params:
+            groups.append(params)
+    missing = [k for k in keys if k not in seen]
+    if missing:
+        raise ValueError(f"fsdp_units must cover every top-level key; "
+                         f"missing {missing}")
+    return groups
+
+
+def _regroup(optimizer, units):
+    """An optimizer of ``optimizer``'s class with one param group per
+    unit, each with the hyperparameters of the group its parameters came
+    from (a unit may not span groups)."""
+    group_of = {id(p): gi for gi, g in enumerate(optimizer.param_groups)
+                for p in g["params"]}
+    groups = []
+    for unit in units:
+        src = {group_of.get(id(p)) for p in unit}
+        if len(src) != 1 or None in src:
+            raise ValueError("an FSDP unit must take its parameters from "
+                             "one param group of the optimizer")
+        defaults = {k: v for k, v in
+                    optimizer.param_groups[src.pop()].items()
+                    if k != "params"}
+        groups.append({**defaults, "params": unit})
+    return type(optimizer)(groups)
 
 
 def _broadcast_(tensors: List[torch.Tensor], root_rank: int) -> None:

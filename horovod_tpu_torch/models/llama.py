@@ -87,7 +87,7 @@ def _require_dense(cfg: LlamaConfig) -> None:
     if cfg.num_experts > 1:
         raise NotImplementedError("the port supports dense (non-MoE) "
                                   "configs only; MoEBlock is not ported yet "
-                                  "(ROADMAP.md Queue A 2f)")
+                                  "(ROADMAP.md Queue A item 5)")
 
 
 class RMSNorm(nn.Module):

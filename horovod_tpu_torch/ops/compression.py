@@ -8,7 +8,7 @@ engine quantizes on send and dequantizes, reduces and requantizes on the
 ring with per-chunk scales (``runtime/eager.py``; fp32 payloads only).  On
 the ``torch.distributed`` path of ``make_train_step`` they are identities,
 as on the reference's traced path.  ``topk`` needs the sparse plane
-(``runtime/sparse.py``), which is not ported (ROADMAP.md Queue A): it
+(``runtime/sparse.py``), which is not ported (ROADMAP.md Queue A 4e): it
 raises.
 """
 
@@ -109,4 +109,4 @@ class Compression:
     def topk(ratio=None, error_feedback: bool = True):
         raise NotImplementedError(
             "Compression.topk needs the sparse plane (runtime/sparse.py), "
-            "which is not ported yet (ROADMAP.md Queue A)")
+            "which is not ported yet (ROADMAP.md Queue A 4e)")

@@ -33,7 +33,9 @@ class MasterWeights:
 
     ``model_params`` are the parameters whose ``.grad`` the backward
     fills (and ``DistributedOptimizer`` reduces); ``masters`` the tensors
-    the inner optimizer updates.
+    the inner optimizer updates.  ``param_groups`` is one group of the
+    model parameters: what the hook-form ``DistributedOptimizer``
+    (``torch_frontend.py``) puts its hooks on.
     """
 
     def __init__(self, params: Iterable[torch.nn.Parameter], optimizer_cls,
@@ -45,6 +47,7 @@ class MasterWeights:
             else p.detach().to(MASTER_DTYPE).requires_grad_(True)
             for p in self.model_params]
         self.inner = optimizer_cls(self.masters, **kwargs)
+        self.param_groups = [{"params": self.model_params}]
 
     @property
     def state(self):
@@ -58,13 +61,23 @@ class MasterWeights:
                 p.grad.zero_()
 
     @torch.no_grad()
-    def step(self) -> None:
-        for p, m in zip(self.model_params, self.masters):
-            if m is not p:
-                m.grad = None if p.grad is None else \
-                    p.grad.to(MASTER_DTYPE)
-        self.inner.step()
+    def rederive(self) -> None:
+        """The model's parameters from the masters (rounded to nearest
+        even)."""
         for p, m in zip(self.model_params, self.masters):
             if m is not p:
                 p.copy_(m)
-                m.grad = None
+
+    def step(self, closure=None):
+        loss = closure() if closure is not None else None
+        with torch.no_grad():
+            for p, m in zip(self.model_params, self.masters):
+                if m is not p:
+                    m.grad = None if p.grad is None else \
+                        p.grad.to(MASTER_DTYPE)
+            self.inner.step()
+            self.rederive()
+            for p, m in zip(self.model_params, self.masters):
+                if m is not p:
+                    m.grad = None
+        return loss

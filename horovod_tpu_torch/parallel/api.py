@@ -31,7 +31,7 @@ example calls: :data:`SHARDING_RULES`, :func:`infer_param_spec` and
 
 A ``tensor``, ``seq`` or ``expert`` axis larger than 1 raises:
 tensor/sequence/expert parallelism, ``make_parallel_train_step`` and
-``lm_loss_fn`` are ROADMAP.md Queue A item 9.
+``lm_loss_fn`` are ROADMAP.md Queue A item 5.
 """
 
 from __future__ import annotations
@@ -136,7 +136,7 @@ def shard_params(model: nn.Module, mesh) -> nn.Module:
         raise NotImplementedError(
             f"shard_params: mesh axes {unported} of size > 1 — tensor, "
             "sequence and expert parallelism are not ported yet (ROADMAP.md "
-            "Queue A item 9)")
+            "Queue A item 5)")
     if sizes.get(AXIS_FSDP, 1) == 1:
         return model
     from torch.distributed.fsdp import fully_shard

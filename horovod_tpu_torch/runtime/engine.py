@@ -27,7 +27,9 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 __all__ = ["NativeEngine", "HorovodInternalError", "StepSkipped",
-           "WIRE_DTYPES", "dtype_code", "get_engine", "reset_engine_naming"]
+           "SparseGradRetry", "WIRE_DTYPES", "dtype_code", "get_engine",
+           "reset_engine_naming", "note_sharded_step",
+           "note_local_sgd_sync"]
 
 
 class HorovodInternalError(RuntimeError):
@@ -39,6 +41,18 @@ class StepSkipped(Exception):
     rank out of a step's reduction; the world is healthy."""
 
 
+class SparseGradRetry(Exception):
+    """A layout-probe allreduce was told by the coordinator that peers
+    gather this tensor sparsely: the caller re-enqueues zero-entry sparse
+    gathers (``<name>.idx`` / ``<name>.vals``).  Raised only for handles
+    made by :meth:`NativeEngine.enqueue_probe`."""
+
+    def __init__(self, sparse_dim: int):
+        super().__init__(f"retry sparsely (sparse_dim={sparse_dim})")
+        self.sparse_dim = sparse_dim
+
+
+_SPARSE_RETRY_PREFIX = "__sparse_retry__:"
 _SKIPPED_STEP_PREFIX = "__skipped_step__"
 
 #: DataType codes, as in ``cpp/common.h``.
@@ -91,6 +105,9 @@ _SIGNATURES = (
     ("horovod_release_handle", [_I64], None),
     ("horovod_result_participants", [_I64], _I64),
     ("horovod_abort_reason", [_STR, _INT], None),
+    ("horovod_enqueue_probe", [_STR, _INT, _INT, _I64P, _PTR], _I64),
+    ("horovod_note_sharded_step", [], None),
+    ("horovod_note_local_sgd_sync", [], None),
 )
 
 #: Cumulative counters and knobs read by :meth:`NativeEngine.stats`
@@ -120,6 +137,8 @@ _COUNTERS = {
     "wire_fp8_count": "wire_fp8_count",
     "step_time_ns_p50": "step_time_ns_p50",
     "step_time_ns_p99": "step_time_ns_p99",
+    "sharded_steps": "sharded_steps", "local_sgd_syncs": "local_sgd_syncs",
+    "priority_inversions": "priority_inversions",
 }
 _CONFIG = ("num_channels", "chunk_bytes", "fusion_threshold",
            "cycle_time_ms", "wave_width", "shm_enabled", "algo_threshold",
@@ -329,6 +348,18 @@ class NativeEngine:
             0 if priority is None else max(0, int(priority)))
         return self._track(handle, name, buf)
 
+    def enqueue_probe(self, buf: torch.Tensor, name: str) -> int:
+        """Layout-probe allreduce (sum, in place) of placeholder zeros for
+        a tensor with no local gradient.  Completes as a dense allreduce
+        unless peers gather the tensor sparsely; then :meth:`synchronize`
+        raises :class:`SparseGradRetry`."""
+        _check_buffer(buf)
+        shape = (ctypes.c_int64 * buf.dim())(*buf.shape)
+        handle = self._lib.horovod_enqueue_probe(
+            name.encode(), dtype_code(buf.dtype), buf.dim(), shape,
+            buf.data_ptr())
+        return self._track(handle, name, buf)
+
     # -- handles --
 
     def poll(self, handle: int) -> bool:
@@ -346,7 +377,8 @@ class NativeEngine:
         buffer for a result bound for the card).  ``info`` receives
         ``participants``: how many ranks' data the response reduced, the
         divisor of an average.  Raises :class:`StepSkipped` when a
-        backup-worker partial commit left this rank out.
+        backup-worker partial commit left this rank out, and
+        :class:`SparseGradRetry` when a probe's peers gather sparsely.
         """
         status = self._lib.horovod_wait(handle)
         with self._inflight_lock:
@@ -359,6 +391,9 @@ class NativeEngine:
                 msg = ctypes.create_string_buffer(4096)
                 self._lib.horovod_error_message(handle, msg, len(msg))
                 text = msg.value.decode(errors="replace")
+                if text.startswith(_SPARSE_RETRY_PREFIX):
+                    raise SparseGradRetry(
+                        int(text[len(_SPARSE_RETRY_PREFIX):]))
                 if text.startswith(_SKIPPED_STEP_PREFIX):
                     raise StepSkipped(text)
                 raise HorovodInternalError(text or "collective failed")
@@ -418,6 +453,26 @@ def get_engine() -> NativeEngine:
             from horovod_tpu_torch.common import native_build
             _engine = NativeEngine(native_build.load())
         return _engine
+
+
+def _note(symbol: str) -> None:
+    eng = _engine
+    if eng is not None:
+        getattr(eng.lib, symbol)()
+
+
+def note_sharded_step() -> None:
+    """One completed ZeRO step (reducescatter, shard update, allgather) of
+    ``runtime/sharded.py`` or ``runtime/fsdp.py``: the engine's cumulative
+    ``sharded_steps`` counter (no-op before an engine is loaded)."""
+    _note("horovod_note_sharded_step")
+
+
+def note_local_sgd_sync() -> None:
+    """One completed outer sync of ``elastic.LocalSGD``: the engine's
+    cumulative ``local_sgd_syncs`` counter (no-op before an engine is
+    loaded)."""
+    _note("horovod_note_local_sgd_sync")
 
 
 def reset_engine_naming() -> None:

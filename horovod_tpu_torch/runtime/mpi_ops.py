@@ -234,6 +234,21 @@ def allreduce_async(tensor: torch.Tensor, average: bool = True,
                     red_op=red_op, wire_dtype=wire_dtype, priority=priority)
 
 
+def _probe_allreduce_async_(tensor: torch.Tensor,
+                            name: Optional[str] = None) -> int:
+    """In-place layout-probe allreduce (always averaged) of placeholder
+    zeros for a parameter whose gradient never materialized this step.
+    :func:`synchronize` on the handle returns the reduced tensor on the
+    input's device, or raises
+    :class:`~horovod_tpu_torch.runtime.engine.SparseGradRetry` when peers
+    gather the tensor sparsely."""
+    if name is None:
+        # A probe exists to meet peers' collectives for the same tensor;
+        # an invented name could never match them.
+        raise ValueError("layout-probe allreduce requires the tensor name")
+    return _enqueue("probe", tensor, name, inplace=True, average=True)
+
+
 def allreduce_(tensor: torch.Tensor, average: bool = True,
                name: Optional[str] = None) -> torch.Tensor:
     return synchronize(allreduce_async_(tensor, average, name))
@@ -377,11 +392,12 @@ def broadcast(tensor: torch.Tensor, root_rank: int,
 
 def reducescatter_async(tensor: torch.Tensor, name: Optional[str] = None,
                         *, red_op: str = "sum", average: bool = False,
-                        wire_dtype: Optional[str] = None) -> int:
+                        wire_dtype: Optional[str] = None,
+                        priority: Optional[int] = None) -> int:
     """Reduce across ranks, keep this rank's dim-0 rows (split as evenly as
     possible, earlier ranks take the remainder)."""
     return _enqueue("reducescatter", tensor, name, average=average,
-                    red_op=red_op, wire_dtype=wire_dtype)
+                    red_op=red_op, wire_dtype=wire_dtype, priority=priority)
 
 
 class _HorovodReducescatter(torch.autograd.Function):

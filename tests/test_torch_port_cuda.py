@@ -1031,3 +1031,146 @@ def test_pinned_pool_reuses_its_buffers(engine, dev):
     assert after["d2h_copies"] - before["d2h_copies"] == 4
     assert after["h2d_copies"] - before["h2d_copies"] == 4
     assert after["d2h_bytes"] - before["d2h_bytes"] == 4 * x.numel() * 4
+
+
+# ---------------------------------------------------------------------------
+# The engine-driven optimizers on CUDA tensors (torch_frontend.py and the
+# planes under it)
+# ---------------------------------------------------------------------------
+
+def test_flat_sharder_and_fsdp_plane_on_the_card_equal_the_cpu(engine, dev):
+    """At size 1 every plane operation on CUDA tensors returns, on the
+    card, the bytes it returns for the same CPU tensors."""
+    from horovod_tpu_torch.runtime.fsdp import FsdpPlane
+    from horovod_tpu_torch.runtime.sharded import FlatSharder
+
+    shapes = [(17, 11), (17,), (5, 17), (5,)]
+    host = [_seeded(torch.bfloat16, s, 40 + i) for i, s in enumerate(shapes)]
+    outs = {}
+    for where in ("cpu", dev):
+        ts = [t.to(where) for t in host]
+        sh = FlatSharder(sum(t.numel() for t in ts), torch.float32,
+                         name="card")
+        flat = FlatSharder.flatten(ts, torch.float32)
+        shard = sh.reduce_grads(flat)
+        plane = FsdpPlane([ts[:2], ts[2:]], name="card", prefetch=1)
+        plane.reduce_grads(1, [t * 2 for t in ts[2:]])
+        got = [flat, FlatSharder.slice_flat(ts, 3, 200, torch.float32),
+               shard, sh.gather_updates(shard),
+               *FlatSharder.unflatten(flat, shapes), plane.shard(0),
+               *plane.gather(0), plane.wait_grads(1)]
+        plane.free(0)
+        assert all(g.device.type == torch.device(where).type for g in got)
+        outs[str(where)] = [_bits(g) for g in got]
+    assert outs["cpu"] == outs[str(dev)]
+
+
+def test_hook_form_step_on_the_card_tracks_the_cpu_step(engine, dev):
+    """Three AdamW steps of the hook form on a CUDA model against the same
+    steps on the CPU: losses within the rtol that holds AdamW in
+    tests/test_torch_port_train.py (1e-5)."""
+    from horovod_tpu_torch import torch_frontend
+
+    def run(where):
+        torch.manual_seed(7)
+        m = torch.nn.Sequential(torch.nn.Linear(16, 32), torch.nn.Tanh(),
+                                torch.nn.Linear(32, 4)).to(where)
+        opt = torch_frontend.DistributedOptimizer(
+            torch.optim.AdamW(m.parameters(), lr=1e-3),
+            named_parameters=m.named_parameters())
+        losses = []
+        for step in range(3):
+            x = _seeded(torch.float32, (8, 16), 60 + step).to(where)
+            opt.zero_grad()
+            loss = m(x).pow(2).mean()
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())
+        return losses, torch.cat([p.detach().cpu().reshape(-1)
+                                  for p in m.parameters()])
+
+    (cpu_l, cpu_p), (dev_l, dev_p) = run("cpu"), run(dev)
+    np.testing.assert_allclose(dev_l, cpu_l, rtol=1e-5)
+    torch.testing.assert_close(dev_p, cpu_p, rtol=0, atol=1e-5)
+
+
+#: The weight gradient of Linear(4096, 4096) at 4096 rows: a GEMM of
+#: 137 GFLOP that ends right before the gradient's hook fires.
+READY_N = 4096
+
+
+def _ready_grad(rank, dev):
+    torch.manual_seed(0)
+    lin = torch.nn.Linear(READY_N, READY_N, bias=False, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(100 + rank)
+    x = torch.randn(READY_N, READY_N, device=dev, generator=gen)
+    return lin, x
+
+
+def _ready_rank() -> None:
+    """One rank of the ready-event test (``python
+    tests/test_torch_port_cuda.py ready``): the hook's allreduce of a
+    gradient a GEMM has just written must reduce the GEMM's result."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import torch_frontend
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init(device="cuda:0")           # both ranks on the one card
+    dev = hvd.device()
+    lin, x = _ready_grad(hvd.rank(), dev)
+    opt = torch_frontend.DistributedOptimizer(
+        torch.optim.SGD(lin.parameters(), lr=0.0),
+        named_parameters=lin.named_parameters())
+    # .grad is None: the GEMM's output becomes the gradient, and its hook
+    # fires as soon as autograd has queued it.
+    lin(x).sum().backward()
+    opt.synchronize()
+    got = lin.weight.grad.cpu()
+    local = []
+    for r in range(hvd.size()):
+        other, xo = _ready_grad(r, dev)
+        other(xo).sum().backward()
+        local.append(other.weight.grad.cpu())
+    want = (local[0] + local[1]) / 2
+    assert torch.isfinite(got).all() and _bits(got) == _bits(want)
+    hvd.shutdown()
+    print("ready ok", flush=True)
+
+
+def test_hook_allreduce_reads_the_gradient_its_gemm_wrote(dev, tmp_path):
+    """Two ranks on the card: what the engine reduces is the gradient the
+    backward's GEMM wrote (the staging's ready event), bit for bit the
+    average of the two ranks' gradients."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env.update(PYTHONPATH=repo, HOROVOD_SIZE="2", HOROVOD_LOCAL_SIZE="2",
+               HOROVOD_COORDINATOR=f"127.0.0.1:{port}")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "ready"],
+        env=dict(env, HOROVOD_RANK=str(r), HOROVOD_LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0 and b"ready ok" in log, \
+            b"\n".join(logs).decode(errors="replace")[-6000:]
+
+
+if __name__ == "__main__":
+    import sys
+
+    if sys.argv[1:] == ["ready"]:
+        _ready_rank()

@@ -83,14 +83,28 @@ def test_collectives_and_compression_on_one_rank(clean_env):
         Compression.topk(0.01)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(monkeypatch):
+    """What is still refused raises; the three rungs ported since build."""
+    for var in ("HOROVOD_SHARDED", "HOROVOD_FSDP", "HOROVOD_LOCAL_SGD_STEPS"):
+        monkeypatch.delenv(var, raising=False)
     opt = torch.optim.SGD([torch.nn.Parameter(torch.zeros(2))], lr=0.1)
-    for kw in (dict(sharded=True), dict(fsdp=True),
-               dict(local_sgd_steps=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            hvd.DistributedOptimizer(opt, **kw)
+    # Top-k needs the sparse plane (Queue A 4e) and cannot be built.
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A 4e"):
+        hvd.DistributedOptimizer(opt, compression=Compression.topk(0.01))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LlamaModel(LlamaConfig.tiny(num_experts=4), device="meta")
+    # The mutual exclusions of the JAX frontend.
+    for kw in (dict(sharded=True, fsdp=True),
+               dict(sharded=True, local_sgd_steps=4),
+               dict(fsdp=True, reduce_gradients=False)):
+        with pytest.raises(ValueError, match="sharded|fsdp"):
+            hvd.DistributedOptimizer(opt, **kw)
+    # sharded, fsdp and local SGD build now (ZeRO-1, FSDP units and
+    # LocalSGD over the eager engine).
+    assert hvd.DistributedOptimizer(opt, sharded=True).zero is not None
+    assert hvd.DistributedOptimizer(opt, fsdp=True).zero is not None
+    lsgd = hvd.DistributedOptimizer(opt, local_sgd_steps=4)
+    assert lsgd.zero is None and lsgd.local_sgd.steps == 4
     # The RMSNorm kernels are ported: the fused model builds.
     fused = LlamaModel(dataclasses.replace(LlamaConfig.tiny(),
                                            fused_rmsnorm=True), device="meta")

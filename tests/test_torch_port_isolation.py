@@ -54,7 +54,9 @@ _TRAINING_MODULES = ["common.basics", "ops.collective_ops", "ops.compression",
                      "experiments.conv_bn_spike", "models.resnet",
                      "models.convert", "bench", "common.native_build",
                      "runtime", "runtime.engine", "runtime.staging",
-                     "runtime.mpi_ops", "runtime.eager"]
+                     "runtime.mpi_ops", "runtime.eager", "torch_frontend",
+                     "runtime.sharded", "runtime.fsdp", "elastic",
+                     "elastic.state"]
 #: The serving slice, the router fleet and its launcher and benchmark.
 _SERVE_MODULES = ["serve", "serve.engine", "serve.scheduler", "serve.server",
                   "serve.replica", "serve.router", "run", "bench_serve"]

@@ -148,7 +148,7 @@ def test_one_rank_mesh_replicates_and_refuses_unported_axes(cpu_world):
     """One rank: ``{"data": 1, "fsdp": -1}`` resolves to fsdp 1, a real
     DeviceMesh over the default group; ``shard_params`` leaves the model
     as it is.  A tensor, seq or expert axis > 1 raises, naming ROADMAP
-    Queue A item 9."""
+    Queue A item 5."""
     m = mesh.build_mesh({"data": 1, "fsdp": -1})
     assert m.mesh_dim_names == ("data", "fsdp") and tuple(m.shape) == (1, 1)
     assert mesh.axis_sizes(m) == {"data": 1, "fsdp": 1}
@@ -159,7 +159,7 @@ def test_one_rank_mesh_replicates_and_refuses_unported_axes(cpu_world):
     assert api.shard_params(model, m) is model
     assert all(type(p) is torch.nn.Parameter for p in model.parameters())
     for axis in ("tensor", "seq", "expert"):
-        with pytest.raises(NotImplementedError, match="Queue A item 9"):
+        with pytest.raises(NotImplementedError, match="Queue A item 5"):
             api.shard_params(model, {"data": 1, "fsdp": 1, axis: 2})
     with pytest.raises(ValueError, match="does not cover"):
         mesh.build_mesh({"data": 2})
