@@ -159,8 +159,29 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                unsharded flat step, FSDP (fp32, SGD) against the dense
                replicated loop; one line per part with step ms, tokens/s,
                peak memory, the engine's and the staging's counters a
-               step;
-12. train_profile, train_packed_profile, train_bert_profile,
+               step; then three parts of the sparse plane: ``topk`` (the
+               hook form with ``Compression.topk(0.01)``: 131 sparse
+               allreduces a step, D2H bytes under 5 % of ``hook``'s, the
+               first step's selection, residual and output bitwise
+               against the CPU's on 11 leaves of every shape, one step
+               split into selection, allgathers and scatter, and a 2-layer
+               anchor against ``hvd.allreduce(topk)`` of the same
+               gradients), ``local_sgd_topk`` (H 4, the masters' deltas
+               top-k'd: 2 syncs of 131 sparse allreduces) and ``policy``
+               (``HOROVOD_WIRE_POLICY=1`` on an fp32 copy with AdamW: the
+               leaves sent int8, every 0/1-D leaf fp32,
+               ``wire_int8_count`` growing, the card's statistics against
+               the CPU's with the same decisions);
+12. engine_moe — ``runtime/moe.MoeLayer`` at bench_llama's widths (d 1024,
+               FFN 4096, 8 experts, top-2, capacity factor 1.25) on two
+               ranks of the engine on the card (``--moe-worker RANK``),
+               16 384 tokens, 3 steps of forward, backward and
+               ``apply_grads``: every rank's y, dx, router and expert
+               grads and updated parameters bitwise against the
+               world-of-one layer on the whole batch, drops equal to its
+               count; each dispatch's and combine's ms, alltoall bytes,
+               peak memory;
+13. train_profile, train_packed_profile, train_bert_profile,
                train_resnet_profile, bench_llama_profile — where one step
                of each goes
                (torch.profiler), after every phase was timed: once the
@@ -174,7 +195,7 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                real step;
                and the flash kernels' ``kernel_time_bench`` lines with
                bench_llama's launches a step;
-13. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+14. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints one JSON line; any failed check raises (exit != 0) and
@@ -2726,7 +2747,7 @@ def phase_engine():
 # two ranks of the eager engine on the one card
 # ---------------------------------------------------------------------------
 
-TRAIN_RANKS_TIMEOUT_S = 600
+TRAIN_RANKS_TIMEOUT_S = 900
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 LOCAL_SGD_H, LOCAL_SGD_STEPS = 4, 8
 #: The anchors' depth (bench_llama's widths).
@@ -2799,9 +2820,10 @@ class TrainPart:
         if self.dev.type == "cuda":
             torch.cuda.synchronize(self.dev)
 
-    def run(self, step, n_warmup, n_timed, params, name, before_timed=None):
+    def run(self, step, n_warmup, n_timed, params, name, before_timed=None,
+            after_step=None):
         """``step() -> loss`` n_warmup + n_timed times; after each, whether
-        the ranks' ``params`` agree."""
+        the ranks' ``params`` agree, then ``after_step(i)``."""
         for i in range(n_warmup + n_timed):
             if i == n_warmup:
                 self.sync()
@@ -2817,6 +2839,8 @@ class TrainPart:
                 self.walls.append((time.perf_counter() - t) * 1e3)
             self.losses.append(loss.item())
             self.agree.append(ranks_agree(params(), f"{name}.agree.{i}"))
+            if after_step is not None:
+                after_step(i)
         self.launches = dict(fa.launches)
         self.plain = dict(fa.plain_calls)
         self.eng1, self.st1 = get_engine().stats(), staging.stats()
@@ -2826,7 +2850,8 @@ class TrainPart:
         eng = {k: (self.eng1[k] - self.eng0[k]) / n for k in (
             "responses", "tensors", "allreduce_ns", "allreduce_bytes",
             "reducescatter_ns", "reducescatter_bytes", "data_bytes_tx",
-            "sharded_steps", "local_sgd_syncs")}
+            "sharded_steps", "local_sgd_syncs", "sparse_count",
+            "wire_int8_count")}
         p50 = statistics.median(self.walls)
         on_card = self.dev.type == "cuda"
         out = {"step_ms": self.walls, "step_ms_p50": p50,
@@ -2839,6 +2864,8 @@ class TrainPart:
                "engine_per_step": eng,
                "d2h_ms_per_step":
                (self.st1["d2h_ms"] - self.st0["d2h_ms"]) / n,
+               "d2h_bytes_per_step":
+               (self.st1["d2h_bytes"] - self.st0["d2h_bytes"]) / n,
                "h2d_ms_per_step":
                (self.st1["h2d_ms"] - self.st0["h2d_ms"]) / n,
                "flash_launches_per_step": {k: v / n for k, v in
@@ -3108,6 +3135,285 @@ def part_local_sgd(cfg, batch, dev) -> dict:
     return out
 
 
+TOPK_RATIO = 0.01
+#: Rows the first top-k step holds against the CPU: the embedding, the
+#: head, the final norm and every leaf of the first layer (every shape of
+#: the model).
+TOPK_CHECK = ("tok_emb", "lm_head", "norm_f", "layers.0.")
+#: The wire statistics' bound against the CPU's (``runtime/wire_policy``):
+#: abs-max exact, the mean of squares within a relative 1e-6.
+POLICY_MEAN_RTOL = 1e-6
+
+
+def topk_checked(name: str) -> bool:
+    return name.startswith(TOPK_CHECK)
+
+
+def topk_first_step_check(named, snap, k_of) -> dict:
+    """The first top-k step's local gradients (no residual yet) through
+    the port's function on the card and on the CPU: selection, residual
+    and output bit for bit, and the output equal to what the hook form
+    wrote into ``.grad``.  Both ranks run it (its allgathers are
+    collectives).  Returns how many leaves had ties at the k-th
+    magnitude, and the largest tie."""
+    from horovod_tpu_torch.runtime import sparse
+
+    ties, largest = 0, 0
+    for n, p in sorted(named):
+        if not topk_checked(n):
+            continue
+        g = snap[n]
+        v = g.float().reshape(-1)
+        k = k_of(v.numel())
+        sel_d, val_d = sparse.select_topk(v, k)
+        sel_c, val_c = sparse.select_topk(v.cpu(), k)
+        kth = v.abs()[sel_d[-1]]
+        tied = int((v.abs() == kth).sum())
+        ties += tied > 1
+        largest = max(largest, tied)
+        out_d = sparse.sparse_allreduce_topk(g, name=f"chk.dev.{n}",
+                                             ratio=TOPK_RATIO)
+        out_c = sparse.sparse_allreduce_topk(g.cpu(), name=f"chk.cpu.{n}",
+                                             ratio=TOPK_RATIO)
+        res_hook = sparse._RESIDUALS[n][1]
+        res_d = sparse._RESIDUALS[f"chk.dev.{n}"][1]
+        res_c = sparse._RESIDUALS[f"chk.cpu.{n}"][1]
+        check(bitwise_equal(sel_d, sel_c) and bitwise_equal(val_d, val_c)
+              and bitwise_equal(res_d, res_c)
+              and bitwise_equal(res_hook, res_c)
+              and bitwise_equal(out_d, out_c)
+              and bitwise_equal(p.grad, out_c.to(p.grad.dtype)),
+              f"engine_train topk: {n}: the card's selection, residual or "
+              "output differs from the CPU's")
+        for tag in ("dev", "cpu"):
+            sparse.reset_residuals(f"chk.{tag}.{n}")
+    return {"leaves_checked": sum(topk_checked(n) for n, _ in named),
+            "leaves_with_boundary_ties": ties, "largest_tie": largest}
+
+
+def part_topk(cfg, batch, dev, hook) -> dict:
+    """The hook form over MasterWeights(AdamW) with
+    ``Compression.topk(0.01)``: each gradient's k entries through two
+    allgathers, in ``synchronize()``; ``hook`` is the hook part's report
+    (its D2H bytes a step)."""
+    from horovod_tpu_torch.runtime import mpi_ops, sparse
+
+    sparse.reset_residuals()
+    model = train_model(cfg, dev)
+    named = list(model.named_parameters())
+    snap = grad_snapshots(named)
+    opt = torch_frontend.DistributedOptimizer(
+        masterweights(model), named_parameters=named,
+        compression=hvd.Compression.topk(TOPK_RATIO))
+    part = TrainPart(dev, batch.numel() - batch.shape[0])
+    first = {}
+
+    def k_of(n):
+        return max(1, min(n, int(round(n * TOPK_RATIO))))
+
+    def after_step(i):
+        if i == 0:
+            first.update(topk_first_step_check(named, snap, k_of))
+
+    def step():
+        opt.zero_grad()
+        loss = bench.llama_loss_fn(model, batch)
+        loss.backward()
+        opt.step()
+        return loss
+
+    part.run(step, TRAIN_WARMUP, TRAIN_TIMED, model.parameters, "topk",
+             after_step=after_step)
+    out = part.report(cfg.num_layers, first_step_vs_cpu=first)
+    per_step = out["engine_per_step"]["sparse_count"]
+    check(per_step == len(named),
+          f"engine_train topk: {per_step} sparse allreduces a step, want "
+          f"{len(named)}")
+    if dev.type == "cuda":      # the CPU stages nothing
+        ratio = out["d2h_bytes_per_step"] / hook["d2h_bytes_per_step"]
+        check(ratio < 0.05, f"engine_train topk: D2H bytes a step are "
+              f"{ratio:.4f} of the hook part's")
+        out["d2h_bytes_vs_hook"] = ratio
+    # One more step, its top-k work split: the selection, the allgathers
+    # (staging and wire) and the scatter-add, each between device syncs.
+    shares = {"select": [], "gather_enqueue": [], "gather_wait": [],
+              "scatter": [], "sparse_allreduce": []}
+    originals = {}
+    for obj, method, key in ((sparse, "select_topk", "select"),
+                             (mpi_ops, "allgather_async", "gather_enqueue"),
+                             (mpi_ops, "_drain", "gather_wait"),
+                             (sparse, "_add_in_rank_order", "scatter"),
+                             (sparse, "sparse_allreduce_topk",
+                              "sparse_allreduce")):
+        originals[(obj, method)] = getattr(obj, method)
+        time_calls(obj, method, shares[key], part.sync)
+    part.sync()
+    t = time.perf_counter()
+    step()
+    part.sync()
+    wall = (time.perf_counter() - t) * 1e3
+    for (obj, method), fn in originals.items():
+        setattr(obj, method, fn)
+    out["split_step"] = {"step_ms": wall, **{
+        f"{k}_ms": sum(v) for k, v in shares.items()},
+        "calls": {k: len(v) for k, v in shares.items()}}
+    del model, opt, snap, named
+    free_memory()
+
+    # Anchor at 2 layers: the hook-form step equals hvd.allreduce(topk) of
+    # the same gradient snapshots, in name order, and the same inner step.
+    sparse.reset_residuals()
+    cfg2 = dataclasses.replace(cfg, num_layers=ANCHOR_LAYERS)
+    model = train_model(cfg2, dev)
+    twin = LlamaModel.from_state_dict(
+        cfg2, {k: v.detach().clone() for k, v in model.state_dict().items()},
+        attention_fn=fa.flash_attention_fn)
+    named = list(model.named_parameters())
+    snap = grad_snapshots(named)
+    opt = torch_frontend.DistributedOptimizer(
+        masterweights(model), named_parameters=named,
+        compression=hvd.Compression.topk(TOPK_RATIO))
+    ref = masterweights(twin)
+    twin_params = dict(twin.named_parameters())
+    for i in range(2):
+        opt.zero_grad()
+        bench.llama_loss_fn(model, batch).backward()
+        opt.step()
+        for n, _ in sorted(named):
+            twin_params[n].grad = hvd.allreduce(
+                snap[n], name=f"anchor.topk.{n}",
+                compression=hvd.Compression.topk(TOPK_RATIO))
+        ref.step()
+        check(bits_equal(model.parameters(), twin.parameters())
+              and bits_equal(opt.masters, ref.masters),
+              f"engine_train topk: step {i} differs from hvd.allreduce(topk)"
+              " of the same gradients and the same inner step")
+    out["anchor"] = {"layers": ANCHOR_LAYERS, "steps": 2, "bitwise": True}
+    sparse.reset_residuals()
+    return out
+
+
+def part_local_sgd_topk(cfg, batch, dev) -> dict:
+    """The hook form with ``local_sgd_steps=4`` and
+    ``Compression.topk(0.01)`` over MasterWeights(AdamW): each sync ships
+    every master's delta as its k largest entries."""
+    from horovod_tpu_torch.runtime import sparse
+
+    sparse.reset_residuals()
+    model = train_model(cfg, dev)
+    opt = torch_frontend.DistributedOptimizer(
+        masterweights(model), named_parameters=model.named_parameters(),
+        local_sgd_steps=LOCAL_SGD_H,
+        compression=hvd.Compression.topk(TOPK_RATIO))
+    part = TrainPart(dev, batch.numel() - batch.shape[0])
+
+    def step():
+        opt.zero_grad()
+        loss = bench.llama_loss_fn(model, batch)
+        loss.backward()
+        opt.step()
+        return loss
+
+    part.run(step, 0, LOCAL_SGD_STEPS, model.parameters, "local_sgd_topk")
+    synced = [(i + 1) % LOCAL_SGD_H == 0 for i in range(LOCAL_SGD_STEPS)]
+    check(part.agree == synced,
+          f"engine_train local_sgd_topk: ranks agree after {part.agree}, "
+          f"want {synced}")
+    syncs = part.eng1["local_sgd_syncs"] - part.eng0["local_sgd_syncs"]
+    sparse_n = part.eng1["sparse_count"] - part.eng0["sparse_count"]
+    leaves = len(opt.masters)
+    check(opt._local_sgd.sync_count == syncs == 2
+          and sparse_n == 2 * leaves,
+          f"engine_train local_sgd_topk: {opt._local_sgd.sync_count} syncs "
+          f"({syncs} counted by the engine), {sparse_n} sparse allreduces "
+          f"for {leaves} leaves")
+    out = part.report(cfg.num_layers, syncs=syncs, sparse_per_sync=leaves,
+                      anchor={"agree_after": synced})
+    del model, opt
+    sparse.reset_residuals()
+    free_memory()
+    return out
+
+
+def part_policy(cfg, batch, dev) -> dict:
+    """``HOROVOD_WIRE_POLICY=1``: the hook form over AdamW on an fp32 copy
+    of the model (the policy acts on fp32 gradients only; the fp32 flash
+    kernels run).  Each step, the local gradients' statistics on the card
+    and on the CPU feed two shadow policies that must decide alike."""
+    from horovod_tpu_torch.runtime import wire_policy as wp
+
+    os.environ["HOROVOD_WIRE_POLICY"] = "1"
+    wp.reset_default_policy()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                logits_dtype=torch.float32)
+    try:
+        model = train_model(cfg32, dev)
+        named = list(model.named_parameters())
+        snap = grad_snapshots(named)
+        opt = torch_frontend.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=bench.LLAMA_LR,
+                              **bench.LLAMA_ADAMW), named_parameters=named)
+    finally:
+        del os.environ["HOROVOD_WIRE_POLICY"]
+    policy = opt._wire_policy
+    check(policy is wp.default_policy(), "engine_train policy: no policy")
+    shadow = {"dev": wp.WirePolicy(), "cpu": wp.WirePolicy()}
+    worst = {"abs_max": 0.0, "mean_square_rel": 0.0}
+
+    def after_step(i):
+        names = [n for n, _ in named]
+        grads = [snap[n] for n in names]
+        need = [policy.needs_statistics(g) for g in grads]
+        dev_stats = wp.leaf_statistics([g for g, x in zip(grads, need) if x])
+        cpu_stats = wp.leaf_statistics([g.cpu() for g, x in zip(grads, need)
+                                        if x])
+        for (ad, md), (ac, mc) in zip(dev_stats, cpu_stats):
+            worst["abs_max"] = max(worst["abs_max"], abs(ad - ac))
+            worst["mean_square_rel"] = max(worst["mean_square_rel"],
+                                           abs(md - mc) / max(mc, 1e-45))
+        decided = {k: shadow[k].observe_and_choose_many(
+            names, [g if k == "dev" else g.cpu() for g in grads])
+            for k in shadow}
+        check(decided["dev"] == decided["cpu"]
+              and shadow["dev"].decisions == policy.decisions,
+              f"engine_train policy: step {i}: the card's and the CPU's "
+              "statistics decide differently")
+
+    part = TrainPart(dev, batch.numel() - batch.shape[0])
+
+    def step():
+        opt.zero_grad()
+        loss = bench.llama_loss_fn(model, batch)
+        loss.backward()
+        opt.step()
+        return loss
+
+    part.run(step, TRAIN_WARMUP, TRAIN_TIMED, model.parameters, "policy",
+             after_step=after_step)
+    check(worst["abs_max"] == 0.0
+          and worst["mean_square_rel"] <= POLICY_MEAN_RTOL,
+          f"engine_train policy: statistics off the CPU's by {worst}")
+    shapes = {n: p.dim() for n, p in named}
+    int8 = sorted(n for n, w in policy.decisions.items() if w == "int8")
+    fp32 = sorted(n for n, w in policy.decisions.items() if w == "fp32")
+    check(all(policy.decisions[n] == "fp32" for n, d in shapes.items()
+              if d <= 1), "engine_train policy: a 0/1-D leaf left fp32")
+    grew = part.eng1["wire_int8_count"] - part.eng0["wire_int8_count"]
+    check(int8 and grew > 0,
+          f"engine_train policy: {len(int8)} int8 leaves, "
+          f"wire_int8_count grew by {grew}")
+    out = part.report(cfg.num_layers, dtype="float32", int8_leaves=int8,
+                      fp32_leaves=fp32,
+                      default_leaves=sorted(n for n, w in
+                                            policy.decisions.items()
+                                            if w is None),
+                      statistics_vs_cpu=worst)
+    del model, opt, snap
+    wp.reset_default_policy()
+    free_memory()
+    return out
+
+
 def train_worker(rank: int, device: str, cfg=None) -> dict:
     """One rank of the engine_train phase: bench_llama's model (``cfg``,
     default ``bench.llama_config()``) at B 4 x S 2048, this rank's 4 rows
@@ -3125,16 +3431,23 @@ def train_worker(rank: int, device: str, cfg=None) -> dict:
     out = {"rank": hvd.rank(), "size": hvd.size(), "device": str(dev),
            "batch": list(batch.shape)}
     t0 = time.monotonic()
-    for name, part in (("hook", part_hook), ("zero1", part_zero1),
-                       ("fsdp", part_fsdp), ("local_sgd", part_local_sgd)):
+    parts = (("hook", part_hook), ("zero1", part_zero1),
+             ("fsdp", part_fsdp), ("local_sgd", part_local_sgd),
+             ("topk", lambda *a: part_topk(*a, hook=out["hook"])),
+             ("local_sgd_topk", part_local_sgd_topk),
+             ("policy", part_policy))
+    for name, part in parts:
         t = time.monotonic()
         out[name] = part(cfg, batch, dev)
         out[name]["part_s"] = time.monotonic() - t
+        # The optimizers' hooks hold their optimizer in a reference cycle
+        # with the parameters: collect a part's models before the next.
+        free_memory()
         losses = out[name]["losses"]
         check(all(math.isfinite(x) for x in losses)
               and losses[-1] < losses[0],
               f"engine_train {name}: the loss did not fall: {losses}")
-        if name != "local_sgd":
+        if not name.startswith("local_sgd"):
             check(all(out[name]["ranks_agree"]),
                   f"engine_train {name}: ranks' parameters differ: "
                   f"{out[name]['ranks_agree']}")
@@ -3151,12 +3464,157 @@ def phase_engine_train():
     results = run_ranks("--train-worker", "engine_train",
                         TRAIN_RANKS_TIMEOUT_S)
     smi = smi_now()
-    for part in ("hook", "zero1", "fsdp", "local_sgd"):
+    for part in ("hook", "zero1", "fsdp", "local_sgd", "topk",
+                 "local_sgd_topk", "policy"):
         emit("engine_train", part=part, ranks=ENGINE_RANKS,
              batch_per_rank=results[0]["batch"],
              per_rank=[r[part] for r in results], nvidia_smi_after=smi)
     emit("engine_train", part="phase", wall_s=time.monotonic() - t0,
          worker_wall_s=[r["wall_s"] for r in results])
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the expert-parallel MoE layer over the engine's variable-split
+# alltoall, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+MOE_TIMEOUT_S = 300
+#: bench_llama's widths: d_model 1024, FFN 4096; 8 experts, top-2, GShard's
+#: capacity factor; 16 384 tokens (8 192 a rank).
+MOE_TOKENS, MOE_D, MOE_H = 16384, 1024, 4096
+MOE_EXPERTS, MOE_TOPK, MOE_CF = 8, 2, 1.25
+MOE_STEPS, MOE_LR = 3, 0.1
+
+
+def moe_batch(dev):
+    """Seeded tokens and a learnable target (a fixed linear map of them),
+    made on the card, the same on every rank."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(MOE_TOKENS, MOE_D, device=dev, generator=gen)
+    a = torch.randn(MOE_D, MOE_D, device=dev, generator=gen) \
+        * (0.5 / math.sqrt(MOE_D))
+    return x, x @ a
+
+
+def moe_worker(rank: int, device: str) -> dict:
+    """One rank of engine_moe: 3 steps of forward, backward and
+    ``apply_grads`` of its shard, each held bit for bit against the
+    world-of-one layer on the whole batch (which every rank runs, so that
+    each checks its own rows and experts)."""
+    from horovod_tpu_torch.runtime import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init(device=device)
+    dev, size = hvd.device(), hvd.size()
+    x, tgt = moe_batch(dev)
+    rows = MOE_TOKENS // size
+    sh = slice(rank * rows, (rank + 1) * rows)
+    kw = dict(n_experts=MOE_EXPERTS, topk=MOE_TOPK, capacity_factor=MOE_CF,
+              seed=0)
+    moe.reset_moe_stats()
+    lay = moe.MoeLayer(MOE_D, MOE_H, **kw)
+    ref = moe.MoeLayer(MOE_D, MOE_H, world=(0, 1), **kw)
+    check(lay.device == dev and lay.size == size == ENGINE_RANKS,
+          f"engine_moe: layer on {lay.device} at size {lay.size}")
+    lo, epr = lay.expert_lo, lay.experts_per_rank
+    a2a, inner = {}, lay._alltoall
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def timed(payload, splits, tag):
+        sync()
+        t = time.perf_counter()
+        out = inner(payload, splits, tag)
+        sync()
+        a2a.setdefault(tag, []).append((time.perf_counter() - t) * 1e3)
+        return out
+
+    lay._alltoall = timed
+    eng = get_engine()
+    s0 = eng.stats()
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+    for i in range(MOE_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        d0 = eng.stats()["moe_tokens_dropped"]
+        y, c = lay.forward(x[sh])
+        sync()
+        t1 = time.perf_counter()
+        d1 = eng.stats()["moe_tokens_dropped"]
+        dx = lay.backward((y - tgt[sh]) / MOE_TOKENS, c)
+        sync()
+        t2 = time.perf_counter()
+        yr, cr = ref.forward(x)
+        dxr = ref.backward((yr - tgt) / MOE_TOKENS, cr)
+        block = int(((~cr["kept"]) & (cr["local_e"] >= lo)
+                     & (cr["local_e"] < lo + epr)).sum())
+        check(bitwise_equal(y, yr[sh]) and bitwise_equal(dx, dxr[sh])
+              and bitwise_equal(lay.g_wg, ref.g_wg)
+              and all(bitwise_equal(getattr(lay, g),
+                                    getattr(ref, g)[lo:lo + epr])
+                      for g in ("g_w1", "g_b1", "g_w2", "g_b2")),
+              f"engine_moe: step {i}: rank {rank}'s y, dx or grads differ "
+              "from the world-of-one layer's")
+        check(c["dropped"] == block == d1 - d0,
+              f"engine_moe: step {i}: {c['dropped']} dropped, the world of "
+              f"one drops {block} of this rank's experts, the engine counted "
+              f"{d1 - d0}")
+        sync()
+        t3 = time.perf_counter()
+        lay.apply_grads(MOE_LR)
+        sync()
+        t4 = time.perf_counter()
+        ref.apply_grads(MOE_LR)
+        check(bitwise_equal(lay.wg, ref.wg)
+              and all(bitwise_equal(p, q[lo:lo + epr]) for p, q in
+                      zip(lay.expert_params(), ref.expert_params())),
+              f"engine_moe: step {i}: updated parameters differ")
+        steps.append({"forward_ms": (t1 - t0) * 1e3,
+                      "backward_ms": (t2 - t1) * 1e3,
+                      "apply_ms": (t4 - t3) * 1e3,
+                      "dropped": c["dropped"],
+                      "dropped_world_of_one": cr["dropped"],
+                      "loss_sum": float(((y - tgt[sh]) ** 2).sum())})
+    s1 = eng.stats()
+    out = {"rank": rank, "tokens": rows, "capacity": moe.moe_capacity(
+        MOE_TOKENS, MOE_EXPERTS, MOE_TOPK, MOE_CF),
+        "experts_owned": [lo, lo + epr], "steps": steps,
+        "step_ms": [st["forward_ms"] + st["backward_ms"] + st["apply_ms"]
+                    for st in steps],
+        "alltoall_ms": a2a,
+        "alltoall_bytes_per_step": (s1["alltoall_bytes"]
+                                    - s0["alltoall_bytes"]) / MOE_STEPS,
+        "alltoall_ns_per_step": (s1["alltoall_ns"] - s0["alltoall_ns"])
+        / MOE_STEPS,
+        "moe_dispatches": s1["moe_dispatches"],
+        "moe_experts": s1["moe_experts"],
+        "moe_capacity_factor": s1["moe_capacity_factor"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        if on_card else None,
+        "bitwise_vs_world_of_one": True}
+    hvd.shutdown()
+    return out
+
+
+def phase_engine_moe():
+    """The MoE layer at bench_llama's widths on two ranks of the engine on
+    the one card (``--moe-worker RANK``)."""
+    t0 = time.monotonic()
+    results = run_ranks("--moe-worker", "engine_moe", MOE_TIMEOUT_S)
+    drops = [[r["steps"][i]["dropped"] for r in results]
+             for i in range(MOE_STEPS)]
+    check(all(sum(d) == results[0]["steps"][i]["dropped_world_of_one"]
+              for i, d in enumerate(drops)),
+          f"engine_moe: drops {drops} do not sum to the world of one's")
+    emit("engine_moe", ranks=ENGINE_RANKS, tokens=MOE_TOKENS,
+         d_model=MOE_D, d_hidden=MOE_H, experts=MOE_EXPERTS, topk=MOE_TOPK,
+         capacity_factor=MOE_CF, per_rank=results,
+         wall_s=time.monotonic() - t0, nvidia_smi_after=smi_now())
 
 
 def label_forward(module, name):
@@ -3212,6 +3670,9 @@ def main(argv=None) -> int:
     # One rank of the engine_train phase.
     parser.add_argument("--train-worker", type=int, default=None,
                         metavar="RANK", help=argparse.SUPPRESS)
+    # One rank of the engine_moe phase.
+    parser.add_argument("--moe-worker", type=int, default=None,
+                        metavar="RANK", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3225,6 +3686,9 @@ def main(argv=None) -> int:
     if args.train_worker is not None:
         print(json.dumps(train_worker(args.train_worker, "cuda:0")),
               flush=True)
+        return 0
+    if args.moe_worker is not None:
+        print(json.dumps(moe_worker(args.moe_worker, "cuda:0")), flush=True)
         return 0
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -3302,6 +3766,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_engine()
     phase_engine_train()
+    phase_engine_moe()
     compare_profiles(
         phase_train_profile("train_profile",
                             llama_factory(args.seed, *train[:3]), train[3]),

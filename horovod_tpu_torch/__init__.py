@@ -32,7 +32,12 @@ enqueue each gradient's allreduce during the backward), ZeRO-1
 (``runtime/sharded.py``), FSDP units (``runtime/fsdp.py``) and local SGD
 (``hvd.elastic.LocalSGD``), which the JAX-form
 ``hvd.DistributedOptimizer(sharded=, fsdp=, local_sgd_steps=)`` reaches
-through the same classes.
+through the same classes; and the sparse and expert planes:
+``hvd.Compression.topk`` (top-k sparse allreduce with error feedback,
+``hvd.runtime.sparse``), the statistics-driven wire policy
+(``HOROVOD_WIRE_POLICY=1``, ``hvd.runtime.wire_policy``) and the
+expert-parallel MoE layer over the variable-split alltoall
+(``hvd.runtime.moe.MoeLayer``).
 
 Two communicators, as ``common/basics.py`` sets out:
 
@@ -55,7 +60,8 @@ from horovod_tpu_torch.common.basics import (device, epoch, init,
                                              local_size,
                                              mpi_threads_supported, rank,
                                              shutdown, size)
-from horovod_tpu_torch import elastic, torch_frontend
+from horovod_tpu_torch import elastic, runtime, torch_frontend
+from horovod_tpu_torch.runtime import moe, sparse, wire_policy  # noqa: F401
 from horovod_tpu_torch.common.device import resolve_device
 from horovod_tpu_torch.frontend import (DistributedOptimizer,
                                         allreduce_gradients,
@@ -91,4 +97,4 @@ __all__ = ["__version__", "resolve_device", "init", "shutdown",
            "alltoall_async", "poll", "synchronize", "Compression",
            "allreduce_gradients", "DistributedOptimizer",
            "broadcast_parameters", "broadcast_optimizer_state",
-           "make_train_step", "torch_frontend", "elastic"]
+           "make_train_step", "torch_frontend", "elastic", "runtime"]

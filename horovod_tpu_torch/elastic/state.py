@@ -4,7 +4,10 @@ Counterpart of ``horovod_tpu/elastic/state.py:181-435``.  Trees hold
 torch tensors on any device (and Python numbers); the outer sync is one
 grouped allreduce of the tensors as they are, through the eager engine,
 so a CUDA model is staged through pinned memory behind its ready event
-(``runtime/staging.py``) and comes back on its device.
+(``runtime/staging.py``) and comes back on its device.  With
+``compression=Compression.topk(r)`` it is one top-k sparse allreduce of
+each float leaf's delta from the anchor instead (``runtime/sparse.py``),
+on the leaf's device.
 """
 
 from __future__ import annotations
@@ -67,17 +70,23 @@ class LocalSGD:
       partial commit) keeps the local model, re-anchors to it, and is not
       counted.
 
-    ``compression=Compression.topk(...)`` (the reference's sparse outer
-    sync) needs ``runtime/sparse.py``: ROADMAP.md Queue A 4e.
+    * **Top-k** (``compression=Compression.topk(r)``).  The sync ships
+      each float leaf's delta ``P_r - anchor`` as its ``k`` largest
+      entries, with error-feedback residuals of its own (keyed
+      ``local_sgd.delta.<path>``, epoch-stamped), and rebuilds
+      ``anchor + avg(delta)``; so in this mode the anchor keeps the
+      values (a detached copy on the leaf's device), the sync runs at a
+      world of one too, and non-float leaves stay local.
     """
 
     def __init__(self, local_sgd_steps: int | None = None,
                  compression=None):
-        if type(compression).__name__ == "TopKCompressor":
-            raise NotImplementedError(
-                "LocalSGD(compression=Compression.topk(...)): the top-k "
-                "sparse outer sync (runtime/sparse.py) is not ported yet "
-                "(ROADMAP.md Queue A 4e)")
+        # Duck-typed, as the reference's: any spec named TopKCompressor
+        # with a ratio.
+        self._topk = compression if (
+            type(compression).__name__ == "TopKCompressor"
+            and hasattr(compression, "ratio")) else None
+        self._anchor_values = None
         self.steps = max(1, int(local_sgd_steps)
                          if local_sgd_steps is not None
                          else default_local_sgd_steps())
@@ -94,9 +103,19 @@ class LocalSGD:
 
     def begin(self, params=None) -> None:
         """Anchor the outer model: call once before the first local step.
-        ``params`` is accepted for clarity and not stored."""
+        ``params`` is stored only in top-k mode, where the sync ships
+        deltas from it; there a value-less ``begin()`` defers anchoring to
+        the next :meth:`maybe_sync`."""
         self._anchor_epoch = self._epoch()
         self._local_steps = 0
+        if self._topk is not None:
+            if params is None:
+                self._anchored = False
+                self._anchor_values = None
+                return
+            self._anchor_values = _walk(
+                params, "p", lambda _, leaf: leaf.detach().clone()
+                if isinstance(leaf, torch.Tensor) else leaf)
         self._anchored = True
 
     def reset(self) -> None:
@@ -104,6 +123,7 @@ class LocalSGD:
         syncing."""
         self._anchored = False
         self._anchor_epoch = None
+        self._anchor_values = None
         self._local_steps = 0
 
     def maybe_sync(self, params):
@@ -116,6 +136,8 @@ class LocalSGD:
         self._local_steps += 1
         if self._local_steps < self.steps:
             return params
+        if self._topk is not None:
+            return self._sync_topk(params)
         if not basics.is_initialized() or basics.size() == 1:
             # A world of one: the sync is an identity, the cadence holds.
             self.begin(params)
@@ -153,6 +175,45 @@ class LocalSGD:
             return type(leaf)(new.reshape(()).item())
 
         synced = _walk(params, "p", adopt)
+        self.begin(synced)
+        self.sync_count += 1
+        note_local_sgd_sync()
+        return synced
+
+    def _sync_topk(self, params):
+        """The outer sync over the top-k sparse path: per float leaf, top-k
+        of ``P_r - anchor`` with residuals keyed
+        ``local_sgd.delta.<path>``, rebuilt as ``anchor + avg``, in the
+        leaf's dtype.  Leaf by leaf (two allgathers each)."""
+        from horovod_tpu_torch.runtime.sparse import sparse_allreduce_topk
+
+        anchors: dict = {}
+        _walk(self._anchor_values, "p",
+              lambda path, leaf: anchors.__setitem__(path, leaf))
+
+        def sync_leaf(path, leaf):
+            anchor = anchors.get(path)
+            t = leaf if isinstance(leaf, torch.Tensor) else (
+                torch.tensor(leaf, dtype=torch.float64)
+                if isinstance(leaf, float) else None)
+            a = anchor if isinstance(anchor, torch.Tensor) else (
+                torch.tensor(anchor, dtype=torch.float64)
+                if isinstance(anchor, float) else None)
+            if (t is None or a is None or not t.is_floating_point()
+                    or a.shape != t.shape):
+                # Non-float slots, and structure drift (the next re-anchor
+                # repairs it), stay local.
+                return leaf
+            anchor32 = a.to(device=t.device, dtype=torch.float32)
+            avg = sparse_allreduce_topk(
+                t.detach().to(torch.float32) - anchor32,
+                name=f"local_sgd.delta.{path}", ratio=self._topk.ratio,
+                error_feedback=getattr(self._topk, "error_feedback", True),
+                average=True)
+            new = (anchor32 + avg).to(t.dtype)
+            return new if isinstance(leaf, torch.Tensor) else float(new)
+
+        synced = _walk(params, "p", sync_leaf)
         self.begin(synced)
         self.sync_count += 1
         note_local_sgd_sync()

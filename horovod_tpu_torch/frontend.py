@@ -15,7 +15,11 @@ for a bf16 model: the JAX step reduces before ``master_weights``
 upcasts).  Its ``sharded=``, ``fsdp=`` and ``local_sgd_steps=`` rungs
 run through the eager engine on the classes of the hook-form frontend,
 ``torch_frontend.py``, the counterpart of the reference's torch
-frontend.
+frontend.  So do ``compression=Compression.topk(r)`` and the wire policy
+(``wire_policy=`` or ``HOROVOD_WIRE_POLICY=1``), as the reference's
+concrete-gradient host path does: one engine collective per gradient
+leaf, named ``"grad" + <leaf path>`` (``grad[i]`` for the i-th of a list,
+``grad['a']['w']`` for the parameter named ``a.w``).
 """
 
 from __future__ import annotations
@@ -28,8 +32,9 @@ import torch.nn as nn
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.ops.collective_ops import (Average, Sum, allreduce,
                                                   allreduce_)
-from horovod_tpu_torch.ops.compression import Compression
+from horovod_tpu_torch.ops.compression import Compression, TopKCompressor
 from horovod_tpu_torch.ops.fusion import FusionPlan, fuse_apply, plan_fusion
+from horovod_tpu_torch.runtime import wire_policy as _wp
 
 __all__ = ["allreduce_gradients", "DistributedOptimizer",
            "broadcast_parameters", "broadcast_optimizer_state",
@@ -60,16 +65,62 @@ def _reduce_(grads: List[torch.Tensor], op, compression,
             g.copy_(r)
 
 
+def _engine_route(compression, wire_policy):
+    """The wire policy in force (explicit, or the env's), and whether the
+    reduction goes through the eager engine leaf by leaf."""
+    if wire_policy is None and _wp.policy_enabled():
+        wire_policy = _wp.default_policy()
+    return wire_policy, (isinstance(compression, TopKCompressor)
+                         or wire_policy is not None)
+
+
+def _engine_reduce_(grads: List[torch.Tensor], names: List[str], op,
+                    compression, wire_policy) -> None:
+    """The reference's concrete-leaf host path, in place: top-k leaf by
+    leaf (per-leaf residuals keyed by ``names``), or one grouped allreduce
+    with priorities in registration order and the policy's advisory wire
+    per leaf."""
+    from horovod_tpu_torch.runtime import eager
+
+    if isinstance(compression, TopKCompressor):
+        outs = [eager.allreduce(g, op=op, compression=compression, name=n)
+                for g, n in zip(grads, names)]
+    else:
+        wires = (None if wire_policy is None
+                 else wire_policy.observe_and_choose_many(names, grads))
+        outs = eager.grouped_allreduce(
+            grads, op=op, compression=compression, name="grad",
+            priorities=list(range(len(grads))), wire_dtypes=wires,
+            wire_advisory=True)
+    with torch.no_grad():
+        for g, out in zip(grads, outs):
+            g.copy_(out)
+
+
+def _leaf_path(name: str) -> str:
+    """``grad`` + the JAX tree path of the parameter named ``name``."""
+    return "grad" + "".join(f"['{part}']" for part in name.split("."))
+
+
 def allreduce_gradients(params_or_grads, *, op=Average,
                         compression=Compression.none,
-                        fusion_threshold_bytes: Optional[int] = None
+                        fusion_threshold_bytes: Optional[int] = None,
+                        wire_policy: Optional[_wp.WirePolicy] = None
                         ) -> List[torch.Tensor]:
-    """Reduce gradients across the default group, IN PLACE: the ``.grad``
-    of each parameter given (or each tensor given), in fused same-dtype
-    buckets of at most ``fusion_threshold_bytes`` (default
-    ``HOROVOD_FUSION_THRESHOLD``), one collective per bucket.  Returns
-    the reduced gradients."""
+    """Reduce gradients across ranks, IN PLACE: the ``.grad`` of each
+    parameter given (or each tensor given).  By default over the default
+    group, in fused same-dtype buckets of at most
+    ``fusion_threshold_bytes`` (default ``HOROVOD_FUSION_THRESHOLD``), one
+    collective per bucket.  With ``Compression.topk(r)`` or a wire policy
+    (``wire_policy``, or ``HOROVOD_WIRE_POLICY=1``), through the eager
+    engine, the i-th gradient named ``grad[i]``.  Returns the reduced
+    gradients."""
     grads = _grads_of(params_or_grads)
+    wire_policy, engine = _engine_route(compression, wire_policy)
+    if engine:
+        _engine_reduce_(grads, [f"grad[{i}]" for i in range(len(grads))],
+                        op, compression, wire_policy)
+        return grads
     _reduce_(grads, op, compression,
              plan_fusion(grads, fusion_threshold_bytes))
     return grads
@@ -100,7 +151,10 @@ class DistributedOptimizer:
     They keep the JAX frontend's refusals: fsdp with sharded, either with
     local SGD or with ``reduce_gradients=False``, and any op but Sum or
     Average.  With none of them, gradients go over ``torch.distributed``
-    as before.
+    as before, unless ``compression=Compression.topk(r)`` or the wire
+    policy (``HOROVOD_WIRE_POLICY=1``) sends them through the engine, as
+    :func:`allreduce_gradients` does, named by ``named_parameters`` where
+    given.
     """
 
     def __init__(self, optimizer, *, op=Average,
@@ -182,6 +236,16 @@ class DistributedOptimizer:
 
     def synchronize(self) -> None:
         """Reduce the gradients now (``step`` calls it)."""
+        policy, engine = _engine_route(self._compression, None)
+        if engine:
+            names = ({id(p): _leaf_path(n) for n, p in self._named}
+                     if self._named is not None else {})
+            params = [p for p in self.grad_params() if p.grad is not None]
+            _engine_reduce_([p.grad for p in params],
+                            [names.get(id(p), f"grad[{i}]")
+                             for i, p in enumerate(params)],
+                            self._op, self._compression, policy)
+            return
         grads = _grads_of(self.grad_params())
         self.last_plan = plan_fusion(grads, self._threshold)
         _reduce_(grads, self._op, self._compression, self.last_plan)

@@ -7,9 +7,10 @@ the tensor as it is and ask the eager engine for that wire format: the
 engine quantizes on send and dequantizes, reduces and requantizes on the
 ring with per-chunk scales (``runtime/eager.py``; fp32 payloads only).  On
 the ``torch.distributed`` path of ``make_train_step`` they are identities,
-as on the reference's traced path.  ``topk`` needs the sparse plane
-(``runtime/sparse.py``), which is not ported (ROADMAP.md Queue A 4e): it
-raises.
+as on the reference's traced path.  ``topk(ratio)`` builds a
+:class:`TopKCompressor`, a spec the eager paths route through the sparse
+plane (``runtime/sparse.py``): each rank sends its ``k`` largest entries
+and keeps the rest in an error-feedback residual per tensor name.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["Compressor", "NoneCompressor", "FP16Compressor",
-           "BF16Compressor", "WireCompressor", "Compression"]
+           "BF16Compressor", "WireCompressor", "TopKCompressor",
+           "Compression"]
 
 
 class Compressor:
@@ -94,6 +96,29 @@ def _wire(dtype: str):
                 {"engine_wire_dtype": dtype})
 
 
+class TopKCompressor:
+    """Top-k sparse allreduce spec with error-feedback residuals (Deep
+    Gradient Compression).  Not a cast: the eager allreduce and the
+    optimizers route it through
+    :func:`horovod_tpu_torch.runtime.sparse.sparse_allreduce_topk`, one
+    residual per tensor name, cleared when the membership epoch moves.
+    On the ``torch.distributed`` path it is an identity (a dense
+    reduction), as on the reference's traced path."""
+
+    def __init__(self, ratio=None, error_feedback: bool = True):
+        # None defers to HOROVOD_SPARSE_TOPK, read at each call.
+        if ratio is not None and not 0.0 < ratio <= 1.0:
+            raise ValueError(f"topk ratio must be in (0, 1], got {ratio}")
+        self.ratio = float(ratio) if ratio is not None else None
+        self.error_feedback = bool(error_feedback)
+
+    def compress(self, tensor):
+        return tensor, None
+
+    def decompress(self, tensor, ctx):
+        return tensor
+
+
 class Compression:
     """Registry of compression algorithms (reference compression.py)."""
 
@@ -106,7 +131,6 @@ class Compression:
     wire_fp8 = _wire("fp8")
 
     @staticmethod
-    def topk(ratio=None, error_feedback: bool = True):
-        raise NotImplementedError(
-            "Compression.topk needs the sparse plane (runtime/sparse.py), "
-            "which is not ported yet (ROADMAP.md Queue A 4e)")
+    def topk(ratio=None, error_feedback: bool = True) -> TopKCompressor:
+        """``ratio=None`` defers to HOROVOD_SPARSE_TOPK (default 0.01)."""
+        return TopKCompressor(ratio, error_feedback)

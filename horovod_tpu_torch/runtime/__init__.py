@@ -1,5 +1,8 @@
 """Host-side runtime: the eager native engine's binding, the staging of
-CUDA tensors, and the eager collectives over them."""
+CUDA tensors, the eager collectives over them, and the planes above them:
+ZeRO-1 (``sharded``), FSDP units (``fsdp``), top-k sparse allreduce
+(``sparse``), the wire policy (``wire_policy``) and the expert-parallel
+MoE layer (``moe``)."""
 
 
 def engine_or_none():

@@ -13,6 +13,9 @@ come back on the input's device (``runtime/mpi_ops.py`` stages them).
 At ``size() == 1`` every collective is an identity that returns a new
 tensor, with the compression's casts still applied.  Averaging is a sum on
 the wire and a divide on return; MIN, MAX and PRODUCT ride the wire.
+``compression=Compression.topk(...)`` routes an allreduce through the
+sparse plane (``runtime/sparse.py``) at every size, as the reference's
+does: a stable per-tensor ``name`` is required, it keys the residual.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.ops.collective_ops import (Average, Max, Min,
                                                   Product, Sum)
-from horovod_tpu_torch.ops.compression import Compression
+from horovod_tpu_torch.ops.compression import Compression, TopKCompressor
 from horovod_tpu_torch.runtime import engine_or_none as _engine
 from horovod_tpu_torch.runtime import mpi_ops
 
@@ -57,6 +60,27 @@ def _identity(t: torch.Tensor) -> torch.Tensor:
     return t.detach().clone()
 
 
+def _topk(tensor: torch.Tensor, op, compression: TopKCompressor,
+          name: Optional[str]) -> torch.Tensor:
+    """Top-k sparse allreduce with error feedback; the result in the
+    tensor's dtype."""
+    from horovod_tpu_torch.runtime import sparse
+
+    # Auto-naming would mint a fresh residual per call, and a shared name
+    # would mix different tensors' residuals: both silently wrong.
+    if name is None:
+        raise ValueError(
+            "top-k sparse allreduce requires a stable per-tensor name= (it "
+            "keys the error-feedback residual buffer)")
+    if op not in (Average, Sum):
+        raise NotImplementedError(
+            "top-k sparse allreduce supports SUM/AVERAGE only")
+    out = sparse.sparse_allreduce_topk(
+        tensor, name=name, ratio=compression.ratio,
+        error_feedback=compression.error_feedback, average=op is Average)
+    return out.to(tensor.dtype) if tensor.is_floating_point() else out
+
+
 def allreduce(tensor: torch.Tensor, *, op=Average, average=None,
               compression=Compression.none, name: Optional[str] = None,
               priority: Optional[int] = None) -> torch.Tensor:
@@ -64,6 +88,8 @@ def allreduce(tensor: torch.Tensor, *, op=Average, average=None,
     ranks (auto-named in program order by default); ``priority`` (0 = most
     urgent) orders responses under HOROVOD_PRIORITY_BANDS."""
     op = _resolve_op(op, average)
+    if isinstance(compression, TopKCompressor):
+        return _topk(tensor, op, compression, name)
     wire, ctx = compression.compress(tensor)
     if _engine() is None:
         return compression.decompress(_identity(wire), ctx)
@@ -76,22 +102,47 @@ def allreduce(tensor: torch.Tensor, *, op=Average, average=None,
 def grouped_allreduce(tensors: Sequence[torch.Tensor], *, op=Average,
                       average=None, compression=Compression.none,
                       name: Optional[str] = None,
-                      priorities: Optional[Sequence[int]] = None):
+                      priorities: Optional[Sequence[int]] = None,
+                      wire_dtypes: Optional[Sequence] = None,
+                      wire_advisory: bool = False):
     """Allreduce many tensors, enqueued together so that the coordinator
-    fuses them into few ring collectives.  ``priorities``: one per
-    tensor."""
+    fuses them into few ring collectives; tensor i is named
+    ``f"{name}.{i}"``.  ``priorities``: one per tensor.  ``wire_dtypes``
+    (one per tensor, None = the compression's wire) overrides the wire
+    format per tensor, the wire policy's hook-up; ``wire_advisory=True``
+    stamps those overrides advisory (the coordinator commits the first
+    value on a cross-rank disagreement instead of failing, which per-rank
+    statistics need).  Top-k reduces tensor by tensor and needs
+    ``name``."""
     op = _resolve_op(op, average)
-    if priorities is not None and len(priorities) != len(tensors):
-        raise ValueError(
-            f"{len(tensors)} tensors but {len(priorities)} priorities")
+    if isinstance(compression, TopKCompressor):
+        # Per-leaf residuals need stable names; a default base would mix
+        # the residuals of different call sites.
+        if name is None:
+            raise ValueError(
+                "grouped top-k sparse allreduce requires name= (per-leaf "
+                "residual buffers are keyed '<name>.<i>')")
+        return [_topk(t, op, compression, f"{name}.{i}")
+                for i, t in enumerate(tensors)]
+    for what, per in (("priorities", priorities),
+                      ("wire_dtypes", wire_dtypes)):
+        if per is not None and len(per) != len(tensors):
+            raise ValueError(f"{len(tensors)} tensors but {len(per)} {what}")
     pairs = [compression.compress(t) for t in tensors]
     if _engine() is None:
         return [compression.decompress(_identity(w), c) for w, c in pairs]
     wd = _engine_wire(compression)
+    # An explicit policy decision wins; an undecided leaf (None) keeps the
+    # compression's wire, strict, as the reference's leaf_wire does.
+    wires = [wd if wire_dtypes is None or wire_dtypes[i] is None
+             else wire_dtypes[i] for i in range(len(pairs))]
+    advisory = [wire_advisory and wire_dtypes is not None
+                and wire_dtypes[i] is not None for i in range(len(pairs))]
     handles = mpi_ops.grouped_allreduce_async(
         [w for w, _ in pairs], op is Average, name, red_op=_WIRE_OPS[op],
-        wire_dtypes=None if wd is None else [wd] * len(pairs),
-        priorities=priorities)
+        wire_dtypes=None if all(w is None for w in wires) else wires,
+        priorities=priorities,
+        wire_advisories=advisory if any(advisory) else None)
     return [compression.decompress(out, c)
             for out, (_, c) in zip(mpi_ops._drain(handles), pairs)]
 

@@ -29,7 +29,8 @@ import torch
 __all__ = ["NativeEngine", "HorovodInternalError", "StepSkipped",
            "SparseGradRetry", "WIRE_DTYPES", "dtype_code", "get_engine",
            "reset_engine_naming", "note_sharded_step",
-           "note_local_sgd_sync"]
+           "note_local_sgd_sync", "note_sparse_allreduce",
+           "note_moe_dispatch"]
 
 
 class HorovodInternalError(RuntimeError):
@@ -108,6 +109,7 @@ _SIGNATURES = (
     ("horovod_enqueue_probe", [_STR, _INT, _INT, _I64P, _PTR], _I64),
     ("horovod_note_sharded_step", [], None),
     ("horovod_note_local_sgd_sync", [], None),
+    ("horovod_note_moe_dispatch", [_I64], None),
 )
 
 #: Cumulative counters and knobs read by :meth:`NativeEngine.stats`
@@ -139,6 +141,7 @@ _COUNTERS = {
     "step_time_ns_p99": "step_time_ns_p99",
     "sharded_steps": "sharded_steps", "local_sgd_syncs": "local_sgd_syncs",
     "priority_inversions": "priority_inversions",
+    "moe_tokens_dropped": "moe_tokens_dropped",
 }
 _CONFIG = ("num_channels", "chunk_bytes", "fusion_threshold",
            "cycle_time_ms", "wave_width", "shm_enabled", "algo_threshold",
@@ -420,7 +423,10 @@ class NativeEngine:
         ``shm_bytes_*`` went through shared memory) and times; the ring
         allreduce's payload and wall time with its bus bandwidth
         2(N-1)/N · bytes / wall (NCCL's busbw convention); wire-compression
-        counters; and ``config``, the knobs in force."""
+        counters; the Python-side planes' counters (``sparse_count``, the
+        top-k sparse allreduces of ``runtime/sparse.py``; ``moe_*``, the
+        MoE plane's, beside the engine's ``moe_tokens_dropped``); and
+        ``config``, the knobs in force."""
         size = self.size()
         out = {key: int(getattr(self._lib, f"horovod_{sym}")())
                for key, sym in _COUNTERS.items()}
@@ -434,6 +440,9 @@ class NativeEngine:
                   for k in _CONFIG}
         config["shm_enabled"] = bool(config["shm_enabled"])
         config["wire_dtype"] = _WIRE_NAMES.get(config["wire_dtype"], "fp32")
+        out["sparse_count"] = _SPARSE_COUNT
+        from horovod_tpu_torch.runtime.moe import moe_stats
+        out.update(moe_stats())
         out["topology"] = {"hosts": config.pop("topology_hosts"),
                            "local_ranks": config.pop("topology_local_ranks")}
         out["config"] = config
@@ -459,6 +468,27 @@ def _note(symbol: str) -> None:
     eng = _engine
     if eng is not None:
         getattr(eng.lib, symbol)()
+
+
+#: Completed top-k sparse allreduces (``runtime/sparse.py``): they ride
+#: the engine's allgathers, which cannot tell them from any other, so the
+#: count lives here.  Cumulative, like the engine's counters.
+_SPARSE_COUNT = 0
+
+
+def note_sparse_allreduce() -> None:
+    """One completed top-k sparse allreduce: ``stats()["sparse_count"]``."""
+    global _SPARSE_COUNT
+    _SPARSE_COUNT += 1
+
+
+def note_moe_dispatch(dropped: int) -> None:
+    """One completed MoE dispatch round of ``runtime/moe.py`` with its
+    capacity-dropped tokens: the engine's cumulative
+    ``moe_tokens_dropped`` counter (no-op before an engine is loaded)."""
+    eng = _engine
+    if eng is not None:
+        eng.lib.horovod_note_moe_dispatch(int(dropped))
 
 
 def note_sharded_step() -> None:

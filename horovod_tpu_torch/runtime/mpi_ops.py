@@ -86,7 +86,8 @@ def _enqueue_many(kind: str, tensors: Sequence[torch.Tensor], *,
     """Enqueue one ``kind`` collective per tensor (CUDA tensors staged as
     one batch: one ready event and one wait per device); returns their
     handles.  ``kwargs`` go to the engine's ``enqueue_<kind>``, with
-    ``priorities``/``wire_dtypes`` given per tensor."""
+    ``priorities``/``wire_dtypes``/``wire_advisories`` given per
+    tensor."""
     eng = _engine()
     srcs = [t.detach() for t in tensors]
     if eng is None:
@@ -100,7 +101,8 @@ def _enqueue_many(kind: str, tensors: Sequence[torch.Tensor], *,
     on_card = [i for i, s in enumerate(srcs) if s.device.type == "cuda"]
     staged = dict(zip(on_card, staging.to_host([srcs[i] for i in on_card])))
     per_tensor = {"priority": kwargs.pop("priorities", None),
-                  "wire_dtype": kwargs.pop("wire_dtypes", None)}
+                  "wire_dtype": kwargs.pop("wire_dtypes", None),
+                  "wire_advisory": kwargs.pop("wire_advisories", None)}
     enqueue = getattr(eng, f"enqueue_{kind}")
     handles: List[int] = []
     try:

@@ -20,7 +20,10 @@ The factory returns one of four rungs, as the reference's does:
   as rendezvous names, priorities from registration order,
   ``backward_passes_per_step``, sparse gradients as allgathers (or dense
   with ``sparse_as_dense``), the force-allreduce contract and its layout
-  probe;
+  probe, top-k sparse reductions with error feedback
+  (``compression=Compression.topk(r)``, ``runtime/sparse.py``) and the
+  statistics-driven wire policy (``HOROVOD_WIRE_POLICY=1``,
+  ``runtime/wire_policy.py``);
 * ``local_sgd_steps=H``: the same mixin, stepping locally and syncing the
   model every ``H`` steps (``elastic.LocalSGD``);
 * ``sharded=True``: :class:`_ShardedOptimizer`, ZeRO-1 over
@@ -43,14 +46,20 @@ port's ``ops.mixed_precision.MasterWeights`` (the hooks sit on its
 the reference's own scheme: a bf16 model, fp32 master shards and an fp32
 reduction.
 
-Not ported yet, and refused with ROADMAP.md Queue A 4e named:
-``Compression.topk`` and ``HOROVOD_WIRE_POLICY=1``.
+Top-k gradients wait for ``synchronize()``, which reduces them one by one
+in name order (each is two blocking allgathers, and the hooks' order may
+differ across ranks); a bf16 gradient is reduced in fp32 and written back
+in bf16 (the reference's hook form calls ``.numpy()`` on it and fails:
+ROADMAP.md Queue C).  Under the wire policy, a leaf whose wire depends on
+its statistics also waits for ``synchronize()``: the statistics of all
+such leaves are read back with one copy, then each is enqueued with its
+advisory wire.  Every other leaf is enqueued from its hook.
 """
 
 from __future__ import annotations
 
 import collections
-import os
+import weakref
 
 import torch
 
@@ -71,19 +80,6 @@ _RS_WIRES = ("fp16", "bf16", "int8", "fp8")
 
 def _is_topk(compression) -> bool:
     return type(compression).__name__ == "TopKCompressor"
-
-
-def _refuse_unported(compression) -> None:
-    if _is_topk(compression):
-        raise NotImplementedError(
-            "DistributedOptimizer(compression=Compression.topk(...)): the "
-            "top-k sparse path (runtime/sparse.py) is not ported yet "
-            "(ROADMAP.md Queue A 4e)")
-    if os.environ.get("HOROVOD_WIRE_POLICY", "") not in ("", "0"):
-        raise NotImplementedError(
-            "HOROVOD_WIRE_POLICY=1: the statistics-driven wire policy "
-            "(runtime/wire_policy.py) is not ported yet (ROADMAP.md Queue "
-            "A 4e)")
 
 
 def _rs_wire(compression):
@@ -137,8 +133,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                    local_sgd_steps):
         from horovod_tpu_torch.elastic.state import (LocalSGD,
                                                      default_local_sgd_steps)
+        from horovod_tpu_torch.runtime import wire_policy
 
-        _refuse_unported(compression)
         self._compression = compression
         self._bpps = backward_passes_per_step
         self._sparse_as_dense = sparse_as_dense
@@ -146,9 +142,14 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._local_sgd_steps = (default_local_sgd_steps()
                                  if local_sgd_steps is None
                                  else max(1, int(local_sgd_steps)))
+        # With top-k, LocalSGD ships the model's delta sparsely.
         self._local_sgd = (LocalSGD(self._local_sgd_steps,
                                     compression=compression)
                            if self._local_sgd_steps > 1 else None)
+        # HOROVOD_WIRE_POLICY=1: int8 for large smooth fp32 gradients, fp32
+        # for norm and bias leaves, stamped advisory.
+        self._wire_policy = (wire_policy.default_policy()
+                             if wire_policy.policy_enabled() else None)
         if named_parameters is not None:
             named_parameters = list(named_parameters)
         else:
@@ -194,8 +195,15 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                             self._make_hook()))
 
     def _make_hook(self):
+        # Weakly: a tensor's hooks are invisible to Python's cycle
+        # collector, so a hook holding its optimizer would keep the
+        # optimizer, its state and every parameter alive after the caller
+        # dropped them.
+        owner = weakref.ref(self)
+
         def hook(p):
-            if self._local_sgd_steps > 1:
+            self = owner()
+            if self is None or self._local_sgd_steps > 1:
                 return          # local phase: step() syncs the model
             self._passes_left[id(p)] -= 1
             if self._passes_left[id(p)] == 0:
@@ -210,9 +218,24 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 self._sparse_params[id(p)] = p.grad.sparse_dim()
                 return self._sparse_allgather_async(p, name)
             p.grad = p.grad.to_dense()
+        if _is_topk(self._compression) and p.grad.is_floating_point():
+            # Reduced in synchronize(), in name order.
+            return ("topk", p)
         # Engine-wire compression (Compression.wire_*): the tensor stays
         # as it is; the engine quantizes on the ring.
         wire = getattr(self._compression, "engine_wire_dtype", None)
+        advisory = False
+        policy = self._wire_policy
+        if policy is not None and name is not None and \
+                p.grad.is_floating_point():
+            if policy.needs_statistics(p.grad):
+                return ("policy", p)    # decided in synchronize()
+            chosen = policy.observe_and_choose(name, p.grad)
+            if chosen is not None:
+                wire, advisory = chosen, True
+        return self._enqueue_grad(p, name, wire, advisory)
+
+    def _enqueue_grad(self, p, name, wire, advisory):
         tensor_compressed, ctx = self._compression.compress(p.grad.data)
         priority = self._param_priority.get(id(p))
         if tensor_compressed.data_ptr() != p.grad.data.data_ptr():
@@ -220,8 +243,44 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         # Uncompressed: the reduction lands in .grad itself.
         handle = allreduce_async_(tensor_compressed, average=True,
                                   name=name, wire_dtype=wire,
-                                  priority=priority)
+                                  priority=priority, wire_advisory=advisory)
         return handle, tensor_compressed, ctx
+
+    def _enqueue_policy_leaves(self):
+        """The wire policy's deferred leaves: their statistics read back
+        with one copy, then each enqueued with its decision (advisory)."""
+        deferred = [p for p, e in self._handles.items() if e[0] == "policy"]
+        if not deferred:
+            return
+        names = [self._param_names[id(p)] for p in deferred]
+        wires = self._wire_policy.observe_and_choose_many(
+            names, [p.grad for p in deferred])
+        default = getattr(self._compression, "engine_wire_dtype", None)
+        for p, name, wire in zip(deferred, names, wires):
+            self._handles[p] = self._enqueue_grad(
+                p, name, default if wire is None else wire, wire is not None)
+
+    def _reduce_topk(self, params):
+        """One top-k sparse allreduce per parameter, in name order, each
+        written back into ``.grad`` in its dtype."""
+        from horovod_tpu_torch.runtime.sparse import sparse_allreduce_topk
+
+        def topk_name(p):
+            name = self._param_names.get(id(p))
+            if not name:
+                # An id-derived name would differ across ranks, and the
+                # allgathers would never meet.
+                raise ValueError(
+                    "top-k compression requires every parameter to have a "
+                    "cross-rank-stable name (pass named_parameters=...)")
+            return name
+
+        for p in sorted(params, key=topk_name):
+            out = sparse_allreduce_topk(
+                p.grad, name=topk_name(p), ratio=self._compression.ratio,
+                error_feedback=self._compression.error_feedback,
+                average=True)
+            p.grad.copy_(out)
 
     def _sparse_allgather_async(self, p, name):
         """Sparse aggregation: allgather of the indices and of the values,
@@ -258,6 +317,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         from horovod_tpu_torch.runtime.engine import (SparseGradRetry,
                                                       StepSkipped)
 
+        topk_mode = _is_topk(self._compression)
         for group in self.param_groups:
             for p in group["params"]:
                 if p.requires_grad and p not in self._handles:
@@ -267,13 +327,20 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                             p.grad = self._zero_sparse_grad(p, sd)
                         else:
                             p.grad = p.data.new_zeros(p.shape)
-                            if not self._sparse_as_dense:
+                            # No probe under top-k: peers' '.topk_idx' and
+                            # '.topk_val' gathers could not meet it; the
+                            # zero gradient ships top-k of its residual.
+                            if not self._sparse_as_dense and not topk_mode:
                                 self._handles[p] = self._probe_grad_async(p)
                                 continue
                     self._handles[p] = self._allreduce_grad_async(p)
+        self._enqueue_policy_leaves()
         first_skip = None
+        topk_params = []
         for p, entry in self._handles.items():
-            if entry[0] == "sparse":
+            if entry[0] == "topk":
+                topk_params.append(p)
+            elif entry[0] == "sparse":
                 _, h_idx, h_val = entry
                 self._finish_sparse(p, h_idx, h_val)
             elif entry[0] == "probe":
@@ -296,6 +363,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                     first_skip = first_skip or skip
                     continue        # .grad keeps the local gradient
                 self._write_grad(p, output, ctx)
+        if topk_params:
+            self._reduce_topk(topk_params)
         self._handles.clear()
         if first_skip is not None:
             raise first_skip
@@ -537,7 +606,12 @@ class _FsdpOptimizer:
         self._hook_total = list(self._pending)
 
     def _make_hook(self, gi):
+        owner = weakref.ref(self)      # as the hook mixin's
+
         def hook(p):
+            self = owner()
+            if self is None:
+                return
             self._pending[gi] -= 1
             if self._pending[gi] == 0:
                 self._reduce_unit(gi)

@@ -1094,6 +1094,120 @@ def test_hook_form_step_on_the_card_tracks_the_cpu_step(engine, dev):
     torch.testing.assert_close(dev_p, cpu_p, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("n,ratio", [(1 << 20, 0.01), (4096 * 1024, 0.01),
+                                     (1000, 0.5), (333, 1.0)])
+def test_topk_on_the_card_equals_the_cpu_with_ties(engine, dev, n, ratio):
+    """Top-k of a bf16 gradient upcast to fp32 (many equal magnitudes, so
+    ties at the k-th one), 3 steps with residuals: selection, values,
+    residual and output on the card equal the CPU's bit for bit."""
+    from horovod_tpu_torch.runtime import sparse
+
+    sparse.reset_residuals()
+    k = max(1, min(n, int(round(n * ratio))))
+    tied = 0
+    for step in range(3):
+        g = _seeded(torch.float32, (n,), 80 + step).to(torch.bfloat16)
+        v = g.float()
+        sel_d, val_d = sparse.select_topk(v.to(dev), k)
+        sel_c, val_c = sparse.select_topk(v, k)
+        assert _bits(sel_d) == _bits(sel_c) and _bits(val_d) == _bits(val_c)
+        tied = max(tied, int((v.abs() == v.abs()[sel_c[-1]]).sum()))
+        out_d = sparse.sparse_allreduce_topk(g.to(dev), name="d", ratio=ratio)
+        out_c = sparse.sparse_allreduce_topk(g, name="c", ratio=ratio)
+        assert out_d.device.type == "cuda" and _bits(out_d) == _bits(out_c)
+        assert _bits(sparse._RESIDUALS["d"][1]) == \
+            _bits(sparse._RESIDUALS["c"][1])
+    assert ratio == 1.0 or tied > 1      # the boundary held ties
+    sparse.reset_residuals()
+
+
+def test_rank_order_sum_on_the_card_equals_the_cpu(dev):
+    """The scatter-add's passes with repeated positions (what several
+    ranks' selections give): fp64, in the order of the list, on either
+    device."""
+    from horovod_tpu_torch.runtime.sparse import _add_in_rank_order
+
+    gen = torch.Generator().manual_seed(3)
+    idx = torch.randint(0, 5000, (40000,), generator=gen, dtype=torch.int32)
+    val = torch.randn(40000, generator=gen)
+    want = torch.zeros(5000, dtype=torch.float64)
+    for i, x in zip(idx.tolist(), val.double().tolist()):
+        want[i] += x
+    got_c = _add_in_rank_order(5000, idx, val)
+    got_d = _add_in_rank_order(5000, idx.to(dev), val.to(dev))
+    assert _bits(got_c) == _bits(want) == _bits(got_d)
+
+
+def test_wire_statistics_on_the_card_equal_the_cpu(engine, dev):
+    """abs-max exact, the mean of squares within a relative 1e-6 (both fp64
+    sums of the fp32 squares, in other orders, rounded to fp32), and the
+    same decisions over 6 steps."""
+    from horovod_tpu_torch.runtime.wire_policy import (WirePolicy,
+                                                       leaf_statistics)
+
+    shapes = [(1024, 1024), (32000, 1024), (4096,), (300, 300), (16, 16)]
+    pol = {"cpu": WirePolicy(min_elems=1000), "dev": WirePolicy(
+        min_elems=1000)}
+    for step in range(6):
+        leaves = [_seeded(torch.float32, s, 90 + 7 * step + i)
+                  for i, s in enumerate(shapes)]
+        leaves[3][step, 5] = 400.0          # a spiky leaf
+        for (ad, md), (ac, mc) in zip(
+                leaf_statistics([t.to(dev) for t in leaves]),
+                leaf_statistics(leaves)):
+            assert ad == ac and abs(md - mc) <= 1e-6 * mc
+        names = [f"l{i}" for i in range(len(shapes))]
+        got = pol["dev"].observe_and_choose_many(
+            names, [t.to(dev) for t in leaves])
+        assert got == pol["cpu"].observe_and_choose_many(names, leaves)
+    assert pol["dev"].decisions == {"l0": "int8", "l1": "int8",
+                                    "l2": "fp32", "l3": None, "l4": "fp32"}
+
+
+def test_moe_gate_rows_are_batch_invariant_on_the_card(dev):
+    """A shard's gate, computed with its global offset, equals the whole
+    batch's rows bit for bit, for shards of any size and start."""
+    from horovod_tpu_torch.runtime.moe import MoeLayer
+
+    lay = MoeLayer(1024, 4096, n_experts=8, topk=2, world=(0, 1),
+                   device=dev)
+    x = _seeded(torch.float32, (3000, 1024), 5).to(dev)
+    whole = lay.gate(x)
+    for lo, hi in ((0, 1500), (1500, 3000), (256, 768), (100, 2000),
+                   (2999, 3000)):
+        part = lay.gate(x[lo:hi], offset=lo)
+        for a, b in zip(part, whole):
+            assert _bits(a) == _bits(b[lo:hi]), (lo, hi)
+
+
+def test_moe_step_on_the_card_tracks_the_cpu(dev):
+    """Two steps of the world-of-one layer on the card and on the CPU:
+    y, dx, every gradient and the updated parameters within
+    rtol 1e-4 / atol 1e-5 (fp32 GEMMs of other summation orders), the same
+    drops."""
+    from horovod_tpu_torch.runtime.moe import MoeLayer
+
+    kw = dict(n_experts=8, topk=2, capacity_factor=1.0, seed=3,
+              world=(0, 1))
+    lays = {"cpu": MoeLayer(64, 256, device="cpu", **kw),
+            "dev": MoeLayer(64, 256, device=dev, **kw)}
+    x = _seeded(torch.float32, (1000, 64), 6)
+    tgt = _seeded(torch.float32, (1000, 64), 7)
+    for _ in range(2):
+        res = {}
+        for where, lay in lays.items():
+            y, c = lay.forward(x.to(lay.device))
+            dx = lay.backward((y - tgt.to(lay.device)) / 1000, c)
+            grads = [lay.g_wg, lay.g_w1, lay.g_b1, lay.g_w2, lay.g_b2]
+            res[where] = ([t.cpu() for t in [y, dx] + grads], c["dropped"])
+            lay.apply_grads(0.1)
+        assert res["cpu"][1] == res["dev"][1] > 0
+        for a, b in zip(res["dev"][0], res["cpu"][0]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    for p, q in zip(lays["dev"].expert_params(), lays["cpu"].expert_params()):
+        torch.testing.assert_close(p.cpu(), q, rtol=1e-4, atol=1e-5)
+
+
 #: The weight gradient of Linear(4096, 4096) at 4096 rows: a GEMM of
 #: 137 GFLOP that ends right before the gradient's hook fires.
 READY_N = 4096

@@ -74,23 +74,32 @@ def test_collectives_and_compression_on_one_rank(clean_env):
                                        torch.float32]
     assert torch.equal(hvd.broadcast(x, 0), x)
     # The wire compressors ask the engine for a wire format; at size 1
-    # they are identities, as in the reference.  Top-k needs the sparse
-    # plane, which is not ported.
+    # they are identities, as in the reference.  Top-k keeps its selection
+    # at size 1: the three largest of six entries go, the rest wait in the
+    # residual.
     for comp in (Compression.wire_int8, Compression.wire_bf16):
         out = hvd.allreduce(x, compression=comp)
         assert torch.equal(out, x) and out is not x
-    with pytest.raises(NotImplementedError, match="runtime/sparse.py"):
-        Compression.topk(0.01)
+    out = hvd.allreduce(x, compression=Compression.topk(0.5), name="one.t")
+    assert out.tolist() == [[0.0, 0.0, 0.0], [3.0, 4.0, 5.0]]
+    from horovod_tpu_torch.runtime import sparse
+    assert sparse.residual_norm("one.t") == pytest.approx(5 ** 0.5)
+    sparse.reset_residuals()
 
 
 def test_unported_options_raise(monkeypatch):
-    """What is still refused raises; the three rungs ported since build."""
+    """What is still refused raises: the MoE model (Queue A item 5), and
+    top-k with the sharded rungs (no scatter half, as in the reference);
+    the three rungs and top-k ported since build."""
     for var in ("HOROVOD_SHARDED", "HOROVOD_FSDP", "HOROVOD_LOCAL_SGD_STEPS"):
         monkeypatch.delenv(var, raising=False)
     opt = torch.optim.SGD([torch.nn.Parameter(torch.zeros(2))], lr=0.1)
-    # Top-k needs the sparse plane (Queue A 4e) and cannot be built.
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A 4e"):
-        hvd.DistributedOptimizer(opt, compression=Compression.topk(0.01))
+    for rung in ("sharded", "fsdp"):
+        with pytest.raises(ValueError, match="no scatter half"):
+            hvd.DistributedOptimizer(opt, compression=Compression.topk(0.01),
+                                     **{rung: True})
+    topk = hvd.DistributedOptimizer(opt, compression=Compression.topk(0.01))
+    assert topk.zero is None and topk.local_sgd is None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LlamaModel(LlamaConfig.tiny(num_experts=4), device="meta")
     # The mutual exclusions of the JAX frontend.

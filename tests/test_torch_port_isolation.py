@@ -56,7 +56,8 @@ _TRAINING_MODULES = ["common.basics", "ops.collective_ops", "ops.compression",
                      "runtime", "runtime.engine", "runtime.staging",
                      "runtime.mpi_ops", "runtime.eager", "torch_frontend",
                      "runtime.sharded", "runtime.fsdp", "elastic",
-                     "elastic.state"]
+                     "elastic.state", "runtime.sparse",
+                     "runtime.wire_policy", "runtime.moe"]
 #: The serving slice, the router fleet and its launcher and benchmark.
 _SERVE_MODULES = ["serve", "serve.engine", "serve.scheduler", "serve.server",
                   "serve.replica", "serve.router", "run", "bench_serve"]

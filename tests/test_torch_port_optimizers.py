@@ -21,7 +21,9 @@
   (optax and ``torch.optim.SGD`` round the update differently); and
   bitwise equal to the port's own hook-form rung.
 * Every refusal the factories keep raises with the reference's message;
-  top-k and ``HOROVOD_WIRE_POLICY`` name Queue A 4e.
+  top-k with the sharded rungs is refused as the reference refuses it,
+  and builds with the hook mixin and with local SGD (its paths are held
+  in ``tests/test_torch_port_sparse.py``).
 
 Each world is this file run as a script once per rank (``_rank_main``),
 as ``tests/test_torch_port_engine.py`` does; reference and port run in
@@ -531,23 +533,62 @@ def test_hook_form_env_and_top_k_refusals(monkeypatch):
             lambda: ref.DistributedOptimizer(_sgd(), sharded=True))
     monkeypatch.delenv("HOROVOD_LOCAL_SGD_STEPS")
 
-    class TopKCompressor:       # the port cannot build one (4e)
-        ratio = 0.01
+    from horovod_tpu_torch.ops.compression import Compression
 
     for which in ("sharded", "fsdp"):
         assert _message(lambda: torch_frontend.DistributedOptimizer(
-            _sgd(), compression=TopKCompressor(), **{which: True})) == \
-            _message(lambda: ref.DistributedOptimizer(
+            _sgd(), compression=Compression.topk(0.01), **{which: True})) \
+            == _message(lambda: ref.DistributedOptimizer(
                 _sgd(), compression=RefCompression.topk(0.01),
                 **{which: True}))
-    for fn in (lambda: torch_frontend.DistributedOptimizer(
-                   _sgd(), compression=TopKCompressor()),
-               lambda: torch_frontend.DistributedOptimizer(
-                   _sgd(), local_sgd_steps=2, compression=TopKCompressor())):
-        assert "Queue A 4e" in _message(fn)
+    # Top-k builds with the hook mixin and with local SGD, whose outer
+    # sync then ships sparse deltas; HOROVOD_WIRE_POLICY=1 gives the hook
+    # form the process's policy.
+    opt = torch_frontend.DistributedOptimizer(
+        _sgd(), compression=Compression.topk(0.01))
+    assert opt._local_sgd is None and opt._wire_policy is None
+    opt = torch_frontend.DistributedOptimizer(
+        _sgd(), local_sgd_steps=2, compression=Compression.topk(0.01))
+    assert opt._local_sgd._topk.ratio == 0.01
     monkeypatch.setenv("HOROVOD_WIRE_POLICY", "1")
-    assert "Queue A 4e" in _message(
-        lambda: torch_frontend.DistributedOptimizer(_sgd()))
+    from horovod_tpu_torch.runtime.wire_policy import default_policy
+    assert torch_frontend.DistributedOptimizer(_sgd())._wire_policy is \
+        default_policy()
+
+
+def test_dropped_optimizers_release_their_models(monkeypatch):
+    """The gradient hooks hold their optimizer weakly: a hook-form or FSDP
+    optimizer and its model, once dropped, are collected (a tensor's hooks
+    are invisible to the cycle collector, so a strong hook would keep the
+    parameters, the masters and the optimizer state for the process's
+    life)."""
+    import gc
+    import weakref
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import torch_frontend
+    from horovod_tpu_torch.ops.mixed_precision import MasterWeights
+
+    for var in ("HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_COORDINATOR",
+                "HOROVOD_LOCAL_SGD_STEPS"):
+        monkeypatch.delenv(var, raising=False)
+    hvd.init(device="cpu")
+    try:
+        for kw in ({}, {"fsdp": True}, {"masters": True}):
+            m = _model()
+            inner = (MasterWeights(m.parameters(), torch.optim.AdamW)
+                     if kw.pop("masters", False) else
+                     torch.optim.SGD(m.parameters(), lr=LR))
+            opt = torch_frontend.DistributedOptimizer(
+                inner, named_parameters=m.named_parameters(), **kw)
+            _loss(m, 0, 0).backward()
+            opt.step()
+            refs = [weakref.ref(opt), weakref.ref(m[0].weight)]
+            del m, inner, opt
+            gc.collect()
+            assert all(r() is None for r in refs), kw
+    finally:
+        hvd.shutdown()
 
 
 _JAX_REFUSALS = {
