@@ -181,9 +181,36 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                world-of-one layer on the whole batch, drops equal to its
                count; each dispatch's and combine's ms, alltoall bytes,
                peak memory;
-13. train_profile, train_packed_profile, train_bert_profile,
-               train_resnet_profile, bench_llama_profile — where one step
-               of each goes
+13. train_moe — MoE in the model: Mixtral-8x7B's published widths
+               (vocab 32000, hidden 4096, 32 heads and 8 KV heads of 128,
+               FFN 14336, 8 experts, top-2, rope_theta 1e6) cut to 2
+               layers (3.16 B parameters), bf16, seeded weights, through
+               ``make_parallel_train_step`` on a mesh whose axes are all
+               1 (``MasterWeights(AdamW 3e-4)``, flash attention), B 1 x
+               S 4096:
+   moe_oracle — first, layer 0's routed MoE block against the dense
+               masked einsum (the reference's dispatch) on the same card
+               tensors, output and gradients;
+               then 3 warm-up and 10 timed steps (the loss must fall;
+               B1-B3 launch once a layer a step; no fallback): step ms,
+               tokens/s, MFU over the active parameters, peak memory,
+               each expert's tokens;
+14. parallel — the parallelism families on two ranks sharing the card
+               (``--parallel-worker RANK`` through ``run_ranks``, a gloo
+               group: the families' collectives stage through host
+               memory): ``bench_llama``'s widths at 2 layers, fp32, SGD,
+               B 2 x S 2048, 3 steps of each part: ``tensor`` (tensor 2),
+               ``expert`` (expert 2, 8 experts, top-2), ``seq_ring`` and
+               ``seq_ulysses`` (seq 2), ``pipe`` (pipe 2, 2
+               microbatches); each rank's losses and parameters against
+               a world of one on the same rank and seeds (loss rtol
+               1e-4, parameters within 1e-4), the ranks' losses equal,
+               B1-B3 launches as the part's schedule gives (the ring: 2
+               hops x 2 layers a step), no fallback; step ms, the bytes
+               that cross between ranks and the bytes staged a step;
+15. train_profile, train_packed_profile, train_bert_profile,
+               train_resnet_profile, bench_llama_profile,
+               train_moe_profile — where one step of each goes
                (torch.profiler), after every phase was timed: once the
                profiler has traced a step, the process launches kernels
                more slowly; then train_packed_vs_train, the device time
@@ -195,7 +222,7 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                real step;
                and the flash kernels' ``kernel_time_bench`` lines with
                bench_llama's launches a step;
-14. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+16. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints one JSON line; any failed check raises (exit != 0) and
@@ -215,7 +242,6 @@ import math
 import os
 import re
 import shutil
-import socket
 import statistics
 import subprocess
 import sys
@@ -240,6 +266,7 @@ from horovod_tpu_torch.models.generation import (generate, paged_decode_step,
 from horovod_tpu_torch.models.llama import (LlamaConfig, LlamaModel, RMSNorm,
                                             attend, causal_attention)
 from horovod_tpu_torch.common import native_build
+from horovod_tpu_torch.common.launch import free_port
 from horovod_tpu_torch.models.resnet import ResNet, ResNetConfig
 from horovod_tpu_torch.ops import _build
 from horovod_tpu_torch.ops import conv_bn_stats as cbs
@@ -248,6 +275,9 @@ from horovod_tpu_torch.ops import paged_attention as pa
 from horovod_tpu_torch.ops import rms_norm as rn
 from horovod_tpu_torch.ops.losses import softmax_cross_entropy
 from horovod_tpu_torch.ops.mixed_precision import MasterWeights
+from horovod_tpu_torch.parallel import comm
+from horovod_tpu_torch.parallel.api import (make_parallel_train_step,
+                                            shard_params)
 from horovod_tpu_torch.parallel.mesh import build_mesh
 from horovod_tpu_torch.runtime import staging
 from horovod_tpu_torch.runtime.engine import get_engine
@@ -2452,19 +2482,6 @@ WIRE_BF16_TOL = 2e-2
 A2A_SPLITS = ((1, 3), (2, 0))
 
 
-def free_port() -> int:
-    """A free port whose + 64 (the torch group's rendezvous) is free too."""
-    while True:
-        with socket.socket() as s, socket.socket() as t:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
-            try:
-                t.bind(("127.0.0.1", port + 64))
-            except OSError:
-                continue
-            return port
-
-
 def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
     return (a.dtype == b.dtype and a.shape == b.shape
@@ -3617,6 +3634,362 @@ def phase_engine_moe():
          wall_s=time.monotonic() - t0, nvidia_smi_after=smi_now())
 
 
+# ---------------------------------------------------------------------------
+# phase 13: MoE in the model at Mixtral-8x7B's widths, through
+# make_parallel_train_step on a mesh of one
+# ---------------------------------------------------------------------------
+
+#: Mixtral-8x7B's published widths (mistralai/Mixtral-8x7B-v0.1
+#: config.json), depth cut 32 -> 2; seeded weights.
+MIXTRAL_LAYERS = 2
+MIXTRAL_CFG = LlamaConfig(vocab_size=32000, hidden_size=4096,
+                          num_layers=MIXTRAL_LAYERS, num_heads=32,
+                          num_kv_heads=8, intermediate_size=14336,
+                          max_seq_len=32768, rope_theta=1e6, rms_eps=1e-5,
+                          num_experts=8, experts_per_token=2)
+MOE_B, MOE_S = 1, 4096
+#: The routed MoE block against the dense masked einsum (the reference's
+#: dispatch) on the same bf16 tensors: the same products per routed row in
+#: other GEMM shapes.  Measured on the H100 at these shapes: y bitwise,
+#: the gradients at most 1.6e-4 relative L2 (PERF.md); the bound is about
+#: 10x that, so a fault on a small share of the routed rows shows.
+MOE_ORACLE_REL_L2_TOL = 2e-3
+
+
+def moe_dense_oracle(moe, x):
+    """The reference's ``MoEBlock`` body in torch: every expert on a masked
+    copy of every token (``einsum("bsh,bse->ebsh")``), then the combine."""
+    combine = moe.route(x)
+    sel = (combine != 0).to(x.dtype)
+    xe = torch.einsum("bsh,bse->ebsh", x, sel)
+    gate, up = torch.chunk(torch.einsum("ebsh,ehf->ebsf", xe,
+                                        moe.w_gate_up), 2, dim=-1)
+    ye = torch.einsum("ebsf,efh->ebsh", gate * torch.sigmoid(gate) * up,
+                      moe.w_down)
+    return torch.einsum("ebsh,bse->bsh", ye, combine)
+
+
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm()
+                 / b.float().norm().clamp(min=1e-30))
+
+
+def phase_moe_oracle(model, dev, seed):
+    """Layer 0's MoE block, routed, against the dense masked einsum on the
+    same CUDA tensors: output and the gradients of x, the router and both
+    expert weights, for a seeded x [1, 4096, 4096] and cotangent."""
+    moe = model.layers[0].moe
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    x0 = torch.randn(MOE_B, MOE_S, MIXTRAL_CFG.hidden_size, device=dev,
+                     generator=gen).to(MIXTRAL_CFG.dtype)
+    cot = torch.randn(x0.shape, device=dev, generator=gen).to(x0.dtype)
+    params = [moe.router.weight, moe.w_gate_up, moe.w_down]
+    runs = {}
+    for name, fn in (("routed", moe), ("dense", lambda x: moe_dense_oracle(
+            moe, x))):
+        x = x0.clone().requires_grad_(True)
+        y = fn(x)
+        grads = torch.autograd.grad(y, [x] + params, cot)
+        runs[name] = [y.detach()] + [g.detach() for g in grads]
+        del y, grads, x
+        torch.cuda.empty_cache()
+    names = ("y", "dx", "d_router", "d_w_gate_up", "d_w_down")
+    errs = {n: rel_l2(a, b) for n, a, b in zip(names, runs["routed"],
+                                                runs["dense"])}
+    counts = (moe.route(x0) != 0).sum(dim=(0, 1)).tolist()
+    emit("moe_oracle", tokens=MOE_B * MOE_S, rel_l2=errs,
+         tol=MOE_ORACLE_REL_L2_TOL, expert_tokens=counts)
+    for n, e in errs.items():
+        check(math.isfinite(e) and e <= MOE_ORACLE_REL_L2_TOL,
+              f"moe_oracle: {n} rel L2 {e} > {MOE_ORACLE_REL_L2_TOL}")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def moe_flops_per_step(cfg, batch, seq) -> int:
+    """``bench.llama_flops_per_step`` over the ACTIVE parameters: the
+    attention, the router and top-k experts' SwiGLU a token (k x F), plus
+    the head; and 3 x the causal attention forward."""
+    active = dataclasses.replace(
+        cfg, intermediate_size=cfg.experts_per_token * cfg.intermediate_size)
+    return (bench.llama_flops_per_step(active, batch, seq)
+            + 6 * cfg.num_layers * cfg.hidden_size * cfg.num_experts
+            * batch * seq)
+
+
+def expert_token_counts(model, tokens):
+    """Tokens routed to each expert, per layer, for ``tokens``' inputs
+    (one no-grad forward)."""
+    counts = []
+
+    def hook(mod, args, _out):
+        counts.append((mod.route(args[0]) != 0).sum(dim=(0, 1)).tolist())
+    handles = [layer.moe.register_forward_hook(hook)
+               for layer in model.layers]
+    with torch.no_grad():
+        model(tokens[:, :-1])
+    for h in handles:
+        h.remove()
+    return counts
+
+
+def moe_factory(seed):
+    """A profile's ``build`` for train_moe: model, optimizer and step."""
+    def build():
+        model = build_model(MIXTRAL_CFG, seed, fa.flash_attention_fn)
+        opt, step = make_moe_step(model)
+        return model, opt, step
+    return build
+
+
+def make_moe_step(model):
+    opt = hvd.DistributedOptimizer(MasterWeights(
+        model.parameters(), torch.optim.AdamW, lr=3e-4, betas=(0.9, 0.999),
+        eps=1e-8, weight_decay=1e-4))
+    mesh = build_mesh({"data": 1, "fsdp": 1, "expert": 1, "tensor": 1})
+    return opt, make_parallel_train_step(model, opt, mesh)
+
+
+def phase_train_moe(dev, seed):
+    """Mixtral-8x7B's widths at depth 2 trained through
+    ``make_parallel_train_step`` on a mesh whose axes are all 1: bf16,
+    ``MasterWeights(AdamW 3e-4)``, flash attention, B 1 x S 4096; the MoE
+    oracle first, then 3 warm-up and 10 timed steps.  Returns the flash
+    launches and the batch (for the profile)."""
+    cfg = MIXTRAL_CFG
+    hvd.init()
+    t0 = time.monotonic()
+    model = build_model(cfg, seed, fa.flash_attention_fn)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(seed + 5)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MOE_B, MOE_S + 1))).to(dev)
+    phase_moe_oracle(model, dev, seed)
+    opt, step = make_moe_step(model)
+    fallbacks = fa.fallback_count()
+    losses, step_ms, launches, plain_calls, _, _ = timed_steps(step, tokens,
+                                                               dev)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    counts = expert_token_counts(model, tokens)
+    p50 = statistics.median(step_ms)
+    flops = moe_flops_per_step(cfg, MOE_B, MOE_S)
+    emit("train_moe", model="mixtral_8x7b", layers=cfg.num_layers,
+         layers_published=32, hidden=cfg.hidden_size, heads=cfg.num_heads,
+         kv_heads=cfg.num_kv_heads, ffn=cfg.intermediate_size,
+         vocab=cfg.vocab_size, experts=cfg.num_experts,
+         experts_per_token=cfg.experts_per_token, rope_theta=cfg.rope_theta,
+         batch=MOE_B, seq=MOE_S, params=n_params,
+         optimizer="make_parallel_train_step(DistributedOptimizer("
+                   "MasterWeights(AdamW lr 3e-4)))",
+         warmup_steps=WARMUP_STEPS, steps=TIMED_STEPS, step_ms_p50=p50,
+         step_ms_max=max(step_ms), step_ms=step_ms,
+         tokens_per_s=MOE_B * MOE_S / (p50 / 1e3), flops_per_step=flops,
+         mfu=flops / (p50 / 1e3) / 989e12,
+         mfu_formula="(6 x (attention + router + top-2 experts' SwiGLU per "
+                     "layer + head) x tokens + 3 x causal attention forward)"
+                     " / (step s x 989e12)",
+         peak_mem_gib=peak, losses=losses, expert_tokens=counts,
+         kernel_launches=launches, plain_calls=plain_calls,
+         fallbacks=fa.fallback_count() - fallbacks, init_s=init_s,
+         nvidia_smi_after=smi_now())
+    check_training("train_moe", losses, launches,
+                   dict.fromkeys(launches, cfg.num_layers * TIMED_STEPS),
+                   plain_calls)
+    check(fa.fallback_count() == fallbacks, "train_moe: a fallback ran")
+    del model, opt, step
+    return launches, tokens
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the parallelism families on two ranks sharing the card (gloo)
+# ---------------------------------------------------------------------------
+
+PARALLEL_TIMEOUT_S = 900
+PARALLEL_PARTS = ("tensor", "expert", "seq_ring", "seq_ulysses", "pipe")
+PAR_B, PAR_S, PAR_STEPS, PAR_LR = 2, 2048, 3, 0.05
+#: fp32 throughout; a part differs from the world of one by the order of
+#: its sums (partial products summed over ranks, hops merged by lse), so
+#: by fp32 roundings.  The loss is held relative to itself; each parameter
+#: leaf by ||p - p_one|| / ||p_one - p0||, its error relative to the world
+#: of one's own update of it, so a leaf a part steps wrongly or not at all
+#: shows however small the step.
+PAR_LOSS_RTOL, PAR_PARAM_REL = 1e-4, 1e-3
+
+
+def parallel_cfg(part):
+    """``bench_llama``'s widths at 2 layers, fp32; the expert part with 8
+    experts, top-2."""
+    return dataclasses.replace(
+        bench.llama_config(), num_layers=2, dtype=torch.float32,
+        logits_dtype=torch.float32,
+        num_experts=8 if part == "expert" else 1)
+
+
+def world_of_one(cfg, seed, tokens):
+    """The plain model's SGD steps on this rank alone (the flash kernels):
+    (losses, state dict after the steps, {leaf: (||update||, max |update|)}
+    for the steps' update of each leaf)."""
+    model = LlamaModel.from_state_dict(
+        cfg, init_params(cfg, seed, tokens.device),
+        attention_fn=fa.flash_attention_fn)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    opt = torch.optim.SGD(model.parameters(), lr=PAR_LR)
+    losses = []
+    for _ in range(PAR_STEPS):
+        opt.zero_grad(set_to_none=True)
+        loss = lm_loss(model, tokens)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss))
+    state = {k: v.detach() for k, v in model.state_dict().items()}
+    update = {k: (float((v - start[k]).norm()),
+                  float((v - start[k]).abs().max())) for k, v in state.items()}
+    return losses, state, update
+
+
+def parallel_part(part, cfg, seed, tokens):
+    """One family's steps: (losses, {name: whole parameter}, step ms,
+    flash launches, comm counters a step)."""
+    from horovod_tpu_torch.parallel.pipeline import (
+        init_pipelined_llama, make_pipelined_llama_train_step)
+    from horovod_tpu_torch.parallel.placement import full_state_dict
+    from horovod_tpu_torch.parallel.seq import (
+        make_context_parallel_train_step)
+
+    axis = {"tensor": "tensor", "expert": "expert", "pipe": "pipe"}.get(
+        part, "seq")
+    mesh = build_mesh({axis: hvd.size()})
+    state = init_params(cfg, seed, tokens.device)
+    if part == "pipe":
+        model = init_pipelined_llama(cfg, state, 2,
+                                     mesh=mesh,
+                                     attention_fn=fa.flash_attention_fn)
+        opt = torch.optim.SGD(model.parameters(), lr=PAR_LR)
+        run = make_pipelined_llama_train_step(cfg, opt, mesh,
+                                              n_microbatches=2)
+    else:
+        model = LlamaModel.from_state_dict(cfg, state,
+                                           attention_fn=fa.flash_attention_fn)
+        if part.startswith("seq"):
+            opt = torch.optim.SGD(model.parameters(), lr=PAR_LR)
+            run = make_context_parallel_train_step(
+                cfg, opt, mesh, attention=part[len("seq_"):])
+        else:
+            shard_params(model, mesh)
+            opt = torch.optim.SGD(model.parameters(), lr=PAR_LR)
+            gspmd = make_parallel_train_step(model, opt, mesh)
+
+            def run(_model, _inputs, _targets):
+                return gspmd(tokens)
+    fa.reset_launches()
+    comm.reset_stats()
+    losses, step_ms = [], []
+    for _ in range(PAR_STEPS):
+        t = time.perf_counter()
+        loss = float(run(model, tokens[:, :-1], tokens[:, 1:]))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(loss)
+    per_step = {k: v / PAR_STEPS for k, v in comm.stats.items()}
+    # The kernels on the card; their plain versions on a CPU rehearsal.
+    launches = dict(fa.launches if tokens.is_cuda else fa.plain_calls)
+    if part == "pipe":
+        params = {model.global_name(n): p.detach()
+                  for n, p in model.named_parameters()}
+    elif part.startswith("seq"):
+        params = {n: p.detach() for n, p in model.named_parameters()}
+    else:
+        params = full_state_dict(model)
+    return losses, params, step_ms, launches, per_step
+
+
+def parallel_worker(rank: int, device: str) -> dict:
+    """One rank of the parallel phase: each family on a mesh of both ranks
+    (gloo, the card shared), held against the world of one on this rank.
+    Each part's failed check raises."""
+    hvd.init(device=device, backend="gloo")
+    dev = hvd.device()
+    seed = 7
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, parallel_cfg("tensor").vocab_size, (PAR_B, PAR_S + 1))).to(dev)
+    refs = {}
+    out = {"rank": hvd.rank(), "size": hvd.size(),
+           "backend": torch.distributed.get_backend()}
+    expected = {"tensor": 2, "expert": 2, "seq_ring": 4, "seq_ulysses": 2,
+                "pipe": 2}
+    for part in PARALLEL_PARTS:
+        cfg = parallel_cfg(part)
+        if cfg.num_experts not in refs:
+            refs[cfg.num_experts] = world_of_one(cfg, seed, tokens)
+            out[f"world_of_one_update_E{cfg.num_experts}"] = \
+                refs[cfg.num_experts][2]
+        ref_losses, ref_state, update = refs[cfg.num_experts]
+        fallbacks = fa.fallback_count()
+        losses, params, step_ms, launches, per_step = parallel_part(
+            part, cfg, seed, tokens)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                          ref_losses))
+        rel = {n: float((p.float() - ref_state[n].float()).norm())
+               / max(update[n][0], 1e-30) for n, p in params.items()}
+        worst = max(rel, key=rel.get)
+        param_err = max(float((p.float() - ref_state[n].float()).abs().max())
+                        for n, p in params.items())
+        out[part] = dict(losses=losses, world_of_one_losses=ref_losses,
+                         loss_rel_err=loss_err, param_max_abs_err=param_err,
+                         param_rel_err=rel[worst], param_rel_worst=worst,
+                         param_rel_by_leaf=rel,
+                         params_compared=len(params), step_ms=step_ms,
+                         kernel_launches=launches,
+                         fallbacks=fa.fallback_count() - fallbacks,
+                         wire_bytes_per_step=per_step["wire_bytes"],
+                         staged_bytes_per_step=per_step["staged_bytes"],
+                         collectives_per_step=per_step["calls"])
+        check(loss_err <= PAR_LOSS_RTOL,
+              f"parallel {part}: losses {losses} vs {ref_losses}")
+        check(rel[worst] <= PAR_PARAM_REL,
+              f"parallel {part}: {worst} off the world of one by "
+              f"{rel[worst]} of its update (norm, max abs {update[worst]}); "
+              f"by leaf {rel}")
+        check(all(n == expected[part] * PAR_STEPS
+                  for n in launches.values()),
+              f"parallel {part}: flash launches {launches}")
+        check(fa.fallback_count() == fallbacks,
+              f"parallel {part}: a fallback ran")
+        del params
+        free_memory()
+    hvd.shutdown()
+    return out
+
+
+def phase_parallel():
+    """The five parts on two ranks of the card; the ranks' losses must be
+    equal."""
+    t0 = time.monotonic()
+    results = run_ranks("--parallel-worker", "parallel", PARALLEL_TIMEOUT_S)
+    smi = smi_now()
+    for part in PARALLEL_PARTS:
+        per_rank = [r[part] for r in results]
+        check(per_rank[0]["losses"] == per_rank[1]["losses"],
+              f"parallel {part}: ranks' losses differ: "
+              f"{[r['losses'] for r in per_rank]}")
+        # Every leaf held on some rank (a pipe rank holds its stage's).
+        leaves = results[0][f"world_of_one_update_E"
+                            f"{parallel_cfg(part).num_experts}"]
+        held = set().union(*(r["param_rel_by_leaf"] for r in per_rank))
+        check(held == set(leaves),
+              f"parallel {part}: leaves held {sorted(held)} of "
+              f"{sorted(leaves)}")
+        emit("parallel", part=part, ranks=ENGINE_RANKS,
+             backend=results[0]["backend"], batch=PAR_B, seq=PAR_S,
+             steps=PAR_STEPS, loss_rtol=PAR_LOSS_RTOL,
+             param_rel=PAR_PARAM_REL, per_rank=per_rank,
+             nvidia_smi_after=smi)
+    for key in sorted(k for k in results[0] if k.startswith("world_of_one")):
+        emit("parallel", part=key, update_norm_max_abs_by_leaf=results[0][key])
+    emit("parallel", part="phase", wall_s=time.monotonic() - t0)
+
+
 def label_forward(module, name):
     """Open a profiler range ``name`` around ``module``'s forward."""
     inner = module.forward
@@ -3673,6 +4046,9 @@ def main(argv=None) -> int:
     # One rank of the engine_moe phase.
     parser.add_argument("--moe-worker", type=int, default=None,
                         metavar="RANK", help=argparse.SUPPRESS)
+    # One rank of the parallel phase.
+    parser.add_argument("--parallel-worker", type=int, default=None,
+                        metavar="RANK", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3689,6 +4065,10 @@ def main(argv=None) -> int:
         return 0
     if args.moe_worker is not None:
         print(json.dumps(moe_worker(args.moe_worker, "cuda:0")), flush=True)
+        return 0
+    if args.parallel_worker is not None:
+        print(json.dumps(parallel_worker(args.parallel_worker, "cuda:0")),
+              flush=True)
         return 0
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -3767,6 +4147,10 @@ def main(argv=None) -> int:
     phase_engine()
     phase_engine_train()
     phase_engine_moe()
+    moe_tokens = phase_train_moe(dev, args.seed)[1]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_parallel()
     compare_profiles(
         phase_train_profile("train_profile",
                             llama_factory(args.seed, *train[:3]), train[3]),
@@ -3777,6 +4161,8 @@ def main(argv=None) -> int:
     phase_train_profile("train_resnet_profile", resnet_build, resnet_data,
                         labels=label_spike_layers)
     phase_train_profile("bench_llama_profile", bench_llama_factory(), None)
+    phase_train_profile("train_moe_profile", moe_factory(args.seed),
+                        moe_tokens)
     for name, t in kpm_times.items():
         emit("kernel_time_kpm", name=name, launches=bert_launches[name], **t)
     for name, t in bench_times.items():

@@ -37,7 +37,12 @@ through the same classes; and the sparse and expert planes:
 ``hvd.runtime.sparse``), the statistics-driven wire policy
 (``HOROVOD_WIRE_POLICY=1``, ``hvd.runtime.wire_policy``) and the
 expert-parallel MoE layer over the variable-split alltoall
-(``hvd.runtime.moe.MoeLayer``).
+(``hvd.runtime.moe.MoeLayer``); and MoE in the model with the parallelism
+families (``parallel/``): the mesh helpers (``hvd.build_mesh``,
+``use_mesh``, ``default_mesh``, ``data_parallel_mesh``), tensor, expert
+and fsdp placement with ``make_parallel_train_step``, ring and Ulysses
+attention with ``make_context_parallel_train_step``, the GPipe pipeline
+with ``make_pipelined_llama_train_step``, and ``ops/ragged.py``.
 
 Two communicators, as ``common/basics.py`` sets out:
 
@@ -71,6 +76,8 @@ from horovod_tpu_torch.frontend import (DistributedOptimizer,
 from horovod_tpu_torch.ops.collective_ops import (Average, Max, Min, Product,
                                                   ReduceOp, Sum)
 from horovod_tpu_torch.ops.compression import Compression
+from horovod_tpu_torch.parallel.mesh import (build_mesh, data_parallel_mesh,
+                                             default_mesh, use_mesh)
 from horovod_tpu_torch.runtime.eager import (allgather, allreduce, alltoall,
                                              broadcast, grouped_allreduce,
                                              reducescatter)
@@ -97,4 +104,5 @@ __all__ = ["__version__", "resolve_device", "init", "shutdown",
            "alltoall_async", "poll", "synchronize", "Compression",
            "allreduce_gradients", "DistributedOptimizer",
            "broadcast_parameters", "broadcast_optimizer_state",
-           "make_train_step", "torch_frontend", "elastic", "runtime"]
+           "make_train_step", "torch_frontend", "elastic", "runtime",
+           "build_mesh", "data_parallel_mesh", "default_mesh", "use_mesh"]

@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import atexit
 import os
-import socket
 import threading
 from typing import Optional, Sequence, Union
 
@@ -41,13 +40,12 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch.common.device import resolve_device
+from horovod_tpu_torch.common.launch import TORCH_PORT_OFFSET, free_port
 
 __all__ = ["init", "shutdown", "is_initialized", "rank", "size",
            "local_rank", "local_size", "device", "epoch",
            "mpi_threads_supported"]
 
-#: The torch group's rendezvous port, relative to HOROVOD_COORDINATOR's.
-TORCH_PORT_OFFSET = 64
 
 # Env vars for rank discovery, in the reference's priority order.
 _RANK_ENV = ("HOROVOD_RANK", "OMPI_COMM_WORLD_RANK", "PMI_RANK")
@@ -58,6 +56,14 @@ _LOCAL_SIZE_ENV = ("HOROVOD_LOCAL_SIZE", "OMPI_COMM_WORLD_LOCAL_SIZE")
 _lock = threading.Lock()
 _state: dict = {}
 _atexit_registered = False
+_shutdown_hooks: list = []
+
+
+def on_shutdown(hook) -> None:
+    """Call ``hook()`` at every :func:`shutdown`, after the process group
+    is gone (a layer above that keeps state tied to the group resets it
+    there)."""
+    _shutdown_hooks.append(hook)
 
 
 def _env_int(names: Sequence[str]) -> Optional[int]:
@@ -68,17 +74,11 @@ def _env_int(names: Sequence[str]) -> Optional[int]:
     return None
 
 
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _init_method(addr: str) -> str:
     """The torch group's rendezvous: the coordinator's host at its port
     + ``TORCH_PORT_OFFSET``, or a free local port without a coordinator."""
     if not addr:
-        return f"tcp://127.0.0.1:{_free_port()}"
+        return f"tcp://127.0.0.1:{free_port()}"
     host, _, port = addr.rpartition(":")
     return f"tcp://{host}:{int(port) + TORCH_PORT_OFFSET}"
 
@@ -98,11 +98,15 @@ def _start_engine(rank: int, size: int, local_rank: int, local_size: int,
     return lib
 
 
-def init(device: Optional[Union[str, torch.device]] = None) -> None:
+def init(device: Optional[Union[str, torch.device]] = None,
+         backend: Optional[str] = None) -> None:
     """Read this process's identity and create the default process group.
 
     ``device=None`` means the CUDA device ``local_rank`` (NCCL) and raises
-    without a GPU; ``device="cpu"`` runs on the CPU (gloo).  A second call
+    without a GPU; ``device="cpu"`` runs on the CPU (gloo).  ``backend``
+    overrides the group's backend: ``"gloo"`` on the card is how ranks
+    that share one device (which NCCL refuses) run collectives, the
+    families' through host memory (``parallel/comm.py``).  A second call
     is a no-op.
     """
     with _lock:
@@ -146,7 +150,7 @@ def init(device: Optional[Union[str, torch.device]] = None) -> None:
             rank, size = int(lib.horovod_rank()), int(lib.horovod_size())
         try:
             dist.init_process_group(
-                "nccl" if dev.type == "cuda" else "gloo",
+                backend or ("nccl" if dev.type == "cuda" else "gloo"),
                 init_method=_init_method(addr), world_size=size, rank=rank)
         except BaseException:
             lib.horovod_shutdown()
@@ -171,6 +175,8 @@ def shutdown() -> None:
         reset_engine_naming()
         if dist.is_initialized():
             dist.destroy_process_group()
+        for hook in _shutdown_hooks:
+            hook()
         _state.clear()
 
 

@@ -406,6 +406,10 @@ def make_train_step(model: nn.Module, loss_fn: Callable, optimizer
     which averages its non-differentiated ``aux_state`` over the data
     axes.  Integer buffers are left alone.
     """
+    if getattr(model, "placement", None) is not None:
+        raise ValueError("make_train_step averages over every rank; a model "
+                         "placed over tensor, expert or fsdp axes steps "
+                         "with parallel.api.make_parallel_train_step")
     dev = basics.device()
     on = {p.device.type for p in model.parameters()}
     if on != {dev.type}:

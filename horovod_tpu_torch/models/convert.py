@@ -28,7 +28,11 @@ statistics (flax's ``batch_stats``) as the buffers ``<norm>.mean`` and
   numpy arrays) — the way the parity tests put both frameworks on the
   same weights.  Flax ``Dense`` kernels are ``[in, out]``; torch
   ``Linear`` weights are ``[out, in]``; flax ``Conv`` kernels are
-  ``[k, k, in, out]`` (HWIO), torch's ``[out, in, k, k]`` (OIHW).
+  ``[k, k, in, out]`` (HWIO), torch's ``[out, in, k, k]`` (OIHW).  An
+  MoE layer's router is a ``Dense`` (transposed); its expert weights
+  ``moe/w_gate_up`` [E, H, 2F] and ``moe/w_down`` [E, F, H] keep their
+  layout, and :func:`init_params` draws them from ``lecun_normal`` with
+  flax's fan-in over those shapes (in times E).
   :func:`params_to_jax` is its inverse (fp32 numpy leaves), so the tests
   can compare parameters after training steps.  BERT's ``type_emb`` table
   travels when the tree has it (the reference creates it only if ``init``
@@ -49,7 +53,7 @@ import torch
 
 from horovod_tpu_torch.common.device import resolve_device
 from horovod_tpu_torch.models.bert import BertConfig
-from horovod_tpu_torch.models.llama import LlamaConfig, _require_dense
+from horovod_tpu_torch.models.llama import LlamaConfig
 from horovod_tpu_torch.models.resnet import ResNetConfig, block_convs
 
 __all__ = ["init_params", "params_from_jax", "params_to_jax"]
@@ -61,7 +65,9 @@ _TRUNC_STD = 0.87962566103423978
 
 def _layout(cfg: LlamaConfig) -> Iterator[Tuple[str, str, Tuple[int, ...]]]:
     """(port name, kind, torch shape) for every parameter, in a fixed
-    order; kind is "embed", "dense" (torch [out, in]), "head" or "norm"."""
+    order; kind is "embed", "dense" (torch [out, in]), "head", "norm",
+    "router" (the MoE router, a dense fp32 [E, H]) or "expert" (an
+    expert-batched weight in the reference's own layout)."""
     D, H = cfg.head_dim, cfg.hidden_size
     yield "tok_emb.weight", "embed", (cfg.vocab_size, H)
     for i in range(cfg.num_layers):
@@ -72,9 +78,14 @@ def _layout(cfg: LlamaConfig) -> Iterator[Tuple[str, str, Tuple[int, ...]]]:
         yield p + "attn.wv.weight", "dense", (cfg.num_kv_heads * D, H)
         yield p + "attn.wo.weight", "dense", (H, cfg.num_heads * D)
         yield p + "norm_mlp.scale", "norm", (H,)
-        yield p + "mlp.w_gate_up.weight", "dense",\
-            (2 * cfg.intermediate_size, H)
-        yield p + "mlp.w_down.weight", "dense", (H, cfg.intermediate_size)
+        F_, E = cfg.intermediate_size, cfg.num_experts
+        if E > 1:
+            yield p + "moe.router.weight", "router", (E, H)
+            yield p + "moe.w_gate_up", "expert", (E, H, 2 * F_)
+            yield p + "moe.w_down", "expert", (E, F_, H)
+        else:
+            yield p + "mlp.w_gate_up.weight", "dense", (2 * F_, H)
+            yield p + "mlp.w_down.weight", "dense", (H, F_)
     yield "norm_f.scale", "norm", (H,)
     yield "lm_head.weight", "head", (cfg.vocab_size, H)
 
@@ -143,14 +154,13 @@ def _layout_of(cfg, type_emb: bool = True):
         return _bert_layout(cfg, type_emb)
     if isinstance(cfg, ResNetConfig):
         return _resnet_layout(cfg)
-    _require_dense(cfg)
     return _layout(cfg)
 
 
 def _dtype(cfg, kind: str) -> torch.dtype:
     if isinstance(cfg, (BertConfig, ResNetConfig)):
         return torch.float32
-    return {"norm": torch.float32,
+    return {"norm": torch.float32, "router": torch.float32,
             "head": cfg.logits_dtype}.get(kind, cfg.dtype)
 
 
@@ -186,8 +196,12 @@ def init_params(cfg, seed: int, device=None, *,
             t = torch.randn(shape, generator=gen, device=device,
                             dtype=torch.float32)
             t.mul_(1.0 / math.sqrt(cfg.hidden_size))
-        else:   # dense / head / conv: lecun_normal over fan_in
-            fan_in = math.prod(shape[1:])
+        else:   # lecun_normal over flax's fan_in
+            # dense / head / router / conv: everything but the out dim;
+            # expert [E, in, out]: in times the batch dims (flax's
+            # receptive field).
+            fan_in = (shape[-2] * math.prod(shape[:-2]) if kind == "expert"
+                      else math.prod(shape[1:]))
             t = _trunc_normal(shape, 1.0 / math.sqrt(fan_in), gen, device)
         out[name] = t.to(_dtype(cfg, kind))
     return out
@@ -199,9 +213,10 @@ def _jax_path(name: str, kind: str) -> Tuple[str, ...]:
     i = parts.index("layers") if "layers" in parts else -1
     if i >= 0:
         parts = parts[:i] + [f"layer_{parts[i + 1]}"] + parts[i + 2:]
-    if len(parts) == 1:                    # a bare parameter (mlm_bias)
+    if len(parts) == 1 or kind == "expert":   # a bare parameter
         return tuple(parts)
     leaf = {"embed": "embedding", "dense": "kernel", "head": "kernel",
+            "router": "kernel",
             "norm": "scale", "zero": "bias"}[kind]
     return tuple(parts[:-1]) + (leaf,)
 
@@ -230,7 +245,7 @@ def _path(cfg, name: str, kind: str) -> Tuple[str, Tuple[str, ...]]:
 
 
 def _from_jax_layout(arr: np.ndarray, kind: str) -> np.ndarray:
-    if kind in ("dense", "head"):
+    if kind in ("dense", "head", "router"):
         return arr.T                              # [in, out] -> [out, in]
     if kind == "conv":
         return arr.transpose(3, 2, 0, 1)          # HWIO -> OIHW
@@ -238,7 +253,7 @@ def _from_jax_layout(arr: np.ndarray, kind: str) -> np.ndarray:
 
 
 def _to_jax_layout(arr: np.ndarray, kind: str) -> np.ndarray:
-    if kind in ("dense", "head"):
+    if kind in ("dense", "head", "router"):
         return arr.T                              # [out, in] -> [in, out]
     if kind == "conv":
         return arr.transpose(2, 3, 1, 0)          # OIHW -> HWIO

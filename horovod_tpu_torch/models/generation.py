@@ -35,8 +35,8 @@ from typing import Optional
 
 import torch
 
-from horovod_tpu_torch.models.llama import (LlamaModel, _require_dense,
-                                            attend, rope_at, rope_freqs)
+from horovod_tpu_torch.models.llama import (LlamaModel, attend, rope_at,
+                                            rope_freqs)
 from horovod_tpu_torch.ops.paged_attention import paged_attention_decode
 
 __all__ = ["prefill", "decode_step", "generate", "paged_prefill",
@@ -82,6 +82,14 @@ def _forward(model: LlamaModel, ids, caches_k, caches_v, *, pos0: int,
     for i, lp in enumerate(model.layers):
         x = _layer(lp, x, caches_k[i], caches_v[i], pos0=pos0, k_len=k_len)
     return model.head(x), caches_k, caches_v
+
+
+def _require_dense(cfg) -> None:
+    """The reference's refusal (``horovod_tpu/models/generation.py:113``):
+    the KV-cache paths run the dense SwiGLU only."""
+    if cfg.num_experts > 1:
+        raise NotImplementedError("KV-cache decode supports dense (non-MoE)"
+                                  " configs")
 
 
 @torch.no_grad()

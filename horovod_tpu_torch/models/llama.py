@@ -1,4 +1,4 @@
-"""Llama-family decoder-only transformer, dense path (PyTorch).
+"""Llama-family decoder-only transformer, dense and MoE (PyTorch).
 
 Counterpart of ``horovod_tpu/models/llama.py``; the parity tests hold its
 logits against the flax model on the same weights.  The math is the
@@ -30,7 +30,19 @@ flash_attention_fn`` for training.
 
 ``fused_rmsnorm`` runs every RMSNorm through ``ops.rms_norm`` (the
 RMSNorm kernels, forward and backward; the same math and parameters).
-``num_experts > 1`` (MoE) is not ported yet and raises.
+
+``num_experts > 1`` replaces each layer's SwiGLU with :class:`MoEBlock`,
+the reference's top-k routed experts.  The reference computes every
+expert on a masked copy of every token (its dense einsum dispatch); the
+masked rows add exact zeros, so :func:`expert_ffn` runs each expert only
+over the tokens routed to it and computes the same function.
+
+A model placed on a mesh (``parallel/api.py`` ``shard_params``) holds
+only its rank's block of each parameter, and its modules' ``placement``
+(``parallel/placement.py``; None on one rank) names the axes of the
+tensor-, expert- and fsdp-axis collectives (``parallel/comm.py``) in
+their forward.  Unplaced, every axis is None and each collective returns
+its input, so one rank runs the same ops as before any placement.
 """
 
 from __future__ import annotations
@@ -43,9 +55,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from horovod_tpu_torch.ops.rms_norm import rms_norm
+from horovod_tpu_torch.parallel import comm
+from horovod_tpu_torch.parallel.mesh import AXIS_EXPERT
+from horovod_tpu_torch.parallel.placement import UNPLACED
 
-__all__ = ["LlamaConfig", "LlamaModel", "RMSNorm", "SwiGLU", "LlamaLayer",
-           "LlamaAttention", "rope_freqs", "apply_rope", "causal_attention"]
+__all__ = ["LlamaConfig", "LlamaModel", "RMSNorm", "SwiGLU", "MoEBlock",
+           "LlamaLayer", "LlamaAttention", "rope_freqs", "apply_rope",
+           "causal_attention", "expert_ffn", "top_k_route"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +75,8 @@ class LlamaConfig:
     max_seq_len: int = 8192
     rope_theta: float = 10000.0
     rms_eps: float = 1e-5
-    num_experts: int = 1          # >1 is MoE: not ported yet
+    num_experts: int = 1          # >1 enables MoE
+    experts_per_token: int = 2
     dtype: torch.dtype = torch.bfloat16
     logits_dtype: torch.dtype = torch.bfloat16
     fused_rmsnorm: bool = False   # the RMSNorm kernels (ops/rms_norm.py)
@@ -81,13 +98,6 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
-
-
-def _require_dense(cfg: LlamaConfig) -> None:
-    if cfg.num_experts > 1:
-        raise NotImplementedError("the port supports dense (non-MoE) "
-                                  "configs only; MoEBlock is not ported yet "
-                                  "(ROADMAP.md Queue A item 5)")
 
 
 class RMSNorm(nn.Module):
@@ -188,21 +198,48 @@ class LlamaAttention(nn.Module):
         self.wv = nn.Linear(cfg.hidden_size, cfg.num_kv_heads * D, **kw)
         self.wo = nn.Linear(cfg.num_heads * D, cfg.hidden_size, **kw)
 
-    def qkv(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
-        """Projections of x [B, S, H] with RoPE applied to q and k."""
+    placement = None
+
+    def _local_heads(self, pl) -> bool:
+        """Whether each rank attends over its own heads: every projection
+        split over ``tensor`` and both head counts divisible by it.
+        Otherwise a split projection is gathered whole first."""
         cfg = self.config
+        return (pl.tensor is not None
+                and all(pl.tensor_at(lin.weight, 0) is not None
+                        for lin in (self.wq, self.wk, self.wv))
+                and cfg.num_heads % pl.tensor.size == 0
+                and cfg.num_kv_heads % pl.tensor.size == 0)
+
+    def qkv(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+        """Projections of x [B, S, H] with RoPE applied to q and k (this
+        rank's heads where :meth:`_local_heads`)."""
+        pl = self.placement or UNPLACED
         B, S, _ = x.shape
-        D = cfg.head_dim
-        q = self.wq(x).reshape(B, S, cfg.num_heads, D)
-        k = self.wk(x).reshape(B, S, cfg.num_kv_heads, D)
-        v = self.wv(x).reshape(B, S, cfg.num_kv_heads, D)
+        local = self._local_heads(pl)
+        cols = [pl.tensor_at(lin.weight, 0) for lin in (self.wq, self.wk,
+                                                        self.wv)]
+        x_tp = comm.copy_to(x, pl.tensor if any(cols) else None)
+
+        def proj(lin, col):
+            y = F.linear(x if col is None else x_tp, pl.weight(lin.weight))
+            if not local:
+                y = comm.gather(y, col, -1)
+            return y.reshape(B, S, -1, self.config.head_dim)
+        q, k, v = (proj(lin, c) for lin, c in zip((self.wq, self.wk,
+                                                   self.wv), cols))
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
     def forward(self, x, cos, sin):
+        pl = self.placement or UNPLACED
         B, S, _ = x.shape
         q, k, v = self.qkv(x, cos, sin)
-        out = self.attention_fn(q, k, v)
-        return self.wo(out.reshape(B, S, -1))
+        out = self.attention_fn(q, k, v).reshape(B, S, -1)
+        row = pl.tensor_at(self.wo.weight, 1)
+        if not self._local_heads(pl):
+            out = comm.split(out, row, -1)
+        return comm.reduce_from(F.linear(out, pl.weight(self.wo.weight)),
+                                row)
 
 
 class SwiGLU(nn.Module):
@@ -214,36 +251,139 @@ class SwiGLU(nn.Module):
                                    2 * cfg.intermediate_size, **kw)
         self.w_down = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
 
+    placement = None
+
     def forward(self, x):
-        gate, up = torch.chunk(self.w_gate_up(x), 2, dim=-1)
-        return self.w_down(gate * torch.sigmoid(gate) * up)
+        pl = self.placement or UNPLACED
+        col, widen, narrow, row = pl.swiglu(self.w_gate_up.weight,
+                                            self.w_down.weight)
+        h = F.linear(comm.copy_to(x, col), pl.weight(self.w_gate_up.weight))
+        gate, up = torch.chunk(comm.gather(h, widen, -1), 2, dim=-1)
+        a = comm.split(gate * torch.sigmoid(gate) * up, narrow, -1)
+        return comm.reduce_from(F.linear(a, pl.weight(self.w_down.weight)),
+                                row)
+
+
+def top_k_route(probs: torch.Tensor, k: int):
+    """(values, indices) of the ``k`` largest of ``probs`` along the last
+    dim, the lower index first among equal values — ``jax.lax.top_k``'s
+    order, which ``torch.topk`` does not promise: a stable sort of
+    ``-probs``."""
+    sel = torch.sort(-probs, dim=-1, stable=True).indices[..., :k]
+    return probs.gather(-1, sel), sel
+
+
+def expert_ffn(x: torch.Tensor, combine: torch.Tensor, w_gate_up: torch.Tensor,
+               w_down: torch.Tensor, *, widen=None, narrow=None,
+               reduce=()) -> torch.Tensor:
+    """``sum_e combine[..., e] * SwiGLU_e(x)`` over the experts of
+    ``w_gate_up`` [E, H, 2F] and ``w_down`` [E, F, H] (``combine``'s
+    columns, [B, S, E], aligned with them).  Expert ``e`` runs only over
+    the tokens whose ``combine`` weight is nonzero (the reference's
+    ``sel_mask``; its masked rows contribute exact zeros); the weighted
+    outputs are summed in fp32 and cast once, as an einsum accumulates.
+    Under a placement (:meth:`Placement.swiglu`), the gate/up product is
+    gathered over ``widen`` and the activation split over ``narrow``, and
+    the fp32 sum is summed over the ``reduce`` axes (each None or a
+    ``comm`` axis)."""
+    B, S, H = x.shape
+    xf = x.reshape(B * S, H)
+    cf = combine.reshape(B * S, -1)
+    pairs = torch.nonzero((cf != 0).t())          # (expert, row), by expert
+    counts = torch.bincount(pairs[:, 0], minlength=cf.shape[1]).tolist()
+    y = torch.zeros((B * S, H), dtype=torch.float32, device=x.device)
+    for e, rows in enumerate(torch.split(pairs[:, 1], counts)):
+        if rows.numel() == 0:
+            continue
+        h = comm.gather(xf[rows] @ w_gate_up[e], widen, -1)
+        gate, up = torch.chunk(h, 2, dim=-1)
+        ye = comm.split(gate * torch.sigmoid(gate) * up, narrow, -1) \
+            @ w_down[e]
+        y = y.index_add(0, rows, ye.float() * cf[rows, e, None].float())
+    y = comm.reduce_from(y, reduce)
+    return y.to(x.dtype).reshape(B, S, H)
+
+
+class MoEBlock(nn.Module):
+    """Top-k routed mixture of SwiGLU experts: the reference's ``MoEBlock``
+    (an fp32 router on x cast to fp32, softmax, top-k, the k weights
+    renormalised and cast to ``dtype`` as the combine weights), with the
+    expert weights in its layout and names: ``w_gate_up`` [E, H, 2F],
+    ``w_down`` [E, F, H]."""
+
+    placement = None
+
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.config = cfg
+        E, H, F_ = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+        self.router = nn.Linear(H, E, bias=False, device=device,
+                                dtype=torch.float32)
+        self.w_gate_up = nn.Parameter(torch.empty(E, H, 2 * F_,
+                                                  dtype=cfg.dtype,
+                                                  device=device))
+        self.w_down = nn.Parameter(torch.empty(E, F_, H, dtype=cfg.dtype,
+                                               device=device))
+
+    def route(self, x: torch.Tensor, router_weight=None) -> torch.Tensor:
+        """The combine weights [B, S, E] in ``dtype``: each token's top-k
+        experts' renormalised probabilities, zero elsewhere."""
+        cfg = self.config
+        w = self.router.weight if router_weight is None else router_weight
+        probs = torch.softmax(F.linear(x.float(), w), dim=-1)
+        weights, sel = top_k_route(probs, cfg.experts_per_token)
+        weights = weights / weights.sum(dim=-1, keepdim=True)
+        return torch.zeros(probs.shape, dtype=cfg.dtype,
+                           device=x.device).scatter(-1, sel,
+                                                    weights.to(cfg.dtype))
+
+    def forward(self, x):
+        pl = self.placement or UNPLACED
+        combine = self.route(x, pl.weight(self.router.weight))
+        col, widen, narrow, row = pl.swiglu(self.w_gate_up, self.w_down)
+        # Each expert rank runs its own experts' columns of the combine;
+        # their parts (and the row-split partial sums) are summed over the
+        # axes the output leaves by.
+        ep = pl.expert if pl.dim(self.w_gate_up, AXIS_EXPERT) == 0 else None
+        n_local = self.w_gate_up.shape[0]
+        e0 = ep.index * n_local if ep else 0
+        c = comm.copy_to(combine, [ep, row])[..., e0:e0 + n_local]
+        return expert_ffn(comm.copy_to(x, [ep, col]), c,
+                          pl.weight(self.w_gate_up), pl.weight(self.w_down),
+                          widen=widen, narrow=narrow, reduce=[ep, row])
 
 
 class LlamaLayer(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None,
                  attention_fn: Callable = causal_attention):
         super().__init__()
+        self.is_moe = cfg.num_experts > 1
         self.norm_attn = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
                                  device, cfg.fused_rmsnorm)
         self.attn = LlamaAttention(cfg, device, attention_fn)
         self.norm_mlp = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
                                 device, cfg.fused_rmsnorm)
-        self.mlp = SwiGLU(cfg, device)
+        if cfg.num_experts > 1:
+            self.moe = MoEBlock(cfg, device)
+        else:
+            self.mlp = SwiGLU(cfg, device)
 
     def forward(self, x, cos, sin):
         x = x + self.attn(self.norm_attn(x), cos, sin)
-        return x + self.mlp(self.norm_mlp(x))
+        ffn = self.moe if self.is_moe else self.mlp
+        return x + ffn(self.norm_mlp(x))
 
 
 class LlamaModel(nn.Module):
-    """The dense Llama decoder.  ``forward(input_ids)`` returns logits
-    [B, S, V] in ``logits_dtype``; ``models/generation.py`` runs the same
-    weights with a KV cache."""
+    """The Llama decoder.  ``forward(input_ids)`` returns logits [B, S, V]
+    in ``logits_dtype``; ``models/generation.py`` runs the same weights
+    (dense configs) with a KV cache."""
+
+    placement = None
 
     def __init__(self, cfg: LlamaConfig, device=None,
                  attention_fn: Callable = causal_attention):
         super().__init__()
-        _require_dense(cfg)
         self.config = cfg
         self.tok_emb = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                     device=device, dtype=cfg.dtype)
@@ -266,15 +406,37 @@ class LlamaModel(nn.Module):
         model.load_state_dict(state, strict=True, assign=True)
         return model
 
+    def embed(self, ids: torch.Tensor) -> torch.Tensor:
+        """The token embedding; with its rows split over ``tensor``, each
+        rank looks up its own rows (zeros for the others' ids) and the
+        parts are summed over the axis."""
+        pl = self.placement or UNPLACED
+        w = pl.weight(self.tok_emb.weight)
+        vocab = pl.tensor_at(self.tok_emb.weight, 0)
+        if vocab is None:
+            return F.embedding(ids, w)
+        rows = w.shape[0]
+        local = ids - vocab.index * rows
+        inside = (local >= 0) & (local < rows)
+        x = F.embedding(local.clamp(0, rows - 1), w) \
+            * inside[..., None].to(w.dtype)
+        return comm.reduce_from(x, vocab)
+
     def head(self, x: torch.Tensor) -> torch.Tensor:
-        """Final norm and output projection in ``logits_dtype``."""
-        x = self.norm_f(x)
-        return F.linear(x.to(self.config.logits_dtype), self.lm_head.weight)
+        """Final norm and output projection in ``logits_dtype``; with the
+        head's columns split over ``tensor``, the logits are gathered whole
+        over it."""
+        pl = self.placement or UNPLACED
+        x = self.norm_f(x).to(self.config.logits_dtype)
+        vocab = pl.tensor_at(self.lm_head.weight, 0)
+        logits = F.linear(comm.copy_to(x, vocab),
+                          pl.weight(self.lm_head.weight))
+        return comm.gather(logits, vocab, -1)
 
     def forward(self, input_ids: torch.Tensor, *,
                 positions_offset: int = 0) -> torch.Tensor:
         cfg = self.config
-        x = self.tok_emb(input_ids)
+        x = self.embed(input_ids)
         cos, sin = rope_freqs(cfg.head_dim, input_ids.shape[1],
                               cfg.rope_theta, offset=positions_offset,
                               device=input_ids.device)

@@ -56,6 +56,8 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
+import warnings
 from typing import Optional
 
 import torch
@@ -90,6 +92,8 @@ key_bias_launches = dict.fromkeys(_KERNELS, 0)
 plain_calls = dict.fromkeys(_KERNELS, 0)
 
 _fns = {}
+_fallbacks: dict = {}
+_fallbacks_lock = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -100,10 +104,24 @@ def reset_launches() -> None:
 
 
 def fallback_count() -> int:
-    """Times a composing caller chose a non-kernel attention path.  No
-    such caller (ring attention, ...) is ported yet, so this stays 0;
-    :func:`flash_attention` itself always runs the kernels."""
-    return 0
+    """Times a composing caller chose a non-kernel attention path (ring
+    attention's dense blockwise hop on CPU tensors,
+    ``parallel/ring_attention.py``),
+    summed over every reason; :func:`flash_attention` itself always runs
+    the kernels.  The reference counts each traced fallback; an eager
+    caller counts each call."""
+    with _fallbacks_lock:
+        return sum(_fallbacks.values())
+
+
+def _note_fallback(reason: str) -> None:
+    """Count a non-kernel path taken for ``reason``; warn once a reason."""
+    with _fallbacks_lock:
+        first = reason not in _fallbacks
+        _fallbacks[reason] = _fallbacks.get(reason, 0) + 1
+    if first:
+        warnings.warn("flash kernel not used: " + reason, RuntimeWarning,
+                      stacklevel=3)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,8 @@
-"""Meshes and parameter placement (counterparts of
-``horovod_tpu/parallel/``): the named ``data``/``fsdp`` mesh as a torch
-``DeviceMesh`` and the reference's sharding rules applied with FSDP2.
-The tensor, sequence and expert families are not ported yet (ROADMAP.md
-Queue A item 5)."""
+"""Meshes and the parallelism families (counterparts of
+``horovod_tpu/parallel/``): the named mesh as a torch ``DeviceMesh`` and
+the default-mesh helpers (``mesh.py``); the reference's sharding rules,
+tensor/expert/fsdp placement and ``make_parallel_train_step``
+(``api.py``, ``placement.py``); the families' differentiable collectives
+(``comm.py``); ring and Ulysses attention (``ring_attention.py``) and the
+context-parallel step (``seq.py``); and the GPipe pipeline
+(``pipeline.py``)."""

@@ -1288,3 +1288,110 @@ if __name__ == "__main__":
 
     if sys.argv[1:] == ["ready"]:
         _ready_rank()
+
+
+# ---------------------------------------------------------------------------
+# MoE in the model and the flash ring's hops (slice 13)
+# ---------------------------------------------------------------------------
+
+def _moe_dense(moe, x):
+    """The reference's MoE body: every expert over a masked copy of every
+    token, then the combine."""
+    combine = moe.route(x)
+    xe = torch.einsum("bsh,bse->ebsh", x, (combine != 0).to(x.dtype))
+    gate, up = torch.chunk(torch.einsum("ebsh,ehf->ebsf", xe, moe.w_gate_up),
+                           2, dim=-1)
+    ye = torch.einsum("ebsf,efh->ebsh", gate * torch.sigmoid(gate) * up,
+                      moe.w_down)
+    return torch.einsum("ebsh,bse->bsh", ye, combine)
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_routed_equals_dense_masked_on_the_card(dev, dtype):
+    """The routed MoE block against the dense masked einsum on the same
+    card tensors (bench_llama's widths, 8 experts, top-2, 2048 tokens):
+    output and gradients within relative L2 2e-2 in bf16 (one rounding of
+    each GEMM output in other shapes), 1e-5 in fp32."""
+    import dataclasses
+
+    from horovod_tpu_torch.models.llama import MoEBlock
+
+    cfg = dataclasses.replace(LlamaConfig(hidden_size=1024,
+                                          intermediate_size=4096,
+                                          num_experts=8), dtype=dtype)
+    moe = MoEBlock(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    with torch.no_grad():
+        moe.router.weight.normal_(generator=gen).mul_(0.03)
+        moe.w_gate_up.copy_(torch.randn(moe.w_gate_up.shape, device=dev,
+                                        generator=gen) * 0.03)
+        moe.w_down.copy_(torch.randn(moe.w_down.shape, device=dev,
+                                     generator=gen) * 0.015)
+    x0 = torch.randn(2, 1024, 1024, device=dev, generator=gen).to(dtype)
+    cot = torch.randn(x0.shape, device=dev, generator=gen).to(dtype)
+    params = [moe.router.weight, moe.w_gate_up, moe.w_down]
+    runs = []
+    for fn in (moe, lambda x: _moe_dense(moe, x)):
+        x = x0.clone().requires_grad_(True)
+        y = fn(x)
+        runs.append([y] + list(torch.autograd.grad(y, [x] + params, cot)))
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    for got, want in zip(*runs):
+        assert torch.isfinite(got).all()
+        assert _rel(got, want) <= tol
+
+
+def test_flash_ring_hop_and_merge_on_the_card(dev):
+    """A causal hop (out and lse) of the bf16 flash kernels against dense
+    attention, two non-causal hops merged by ``merge_hops`` against
+    attention over both key sets, and a killed hop (lse -inf): no NaN,
+    zero cotangents."""
+    from horovod_tpu_torch.models.llama import attend
+    from horovod_tpu_torch.parallel.ring_attention import merge_hops
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, S, H, Hkv, D = 1, 1024, 8, 2, 128
+    q = torch.randn(B, S, H, D, device=dev, generator=gen).bfloat16()
+    k = torch.randn(B, 2 * S, Hkv, D, device=dev, generator=gen).bfloat16()
+    v = torch.randn(B, 2 * S, Hkv, D, device=dev, generator=gen).bfloat16()
+    out, lse = fa.flash_attention_lse(q, k[:, :S], v[:, :S], causal=True)
+    causal = torch.tril(torch.ones(S, S, dtype=torch.bool, device=dev))
+    want = attend(q.float(), k[:, :S].float(), v[:, :S].float(), causal)
+    assert _rel(out, want) <= 1e-2
+    qg = q.float().reshape(B, S, Hkv, H // Hkv, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k[:, :S].float()) / D ** 0.5
+    s = s.masked_fill(~causal, float("-inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1).reshape(B, H, S),
+                               rtol=0, atol=2e-2)
+    oa, la = fa.flash_attention_lse(q, k[:, :S], v[:, :S], causal=False)
+    ob, lb = fa.flash_attention_lse(q, k[:, S:], v[:, S:], causal=False)
+    merged, _ = merge_hops(oa.float(), la, ob.float(), lb)
+    full = attend(q.float(), k.float(), v.float(),
+                  torch.ones(S, 2 * S, dtype=torch.bool, device=dev))
+    assert _rel(merged, full) <= 1e-2
+    dead = ob.float().requires_grad_(True)
+    dead_lse = torch.full_like(lb, float("-inf")).requires_grad_(True)
+    kept, kept_lse = merge_hops(oa.float(), la, dead, dead_lse)
+    assert torch.equal(kept, oa.float()) and torch.equal(kept_lse, la)
+    (kept.sum() + kept_lse.sum()).backward()
+    assert not dead.grad.any() and not dead_lse.grad.any()
+
+
+@pytest.mark.parametrize("D, Sk", [(256, 64), (128, 96)])
+def test_flash_ring_refuses_shapes_off_the_kernels_on_the_card(dev, D, Sk):
+    """Ring attention on card tensors whose head dim (> 128) or KV shard
+    length (not Q's) the lse kernels do not take raises, as
+    ``flash_attention`` does: no dense hop runs on the card, and no
+    fallback is counted."""
+    from horovod_tpu_torch.parallel.ring_attention import ring_attention
+
+    q = torch.zeros(1, 64, 2, D, device=dev, dtype=torch.bfloat16)
+    k = torch.zeros(1, Sk, 2, D, device=dev, dtype=torch.bfloat16)
+    before = fa.fallback_count()
+    with pytest.raises(ValueError, match="ring_attention: .* no CUDA kernel"):
+        ring_attention(q, k, k.clone())
+    assert fa.fallback_count() == before

@@ -33,7 +33,6 @@ top.
 
 import ctypes
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -235,16 +234,9 @@ def _rank_main(mode: str, dst: str) -> None:
 
 
 def _free_port():
-    """A free port whose + 64 (the torch group's rendezvous) is free too."""
-    while True:
-        with socket.socket() as s, socket.socket() as t:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
-            try:
-                t.bind(("127.0.0.1", port + 64))
-            except OSError:
-                continue
-            return port
+    from horovod_tpu_torch.common.launch import free_port
+
+    return free_port()
 
 
 def _start_world(mode, n, tmp_path, local_size=None):

@@ -88,9 +88,9 @@ def test_collectives_and_compression_on_one_rank(clean_env):
 
 
 def test_unported_options_raise(monkeypatch):
-    """What is still refused raises: the MoE model (Queue A item 5), and
-    top-k with the sharded rungs (no scatter half, as in the reference);
-    the three rungs and top-k ported since build."""
+    """What is still refused raises: top-k with the sharded rungs (no
+    scatter half, as in the reference); the three rungs, top-k and the MoE
+    model (``num_experts > 1``) build."""
     for var in ("HOROVOD_SHARDED", "HOROVOD_FSDP", "HOROVOD_LOCAL_SGD_STEPS"):
         monkeypatch.delenv(var, raising=False)
     opt = torch.optim.SGD([torch.nn.Parameter(torch.zeros(2))], lr=0.1)
@@ -100,8 +100,9 @@ def test_unported_options_raise(monkeypatch):
                                      **{rung: True})
     topk = hvd.DistributedOptimizer(opt, compression=Compression.topk(0.01))
     assert topk.zero is None and topk.local_sgd is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LlamaModel(LlamaConfig.tiny(num_experts=4), device="meta")
+    moe = LlamaModel(LlamaConfig.tiny(num_experts=4), device="meta")
+    assert all(layer.is_moe for layer in moe.layers)
+    assert moe.layers[0].moe.w_gate_up.shape == (4, 64, 256)
     # The mutual exclusions of the JAX frontend.
     for kw in (dict(sharded=True, fsdp=True),
                dict(sharded=True, local_sgd_steps=4),

@@ -57,7 +57,11 @@ _TRAINING_MODULES = ["common.basics", "ops.collective_ops", "ops.compression",
                      "runtime.mpi_ops", "runtime.eager", "torch_frontend",
                      "runtime.sharded", "runtime.fsdp", "elastic",
                      "elastic.state", "runtime.sparse",
-                     "runtime.wire_policy", "runtime.moe"]
+                     "runtime.wire_policy", "runtime.moe",
+                     "parallel.comm", "parallel.placement",
+                     "parallel.ring_attention", "parallel.seq",
+                     "parallel.pipeline", "parallel.dryrun", "ops.ragged",
+                     "examples.llama_training_5d", "common.launch"]
 #: The serving slice, the router fleet and its launcher and benchmark.
 _SERVE_MODULES = ["serve", "serve.engine", "serve.scheduler", "serve.server",
                   "serve.replica", "serve.router", "run", "bench_serve"]

@@ -284,9 +284,22 @@ def test_fused_rmsnorm_model_matches_flax_fused():
 
 
 def test_conversion_rejects_mismatch_and_moe():
+    """A tree of other widths raises; a dense tree is no MoE model's (it
+    has no ``moe`` subtree); an MoE model builds, and the KV-cache paths
+    refuse it, as the reference's do."""
     _, variables, _ = _models("float32")
     wide = dataclasses.replace(LlamaConfig.tiny(), hidden_size=128)
     with pytest.raises(ValueError, match="does not match"):
         params_from_jax(variables, wide, "cpu")
+    moe_cfg = dataclasses.replace(LlamaConfig.tiny(num_experts=4),
+                                  dtype=torch.float32,
+                                  logits_dtype=torch.float32)
+    with pytest.raises(KeyError, match="moe"):
+        params_from_jax(variables, moe_cfg, "cpu")
+    moe = LlamaModel.from_state_dict(moe_cfg, init_params(moe_cfg, 0, "cpu"))
     with pytest.raises(NotImplementedError, match="MoE"):
-        LlamaModel(LlamaConfig.tiny(num_experts=4))
+        tgen.prefill(moe, torch.zeros((1, 4), dtype=torch.long),
+                     cache_len=8)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        jgen.prefill(JaxLlamaConfig.tiny(num_experts=4), {"params": {}},
+                     jnp.zeros((1, 4), jnp.int32), cache_len=8)

@@ -147,8 +147,11 @@ def cpu_world(monkeypatch):
 def test_one_rank_mesh_replicates_and_refuses_unported_axes(cpu_world):
     """One rank: ``{"data": 1, "fsdp": -1}`` resolves to fsdp 1, a real
     DeviceMesh over the default group; ``shard_params`` leaves the model
-    as it is.  A tensor, seq or expert axis > 1 raises, naming ROADMAP
-    Queue A item 5."""
+    as it is, and so does a mesh with ``tensor``, ``seq``, ``expert`` and
+    ``pipe`` axes of size 1 (for a Llama too: nothing to place).  Still
+    refused: tensor or expert placement of a model other than Llama (BERT
+    here, ROADMAP Queue A item 7), and a mesh that does not cover the
+    world, as in the reference."""
     m = mesh.build_mesh({"data": 1, "fsdp": -1})
     assert m.mesh_dim_names == ("data", "fsdp") and tuple(m.shape) == (1, 1)
     assert mesh.axis_sizes(m) == {"data": 1, "fsdp": 1}
@@ -158,11 +161,24 @@ def test_one_rank_mesh_replicates_and_refuses_unported_axes(cpu_world):
     model = BertForPretraining(cfg)
     assert api.shard_params(model, m) is model
     assert all(type(p) is torch.nn.Parameter for p in model.parameters())
-    for axis in ("tensor", "seq", "expert"):
-        with pytest.raises(NotImplementedError, match="Queue A item 5"):
+    wide = mesh.build_mesh({"data": 1, "fsdp": 1, "tensor": 1, "seq": 1,
+                            "expert": 1, "pipe": 1})
+    llama = LlamaModel(LlamaConfig.tiny(num_experts=4))
+    shapes = {n: p.shape for n, p in llama.named_parameters()}
+    for target in (model, llama):
+        assert api.shard_params(target, wide) is target
+    assert llama.placement is None
+    assert {n: p.shape for n, p in llama.named_parameters()} == shapes
+    for axis in ("tensor", "expert"):
+        with pytest.raises(NotImplementedError, match="Queue A item 7"):
             api.shard_params(model, {"data": 1, "fsdp": 1, axis: 2})
+    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+        api.make_parallel_train_step(model, None, {"data": 1, "fsdp": 2})
     with pytest.raises(ValueError, match="does not cover"):
         mesh.build_mesh({"data": 2})
+    with mesh.use_mesh(m):
+        assert mesh.default_mesh() is m
+    assert mesh.axis_sizes(mesh.default_mesh()) == {"data": 1}
 
 
 def test_build_mesh_raises_before_init():
