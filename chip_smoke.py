@@ -208,7 +208,47 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                B1-B3 launches as the part's schedule gives (the ring: 2
                hops x 2 layers a step), no fallback; step ms, the bytes
                that cross between ranks and the bytes staged a step;
-15. train_profile, train_packed_profile, train_bert_profile,
+15. ckpt    — the weight plane on CUDA state: ``bench_llama``'s model at
+               its full config under the hook form's ZeRO-1 (AdamW 3e-4,
+               fp32 masters) on two ranks of the card (``--ckpt-worker
+               RANK``), B 4 x S 2048 each: step 1 and its save (the
+               writer's pinned buffers are made), step 2, ``save()``
+               through the async writer and step 3 at once; the written
+               masters, moments and params against clones taken before
+               step 3 bit for bit (the snapshot race), no ``|V2`` leaf; a
+               restore at world 2 into a fresh model and optimizer and
+               step 3 rerun from it, each bitwise; then this process
+               restores at world 1 (resliced through ``shard_bounds``)
+               and holds every leaf to the written bytes: bytes written,
+               ``save()``'s stall, the D2H ms and GB/s, write + fsync +
+               commit ms, restore ms at each world, B1-B3 launches;
+16. ckpt_kill — ``python -m horovod_tpu_torch.run -np 2
+               --restart-on-failure 1 --checkpoint-dir D`` over this
+               script's ``--kill-worker`` (bench_llama's widths at 2
+               layers, ``MasterWeights(AdamW)``, gradients averaged by
+               the engine, ``run_elastic`` with the env-configured writer
+               every 2 steps, 8 steps), without and then with
+               ``HOROVOD_FAULT_INJECT=1:5:ckpt-kill`` (rank 1 killed
+               between the halves of its step-6 shard write): no manifest
+               names the torn step, the relaunched world enters at the
+               survivors' last commit, the final digest equals the clean
+               run's, the launcher exits 0, no ``/dev/shm`` entry leaks:
+               relaunch-to-first-step s, steps redone;
+17. serve_weights — a checkpoint of seeded Llama-3-8B weights cut to 2
+               layers (1.49 B parameters, fp32 on disk) written by the
+               JAX-form capture; a replica serving it behind the router
+               (``run --serve --serve-model D``), 8 streams, and mid-stream
+               a partial push (layer 0's q and o on the int8 wire, every
+               norm scale) through ``WeightPusher``: every stream requeued
+               once and finished at full length on the new epoch, a
+               replayed stale epoch acked unapplied; in this process a
+               runner restored from the checkpoint, its weights equal to
+               the written ones, each width's decode graph bitwise equal
+               to a fresh eager runner's step after the restore and after
+               the same push copied in place (``captures`` unchanged):
+               restore s, push MB, swap ms, requeued, tokens/s before and
+               after;
+18. train_profile, train_packed_profile, train_bert_profile,
                train_resnet_profile, bench_llama_profile,
                train_moe_profile — where one step of each goes
                (torch.profiler), after every phase was timed: once the
@@ -222,7 +262,7 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                real step;
                and the flash kernels' ``kernel_time_bench`` lines with
                bench_llama's launches a step;
-16. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+19. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints one JSON line; any failed check raises (exit != 0) and
@@ -237,6 +277,7 @@ import asyncio
 import dataclasses
 import functools
 import gc
+import hashlib
 import json
 import math
 import os
@@ -255,12 +296,19 @@ import torch.nn.functional as F
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch import bench, bench_serve, torch_frontend
+from horovod_tpu_torch.checkpoint import (CheckpointLoader, CheckpointWriter,
+                                          jax_capture, latest_manifest,
+                                          torch_capture, torch_restore)
+from horovod_tpu_torch.checkpoint import manifest as ckpt_manifest
+from horovod_tpu_torch.checkpoint.push import (WeightPusher, decode_leaves,
+                                               encode_leaves)
 from horovod_tpu_torch.examples import bert_pretraining_fsdp as bert_example
 from horovod_tpu_torch.examples.llama_packed_pretraining import (
     boundary_mask, make_packed_batch, packed_lm_loss)
 from horovod_tpu_torch.experiments import conv_bn_spike
 from horovod_tpu_torch.models.bert import BertConfig, dot_product_attention
-from horovod_tpu_torch.models.convert import init_params
+from horovod_tpu_torch.models.convert import (init_params, jax_paths,
+                                              params_to_jax)
 from horovod_tpu_torch.models.generation import (generate, paged_decode_step,
                                                  paged_prefill)
 from horovod_tpu_torch.models.llama import (LlamaConfig, LlamaModel, RMSNorm,
@@ -1517,9 +1565,10 @@ def graph_rows(runner, width, seed):
     return tokens, tables, pos
 
 
-def eager_decode(runner, tokens, tables, pos):
+def eager_decode(runner, tokens, tables, pos, model=None):
     """``ModelRunner.decode`` without its graph: the same padding, the
-    ``paged_decode_step`` body run eagerly, fp32 logits to the host."""
+    ``paged_decode_step`` body run eagerly (on ``model``, default the
+    runner's, over the runner's pools), fp32 logits to the host."""
     dev, maxb = runner.device, runner.max_blocks_per_seq
     width = 1 << max(0, len(tokens) - 1).bit_length()
     t = np.zeros((width,), np.int64)
@@ -1529,7 +1578,7 @@ def eager_decode(runner, tokens, tables, pos):
     p = np.zeros((width,), np.int32)
     p[:len(pos)] = pos
     logits, _, _ = paged_decode_step(
-        runner.model, torch.from_numpy(t).to(dev), runner.pool_k,
+        model or runner.model, torch.from_numpy(t).to(dev), runner.pool_k,
         runner.pool_v, torch.from_numpy(tb).to(dev),
         torch.from_numpy(p).to(dev), fused=runner.fused_attn)
     return logits[:len(tokens)].float().cpu().numpy()
@@ -2683,9 +2732,9 @@ def engine_worker(rank: int, device: str) -> dict:
     return out
 
 
-def run_ranks(flag: str, phase: str, timeout_s: float) -> list:
-    """Start this script once per rank (``flag RANK``, every rank on
-    cuda:0) and return each rank's last stdout line, parsed.  No
+def run_ranks(flag: str, phase: str, timeout_s: float, extra=()) -> list:
+    """Start this script once per rank (``flag RANK`` and ``extra``, every
+    rank on cuda:0) and return each rank's last stdout line, parsed.  No
     torch.distributed collective runs in them (NCCL refuses two ranks on
     one device; the group is created lazily).  Any rank's failure or
     timeout fails the phase.  ``HOROVOD_SHM_DISABLE`` alone of the
@@ -2704,7 +2753,7 @@ def run_ranks(flag: str, phase: str, timeout_s: float) -> list:
               open(os.path.join(logs, f"rank{r}.err"), "w+"))
              for r in range(ENGINE_RANKS)]
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), flag, str(r)],
+        [sys.executable, os.path.abspath(__file__), flag, str(r), *extra],
         env=dict(env, HOROVOD_RANK=str(r), HOROVOD_LOCAL_RANK=str(r)),
         stdout=files[r][0], stderr=files[r][1], text=True)
         for r in range(ENGINE_RANKS)]
@@ -3990,6 +4039,694 @@ def phase_parallel():
     emit("parallel", part="phase", wall_s=time.monotonic() - t0)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the weight plane: sharded async checkpoints of CUDA state,
+# bench_llama's model under ZeRO-1 on two ranks of the card
+# ---------------------------------------------------------------------------
+
+CKPT_TIMEOUT_S = 600
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def zero_optimizer(model):
+    """The hook form's ZeRO-1 over bench_llama's AdamW: fp32 master shards
+    and moments of a bf16 model."""
+    return torch_frontend.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=bench.LLAMA_LR,
+                          **bench.LLAMA_ADAMW), sharded=True)
+
+
+def zero_leaves(opt, model) -> dict:
+    """Every tensor a ZeRO-1 checkpoint holds, by its checkpoint name:
+    the model's state, this rank's master shards, their AdamW state."""
+    out = {f"model.{k}": v for k, v in model.state_dict().items()}
+    for gi, g in enumerate(opt._groups):
+        out[f"zero.master.{gi}"] = g["master"]
+        inner = opt._shard_opt.param_groups[gi]["params"][0]
+        for key, val in opt._shard_opt.state.get(inner, {}).items():
+            out[f"zero.opt.{gi}.{key}"] = val
+    return out
+
+
+def leaves_equal(got: dict, want: dict) -> list:
+    """The names whose tensors differ (values and dtype, bit for bit)."""
+    return sorted(k for k in want if not (
+        got[k].dtype == want[k].dtype
+        and torch.equal(got[k].detach().cpu(), want[k].detach().cpu())))
+
+
+def written_equal(loader, leaves: dict, opt) -> list:
+    """The names whose written bytes differ from ``leaves`` (this rank's
+    window of the sharded vectors; bf16 model leaves against their fp32
+    upcast; the AdamW step against the zero_scalars entry)."""
+    bad = []
+    for name, t in leaves.items():
+        if name.startswith("model."):
+            got = loader.read_replicated(name)
+            want = t.detach().float().cpu().numpy()
+        elif name.startswith("zero.opt.") and t.dim() == 0:
+            _, _, gi, key = name.split(".", 3)
+            got = loader.read_replicated(f"zero_scalars.{gi}.{key}")
+            want = np.asarray(t.item())
+        else:
+            sh = opt._groups[int(name.split(".")[2])]["sharder"]
+            got = loader.read_flat(name, sh.offset, sh.count)
+            want = t.detach().cpu().numpy()
+        if got.dtype != want.dtype or got.tobytes() != want.tobytes():
+            bad.append(name)
+    return bad
+
+
+def ckpt_worker(rank: int, device: str, directory: str) -> dict:
+    """One rank of the ckpt phase: bench_llama's model at B 4 x S 2048
+    (this rank's 4 rows of the bench's batch of 8), ZeRO-1; step 1 and
+    its save (the pinned buffers are made), step 2, ``save()`` of step 2
+    through the async writer and step 3 at once;
+    the written bytes against the pre-step-3 clones; a restore at world 2
+    into a fresh model and optimizer against them; step 3 rerun from the
+    restore against the uninterrupted step 3."""
+    hvd.init(device=device)
+    dev = hvd.device()
+    cfg = bench.llama_config()
+    rows = 8 // hvd.size()
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, 2049), dtype=np.int32)
+    batch = torch.from_numpy(tokens[rank * rows:(rank + 1) * rows]).long() \
+        .to(dev)
+    model = train_model(cfg, dev)
+    opt = zero_optimizer(model)
+
+    def step(model, opt):
+        opt.zero_grad()
+        loss = bench.llama_loss_fn(model, batch)
+        loss.backward()
+        opt.step()
+        return loss
+
+    fa.reset_launches()
+    step(model, opt)
+    # The save of step 1 makes the writer's pinned buffers (its stall is
+    # their allocation); the measured save, of step 2, reuses them.
+    writer = CheckpointWriter(directory, meta={"model": "bench_llama"})
+    writer.save(1, *torch_capture(opt, model, 1))
+    first_stall_ms = writer.last_stall_ms
+    writer.wait(timeout=CKPT_TIMEOUT_S)
+    step(model, opt)
+    sync(dev)
+    launches = {k: v / 2 for k, v in fa.launches.items()}
+    plain = dict(fa.plain_calls)
+    check(dev.type != "cuda" or (
+        all(v == cfg.num_layers for v in launches.values())
+        and not any(plain.values())),
+        f"ckpt: flash launches a step {launches}, plain calls {plain}")
+    pre = {k: v.detach().clone() for k, v in zero_leaves(opt, model).items()}
+    st, sh = torch_capture(opt, model, 2)
+    d2h_bytes = sum(t.numel() * t.element_size() for t in
+                    list(st["model"].values()) + [v[0] for v in sh.values()])
+    sync(dev)
+    writer.save(2, st, sh)
+    stall_ms = writer.last_stall_ms
+    # Step 3 right behind save(): its in-place updates of the params,
+    # masters and moments must not reach the snapshot.
+    step(model, opt)
+    writer.wait(timeout=CKPT_TIMEOUT_S)
+    writer.close()
+    after = {k: v.detach().clone()
+             for k, v in zero_leaves(opt, model).items()}
+    loader = CheckpointLoader(directory)
+    check(loader.step == 2 and loader.world_size == hvd.size(),
+          f"ckpt: manifest step {loader.step} world {loader.world_size}")
+    bad = written_equal(loader, pre, opt)
+    check(not bad, f"ckpt: written bytes differ from the pre-step-3 "
+                   f"values (the snapshot raced the step): {bad[:5]}")
+    void = [(r, k) for r in range(loader.world_size)
+            for k in loader._shard_npz(r).files
+            if loader._shard_npz(r)[k].dtype.kind == "V"]
+    check(not void, f"ckpt: |V2 leaves written: {void[:5]}")
+    del model, opt, st, sh
+    free_memory()
+
+    # Restore at world 2 into a model of other weights and a fresh
+    # optimizer, then rerun step 3.
+    model = LlamaModel.from_state_dict(cfg, init_params(cfg, 1, dev),
+                                       attention_fn=fa.flash_attention_fn)
+    opt = zero_optimizer(model)
+    sync(dev)
+    t = time.perf_counter()
+    restored = torch_restore(opt, model, loader)
+    sync(dev)
+    restore_ms = (time.perf_counter() - t) * 1e3
+    loader.close()
+    check(restored == 2, f"ckpt: restored step {restored}")
+    bad = leaves_equal(zero_leaves(opt, model), pre)
+    check(not bad, f"ckpt: world-2 restore differs at {bad[:5]}")
+    step(model, opt)
+    bad = leaves_equal(zero_leaves(opt, model), after)
+    check(not bad, f"ckpt: step 3 from the restore differs from the "
+                   f"uninterrupted step 3 at {bad[:5]}")
+    out = {"rank": hvd.rank(), "size": hvd.size(), "batch": list(batch.shape),
+           "bytes_written": writer.last_bytes, "d2h_bytes": d2h_bytes,
+           "save_stall_ms": stall_ms, "first_save_stall_ms": first_stall_ms,
+           "snapshot_d2h_ms": writer.last_snapshot_ms,
+           "snapshot_gb_per_s": d2h_bytes / writer.last_snapshot_ms / 1e6
+           if writer.last_snapshot_ms else None,
+           "write_fsync_commit_ms": writer.last_write_ms,
+           "write_phases_ms": writer.last_phases,
+           "restore_ms_world2": restore_ms,
+           "flash_launches_per_step": launches,
+           "leaves": len(pre), "snapshot_bitwise": True,
+           "restore_world2_bitwise": True, "rerun_step3_bitwise": True}
+    del model, opt
+    free_memory()
+    hvd.shutdown()
+    return out
+
+
+def phase_ckpt(dev):
+    """Two ranks of the card checkpoint bench_llama's ZeRO-1 state
+    (``--ckpt-worker``); this process restores it at world 1, resliced
+    through shard_bounds, and holds every leaf to the written bytes."""
+    directory = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.monotonic()
+        results = run_ranks("--ckpt-worker", "ckpt", CKPT_TIMEOUT_S,
+                            extra=("--ckpt-dir", directory))
+        cfg = bench.llama_config()
+        model = LlamaModel.from_state_dict(
+            cfg, init_params(cfg, 1, dev), attention_fn=fa.flash_attention_fn)
+        opt = zero_optimizer(model)
+        check(opt.sharder.size == 1, "ckpt: world-1 restore not at world 1")
+        loader = CheckpointLoader(directory)
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        restored = torch_restore(opt, model, loader)
+        torch.cuda.synchronize(dev)
+        restore_ms = (time.perf_counter() - t) * 1e3
+        check(restored == 2, f"ckpt: world-1 restore of step {restored}")
+        bad = written_equal(loader, zero_leaves(opt, model), opt)
+        check(not bad, f"ckpt: world-1 restore differs at {bad[:5]}")
+        loader.close()
+        emit("ckpt", ranks=ENGINE_RANKS, model="bench_llama",
+             params=sum(p.numel() for p in model.parameters()),
+             per_rank=results, restore_ms_world1=restore_ms,
+             restore_world1_bitwise=True, wall_s=time.monotonic() - t0,
+             nvidia_smi_after=smi_now())
+        del model, opt
+        free_memory()
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 16: elastic recovery through the launcher: a shard write torn by
+# the ckpt-kill fault, the relaunch, and the resume
+# ---------------------------------------------------------------------------
+
+KILL_LAYERS, KILL_STEPS, KILL_B, KILL_S = 2, 8, 2, 2048
+KILL_TIMEOUT_S = 420
+
+
+def kill_batch(step: int, rank: int, vocab: int, dev) -> torch.Tensor:
+    """Rank ``rank``'s rows of step ``step``'s batch (the same on every
+    incarnation, so a redone step computes the same)."""
+    tokens = np.random.default_rng(1000 + step).integers(
+        0, vocab, (2 * KILL_B, KILL_S + 1), dtype=np.int32)
+    return torch.from_numpy(tokens[rank * KILL_B:(rank + 1) * KILL_B]) \
+        .long().to(dev)
+
+
+def kill_worker(device: str = "cuda:0") -> None:
+    """One rank under ``python -m horovod_tpu_torch.run``: bench_llama's
+    widths at KILL_LAYERS layers, MasterWeights(AdamW), gradients averaged
+    by the engine, under ``run_elastic`` with the env-configured writer
+    (``HOROVOD_CHECKPOINT_DIR``, every 2 steps), committing each step."""
+    from horovod_tpu_torch.elastic import ElasticState, run_elastic
+    from horovod_tpu_torch.runtime.engine import HorovodInternalError
+
+    hvd.init(device=device, backend="gloo")
+    dev = hvd.device()
+    cfg = dataclasses.replace(bench.llama_config(), num_layers=KILL_LAYERS)
+    model = LlamaModel.from_state_dict(cfg, init_params(cfg, 0, dev),
+                                       attention_fn=fa.flash_attention_fn)
+    mw = masterweights(model)
+    # AdamW's state made now (what its first step makes), so the elastic
+    # state holds it from the start.
+    for m in mw.masters:
+        mw.inner.state[m] = {"step": torch.tensor(0.0),
+                             "exp_avg": torch.zeros_like(m),
+                             "exp_avg_sq": torch.zeros_like(m)}
+    params = list(model.parameters())
+    state = ElasticState(params=dict(model.named_parameters()),
+                         masters=list(mw.masters),
+                         opt={str(i): mw.inner.state[m]
+                              for i, m in enumerate(mw.masters)}, step=0)
+    writer = CheckpointWriter(meta={"model": "bench_llama_2l"})
+    fa.reset_launches()
+    steps_run = [0]
+
+    def train(state):
+        print(f"CKPT_KILL_ENTER rank={hvd.rank()} step={state.step}",
+              flush=True)
+        while state.step < KILL_STEPS:
+            s = state.step + 1
+            print(f"CKPT_KILL_BEGIN rank={hvd.rank()} step={s}", flush=True)
+            model.zero_grad(set_to_none=True)
+            loss = bench.llama_loss_fn(
+                model, kill_batch(s, hvd.rank(), cfg.vocab_size, dev))
+            loss.backward()
+            steps_run[0] += 1
+            grads = hvd.grouped_allreduce([p.grad for p in params],
+                                          name="kill.grads")
+            for p, g in zip(params, grads):
+                p.grad = g
+            mw.step()
+            state.step = s
+            state.commit()
+            print(f"CKPT_KILL_STEP rank={hvd.rank()} step={s} "
+                  f"loss={loss.item():.6f}", flush=True)
+            try:
+                # Each checkpoint committed before the next step (the
+                # writer is latest-wins: with a write longer than a step,
+                # queued saves would be dropped and the fault would land
+                # on another step).  A peer that died mid-write fails the
+                # barrier: the step's collective reports it.
+                if writer.maybe_save(s, state):
+                    writer.wait(timeout=KILL_TIMEOUT_S)
+            except HorovodInternalError:
+                pass
+
+    run_elastic(train, state)
+    writer.close()
+    digest = hashlib.sha256()
+    for t in params + list(mw.masters):
+        digest.update(t.detach().contiguous().view(torch.uint8).cpu()
+                      .numpy().tobytes())
+    launches = dict(fa.launches)
+    check(dev.type != "cuda" or (
+        all(v == KILL_LAYERS * steps_run[0] for v in launches.values())
+        and not any(fa.plain_calls.values())),
+        f"ckpt_kill: flash launches {launches} in {steps_run[0]} steps")
+    print(f"CKPT_KILL_OK rank={hvd.rank()} step={state.step} "
+          f"last_commit={writer.last_committed_step} steps_run="
+          f"{steps_run[0]} digest={digest.hexdigest()[:16]}", flush=True)
+    hvd.shutdown()
+
+
+def kill_run(directory: str, fault: bool, worker=None) -> dict:
+    """One launcher run of the kill worker (``worker``: its command,
+    default this script's ``--kill-worker``); its output lines stamped on
+    arrival, the launcher's exit code."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
+    env.update(HOROVOD_CHECKPOINT_INTERVAL_STEPS="2",
+               HOROVOD_FAULT_TIMEOUT_SEC="5",
+               HOROVOD_ELASTIC_BACKOFF_SEC="0.5",
+               HOROVOD_SHM_DISABLE=os.environ.get("HOROVOD_SHM_DISABLE", "0"))
+    if fault:
+        env["HOROVOD_FAULT_INJECT"] = "1:5:ckpt-kill"
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "2",
+           "--restart-on-failure", "1" if fault else "0",
+           "--checkpoint-dir", directory, "--",
+           *(worker or [sys.executable, os.path.abspath(__file__),
+                        "--kill-worker"])]
+    t0 = time.monotonic()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    lines = []
+    reader = threading.Thread(target=lambda: [
+        lines.append((time.monotonic() - t0, ln.rstrip("\n")))
+        for ln in iter(proc.stdout.readline, "")], daemon=True)
+    reader.start()
+    try:
+        rc = proc.wait(timeout=KILL_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+        raise RuntimeError("chip_smoke check failed: ckpt_kill launcher "
+                           "timed out:\n" + "\n".join(
+                               ln for _, ln in lines[-40:]))
+    reader.join(timeout=30)
+    return {"rc": rc, "lines": lines, "wall_s": time.monotonic() - t0}
+
+
+def _kill_events(lines, tag):
+    """[(t, incarnation-ordered (rank, step))] of a worker line kind."""
+    out = []
+    for t, ln in lines:
+        m = re.search(rf"{tag} rank=(\d+) step=(\d+)", ln)
+        if m:
+            out.append((t, int(m.group(1)), int(m.group(2))))
+    return out
+
+
+def phase_ckpt_kill(worker=None):
+    """``python -m horovod_tpu_torch.run -np 2 --restart-on-failure 1
+    --checkpoint-dir D`` over the kill worker, without and then with
+    ``HOROVOD_FAULT_INJECT=1:5:ckpt-kill`` (rank 1 SIGKILLed between the
+    halves of its step-6 shard write)."""
+    shm_before = set(os.listdir("/dev/shm")) if os.path.isdir("/dev/shm") \
+        else set()
+    runs = {}
+    for name in ("clean", "fault"):
+        directory = tempfile.mkdtemp(prefix=f"chip_smoke_kill_{name}_")
+        try:
+            run = kill_run(directory, fault=name == "fault", worker=worker)
+            run["manifests"] = ckpt_manifest.list_manifest_steps(directory)
+            run["torn_tmp"] = os.path.exists(
+                ckpt_manifest.shard_file(directory, 6, 1, 2) + ".tmp")
+            found = latest_manifest(directory)
+            run["latest"] = found[1] if found else None
+        finally:
+            shutil.rmtree(directory, ignore_errors=True)
+        runs[name] = run
+        text = "\n".join(ln for _, ln in run["lines"])
+        check(run["rc"] == 0, f"ckpt_kill {name}: launcher exited "
+                              f"{run['rc']}:\n{text[-4000:]}")
+        run["oks"] = re.findall(
+            r"CKPT_KILL_OK rank=(\d+) step=(\d+) last_commit=(-?\d+) "
+            r"steps_run=(\d+) digest=([0-9a-f]+)", text)
+        check(len(run["oks"]) == 2, f"ckpt_kill {name}: "
+                                    f"{len(run['oks'])} ranks finished")
+    time.sleep(2)
+    shm_after = set(os.listdir("/dev/shm")) if os.path.isdir("/dev/shm") \
+        else set()
+    clean, fault = runs["clean"], runs["fault"]
+    digests = {ok[4] for r in runs.values() for ok in r["oks"]}
+    lines = fault["lines"]
+    kill = [t for t, ln in lines if "FAULT INJECT: ckpt-kill at step" in ln]
+    check(len(kill) == 1, f"ckpt_kill: {len(kill)} kill lines")
+    t_kill = kill[0]
+    steps = _kill_events(lines, "CKPT_KILL_STEP")
+    begins = _kill_events(lines, "CKPT_KILL_BEGIN")
+    enters = _kill_events(lines, "CKPT_KILL_ENTER")
+    reentry = [s for t, r, s in enters if t > t_kill]
+    t_reenter = min((t for t, r, s in enters if t > t_kill), default=t_kill)
+    # Rank 0's last commit before the world re-entered (its step line may
+    # reach the launcher after the kill's), and the furthest step begun.
+    committed = max(s for t, r, s in steps if t < t_reenter and r == 0)
+    started = max(s for t, r, s in begins if t < t_reenter)
+    relaunched_first = min((t for t, r, s in steps if t > t_kill and r == 1),
+                           default=None)
+    durable_at_kill = max(range(2, committed, 2), default=-1)
+    check(fault["manifests"] and 6 not in fault["manifests"],
+          f"ckpt_kill: a manifest names the torn step: {fault['manifests']}")
+    check(fault["torn_tmp"], "ckpt_kill: no torn step-6 tmp left on disk")
+    check(fault["latest"] == KILL_STEPS and clean["latest"] == KILL_STEPS,
+          f"ckpt_kill: newest durable steps {fault['latest']} / "
+          f"{clean['latest']}")
+    check(len(reentry) == 2 and set(reentry) == {committed},
+          f"ckpt_kill: the relaunched world entered at {reentry}, not at "
+          f"the last commit {committed}")
+    check(committed >= durable_at_kill, "ckpt_kill: resumed behind the "
+                                        "last durable checkpoint")
+    check(len(digests) == 1, f"ckpt_kill: final digests differ between "
+                             f"the runs and ranks: {digests}")
+    check(relaunched_first is not None, "ckpt_kill: the relaunched rank "
+                                        "never stepped")
+    leaked = sorted(shm_after - shm_before)
+    check(not leaked, f"ckpt_kill: /dev/shm entries leaked: {leaked}")
+    emit("ckpt_kill", ranks=2, layers=KILL_LAYERS, steps=KILL_STEPS,
+         batch_per_rank=[KILL_B, KILL_S], interval=2,
+         fault="1:5:ckpt-kill", killed_at_save_of_step=6,
+         manifests=fault["manifests"], last_commit_before_kill=committed,
+         durable_step_at_kill=durable_at_kill, reentry_step=committed,
+         committed_steps_lost=0, steps_redone=started - committed,
+         relaunch_to_first_step_s=relaunched_first - t_kill,
+         digest=digests.pop(), wall_s_clean=clean["wall_s"],
+         wall_s_fault=fault["wall_s"],
+         steps_run_fault=[int(ok[3]) for ok in fault["oks"]],
+         dev_shm_leaked=leaked)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: a replica serving a checkpoint at Llama-3-8B widths, and a live
+# weight push through the router into its captured decode graphs
+# ---------------------------------------------------------------------------
+
+SW_LAYERS = 2
+SW_TIMEOUT_S = 600
+#: The push's cap: the serve protocol's line limit (both packages'
+#: readers take 1 << 26 bytes a line).
+LINE_LIMIT = 1 << 26
+
+
+def sw_push_tree(seeded: dict, cfg) -> dict:
+    """The partial push: layer 0's q and o projections times 1.5 and
+    every norm scale times 1.1, from the seeded weights, in the JAX
+    package's paths and layout (fp32)."""
+    full = params_to_jax(seeded, cfg)["params"]
+    tree = {"layer_0": {"attn": {
+        k: {"kernel": full["layer_0"]["attn"][k]["kernel"] * np.float32(1.5)}
+        for k in ("wq", "wo")}}}
+    tree["norm_f"] = {"scale": full["norm_f"]["scale"] * np.float32(1.1)}
+    for i in range(cfg.num_layers):
+        for norm in ("norm_attn", "norm_mlp"):
+            tree.setdefault(f"layer_{i}", {})[norm] = {
+                "scale": full[f"layer_{i}"][norm]["scale"] * np.float32(1.1)}
+    return {"params": tree}
+
+
+def expected_after_push(seeded: dict, cfg, by_path: dict) -> dict:
+    """The seeded state dict with the decoded pushed leaves in their
+    places, cast to the model's dtypes (what a fresh runner on the swapped
+    weights holds)."""
+    out = {k: v.clone() for k, v in seeded.items()}
+    layout = jax_paths(cfg)
+    for path, arr in by_path.items():
+        name, kind = layout[path[2:]]
+        src = torch.from_numpy(arr)
+        if kind in ("dense", "head", "router"):
+            src = src.t()
+        out[name].copy_(src)
+    return out
+
+
+def graph_vs_eager(runner, model, seed) -> dict:
+    """Each width's decode graph (over the runner's weights) against the
+    eager step of ``model`` on the same inputs and pools: logits bit for
+    bit; B6's launches counted per replay."""
+    gen = torch.Generator(device=runner.device).manual_seed(seed)
+    for pool in (runner.pool_k, runner.pool_v):
+        pool[:, 1:].normal_(generator=gen)
+    rows = {}
+    for width in (1, 2, 4, 8):
+        tokens, tables, pos = graph_rows(runner, width, seed + width)
+        k0, v0 = runner.pool_k.clone(), runner.pool_v.clone()
+        before = pa.launches
+        got = runner.decode(tokens, tables, pos)
+        replay_launches = pa.launches - before
+        runner.pool_k.copy_(k0)
+        runner.pool_v.copy_(v0)
+        want = eager_decode(runner, tokens, tables, pos, model=model)
+        runner.pool_k.copy_(k0)
+        runner.pool_v.copy_(v0)
+        rows[width] = {"bitwise": bool(np.array_equal(got, want)),
+                       "max_abs_diff": float(np.abs(got - want).max()),
+                       "b6_launches": replay_launches}
+        del k0, v0
+    return rows
+
+
+def sw_requests(vocab, seed):
+    """8 requests of 64-512 prompt tokens and 480 new tokens each: at a
+    2-layer model's pace the streams run for seconds, so the push (encode,
+    send, decode) lands while they do; the pool (512 blocks of 16) holds
+    all 8 without a preemption."""
+    rng = np.random.default_rng(seed + 7)
+    return [(f"w{i}", rng.integers(0, vocab, int(n)).tolist(), 480)
+            for i, n in enumerate(rng.integers(64, 513, 8))]
+
+
+def phase_serve_weights(dev, seed):
+    """A checkpoint of seeded Llama-3-8B weights cut to SW_LAYERS layers,
+    written by the JAX-form capture; a replica serving it behind the
+    router (``run --serve --serve-model DIR``) and a live push mid-stream
+    through ``WeightPusher``; in this process, a runner restored from the
+    same checkpoint holds its graphs against fresh eager runners before
+    and after the same push."""
+    env = dict(SERVE_ENV, HOROVOD_SERVE_PARAM_SEED=str(seed))
+    cfg = dataclasses.replace(build_model_config(ServeConfig.from_env(env)),
+                              num_layers=SW_LAYERS)
+    directory = tempfile.mkdtemp(prefix="chip_smoke_serve_ckpt_")
+    shm_before = set(os.listdir("/dev/shm")) if os.path.isdir("/dev/shm") \
+        else set()
+    proc = None
+    try:
+        seeded = init_params(cfg, seed, dev)
+        seeded_model = LlamaModel.from_state_dict(cfg, seeded)
+        n_params = sum(t.numel() for t in seeded.values())
+        t = time.monotonic()
+        st, sh = jax_capture(None, seeded_model, 0)
+        model_name = ServeConfig.from_env(env).model
+        w = CheckpointWriter(directory, meta={"model": model_name})
+        w.save(0, st, sh)
+        w.wait(timeout=SW_TIMEOUT_S)
+        w.close()
+        write_s = time.monotonic() - t
+        ckpt_bytes = w.last_bytes
+        del st, sh
+
+        # In this process: the runner restored from the checkpoint.
+        renv = dict(env, HOROVOD_SERVE_CHECKPOINT=directory)
+        t = time.monotonic()
+        runner = ModelRunner(ServeConfig.from_env(renv), device=dev)
+        sync(dev)
+        restore_s = time.monotonic() - t
+        check(runner.model_cfg.num_layers == SW_LAYERS
+              and runner.checkpoint_step == 0,
+              f"serve_weights: restored {runner.model_cfg.num_layers} "
+              f"layers of step {runner.checkpoint_step}")
+        bad = leaves_equal(runner.model.state_dict(), seeded)
+        check(not bad, f"serve_weights: restored weights differ at {bad}")
+        runner.warmup(max_tokens=64)
+        graphs = 4 if dev.type == "cuda" else 0
+        check(runner.captures == graphs, f"serve_weights: {runner.captures} "
+                                         "graphs captured at warm-up")
+        before = graph_vs_eager(runner, seeded_model, seed)
+
+        # The replica behind the router.
+        tree = sw_push_tree(seeded, cfg)
+        frames = encode_leaves(tree, wire="int8")
+        line_bytes = len(json.dumps({"op": "weights", "frames": frames,
+                                     "epoch": 1}))
+        check(line_bytes < LINE_LIMIT, f"serve_weights: the push line is "
+                                       f"{line_bytes} bytes")
+        check({f["wire"] for f in frames} == {"int8", "fp32"},
+              f"serve_weights: wires {({f['wire'] for f in frames})}")
+        t = time.monotonic()
+        proc, port, log = bench_serve.start_fleet(
+            1, device=dev.type, env=dict(env, HOROVOD_SERVE_WARMUP="512"),
+            timeout=SW_TIMEOUT_S, extra_args=("--serve-model", directory))
+        fleet_start_s = time.monotonic() - t
+        check(any("serving checkpoint step 0" in ln for ln in log),
+              "serve_weights: the router did not serve the checkpoint")
+        cli = ServeClient("127.0.0.1", port, timeout=SW_TIMEOUT_S)
+        reqs = sw_requests(cfg.vocab_size, seed)
+        t0 = time.monotonic()
+        for rid, prompt, new in reqs:
+            cli.start_generate(rid, prompt, new)
+        # The push lands once every stream is decoding.
+        deadline = time.monotonic() + SW_TIMEOUT_S
+        while time.monotonic() < deadline:
+            with cli._qlock:
+                seen = [sum(e["event"] == "token" for e in cli._queues[rid])
+                        for rid, _, _ in reqs]
+            if min(seen) >= 8:
+                break
+            time.sleep(0.05)
+        check(min(seen) >= 8, f"serve_weights: streams {seen} before push")
+        pusher = WeightPusher("127.0.0.1", port, timeout=SW_TIMEOUT_S)
+        t_push = time.monotonic()
+        ack = pusher.push(tree, wire="int8")
+        t_ack = time.monotonic()
+        stale = pusher.push(tree, epoch=1, wire="int8")
+        pusher.close()
+        results = {rid: cli.collect(rid, timeout=SW_TIMEOUT_S)
+                   for rid, _, _ in reqs}
+        wall = time.monotonic() - t0
+        stats = cli.stats()
+        sched = stats["replicas"][0]["scheduler"]
+        check(ack["epoch"] == 1 and len(ack["replicas"]) == 1
+              and ack["replicas"][0]["applied"],
+              f"serve_weights: push not applied: {ack}")
+        check(not stale["replicas"][0]["applied"]
+              and sched["weight_swaps"] == 1 and sched["weight_epoch"] == 1,
+              f"serve_weights: the stale replay was applied: {stale}, "
+              f"{sched['weight_swaps']} swaps")
+        requeued = {}
+        toks_before = toks_after = 0
+        for rid, prompt, new in reqs:
+            evs = results[rid]
+            rq = [e for e in evs if e["event"] == "requeued"]
+            # A stream still running at the swap restarts once, on the new
+            # epoch; one that finished before it stays on epoch 0.
+            check(evs[-1]["event"] == "done" and len(evs[-1]["tokens"])
+                  == new and len(rq) <= 1
+                  and all(e.get("reason") == "weights" for e in rq)
+                  and evs[-1]["weight_epoch"] == len(rq),
+                  f"serve_weights: {rid} ended {evs[-1]['event']} with "
+                  f"{len(evs[-1].get('tokens', []))} tokens at epoch "
+                  f"{evs[-1].get('weight_epoch')}, requeued {rq}")
+            requeued[rid] = len(rq)
+            for e in evs:
+                if e["event"] != "token":
+                    continue
+                if e["_recv_ts"] < t_push:
+                    toks_before += 1
+                elif e["_recv_ts"] > t_ack:
+                    toks_after += 1
+        check(ack["replicas"][0]["restarted"] == sum(requeued.values()) > 0,
+              f"serve_weights: {ack['replicas'][0]['restarted']} streams "
+              f"restarted, {sum(requeued.values())} requeued")
+        check(sched["fused_attn_steps"] == sched["decode_steps"]
+              and sched["config"]["checkpoint_step"] == 0,
+              "serve_weights: a replica step skipped the fused kernel, or "
+              "the replica served no checkpoint")
+        t_last = max(e["_recv_ts"] for evs in results.values() for e in evs)
+        first = min(e["_recv_ts"] for evs in results.values() for e in evs
+                    if e["event"] == "token")
+        rc = bench_serve.stop_fleet(proc, cli, timeout=120)
+        proc = None
+        check(rc == 0, f"serve_weights: router exited {rc}")
+
+        # The same push into this process's runner: in place, under its
+        # captured graphs.
+        by_path = decode_leaves(frames)
+        t = time.perf_counter()
+        applied = runner.apply_weights(by_path)
+        swap_ms_here = (time.perf_counter() - t) * 1e3
+        check(applied == len(frames), f"serve_weights: {applied} leaves "
+                                      f"applied of {len(frames)}")
+        check(runner.captures == graphs,
+              "serve_weights: a graph was recaptured")
+        expected = expected_after_push(seeded, cfg, by_path)
+        bad = leaves_equal(runner.model.state_dict(), expected)
+        check(not bad, f"serve_weights: swapped weights differ at {bad}")
+        fresh = LlamaModel.from_state_dict(cfg, expected)
+        after = graph_vs_eager(runner, fresh, seed + 100)
+        for when, rows in (("restore", before), ("swap", after)):
+            for width, r in rows.items():
+                check(r["bitwise"] and r["b6_launches"] == (
+                    SW_LAYERS if dev.type == "cuda" else 0),
+                      f"serve_weights: after the {when}, width {width}'s "
+                      f"graph is not the fresh eager step: {r}")
+        check(runner.captures == graphs,
+              "serve_weights: a graph was recaptured")
+        emit("serve_weights", model=model_name, layers=SW_LAYERS,
+             params=n_params, checkpoint_bytes=ckpt_bytes,
+             checkpoint_write_s=write_s, restore_s=restore_s,
+             fleet_start_s=fleet_start_s,
+             replica_times=replica_times(log), requests=len(reqs),
+             push_leaves=len(frames), push_line_mb=line_bytes / 2 ** 20,
+             push_wire="int8", push_round_trip_s=t_ack - t_push,
+             swap_ms_replica=sched["weight_swap_ms"],
+             swap_ms_in_process=swap_ms_here,
+             requeued=sum(requeued.values()),
+             restarted=ack["replicas"][0]["restarted"],
+             stale_epoch_applied=stale["replicas"][0]["applied"],
+             tokens_per_s_before=toks_before / max(1e-9, t_push - first),
+             tokens_per_s_after=toks_after / max(1e-9, t_last - t_ack),
+             wall_s=wall, graph_vs_eager_after_restore=before,
+             graph_vs_eager_after_swap=after,
+             graphs_captured=runner.captures,
+             replica_decode_steps=sched["decode_steps"],
+             nvidia_smi_after=smi_now())
+        del runner, fresh, seeded_model, seeded, expected
+        free_memory()
+    finally:
+        if proc is not None:
+            bench_serve.kill_fleet(proc)
+        shutil.rmtree(directory, ignore_errors=True)
+    shm_after = set(os.listdir("/dev/shm")) if os.path.isdir("/dev/shm") \
+        else set()
+    check(not (shm_after - shm_before), "serve_weights: /dev/shm leaked")
+
+
 def label_forward(module, name):
     """Open a profiler range ``name`` around ``module``'s forward."""
     inner = module.forward
@@ -4049,6 +4786,13 @@ def main(argv=None) -> int:
     # One rank of the parallel phase.
     parser.add_argument("--parallel-worker", type=int, default=None,
                         metavar="RANK", help=argparse.SUPPRESS)
+    # One rank of the ckpt phase, and its checkpoint directory.
+    parser.add_argument("--ckpt-worker", type=int, default=None,
+                        metavar="RANK", help=argparse.SUPPRESS)
+    parser.add_argument("--ckpt-dir", default=None, help=argparse.SUPPRESS)
+    # One rank of the ckpt_kill phase (started by the launcher).
+    parser.add_argument("--kill-worker", action="store_true",
+                        help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4069,6 +4813,13 @@ def main(argv=None) -> int:
     if args.parallel_worker is not None:
         print(json.dumps(parallel_worker(args.parallel_worker, "cuda:0")),
               flush=True)
+        return 0
+    if args.ckpt_worker is not None:
+        print(json.dumps(ckpt_worker(args.ckpt_worker, "cuda:0",
+                                     args.ckpt_dir)), flush=True)
+        return 0
+    if args.kill_worker:
+        kill_worker()
         return 0
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -4151,6 +4902,11 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_parallel()
+    phase_ckpt(dev)
+    phase_ckpt_kill()
+    phase_serve_weights(dev, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
     compare_profiles(
         phase_train_profile("train_profile",
                             llama_factory(args.seed, *train[:3]), train[3]),

@@ -42,7 +42,11 @@ families (``parallel/``): the mesh helpers (``hvd.build_mesh``,
 ``use_mesh``, ``default_mesh``, ``data_parallel_mesh``), tensor, expert
 and fsdp placement with ``make_parallel_train_step``, ring and Ulysses
 attention with ``make_context_parallel_train_step``, the GPipe pipeline
-with ``make_pipelined_llama_train_step``, and ``ops/ragged.py``.
+with ``make_pipelined_llama_train_step``, and ``ops/ragged.py``; and the
+weight plane (``checkpoint/``: sharded async checkpoints of CUDA state,
+resharding restore, live weight pushes), elastic recovery
+(``hvd.elastic.ElasticState``, ``run_elastic``) and the training
+launcher (``python -m horovod_tpu_torch.run -np N``).
 
 Two communicators, as ``common/basics.py`` sets out:
 

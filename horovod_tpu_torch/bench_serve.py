@@ -23,12 +23,13 @@ under a ``serve_`` prefix)::
 
 ``--gate`` is the serve gate: a short Poisson run on 2 replicas that
 FAILS unless every request completes with its full nonzero token count,
-continuous batching overlapped (batch occupancy > 1), shutdown is clean
-(router exit 0) and nothing leaks — replica processes, the router's
-listen socket and ``/dev/shm`` against their state before the run.  The
-reference's gate also lands a live weight push mid-load; the port has no
-weight push yet, and its line says so (``"weight_push": "not ported
-(Queue A item 6)"``) instead of a passed check.
+continuous batching overlapped (batch occupancy > 1), a LIVE WEIGHT PUSH
+lands mid-load (the seeded weights scaled by 1.25, epoch 1, lossless fp32
+wire, through ``checkpoint.WeightPusher``: every replica acks epoch 1 and
+every stream finishes under the one epoch that stamped its ``done``),
+shutdown is clean (router exit 0) and nothing leaks — replica processes,
+the router's listen socket and ``/dev/shm`` against their state before
+the run.  Its line carries the push's result under ``weight_push``.
 
 ``--prefix-gate`` is the prefix-cache + fused-kernel gate: every request
 shares a 24-token system prompt (6 full KV blocks) ahead of its random
@@ -73,7 +74,6 @@ BENCH_ENV = {
 #: KV blocks at the bench block size (4).
 SYSTEM_PROMPT = [7 * i % 512 for i in range(1, 25)]
 
-_WEIGHT_PUSH = "not ported (Queue A item 6)"
 
 
 def _percentile(values, q):
@@ -108,9 +108,10 @@ def _shm():
 
 
 def start_fleet(replicas: int, *, device: str, env: dict,
-                restart: int = 0, timeout: float = 300.0):
-    """``run.py --serve`` on an ephemeral port in its own process group;
-    returns (process, router port, log lines).  ``env`` is laid over this
+                restart: int = 0, timeout: float = 300.0, extra_args=()):
+    """``run.py --serve`` on an ephemeral port in its own process group
+    (``extra_args`` appended, e.g. ``--serve-model DIR``); returns
+    (process, router port, log lines).  ``env`` is laid over this
     process's environment."""
     full = dict(os.environ)
     full.update(env)
@@ -118,7 +119,8 @@ def start_fleet(replicas: int, *, device: str, env: dict,
     proc = subprocess.Popen(
         [sys.executable, "-m", "horovod_tpu_torch.run", "--serve",
          "--replicas", str(replicas), "--serve-port", "0",
-         "--restart-on-failure", str(restart), "--device", device],
+         "--restart-on-failure", str(restart), "--device", device,
+         *extra_args],
         env=full, cwd=REPO, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True, start_new_session=True)
     log = []
@@ -195,14 +197,51 @@ def make_plan(requests: int, rate_hz: float, *, seed: int = 0,
     return plan
 
 
-def run_load(port: int, plan, *, timeout: float = 600.0):
+def _push_tree(env: dict, scale: float = 1.25):
+    """The weights the gate pushes: the fleet's seeded weights (on the
+    CPU, in the JAX package's paths and layout, as the reference's gate
+    pushes ``runner.variables``) times ``scale``."""
+    from horovod_tpu_torch.models.convert import init_params, params_to_jax
+    from horovod_tpu_torch.serve.config import ServeConfig
+    from horovod_tpu_torch.serve.engine import build_model_config
+
+    serve_cfg = ServeConfig.from_env(env)
+    cfg = build_model_config(serve_cfg)
+    tree = params_to_jax(init_params(cfg, serve_cfg.param_seed, "cpu"), cfg)
+
+    def scaled(node):
+        if isinstance(node, dict):
+            return {k: scaled(v) for k, v in node.items()}
+        return (node * np.float32(scale)).astype(np.float32)
+
+    return scaled(tree)
+
+
+def run_load(port: int, plan, *, timeout: float = 600.0, push_at: int = -1,
+             push=None, push_wire: str = "fp32"):
     """Drive the open-loop ``plan`` (:func:`make_plan`) against the
     router; returns (client, per-request records, aggregate dict).  Each
     record holds the request's events, its final ``tokens`` and whether
-    it was ``requeued``."""
+    it was ``requeued``.  ``push_at >= 0`` pushes the tree ``push``
+    (epoch 1, ``push_wire``) right after that request is submitted, from a
+    thread, so the Poisson clock stays honest; the aggregate then carries
+    the push's result."""
     from horovod_tpu_torch.serve.server import ServeClient
 
     cli = ServeClient("127.0.0.1", port, timeout=timeout)
+    push_acks, push_thread = [], None
+
+    def _push():
+        from horovod_tpu_torch.checkpoint import WeightPusher
+
+        pusher = WeightPusher("127.0.0.1", port, timeout=timeout)
+        try:
+            t = time.monotonic()
+            push_acks.append(pusher.push(push, epoch=1, wire=push_wire))
+            push_acks.append(time.monotonic() - t)
+        finally:
+            pusher.close()
+
     records = {}
     t0 = time.monotonic()
     for i, (due, prompt, n) in enumerate(plan):
@@ -212,6 +251,9 @@ def run_load(port: int, plan, *, timeout: float = 600.0):
         rid = f"load{i}"
         records[rid] = {"submit": time.monotonic(), "n": n}
         cli.start_generate(rid, prompt, max_tokens=n)
+        if i == push_at:
+            push_thread = threading.Thread(target=_push, daemon=True)
+            push_thread.start()
     for i in range(len(plan)):
         rid = f"load{i}"
         evs = cli.collect(rid, timeout=timeout)
@@ -267,6 +309,26 @@ def run_load(port: int, plan, *, timeout: float = 600.0):
     attempts = agg["prefix_hits"] + agg["prefix_misses"]
     agg["prefix_hit_rate"] = round(agg["prefix_hits"] / attempts, 3) \
         if attempts else 0.0
+    if push_at >= 0:
+        if push_thread is not None:
+            push_thread.join(timeout=timeout)
+        ack = push_acks[0] if push_acks else {}
+        agg["weight_push"] = {
+            "pushes": stats["router"].get("weight_pushes", 0),
+            "acked": bool(ack.get("replicas")) and all(
+                r.get("applied") for r in ack["replicas"]),
+            "replica_weight_epochs": [s.get("weight_epoch")
+                                      for s in scheds],
+            "stream_weight_epochs": sorted({
+                rec["events"][-1].get("weight_epoch")
+                for rec in records.values() if rec["ok"]}),
+            "restarted": sum(r.get("restarted") or 0
+                             for r in ack.get("replicas", [])),
+            "requeued_for_weights": sum(
+                1 for rec in records.values() for e in rec["events"]
+                if e["event"] == "requeued"
+                and e.get("reason") == "weights"),
+            "push_s": push_acks[1] if len(push_acks) > 1 else None}
     return cli, records, agg
 
 
@@ -301,14 +363,17 @@ def leaks(pgids, shm_before, ports=()):
     return failures
 
 
-def _fleet_run(replicas, device, env, plan, dup_tail=0):
-    """One fleet: start, drive ``plan``, shut down; the aggregate with
+def _fleet_run(replicas, device, env, plan, dup_tail=0, push_at=-1):
+    """One fleet: start, drive ``plan`` (with a weight push after request
+    ``push_at`` when it is >= 0), shut down; the aggregate with
     ``clean_shutdown``, the port and the log's tail folded in."""
-    proc, port, log = start_fleet(replicas, device=device,
-                                  env=dict(BENCH_ENV, **env))
+    full_env = dict(BENCH_ENV, **env)
+    # Built before the fleet: model init must not distort the arrivals.
+    push = _push_tree(full_env) if push_at >= 0 else None
+    proc, port, log = start_fleet(replicas, device=device, env=full_env)
     cli = None
     try:
-        cli, records, agg = run_load(port, plan)
+        cli, records, agg = run_load(port, plan, push_at=push_at, push=push)
     finally:
         rc = stop_fleet(proc, cli)
     agg["replicas"] = replicas
@@ -333,9 +398,11 @@ def _main(device: str, replicas: int, requests: int, rate_hz: float) -> dict:
 def _gate(device: str) -> int:
     """The serve gate — see the module docstring."""
     shm_before = _shm()
-    requests = 24
-    agg = _fleet_run(2, device, {}, make_plan(requests, 6.0))
-    agg["weight_push"] = _WEIGHT_PUSH
+    requests, replicas = 24, 2
+    # The push lands mid-load, so a real set of streams is in flight when
+    # the swap lands.
+    agg = _fleet_run(replicas, device, {}, make_plan(requests, 6.0),
+                     push_at=requests // 2)
     log_tail, port, pgid = agg.pop("log_tail"), agg.pop("port"), \
         agg.pop("pgid")
     print(json.dumps(agg))
@@ -349,6 +416,16 @@ def _gate(device: str) -> int:
                         "<= 1.0: continuous batching never overlapped")
     if agg["tokens_per_sec"] <= 0:
         failures.append("zero streamed tokens")
+    push = agg["weight_push"]
+    if push["pushes"] != 1 or not push["acked"]:
+        failures.append(f"live weight push did not land: pushes="
+                        f"{push['pushes']} acked={push['acked']}")
+    if push["replica_weight_epochs"] != [1] * replicas:
+        failures.append("replicas not all at the pushed weight epoch: "
+                        f"{push['replica_weight_epochs']}")
+    if not set(push["stream_weight_epochs"]) <= {0, 1}:
+        failures.append(f"mixed-epoch streams: "
+                        f"{push['stream_weight_epochs']}")
     if not agg["clean_shutdown"]:
         failures.append("unclean router shutdown")
     failures += leaks({pgid}, shm_before, [port])
@@ -360,8 +437,9 @@ def _gate(device: str) -> int:
     print(f"SERVE GATE OK: {requests} requests, "
           f"{agg['tokens_per_sec']} tok/s, occupancy "
           f"{agg['batch_occupancy']:.2f}, p99 "
-          f"{agg['req_latency_ms_p99']:.0f} ms, clean shutdown; weight "
-          f"push {_WEIGHT_PUSH}")
+          f"{agg['req_latency_ms_p99']:.0f} ms, weight push at epoch 1 "
+          f"on every replica ({push['restarted']} streams restarted), "
+          "clean shutdown")
     return 0
 
 

@@ -44,7 +44,7 @@ from horovod_tpu_torch.common.launch import TORCH_PORT_OFFSET, free_port
 
 __all__ = ["init", "shutdown", "is_initialized", "rank", "size",
            "local_rank", "local_size", "device", "epoch",
-           "mpi_threads_supported"]
+           "mpi_threads_supported", "first_init_args"]
 
 
 # Env vars for rank discovery, in the reference's priority order.
@@ -55,6 +55,9 @@ _LOCAL_SIZE_ENV = ("HOROVOD_LOCAL_SIZE", "OMPI_COMM_WORLD_LOCAL_SIZE")
 
 _lock = threading.Lock()
 _state: dict = {}
+#: ``device``/``backend`` of the process's first :func:`init`: what an
+#: elastic re-init after a failure uses again.
+_first_init: dict = {}
 _atexit_registered = False
 _shutdown_hooks: list = []
 
@@ -74,13 +77,21 @@ def _env_int(names: Sequence[str]) -> Optional[int]:
     return None
 
 
-def _init_method(addr: str) -> str:
-    """The torch group's rendezvous: the coordinator's host at its port
-    + ``TORCH_PORT_OFFSET``, or a free local port without a coordinator."""
-    if not addr:
-        return f"tcp://127.0.0.1:{free_port()}"
-    host, _, port = addr.rpartition(":")
-    return f"tcp://{host}:{int(port) + TORCH_PORT_OFFSET}"
+def _group_store(addr: str, rank: int, size: int, epoch: int):
+    """The torch group's rendezvous store: a TCPStore at the coordinator's
+    host and port + ``TORCH_PORT_OFFSET`` (a free local port without a
+    coordinator), hosted by rank 0 as torch's own ``tcp://`` rendezvous
+    hosts it, its keys under the engine's committed membership epoch.  A
+    TCPStore server is shared by every store of its port in a process, so
+    after a re-init the survivor's server may still hold the previous
+    incarnation's addresses; the epoch keeps the two apart."""
+    if addr:
+        host, _, port = addr.rpartition(":")
+        host, port = host, int(port) + TORCH_PORT_OFFSET
+    else:
+        host, port = "127.0.0.1", free_port()
+    store = dist.TCPStore(host, port, size, rank == 0, multi_tenant=True)
+    return dist.PrefixStore(f"hvd.epoch{epoch}", store)
 
 
 def _start_engine(rank: int, size: int, local_rank: int, local_size: int,
@@ -112,6 +123,8 @@ def init(device: Optional[Union[str, torch.device]] = None,
     with _lock:
         if _state:
             return
+        if not _first_init:
+            _first_init.update(device=device, backend=backend)
         rank, size = _env_int(_RANK_ENV), _env_int(_SIZE_ENV)
         if (rank is None) != (size is None):
             raise ValueError(
@@ -151,30 +164,48 @@ def init(device: Optional[Union[str, torch.device]] = None,
         try:
             dist.init_process_group(
                 backend or ("nccl" if dev.type == "cuda" else "gloo"),
-                init_method=_init_method(addr), world_size=size, rank=rank)
+                store=_group_store(addr, rank, size,
+                                   int(lib.horovod_epoch())),
+                world_size=size, rank=rank)
         except BaseException:
             lib.horovod_shutdown()
             raise
         _state.update(rank=rank, size=size, local_rank=local_rank,
-                      local_size=local_size, device=dev)
+                      local_size=local_size, device=dev,
+                      backend=dist.get_backend())
         global _atexit_registered
         if not _atexit_registered:
             atexit.register(shutdown)
             _atexit_registered = True
 
 
+def first_init_args() -> dict:
+    """``{"device": ..., "backend": ...}`` as the process's first
+    :func:`init` was given them (empty before it)."""
+    return dict(_first_init)
+
+
 def shutdown() -> None:
     """Stop the engine and destroy the process group :func:`init`
-    created; queries raise again until the next :func:`init`."""
+    created; queries raise again until the next :func:`init`.  After a
+    peer's death (the engine aborted) an NCCL group's communicator is
+    aborted first, so the teardown does not wait on the dead rank."""
     with _lock:
         if not _state:
             return
         from horovod_tpu_torch.runtime.engine import (get_engine,
                                                       reset_engine_naming)
-        get_engine().lib.horovod_shutdown()
+        eng = get_engine()
+        aborted = bool(eng.abort_reason())
+        eng.lib.horovod_shutdown()
         reset_engine_naming()
         if dist.is_initialized():
-            dist.destroy_process_group()
+            abort = getattr(dist.distributed_c10d, "_abort_process_group",
+                            None)
+            if aborted and _state.get("backend") == "nccl" and abort:
+                abort()
+            else:
+                dist.destroy_process_group()
         for hook in _shutdown_hooks:
             hook()
         _state.clear()

@@ -56,7 +56,8 @@ from horovod_tpu_torch.models.bert import BertConfig
 from horovod_tpu_torch.models.llama import LlamaConfig
 from horovod_tpu_torch.models.resnet import ResNetConfig, block_convs
 
-__all__ = ["init_params", "params_from_jax", "params_to_jax"]
+__all__ = ["init_params", "params_from_jax", "params_to_jax", "jax_tree",
+           "jax_paths"]
 
 #: Standard deviation of a unit normal truncated to [-2, 2]; lecun_normal
 #: divides by it so the truncated samples have the requested std.
@@ -252,14 +253,6 @@ def _from_jax_layout(arr: np.ndarray, kind: str) -> np.ndarray:
     return arr
 
 
-def _to_jax_layout(arr: np.ndarray, kind: str) -> np.ndarray:
-    if kind in ("dense", "head", "router"):
-        return arr.T                              # [out, in] -> [in, out]
-    if kind == "conv":
-        return arr.transpose(2, 3, 1, 0)          # OIHW -> HWIO
-    return arr
-
-
 def _has_type_emb(cfg, tree: Mapping) -> bool:
     return isinstance(cfg, BertConfig) and "type_emb" in tree.get(
         "encoder", {})
@@ -296,20 +289,53 @@ def params_from_jax(tree: Mapping, cfg,
     return out
 
 
-def params_to_jax(state: Mapping[str, torch.Tensor], cfg) -> Dict:
-    """The port's state dict (or ``model.state_dict()``) as the JAX
-    package's ``{"params": ...}`` tree of fp32 numpy arrays (a ResNet's as
-    ``{"params": ..., "batch_stats": ...}``)."""
+def _to_jax_view(t: torch.Tensor, kind: str) -> torch.Tensor:
+    """The flax layout of a port tensor, as a view (no copy): ``[out, in]``
+    to ``[in, out]``, OIHW to HWIO."""
+    if kind in ("dense", "head", "router"):
+        return t.t()
+    if kind == "conv":
+        return t.permute(2, 3, 1, 0)
+    return t
+
+
+def jax_tree(state: Mapping[str, torch.Tensor], cfg) -> Dict:
+    """The port's state dict as the JAX package's ``{"params": ...}`` tree
+    (a ResNet's with ``"batch_stats"``), its leaves VIEWS of the port's
+    tensors in the flax layout: writing into a leaf writes the model.
+    The checkpoint plane saves and restores the ``params`` slot through
+    it."""
     out: Dict = {"params": {}}
     if isinstance(cfg, ResNetConfig):
         out["batch_stats"] = {}
     type_emb = "encoder.type_emb.weight" in state
     for name, kind, _ in _layout_of(cfg, type_emb):
-        arr = _to_jax_layout(state[name].detach().float().cpu().numpy(),
-                             kind)
         coll, (*path, leaf) = _path(cfg, name, kind)
         node = out[coll]
         for key in path:
             node = node.setdefault(key, {})
-        node[leaf] = np.ascontiguousarray(arr)
+        node[leaf] = _to_jax_view(state[name].detach(), kind)
     return out
+
+
+def jax_paths(cfg) -> Dict[str, Tuple[str, str]]:
+    """``{dotted flax path under params: (port name, kind)}`` of a
+    Llama or BERT config: how a weight push's paths (``w.params.<path>``)
+    map onto the port's parameters."""
+    out = {}
+    for name, kind, _ in _layout_of(cfg, True):
+        coll, path = _path(cfg, name, kind)
+        out[".".join((coll,) + path)] = (name, kind)
+    return out
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor], cfg) -> Dict:
+    """The port's state dict (or ``model.state_dict()``) as the JAX
+    package's ``{"params": ...}`` tree of fp32 numpy arrays (a ResNet's as
+    ``{"params": ..., "batch_stats": ...}``)."""
+    def to_numpy(node):
+        if isinstance(node, dict):
+            return {k: to_numpy(v) for k, v in node.items()}
+        return np.ascontiguousarray(node.float().cpu().numpy())
+
+    return to_numpy(jax_tree(state, cfg))

@@ -30,7 +30,7 @@ __all__ = ["NativeEngine", "HorovodInternalError", "StepSkipped",
            "SparseGradRetry", "WIRE_DTYPES", "dtype_code", "get_engine",
            "reset_engine_naming", "note_sharded_step",
            "note_local_sgd_sync", "note_sparse_allreduce",
-           "note_moe_dispatch"]
+           "note_moe_dispatch", "flight_note"]
 
 
 class HorovodInternalError(RuntimeError):
@@ -110,6 +110,8 @@ _SIGNATURES = (
     ("horovod_note_sharded_step", [], None),
     ("horovod_note_local_sgd_sync", [], None),
     ("horovod_note_moe_dispatch", [_I64], None),
+    ("horovod_flight_note", [_STR, _STR], None),
+    ("horovod_flight_events", [], _I64),
 )
 
 #: Cumulative counters and knobs read by :meth:`NativeEngine.stats`
@@ -425,7 +427,9 @@ class NativeEngine:
         2(N-1)/N · bytes / wall (NCCL's busbw convention); wire-compression
         counters; the Python-side planes' counters (``sparse_count``, the
         top-k sparse allreduces of ``runtime/sparse.py``; ``moe_*``, the
-        MoE plane's, beside the engine's ``moe_tokens_dropped``); and
+        MoE plane's, beside the engine's ``moe_tokens_dropped``;
+        ``checkpoint_*`` and ``weight_push_count``, the weight plane's);
+        and
         ``config``, the knobs in force."""
         size = self.size()
         out = {key: int(getattr(self._lib, f"horovod_{sym}")())
@@ -441,8 +445,10 @@ class NativeEngine:
         config["shm_enabled"] = bool(config["shm_enabled"])
         config["wire_dtype"] = _WIRE_NAMES.get(config["wire_dtype"], "fp32")
         out["sparse_count"] = _SPARSE_COUNT
+        from horovod_tpu_torch.checkpoint.stats import checkpoint_stats
         from horovod_tpu_torch.runtime.moe import moe_stats
         out.update(moe_stats())
+        out.update(checkpoint_stats())
         out["topology"] = {"hosts": config.pop("topology_hosts"),
                            "local_ranks": config.pop("topology_local_ranks")}
         out["config"] = config
@@ -503,6 +509,18 @@ def note_local_sgd_sync() -> None:
     cumulative ``local_sgd_syncs`` counter (no-op before an engine is
     loaded)."""
     _note("horovod_note_local_sgd_sync")
+
+
+def flight_note(kind: str, text: str) -> None:
+    """Record a Python-plane event (a checkpoint begin, commit or restore,
+    an elastic recovery) into the engine's flight recorder ring, beside
+    its aborts and link events (no-op before an engine is loaded).
+    ``kind`` is cut to 15 bytes and ``text`` to 160, as the ring's
+    fields are."""
+    eng = _engine
+    if eng is not None:
+        eng.lib.horovod_flight_note(str(kind).encode()[:15],
+                                    str(text).encode()[:160])
 
 
 def reset_engine_naming() -> None:

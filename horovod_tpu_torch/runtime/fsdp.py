@@ -22,8 +22,9 @@ counters (``fsdp_stats()``): ``fsdp_units``, ``fsdp_ag_prefetch_hits`` /
 needed, or the gather blocked) and ``fsdp_param_bytes_resident`` /
 ``_peak`` (shards plus gathered units, counted from their sizes).
 
-The checkpoint half of the reference's plane (``sharded_state`` /
-``restore``) belongs to the checkpoint plane, ROADMAP.md Queue A item 6.
+The checkpoint half, as the reference's: ``sharded_state`` hands the
+writer each unit's owned window, ``restore`` reslices them at the current
+world (``checkpoint/loader.py``).
 """
 
 from __future__ import annotations
@@ -296,12 +297,30 @@ class FsdpPlane:
         self._steps += 1
         note_sharded_step()
 
-    def sharded_state(self):
-        raise NotImplementedError(
-            "FsdpPlane.sharded_state: the checkpoint plane is not ported "
-            "yet (ROADMAP.md Queue A item 6)")
+    def sharded_state(self) -> Dict[str, Tuple[torch.Tensor, int]]:
+        """``{name: (owned_shard, n)}`` for ``CheckpointWriter.save(...,
+        sharded=...)``: each rank writes its owned windows (tensors on
+        their device; the writer's snapshot copies them), and the
+        manifest's bounds let a restore at ANY world size reassemble
+        them."""
+        return {f"fsdp.{self.name}.u{u.index}": (u.shard, u.n)
+                for u in self.units}
 
-    def restore(self, loader):
-        raise NotImplementedError(
-            "FsdpPlane.restore: the checkpoint plane is not ported yet "
-            "(ROADMAP.md Queue A item 6)")
+    def restore(self, loader) -> None:
+        """Load every unit's owned window, at this world's bounds, from a
+        checkpoint written at any world size, in place; drops the
+        gathered units."""
+        from horovod_tpu_torch.checkpoint.loader import as_tensor
+
+        for u in self.units:
+            name = f"fsdp.{self.name}.u{u.index}"
+            got = loader.my_flat_shard(name, u.sharder.rank, u.sharder.size)
+            if got.size != u.shard.numel():
+                raise ShardResizeError(
+                    f"restored window for unit {u.index} has "
+                    f"{got.size} elements, expected {u.shard.numel()}")
+            with torch.no_grad():
+                u.shard.copy_(as_tensor(got, torch.float32,
+                                        bf16=loader.flat_is_bf16(name)))
+        for i in range(self.n_units):
+            self.free(i)

@@ -5,9 +5,10 @@ JSON-lines replicas and the multi-replica router (counterpart of
 Ported: ``config``, ``kv_cache``, ``engine`` (``ModelRunner``, the decode
 step as one CUDA graph per pow2 width), ``scheduler``, ``server``
 (``ReplicaServer``/``ServeClient``, router sessions), ``replica`` (fault
-schedule, engine world) and ``router`` (``Router``/``serve_main``).  The
-serve autotuner, live weight pushes and checkpoint restore come with the
-autotune and checkpoint planes.
+schedule, engine world) and ``router`` (``Router``/``serve_main``), with
+checkpoint restore and live weight pushes (the weight plane,
+``horovod_tpu_torch.checkpoint``).  The serve autotuner comes with the
+autotune plane (ROADMAP.md Queue A item 6b).
 
 Entry points: ``python -m horovod_tpu_torch.run --serve`` (router +
 replicas), ``python -m horovod_tpu_torch.serve.replica`` (one replica),

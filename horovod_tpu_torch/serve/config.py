@@ -8,8 +8,7 @@ the values in force.
 
 Knobs whose machinery is not ported yet still resolve here (so
 ``resolved_serve_config`` renders the full table), but the port refuses
-them where they would act: ``HOROVOD_SERVE_CHECKPOINT`` in
-``ModelRunner`` and ``HOROVOD_SERVE_AUTOTUNE`` in ``Scheduler``.
+them where they would act: ``HOROVOD_SERVE_AUTOTUNE`` in ``Scheduler``.
 ``HOROVOD_PAGED_ATTN_CHUNK`` tunes the JAX package's XLA stand-in for its
 TPU kernel and has no counterpart here.
 """

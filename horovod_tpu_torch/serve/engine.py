@@ -34,8 +34,19 @@ program per bucket.
 Weights are seeded from ``HOROVOD_SERVE_PARAM_SEED`` on the target
 device (``models/convert.init_params``): every port replica with the
 same seed serves identical weights, but not the JAX replica's (different
-generators).  ``HOROVOD_SERVE_CHECKPOINT`` needs the checkpoint plane,
-which is not ported yet, and raises.
+generators).  With ``HOROVOD_SERVE_CHECKPOINT=<dir>`` they are the newest
+complete checkpoint's ``params`` slot instead, in the JAX package's flax
+paths and layout (a JAX trainer's ``jax_capture`` or the port's), through
+``models/convert.params_from_jax`` and cast to the model's dtype; a torn
+or absent checkpoint, a missing ``params`` slot or leaf, or a shape
+mismatch raises (never seeded weights in their place).  A checkpoint of
+fewer layers than ``HOROVOD_SERVE_MODEL`` names (a depth cut of it, at
+its widths) is served at its own depth.
+
+A live weight push (:meth:`ModelRunner.apply_weights`, called by the
+scheduler at a step boundary) copies the pushed leaves INTO the model's
+parameters: the decode graphs read those tensors' storage, so they are
+neither reallocated nor recaptured (``captures`` does not move).
 """
 
 from __future__ import annotations
@@ -49,7 +60,8 @@ import numpy as np
 import torch
 
 from horovod_tpu_torch.common.device import resolve_device
-from horovod_tpu_torch.models.convert import init_params
+from horovod_tpu_torch.models.convert import (init_params, jax_paths,
+                                              params_from_jax)
 from horovod_tpu_torch.models.generation import (paged_decode_step,
                                                  paged_prefill,
                                                  paged_prefill_suffix)
@@ -201,19 +213,19 @@ class ModelRunner:
     """
 
     def __init__(self, serve_cfg: ServeConfig, device=None):
-        if serve_cfg.checkpoint:
-            raise NotImplementedError(
-                "HOROVOD_SERVE_CHECKPOINT: checkpoint restore is not ported "
-                "yet (it comes with the checkpoint plane); unset it to "
-                "serve seeded weights")
         self.device = resolve_device(device)
         self.serve_cfg = serve_cfg
         self.model_cfg = build_model_config(serve_cfg)
-        mcfg = self.model_cfg
-        self.model = LlamaModel.from_state_dict(
-            mcfg, init_params(mcfg, serve_cfg.param_seed, self.device))
         #: manifest step the params came from (None = seeded params)
         self.checkpoint_step = None
+        if serve_cfg.checkpoint:
+            # Sets model_cfg's depth to the checkpoint's.
+            params = self._restore_checkpoint(serve_cfg.checkpoint)
+        else:
+            params = init_params(self.model_cfg, serve_cfg.param_seed,
+                                 self.device)
+        mcfg = self.model_cfg
+        self.model = LlamaModel.from_state_dict(mcfg, params)
         self.block_size = serve_cfg.block_size
         self.max_blocks_per_seq = serve_cfg.max_blocks_per_seq
         #: pool blocks INCLUDING the reserved trash block 0
@@ -235,6 +247,105 @@ class ModelRunner:
         self.capture_seconds = 0.0
         self.capture_stream = (torch.cuda.Stream(self.device)
                                if self.device.type == "cuda" else None)
+
+    def _restore_checkpoint(self, directory: str) -> Dict[str, torch.Tensor]:
+        """The newest complete checkpoint's ``params`` slot as the port's
+        state dict on the device, in the model's dtypes.  Raises on a
+        torn or absent checkpoint, a missing ``params`` slot or leaf, or
+        a geometry mismatch: serving random weights silently is worse
+        than not starting."""
+        from horovod_tpu_torch.checkpoint import (CheckpointError,
+                                                  CheckpointLoader)
+        from horovod_tpu_torch.checkpoint.loader import as_tensor
+
+        loader = CheckpointLoader(directory)
+        try:
+            if "params" not in loader.slot_names():
+                raise CheckpointError(
+                    f"checkpoint step {loader.step} in {directory} has "
+                    f"no 'params' slot (slots: {loader.slot_names()}) — "
+                    "was it written by a trainer capture?")
+            saved = set(loader.replicated_paths())
+            depth = len({p.split(".")[1] for p in saved
+                         if p.startswith("params.layer_")})
+            if 0 < depth < self.model_cfg.num_layers:
+                self.model_cfg = dataclasses.replace(self.model_cfg,
+                                                     num_layers=depth)
+            tree: dict = {}
+            for path in jax_paths(self.model_cfg):
+                if path not in saved:
+                    raise CheckpointError(
+                        f"checkpoint step {loader.step} has no value for "
+                        f"'{path}'")
+                arr = loader.read_replicated(path)
+                # A bf16 leaf the JAX package wrote reloads as |V2.
+                node = tree
+                *keys, leaf = path.split(".")[1:]
+                for key in keys:
+                    node = node.setdefault(key, {})
+                node[leaf] = as_tensor(arr, self.model_cfg.dtype).float() \
+                    .numpy() if arr.dtype.kind == "V" else arr
+            params = params_from_jax(tree, self.model_cfg, self.device)
+            self.checkpoint_step = loader.step
+            return params
+        except ValueError as e:
+            raise CheckpointError(
+                f"checkpoint step {loader.step} in {directory} does not "
+                f"fit the served model: {e}") from e
+        finally:
+            loader.close()
+
+    def apply_weights(self, by_path: Dict[str, np.ndarray]) -> int:
+        """Copy pushed leaves (``decode_leaves`` output: reference flax
+        paths under ``w.params.``, ``[in, out]`` layout, fp32) into the
+        model's parameters in place, cast to their dtypes; returns the
+        number of leaves applied.  ``w.params.<layer>.mlp.w_gate.kernel``
+        / ``w_up.kernel`` ([H, F]) land in their half of the fused
+        ``w_gate_up``.  Every leaf is shape-checked before any is
+        written; a mismatch raises ``ValueError``.  On the card the
+        copies run on the current stream after the capture stream's work
+        and are synchronised before this returns."""
+        named = dict(self.model.named_parameters())
+        layout = jax_paths(self.model_cfg)
+        plan = []
+        for path, arr in by_path.items():
+            if not path.startswith("w."):
+                continue
+            key = path[2:]
+            half = None
+            if key not in layout:
+                for suffix, h in ((".w_gate.kernel", 0), (".w_up.kernel", 1)):
+                    if key.endswith(suffix):
+                        fused = key[:-len(suffix)] + ".w_gate_up.kernel"
+                        if fused in layout:
+                            key, half = fused, h
+                if half is None:
+                    continue            # a leaf the model does not have
+            name, kind = layout[key]
+            dst = named[name].detach()
+            if half is not None:
+                f = dst.shape[0] // 2
+                dst = dst[half * f:(half + 1) * f]
+            want = tuple(dst.t().shape) if kind in (
+                "dense", "head", "router") else tuple(dst.shape)
+            if tuple(arr.shape) != want:
+                raise ValueError(
+                    f"weights push leaf '{path}' has shape "
+                    f"{tuple(arr.shape)}, replica expects {want} — pushed "
+                    "model does not match the serving model")
+            plan.append((dst, kind, arr))
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.current_stream(self.device).wait_stream(
+                self.capture_stream)
+        with torch.no_grad():
+            for dst, kind, arr in plan:
+                src = torch.from_numpy(np.ascontiguousarray(arr))
+                dst.copy_(src.t() if kind in ("dense", "head", "router")
+                          else src)
+        if cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+        return len(plan)
 
     @property
     def cache_len(self) -> int:

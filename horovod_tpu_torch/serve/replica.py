@@ -2,7 +2,8 @@
 
 ``python -m horovod_tpu_torch.serve.replica --port P [--device cuda|cpu]``
 builds the model from the serve env knobs (every port replica derives
-identical weights from ``HOROVOD_SERVE_PARAM_SEED``), starts the
+identical weights from ``HOROVOD_SERVE_PARAM_SEED``, or loads them from
+``HOROVOD_SERVE_CHECKPOINT``), starts the
 continuous-batching scheduler on its own thread, and serves the
 JSON-lines protocol.  Prints ``SERVE_REPLICA_READY port=<p> replica=<i>``
 once accepting, after ``SERVE_REPLICA_ENGINE replica=<i> rank=<r>

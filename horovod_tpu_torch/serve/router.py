@@ -28,10 +28,14 @@ Failure semantics, as the reference's:
 With every replica down and no budget left, queued requests fail with a
 clean error — the router never hangs a client.
 
-Not ported yet: live weight pushes (``{"op": "weights"}`` is answered with
-an error frame, so there is no pushed frame to replay to a rejoining
-replica) and the ``/metrics`` "serve" mount; both come with the
-checkpoint and monitor planes (ROADMAP.md Queue A item 6).
+Live weight pushes (``{"op": "weights", ...}``, from
+``checkpoint.push.WeightPusher`` of either package) fan out to every live
+replica; the router caches the latest frame and replays it to a
+relaunched replica before that replica takes traffic, so a rejoin serves
+the current pushed epoch, never boot-time weights (``weight_pushes``,
+``weight_replays`` in the router's stats).  Not ported yet: the
+``/metrics`` "serve" mount (the monitor plane, ROADMAP.md Queue A item
+6b).
 """
 
 from __future__ import annotations
@@ -47,7 +51,6 @@ from typing import Dict, List, Optional
 
 from horovod_tpu_torch.serve.config import (resolve_link_retries,
                                             resolve_probe_knobs)
-from horovod_tpu_torch.serve.server import WEIGHTS_NOT_PORTED
 
 __all__ = ["Router", "serve_main"]
 
@@ -93,8 +96,9 @@ class _Replica:
         #: router's queue-parking hope is "any replica not terminal".
         self.terminal = False
         self.stats_waiter: Optional[asyncio.Future] = None
-        # Serializes stats exchanges: concurrent clients must not clobber
-        # each other's waiter.
+        self.weights_waiter: Optional[asyncio.Future] = None
+        # Serializes request/reply exchanges (stats, weight pushes):
+        # concurrent clients must not clobber each other's waiter.
         self.stats_lock = asyncio.Lock()
 
 
@@ -133,14 +137,15 @@ class Router:
         self._next_rid = 0
         self._shutdown = asyncio.Event()
         self._tasks: List[asyncio.Task] = []
-        # The reference's counters; no weight push is ported, so
-        # weight_pushes and weight_replays stay 0.
         self.counters = {
             "dispatched": 0, "completed": 0, "requeued": 0,
             "replica_deaths": 0, "rejoins": 0, "failed": 0,
             "cancelled": 0, "wedged_kills": 0, "weight_pushes": 0,
             "weight_replays": 0, "link_reconnects": 0,
         }
+        #: the latest weights frame pushed through the router, replayed
+        #: to every relaunched replica BEFORE it takes load.
+        self._last_push: Optional[dict] = None
         # Liveness probes for WEDGED (not dead) replicas: a replica whose
         # scheduler thread hangs keeps its socket open and its asyncio
         # front-end answering, so death detection alone never fires.  The
@@ -252,6 +257,19 @@ class Router:
                 rep.terminal = True
                 self._fail_queue_if_hopeless()
             return
+        if self._last_push is not None:
+            # The relaunched replica rebuilt boot-time weights (seed or
+            # checkpoint): replay the latest pushed frame before it takes
+            # load, so the whole fleet serves one weight epoch.
+            ack = await self._push_weights_rep(rep, self._last_push)
+            if ack is not None:
+                self.counters["weight_replays"] += 1
+            else:
+                sys.stderr.write(
+                    f"replica {rep.idx} rejoined but the weight replay "
+                    f"failed; it may serve a stale epoch until the "
+                    f"next push\n")
+                sys.stderr.flush()
         self.counters["rejoins"] += 1
         self._drain_queue()
 
@@ -287,6 +305,9 @@ class Router:
                 pass
         if rep.stats_waiter is not None and not rep.stats_waiter.done():
             rep.stats_waiter.set_result(None)
+        if rep.weights_waiter is not None \
+                and not rep.weights_waiter.done():
+            rep.weights_waiter.set_result(None)
         orphans = list(rep.pending)
         rep.pending.clear()
         for rid in orphans:
@@ -317,6 +338,14 @@ class Router:
                     if rep.stats_waiter is not None \
                             and not rep.stats_waiter.done():
                         rep.stats_waiter.set_result(ev["stats"])
+                    continue
+                if ev.get("event") == "weights_ack" or (
+                        ev.get("event") == "error" and ev.get("id") is None
+                        and str(ev.get("error", "")).startswith(
+                            "weights push failed")):
+                    if rep.weights_waiter is not None \
+                            and not rep.weights_waiter.done():
+                        rep.weights_waiter.set_result(ev)
                     continue
                 if ev.get("event") == "pong":
                     # Healthy = the asyncio side answered AND the
@@ -478,6 +507,29 @@ class Router:
         for rid in pending:
             self._dispatch(rid)
 
+    # -- live weight pushes --
+
+    async def _push_weights_rep(self, rep: _Replica, frame: dict,
+                                timeout: float = 90.0) -> Optional[dict]:
+        """One replica's weights exchange: its ``weights_ack`` (or error
+        frame); ``None`` on death or timeout (the death path owns the
+        failure: its requests requeue and the cached frame replays on the
+        relaunch).  A replica mid-link-heal is skipped the same way."""
+        if not rep.alive or rep.healing:
+            return None
+        async with rep.stats_lock:
+            rep.weights_waiter = asyncio.get_running_loop() \
+                .create_future()
+            try:
+                rep.writer.write((json.dumps(frame) + "\n").encode())
+                await rep.writer.drain()
+                return await asyncio.wait_for(rep.weights_waiter,
+                                              timeout=timeout)
+            except (asyncio.TimeoutError, OSError):
+                return None
+            finally:
+                rep.weights_waiter = None
+
     # -- liveness probes (wedged-replica detection) --
 
     async def _probe_loop(self) -> None:
@@ -570,8 +622,34 @@ class Router:
                             client.emit({"event": "cancelled", "id": want})
                             self._forget(rid)
                 elif op == "weights":
-                    client.emit({"event": "error", "id": None,
-                                 "error": WEIGHTS_NOT_PORTED})
+                    frame = {"op": "weights",
+                             "frames": msg.get("frames") or [],
+                             "epoch": int(msg.get("epoch", 0))}
+                    # Cache FIRST: a replica that dies mid-push gets the
+                    # frame replayed when it rejoins.
+                    previous, self._last_push = self._last_push, frame
+                    self.counters["weight_pushes"] += 1
+                    acks = []
+                    for rep in self.replicas:
+                        ack = await self._push_weights_rep(rep, frame)
+                        if ack is None:
+                            continue
+                        if ack.get("event") == "error":
+                            # A push that does not fit the model: no
+                            # replica applied it, none replays it.
+                            self._last_push = previous
+                            client.emit({"event": "error", "id": None,
+                                         "error": ack.get("error")})
+                            break
+                        acks.append({
+                            "replica": rep.idx,
+                            "applied": ack.get("applied"),
+                            "epoch": ack.get("epoch"),
+                            "restarted": ack.get("restarted")})
+                    else:
+                        client.emit({"event": "weights_ack",
+                                     "epoch": frame["epoch"],
+                                     "replicas": acks})
                 elif op == "stats":
                     client.emit({"event": "stats",
                                  "stats": await self._gather_stats()})
@@ -700,18 +778,31 @@ class Router:
 def serve_main(args) -> int:
     """The ``run.py --serve`` entry: router + replica fleet.
 
-    ``--serve-model`` names a LlamaConfig constructor (``llama3_8b``,
-    ``tiny``, ...); a checkpoint directory needs checkpoint restore,
-    which is not ported yet, and raises.
+    ``--serve-model`` is EITHER a LlamaConfig constructor name
+    (``llama3_8b``, ``tiny``, ...) or a checkpoint directory: a directory
+    makes every replica load the newest complete checkpoint's params
+    (``HOROVOD_SERVE_CHECKPOINT``); the model name rides the manifest's
+    ``meta.model`` when the trainer recorded one.
     """
     replica_env = {}
     model_arg = getattr(args, "serve_model", None)
     if model_arg and os.path.isdir(model_arg):
-        raise NotImplementedError(
-            f"--serve-model {model_arg}: serving a checkpoint directory "
-            "needs checkpoint restore, which is not ported yet (ROADMAP.md "
-            "Queue A item 6); pass a LlamaConfig constructor name")
-    if model_arg:
+        from horovod_tpu_torch.checkpoint import latest_manifest
+
+        found = latest_manifest(model_arg)
+        if found is None:
+            sys.stderr.write(
+                f"--serve-model {model_arg}: directory holds no "
+                "complete checkpoint manifest\n")
+            return 1
+        manifest, step = found
+        replica_env["HOROVOD_SERVE_CHECKPOINT"] = model_arg
+        meta_model = (manifest.get("meta") or {}).get("model")
+        if meta_model:
+            replica_env["HOROVOD_SERVE_MODEL"] = str(meta_model)
+        print(f"serving checkpoint step {step} from {model_arg}",
+              flush=True)
+    elif model_arg:
         replica_env["HOROVOD_SERVE_MODEL"] = model_arg
     router = Router(
         num_replicas=max(1, args.replicas),

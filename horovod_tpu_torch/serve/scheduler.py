@@ -29,13 +29,21 @@ are thread-safe and non-blocking.  Token events are delivered through
 the per-request ``emit`` callback FROM THE SCHEDULER THREAD — the
 server wraps it with ``loop.call_soon_threadsafe``.
 
+Live weight swaps: ``swap_weights(epoch, frames)`` (thread-safe,
+blocking) decodes a weight push on the caller's thread and parks it; the
+scheduler applies it at the NEXT step boundary, never inside a decode,
+under a monotonic generation epoch.  The runner copies the leaves into
+the model's parameters in place (the decode graphs read that storage and
+are not recaptured).  Every in-flight sequence restarts from its original
+prompt on the new weights behind a ``requeued`` frame with ``reason:
+"weights"``, and the prefix cache is flushed, so a finished stream's
+``tokens`` are always the product of ONE weight epoch.  Stale pushes
+(epoch <= current) ack without applying.
+
 The port's counterpart of ``horovod_tpu/serve/scheduler.py``, with the
-same policy, counters and events.  Two reference features need planes
-that are not ported yet and raise instead: live weight swaps
-(``swap_weights`` needs the checkpoint push codec) and the serve
-autotuner (``HOROVOD_SERVE_AUTOTUNE=1`` needs ``autotune.search``).
-Every event still carries ``weight_epoch`` (always 0 here), so clients
-of the reference protocol read the same frames.
+same policy, counters and events.  The serve autotuner
+(``HOROVOD_SERVE_AUTOTUNE=1``) needs ``autotune.search`` (ROADMAP.md
+Queue A item 6b) and raises.
 """
 
 from __future__ import annotations
@@ -108,7 +116,8 @@ class Scheduler:
         if serve_cfg.autotune:
             raise NotImplementedError(
                 "HOROVOD_SERVE_AUTOTUNE=1: the serve autotuner needs "
-                "autotune.search, which is not ported yet")
+                "autotune.search, which is not ported yet (ROADMAP.md "
+                "Queue A item 6b)")
         self.runner = runner
         self.cfg = serve_cfg
         # The allocator view may be tighter than the runner's physical
@@ -131,9 +140,12 @@ class Scheduler:
         self._new: deque = deque()
         self._cancelled: set = set()
         self._stop = False
-        # Stamped on every token/done event, as in the reference; no
-        # weight swap is ported, so it stays 0.
+        # Live weight swaps: a parked push, applied at the next step
+        # boundary; _weight_epoch stamps every token/done event.
         self._weight_epoch = 0
+        self._pending_weights: Optional[dict] = None
+        #: the last applied swap's decode + copy time (ms) and requeues
+        self.last_swap_ms = 0.0
         self._waiting: deque[_Seq] = deque()
         self._running: List[_Seq] = []
         self._next_sid = 1
@@ -180,10 +192,43 @@ class Scheduler:
 
     def swap_weights(self, epoch: int, frames: list,
                      timeout: float = 60.0) -> dict:
-        """Live weight push: needs the checkpoint plane's wire codec,
-        which is not ported yet."""
-        raise NotImplementedError("live weight swaps are not ported yet "
-                                  "(they come with the checkpoint plane)")
+        """Hot-swap the served weights (thread-safe, BLOCKING).
+
+        ``frames`` are wire frames of ``checkpoint.push.encode_leaves``
+        (the reference's or the port's); they are decoded here, on the
+        caller's thread, so the scheduler thread only pays the copies.
+        Blocks until the scheduler installs them at a step boundary and
+        restarts every in-flight sequence, then returns ``{"applied",
+        "epoch", "restarted"}``.  A stale epoch (<= the installed one) or
+        a stopped scheduler acks with ``applied=False``; of concurrent
+        pushes only the latest is applied (a superseded caller is
+        released with ``applied=False``).  A push that does not fit the
+        served model raises ``ValueError`` from here."""
+        from horovod_tpu_torch.checkpoint.push import decode_leaves
+
+        t0 = time.perf_counter()
+        pending = {"epoch": int(epoch), "by_path": decode_leaves(frames),
+                   "done": threading.Event(), "applied": False,
+                   "restarted": 0, "error": None,
+                   "decode_ms": (time.perf_counter() - t0) * 1e3}
+        with self._wake:
+            if self._stop:
+                pending["done"].set()
+            else:
+                stale = self._pending_weights
+                if stale is not None:
+                    stale["done"].set()   # superseded, never applied
+                self._pending_weights = pending
+                self._wake.notify()
+        if not pending["done"].wait(timeout=timeout):
+            raise TimeoutError(
+                f"weight swap to epoch {epoch} not applied in "
+                f"{timeout:.0f}s (scheduler thread wedged?)")
+        if pending["error"] is not None:
+            raise pending["error"]
+        return {"applied": pending["applied"],
+                "epoch": self._weight_epoch,
+                "restarted": pending["restarted"]}
 
     def stats(self) -> dict:
         with self._lock:
@@ -199,6 +244,7 @@ class Scheduler:
             if c["decode_steps"] else 0.0)
         out["tokens_per_sec"] = c["tokens_streamed"] / elapsed
         out["weight_epoch"] = self._weight_epoch
+        out["weight_swap_ms"] = self.last_swap_ms
         out.update(self.kv.stats())
         out["tune_trials"] = 0
         out["config"] = {
@@ -240,7 +286,7 @@ class Scheduler:
                     self._drain_all_locked()
                     return
                 if not (self._new or self._waiting or self._running
-                        or self._cancelled):
+                        or self._cancelled or self._pending_weights):
                     self._wake.wait(timeout=0.05)
                     continue
             self.step()
@@ -253,6 +299,7 @@ class Scheduler:
         decode call — keeps beating between phases, while a genuinely
         wedged phase freezes the beat."""
         self.last_beat = time.monotonic()
+        self._apply_weight_swap()
         self._intake()
         self._apply_cancellations()
         max_batch = max(1, int(self.max_batch))
@@ -266,6 +313,48 @@ class Scheduler:
         self._decode(max_batch)
 
     # -- internals (scheduler thread only) --
+
+    def _apply_weight_swap(self) -> None:
+        """Install a parked weight push at the step boundary: copy it into
+        the runner's parameters, then restart every in-flight sequence
+        from its ORIGINAL prompt (a ``requeued`` frame, then the token
+        stream starts over at index 0) and flush the prefix cache."""
+        with self._lock:
+            pending = self._pending_weights
+            self._pending_weights = None
+        if pending is None:
+            return
+        if pending["epoch"] <= self._weight_epoch:
+            pending["done"].set()   # stale replay: ack without applying
+            return
+        t0 = time.perf_counter()
+        try:
+            self.runner.apply_weights(pending["by_path"])
+        except ValueError as e:
+            pending["error"] = e
+            pending["done"].set()
+            return
+        self._weight_epoch = pending["epoch"]
+        self._c["weight_swaps"] += 1
+        restarted = 0
+        for seq in list(self._running):
+            self._running.remove(seq)
+            self.kv.free(seq.sid)
+            # Restart from scratch, not a preemption resume: a resumed
+            # prefix would replay old-epoch tokens through new weights.
+            seq.out.clear()
+            seq.emit({"event": "requeued", "id": seq.req.id,
+                      "reason": "weights",
+                      "weight_epoch": self._weight_epoch})
+            self._waiting.appendleft(seq)
+            restarted += 1
+        # New weights invalidate every cached prefix block.
+        self.kv.flush_prefix()
+        self.last_swap_ms = pending["decode_ms"] + (
+            time.perf_counter() - t0) * 1e3
+        pending["applied"] = True
+        pending["restarted"] = restarted
+        pending["done"].set()
 
     def _intake(self) -> None:
         with self._lock:
@@ -442,3 +531,6 @@ class Scheduler:
         self._running.clear()
         self._waiting.clear()
         self._new.clear()
+        if self._pending_weights is not None:
+            self._pending_weights["done"].set()   # applied stays False
+            self._pending_weights = None

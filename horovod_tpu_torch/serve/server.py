@@ -24,11 +24,15 @@ Streamed responses (interleaved across in-flight requests)::
      "counters": {"prefix_hits": 0, ...}}
     {"event": "requeued", "id": "r1"}   # via the router: the stream
                                         # restarts on a survivor
+    {"event": "requeued", "id": "r1", "reason": "weights"}
+    {"event": "weights_ack", "epoch": 3, "applied": true,
+     "restarted": 2}
 
-Not ported yet, and answered with an error frame (``"id": null``): the
-``weights`` push (it needs the checkpoint plane, ROADMAP.md Queue A item
-6).  A plain client that disconnects has its in-flight requests
-cancelled, so it cannot keep burning pool blocks.
+A ``weights`` push is decoded and parked by ``Scheduler.swap_weights``
+(off the event loop: it blocks until the step boundary applies it); a
+push that does not fit the model is answered with an error frame
+(``"id": null``).  A plain client that disconnects has its in-flight
+requests cancelled, so it cannot keep burning pool blocks.
 
 Router sessions (link healing): a connection whose FIRST frame is
 ``{"op": "hello", "role": "router", "session": "<token>", "last_seq": N}``
@@ -58,12 +62,6 @@ from typing import Callable, Dict, Optional
 from horovod_tpu_torch.serve.scheduler import Request, Scheduler
 
 __all__ = ["ReplicaServer", "ServeClient"]
-
-#: The error frame's text for a live weight push (replica or router).
-WEIGHTS_NOT_PORTED = ("weights push failed: live weight pushes are not "
-                      "ported yet (they come with the checkpoint plane, "
-                      "ROADMAP.md Queue A item 6)")
-_NOT_PORTED = {"weights": WEIGHTS_NOT_PORTED}
 
 #: How long a parked router session survives without a reconnect before
 #: its live requests are cancelled (pool blocks must not leak behind a
@@ -280,9 +278,18 @@ class ReplicaServer:
                     "sched_age_sec": round(
                         time.monotonic() - self.scheduler.last_beat, 3),
                     "counters": self.scheduler.metrics_counters()})
-            elif op in _NOT_PORTED:
-                outbox.put_nowait({"event": "error", "id": None,
-                                   "error": _NOT_PORTED[op]})
+            elif op == "weights":
+                # Decode + apply happen at the scheduler's step boundary;
+                # swap_weights BLOCKS until installed, so it runs off the
+                # event loop (pings keep being answered meanwhile).
+                try:
+                    ack = await asyncio.get_running_loop().run_in_executor(
+                        None, self.scheduler.swap_weights,
+                        int(msg.get("epoch", 0)), msg.get("frames") or [])
+                    outbox.put_nowait({"event": "weights_ack", **ack})
+                except (TimeoutError, ValueError, KeyError) as e:
+                    outbox.put_nowait({"event": "error", "id": None,
+                                       "error": f"weights push failed: {e}"})
             elif op == "shutdown":
                 outbox.put_nowait({"event": "bye"})
                 self.shutdown()
@@ -542,9 +549,9 @@ class ServeClient:
 
     def push_weights(self, frames: list, epoch: int,
                      timeout: float = 120.0) -> dict:
-        """Push weight frames and wait for the ``weights_ack``.  A port
-        replica answers with an error frame (not ported yet), raised
-        here as ``RuntimeError``."""
+        """Push weight frames and wait for the ``weights_ack`` (a replica's,
+        or the router's with one entry per replica).  An error frame
+        raises ``RuntimeError``."""
         self._send({"op": "weights", "frames": list(frames),
                     "epoch": int(epoch)})
         return self._wait_plain("weights_ack", timeout)

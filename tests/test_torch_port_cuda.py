@@ -1395,3 +1395,94 @@ def test_flash_ring_refuses_shapes_off_the_kernels_on_the_card(dev, D, Sk):
     with pytest.raises(ValueError, match="ring_attention: .* no CUDA kernel"):
         ring_attention(q, k, k.clone())
     assert fa.fallback_count() == before
+
+
+def test_checkpoint_snapshot_does_not_race_the_next_in_place_step(
+        dev, tmp_path):
+    """save() of CUDA params, masters and moments, then at once in-place
+    updates on the compute stream (what optimizer.step does): the written
+    bytes are the pre-step values bit for bit (the compute stream waits on
+    the side stream's D2H copies), bf16 as its exact fp32, twice (the two
+    sets of pinned buffers); a restore into card tensors gives every bit
+    back in place."""
+    from horovod_tpu_torch.checkpoint import CheckpointLoader, CheckpointWriter
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = torch.randn(1 << 22, device=dev, generator=gen).bfloat16()
+    master = torch.randn(1 << 22, device=dev, generator=gen)
+    moment = torch.randn(1 << 22, device=dev, generator=gen)
+    w = CheckpointWriter(str(tmp_path))
+    try:
+        for step in (1, 2):
+            saved = [t.clone() for t in (params, master, moment)]
+            w.save(step, {"model": {"p": params}},
+                   {"zero.master.0": (master, master.numel()),
+                    "zero.opt.0.exp_avg": (moment, moment.numel())})
+            # The next step's in-place writes, queued right behind save().
+            for t in (params, master, moment):
+                t.mul_(-2.0).add_(3.0)
+            w.wait(timeout=120)
+            loader = CheckpointLoader(str(tmp_path))
+            assert loader.step == step
+            assert loader.read_replicated("model.p").tobytes() == \
+                saved[0].float().cpu().numpy().tobytes()
+            assert loader.read_flat("zero.master.0").tobytes() == \
+                saved[1].cpu().numpy().tobytes()
+            assert loader.read_flat("zero.opt.0.exp_avg").tobytes() == \
+                saved[2].cpu().numpy().tobytes()
+            back = torch.zeros_like(params)
+            out = loader.restore_tree({"p": back}, "model")
+            assert out["p"] is back
+            assert torch.equal(back.view(torch.int16),
+                               saved[0].view(torch.int16))
+            loader.close()
+        assert w.last_snapshot_ms > 0
+    finally:
+        w.close()
+
+
+def test_weight_swap_under_the_captured_decode_graphs(dev):
+    """A push copied into the model's parameters under the captured decode
+    graphs: no graph is recaptured (``captures`` does not move), and each
+    width's replay equals the eager step of a fresh runner on the swapped
+    weights, logits bit for bit."""
+    from horovod_tpu_torch.checkpoint.push import decode_leaves, encode_leaves
+    from horovod_tpu_torch.models.convert import params_to_jax
+    from horovod_tpu_torch.serve.config import ServeConfig
+    from horovod_tpu_torch.serve.engine import ModelRunner
+
+    runner = ModelRunner(ServeConfig.from_env(_GRAPH_ENV), device=dev)
+    runner.warmup()
+    assert runner.captures == 4
+    tree = params_to_jax(runner.model.state_dict(), runner.model_cfg)
+    partial = {"params": {
+        "layer_0": {"attn": tree["params"]["layer_0"]["attn"]},
+        "norm_f": {"scale": tree["params"]["norm_f"]["scale"] * 1.5}}}
+    partial["params"]["layer_0"]["attn"] = {
+        k: {"kernel": v["kernel"] * np.float32(-1.25)}
+        for k, v in partial["params"]["layer_0"]["attn"].items()}
+    by_path = decode_leaves(encode_leaves(partial, wire="int8"))
+    assert runner.apply_weights(by_path) == 5
+    assert runner.captures == 4
+    fresh = ModelRunner(ServeConfig.from_env(_GRAPH_ENV), device=dev)
+    fresh.model.load_state_dict(runner.model.state_dict())
+    cfg, maxb = runner.model_cfg, runner.max_blocks_per_seq
+    for pool in (runner.pool_k, runner.pool_v):
+        pool[:, 1:].normal_()
+    for width in (1, 2, 4, 8):
+        pos = [255, 0, 15, 16, 100, 31, 32, 200][:width]
+        tables = np.zeros((width, maxb), np.int32)
+        for i, p in enumerate(pos):
+            tables[i, :p // 16] = 1 + np.arange(p // 16) % 48
+            tables[i, p // 16] = 49 + i
+        tokens = list(range(3, 3 + width))
+        k0, v0 = runner.pool_k.clone(), runner.pool_v.clone()
+        got = runner.decode(tokens, list(tables), pos)
+        want, _, _ = generation.paged_decode_step(
+            fresh.model, torch.tensor(tokens, device=dev), k0, v0,
+            torch.from_numpy(tables).to(dev),
+            torch.tensor(pos, dtype=torch.int32, device=dev), fused=True)
+        np.testing.assert_array_equal(got, want.float().cpu().numpy())
+        runner.pool_k.copy_(k0)
+        runner.pool_v.copy_(v0)
+    assert runner.captures == 4

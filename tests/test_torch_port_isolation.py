@@ -94,6 +94,40 @@ def test_training_slice_imports_no_jax_and_finds_no_library_attention():
     assert _LIBRARY_RMS_NORM.search("y = F.rms_norm(x, (4096,))")
 
 
+#: The weight plane, elastic recovery and the training launcher.
+_WEIGHT_PLANE_MODULES = ["checkpoint", "checkpoint.manifest",
+                         "checkpoint.stats", "checkpoint.writer",
+                         "checkpoint.loader", "checkpoint.frontend",
+                         "checkpoint.elastic", "checkpoint.push",
+                         "elastic.driver", "elastic.state", "run",
+                         "serve.engine", "serve.scheduler", "serve.router"]
+
+
+def test_weight_plane_imports_no_jax_no_jax_package_no_ml_dtypes():
+    """The checkpoint plane, the elastic driver and the launcher, imported
+    in a fresh interpreter, load neither JAX, nor the JAX package, nor
+    ``ml_dtypes`` (the card's machine has none: bf16 goes through torch);
+    and no source of the port or ``chip_smoke.py`` imports it."""
+    code = ("import importlib, sys\n"
+            f"for m in {_WEIGHT_PLANE_MODULES!r}:\n"
+            "    importlib.import_module('horovod_tpu_torch.' + m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'horovod_tpu', 'ml_dtypes'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    sources = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "horovod_tpu_torch")):
+        sources += [os.path.join(root, f) for f in files
+                    if f.endswith(".py")]
+    imports = re.compile(r"^\s*(import|from)\s+ml_dtypes\b", re.M)
+    for path in sources:
+        with open(path) as f:
+            assert not imports.search(f.read()), path
+    assert imports.search("x = 1\n    import ml_dtypes\n")
+
+
 _ALONE = """
 import sys, torch
 from horovod_tpu_torch.common import native_build

@@ -39,7 +39,8 @@ from horovod_tpu.serve.engine import \
     serve_collective_priority as jax_serve_collective_priority
 from horovod_tpu.serve.replica import \
     parse_fault_schedule as jax_parse_fault_schedule
-from horovod_tpu_torch.models.convert import params_from_jax
+from horovod_tpu_torch.checkpoint.push import encode_leaves
+from horovod_tpu_torch.models.convert import params_from_jax, params_to_jax
 from horovod_tpu_torch.models.generation import paged_decode_step
 from horovod_tpu_torch.models.llama import LlamaModel
 from horovod_tpu_torch.serve.config import ServeConfig, resolved_serve_config
@@ -382,15 +383,18 @@ def test_runner_refuses_without_gpu_and_unported_knobs(monkeypatch, runner):
         ModelRunner(ServeConfig.from_env({}))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ModelRunner(ServeConfig.from_env({}), device="cuda")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    # An absent checkpoint is refused, never replaced by seeded weights.
+    with pytest.raises(FileNotFoundError, match="no complete checkpoint"):
         ModelRunner(ServeConfig.from_env(
             {"HOROVOD_SERVE_CHECKPOINT": "/nonexistent"}), device="cpu")
-    with pytest.raises(NotImplementedError, match="autotune"):
+    with pytest.raises(NotImplementedError, match="item 6b"):
         Scheduler(runner, ServeConfig.from_env(
             dict(SERVE_ENV, HOROVOD_SERVE_AUTOTUNE="1")))
-    with pytest.raises(NotImplementedError, match="weight swaps"):
-        Scheduler(runner, ServeConfig.from_env(SERVE_ENV)).swap_weights(
-            1, [])
+    # A swap into a stopped scheduler acks without applying.
+    stopped = Scheduler(runner, ServeConfig.from_env(SERVE_ENV))
+    stopped.stop()
+    assert stopped.swap_weights(1, []) == {"applied": False, "epoch": 0,
+                                           "restarted": 0}
     with pytest.raises(ValueError, match="HOROVOD_SERVE_DTYPE"):
         ModelRunner(ServeConfig.from_env({"HOROVOD_SERVE_DTYPE": "int8"}),
                     device="cpu")
@@ -659,8 +663,15 @@ def test_replica_server_protocol_roundtrip(runners):
     stats = cli.stats()
     assert stats["requests_completed"] >= 1
     assert stats["config"]["max_batch"] == cfg.max_batch
-    with pytest.raises(RuntimeError, match="not ported"):
-        cli.push_weights([], epoch=1, timeout=30)
+    # A live push of the served weights themselves (lossless wire): acked
+    # and applied at epoch 1, the next stream unchanged.
+    frames = encode_leaves(params_to_jax(runner.model.state_dict(),
+                                         runner.model_cfg), wire="fp32")
+    ack = cli.push_weights(frames, epoch=1, timeout=60)
+    assert (ack["event"], ack["applied"], ack["epoch"], ack["restarted"]) \
+        == ("weights_ack", True, 1, 0)
+    evs = cli.generate("a2", [1, 2, 3, 4, 5], max_tokens=6)
+    assert evs[-1]["tokens"] == toks and evs[-1]["weight_epoch"] == 1
     # A client that vanishes mid-request gets its work cancelled.
     cli2 = ServeClient("127.0.0.1", holder["port"], timeout=120)
     cli2.start_generate("b", list(range(1, 6)), max_tokens=34)

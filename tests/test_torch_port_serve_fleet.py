@@ -158,10 +158,17 @@ def test_two_replica_fleet_serves_and_balances(offline):
         assert any(r.get("scheduler", {}).get("batch_occupancy", 0) > 1.0
                    for r in stats["replicas"])
         cli.ping()
-        # No live weight push yet: the router answers with an error frame.
-        with pytest.raises(RuntimeError, match="Queue A item 6"):
-            cli.push_weights([], epoch=1, timeout=30)
-        assert cli.stats()["router"]["weight_pushes"] == 0
+        # A live weight push fans out to both replicas (an empty tree:
+        # the epoch moves, the weights stay).
+        ack = cli.push_weights([], epoch=1, timeout=60)
+        assert ack["event"] == "weights_ack" and ack["epoch"] == 1
+        assert sorted((r["replica"], r["applied"], r["epoch"])
+                      for r in ack["replicas"]) == [(0, True, 1),
+                                                    (1, True, 1)]
+        stats = cli.stats()
+        assert stats["router"]["weight_pushes"] == 1
+        assert [r["scheduler"]["weight_epoch"]
+                for r in stats["replicas"]] == [1, 1]
         assert fleet.stop(cli) == 0, fleet.tail()
 
 
@@ -260,17 +267,30 @@ def test_dead_fleet_without_budget_answers_with_a_clean_error():
 
 
 def test_run_refuses_training_and_checkpoint_directories(tmp_path):
+    """The launcher now runs training commands (-np), and still refuses a
+    checkpoint directory that holds no complete checkpoint, and the
+    monitor/autotune flags (ROADMAP.md Queue A item 6b)."""
     out = subprocess.run(
         [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "2", "--",
-         "python", "train.py"], cwd=bench_serve.REPO, capture_output=True,
-        text=True, timeout=120)
-    assert out.returncode != 0 and "Queue A item 6" in out.stderr
+         sys.executable, "-c",
+         "import os; print('id', os.environ['HOROVOD_RANK'], "
+         "os.environ['HOROVOD_SIZE'], os.environ['HOROVOD_LOCAL_RANK'])"],
+        cwd=bench_serve.REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert sorted(ln for ln in out.stdout.splitlines() if "id" in ln) == [
+        "[0] id 0 2 0", "[1] id 1 2 1"]
     out = subprocess.run(
         [sys.executable, "-m", "horovod_tpu_torch.run", "--serve",
          "--serve-model", str(tmp_path), "--device", "cpu"],
         cwd=bench_serve.REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and "checkpoint" in out.stderr
     assert "READY" not in out.stdout
+    for flag in (["--status", "127.0.0.1:1"], ["--print-config"]):
+        out = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.run", *flag],
+            cwd=bench_serve.REPO, capture_output=True, text=True,
+            timeout=120)
+        assert out.returncode != 0 and "Queue A item 6b" in out.stderr
 
 
 @pytest.mark.parametrize("gate", ["--gate", "--prefix-gate"])
@@ -284,7 +304,10 @@ def test_bench_serve_gates_pass_on_cpu(gate):
                        if ln.startswith("{")][-1])
     assert line["device"] == "cpu"
     if gate == "--gate":
-        assert line["weight_push"] == "not ported (Queue A item 6)"
+        push = line["weight_push"]
+        assert push["pushes"] == 1 and push["acked"]
+        assert push["replica_weight_epochs"] == [1, 1]
+        assert set(push["stream_weight_epochs"]) <= {0, 1}
         assert line["completed"] == line["requests"] == 24
         assert line["clean_shutdown"]
     else:
