@@ -48,7 +48,9 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                width's CUDA graph (4 captured at warm-up: widths 1, 2, 4,
                8): 8 concurrent requests, a shared 256-token prefix;
                launch counts (per replay) prove every decode layer went
-               through the kernel;
+               through the kernel, and every norm of every decode step
+               and prefill through the RMSNorm kernel (the served model's
+               norms, whose rows do not depend on their batch-mates);
 4. oracle    — fused decode against the gather oracle on the same pools
                at full width, plus batch invariance: a row decoded alone
                and beside batch-mates through ``ModelRunner.decode`` must
@@ -58,6 +60,14 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
    serve_graph — each decode graph against the eager step: widths 1, 2,
                4 and 8 at the kernel table's positions, logits and written
                K/V bit for bit on the same inputs and pools;
+   serve_tune — the same runner under the serve tuner
+               (``HOROVOD_SERVE_AUTOTUNE=1``, windows of 16 decode steps,
+               6 trials at most): 16 streams of 64-512-token prompts that
+               share no prefix, 96 new tokens each, greedy; the tuner
+               commits, ``captures`` does not move, B6 runs 32 launches a
+               replay, and every stream's tokens equal an untuned
+               scheduler's on the same runner and requests; each window's
+               tokens/s;
    profile   — where a batch-8 decode step's time goes (host wall time,
                device busy time and top kernels from torch.profiler), for
                the graph step and the eager step on the same inputs, and
@@ -71,7 +81,11 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                and relaunched (``--restart-on-failure 1``): every request
                completes, some are requeued, each request's tokens equal
                the fault-free run's, the router exits 0, and no replica
-               process, listen socket or /dev/shm entry is left;
+               process, listen socket or /dev/shm entry is left; the
+               router serves ``HOROVOD_METRICS_PORT``, whose ``"serve"``
+               mount, read every 0.1 s, shows 2 replicas alive, then 1
+               while replica 1 is dead and 2 after its relaunch, with
+               request counters equal to the router's final stats;
 5. train     — with the fleet gone: the data-parallel training step
                (``hvd.init()`` over NCCL, ``make_train_step``,
                ``DistributedOptimizer`` over ``MasterWeights(AdamW)``,
@@ -138,7 +152,9 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                (an allreduce enqueued right behind the GEMM that writes its
                input); staging and engine times, the plane, the pinned pool;
 11. engine_train — the engine-driven optimizers (``torch_frontend``)
-               training ``bench_llama``'s model at its full config on two
+               training ``bench_llama``'s model at its widths cut to 8
+               layers (ENGINE_TRAIN_LAYERS; the full 16 train in
+               ``observe``) on two
                ranks of the engine on the one card (``--train-worker
                RANK``, through ``run_ranks``, the engine phase's
                launcher), B 4 x S 2048 each, the rows of the bench's
@@ -147,12 +163,12 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                warm-up and 5 timed steps each: ``hook`` (the hook form
                over ``MasterWeights(AdamW)``; ``synchronize()``'s wait
                after the backward), ``zero1`` (``sharded=True``, AdamW on
-               the bf16 model), ``fsdp`` (``fsdp=True``, 17 units) and
+               the bf16 model), ``fsdp`` (``fsdp=True``, a unit a layer and one more) and
                ``local_sgd`` (the hook form, ``local_sgd_steps=4``, 8
                steps); each checks that its loss falls, the ranks'
                parameters agree bit for bit (an allgather of
                per-tensor digests; for local SGD right after steps 4 and
-               8 only, with 2 syncs counted), 48 flash launches a step and
+               8 only, with 2 syncs counted), 24 flash launches a step and
                no plain call, and a bitwise anchor at 2 layers: the hook
                step against ``grouped_allreduce`` of the same gradients
                and the same inner step, ZeRO-1 (fp32, SGD) against the
@@ -160,14 +176,14 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                replicated loop; one line per part with step ms, tokens/s,
                peak memory, the engine's and the staging's counters a
                step; then three parts of the sparse plane: ``topk`` (the
-               hook form with ``Compression.topk(0.01)``: 131 sparse
+               hook form with ``Compression.topk(0.01)``: 67 sparse
                allreduces a step, D2H bytes under 5 % of ``hook``'s, the
                first step's selection, residual and output bitwise
                against the CPU's on 11 leaves of every shape, one step
                split into selection, allgathers and scatter, and a 2-layer
                anchor against ``hvd.allreduce(topk)`` of the same
                gradients), ``local_sgd_topk`` (H 4, the masters' deltas
-               top-k'd: 2 syncs of 131 sparse allreduces) and ``policy``
+               top-k'd: 2 syncs of 67 sparse allreduces) and ``policy``
                (``HOROVOD_WIRE_POLICY=1`` on an fp32 copy with AdamW: the
                leaves sent int8, every 0/1-D leaf fp32,
                ``wire_int8_count`` growing, the card's statistics against
@@ -237,7 +253,8 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
 17. serve_weights — a checkpoint of seeded Llama-3-8B weights cut to 2
                layers (1.49 B parameters, fp32 on disk) written by the
                JAX-form capture; a replica serving it behind the router
-               (``run --serve --serve-model D``), 8 streams, and mid-stream
+               (``run --serve --serve-model D``), 8 streams of 960 new
+               tokens (a pool of 1024 blocks), and mid-stream
                a partial push (layer 0's q and o on the int8 wire, every
                norm scale) through ``WeightPusher``: every stream requeued
                once and finished at full length on the new epoch, a
@@ -248,7 +265,36 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                the same push copied in place (``captures`` unchanged):
                restore s, push MB, swap ms, requeued, tokens/s before and
                after;
-18. train_profile, train_packed_profile, train_bert_profile,
+18. observe — ``engine_train``'s hook part (bench_llama's model, bf16,
+               B 4 x S 2048 a rank, 2 warm-up and 8 timed steps) on two
+               ranks sharing the card (``--observe-worker RANK``), plain,
+               then with the timeline on every rank, telemetry every
+               cycle, the flight recorder and rank 0's metrics endpoint:
+               during a quiet hold after the last step this process times
+               a scrape of ``/json`` and ``/metrics`` and runs ``run
+               --status``; fleet totals equal the ranks' summed
+               ``stats()``, the stall counter's TYPE line and the
+               per-rank series are there, the merged timeline's flows all
+               resolve (sinks after their sources, none before 0), the
+               hook form's gradient names are its spans, the ranks'
+               parameters are bitwise equal, 16 launches of each of B1-B3
+               a step; step ms off and on, timeline MB and events a step,
+               scrape ms; then the stall inspector (rank 1 withholds a
+               4 MB CUDA tensor 3 s under ``HOROVOD_STALL_WARNING_SEC=1``:
+               1-5 warnings and one escalation dump naming it) and the
+               flight recorder (``HOROVOD_FAULT_INJECT=1:6:exit`` with
+               CUDA tensors in flight: the postmortem names rank 1, last
+               committed cycle >= 1);
+    autotune — the same part under ``HOROVOD_AUTOTUNE=1`` (chunk,
+               fusion threshold and cycle time; seed 7; 256 MiB windows;
+               the whole 16-trial schedule): 3 steps at the default
+               config, the search while training goes on, 3 steps at the
+               committed config; the executed schedule is the planned
+               one, both ranks hold the committed knobs, the loss falls,
+               the ranks' parameters are equal; trials, the committed
+               config, bus GB/s (``stats_delta``) and step ms before and
+               after (no gain is claimed);
+19. train_profile, train_packed_profile, train_bert_profile,
                train_resnet_profile, bench_llama_profile,
                train_moe_profile — where one step of each goes
                (torch.profiler), after every phase was timed: once the
@@ -262,7 +308,7 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                real step;
                and the flash kernels' ``kernel_time_bench`` lines with
                bench_llama's launches a step;
-19. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+20. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints one JSON line; any failed check raises (exit != 0) and
@@ -289,13 +335,14 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 import horovod_tpu_torch as hvd
-from horovod_tpu_torch import bench, bench_serve, torch_frontend
+from horovod_tpu_torch import bench, bench_serve, timeline, torch_frontend
 from horovod_tpu_torch.checkpoint import (CheckpointLoader, CheckpointWriter,
                                           jax_capture, latest_manifest,
                                           torch_capture, torch_restore)
@@ -316,6 +363,7 @@ from horovod_tpu_torch.models.llama import (LlamaConfig, LlamaModel, RMSNorm,
 from horovod_tpu_torch.common import native_build
 from horovod_tpu_torch.common.launch import free_port
 from horovod_tpu_torch.models.resnet import ResNet, ResNetConfig
+from horovod_tpu_torch.monitor import postmortem
 from horovod_tpu_torch.ops import _build
 from horovod_tpu_torch.ops import conv_bn_stats as cbs
 from horovod_tpu_torch.ops import flash_attention as fa
@@ -328,11 +376,11 @@ from horovod_tpu_torch.parallel.api import (make_parallel_train_step,
                                             shard_params)
 from horovod_tpu_torch.parallel.mesh import build_mesh
 from horovod_tpu_torch.runtime import staging
-from horovod_tpu_torch.runtime.engine import get_engine
+from horovod_tpu_torch.runtime.engine import HorovodInternalError, get_engine
 from horovod_tpu_torch.serve.config import ServeConfig
 from horovod_tpu_torch.serve.engine import ModelRunner, build_model_config
 from horovod_tpu_torch.serve.kv_cache import TRASH_BLOCK
-from horovod_tpu_torch.serve.scheduler import Scheduler
+from horovod_tpu_torch.serve.scheduler import Request, Scheduler
 from horovod_tpu_torch.serve.server import ReplicaServer, ServeClient
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and operations/s
@@ -1355,6 +1403,7 @@ def phase_serve(dev, seed):
     reqs = serve_requests(mcfg.vocab_size, seed)
 
     pa.reset_launches()
+    rn.reset_launches()
     t_submit = {}
     t0 = time.monotonic()
     for rid, prompt, new in reqs:
@@ -1363,6 +1412,8 @@ def phase_serve(dev, seed):
     results = {rid: cli.collect(rid, timeout=600) for rid, _, _ in reqs}
     wall = time.monotonic() - t0
     launches = pa.launches
+    norm_launches, norm_plain = rn.launches["rms_fwd"], \
+        rn.plain_calls["rms_fwd"]
     stats = cli.stats()
 
     ttft, n_tokens = [], 0
@@ -1387,6 +1438,14 @@ def phase_serve(dev, seed):
     check(launches == mcfg.num_layers * steps,
           f"kernel launches {launches} != layers x decode steps "
           f"{mcfg.num_layers} x {steps}")
+    # Every norm of every decode replay and prefill ran the RMSNorm
+    # kernel (two a layer and the final one a forward).
+    norms_per_forward = 2 * mcfg.num_layers + 1
+    check(norm_plain == 0 and norm_launches
+          == norms_per_forward * (steps + stats["prefills"]),
+          f"RMSNorm launches {norm_launches} (plain {norm_plain}) != "
+          f"{norms_per_forward} x (decode steps {steps} + prefills "
+          f"{stats['prefills']})")
     emit("serve", model=cfg.model, layers=mcfg.num_layers,
          hidden=mcfg.hidden_size, vocab=mcfg.vocab_size,
          dtype=str(mcfg.dtype).replace("torch.", ""), requests=len(reqs),
@@ -1394,7 +1453,8 @@ def phase_serve(dev, seed):
          ttft_ms_p50=statistics.median(ttft), ttft_ms_max=max(ttft),
          decode_step_ms_p50=statistics.median(decode_ms),
          decode_step_ms_max=max(decode_ms), decode_steps=steps,
-         kernel_launches=launches, batch_occupancy=stats["batch_occupancy"],
+         kernel_launches=launches, rms_fwd_launches=norm_launches,
+         batch_occupancy=stats["batch_occupancy"],
          prefix_hits=stats["prefix_hits"],
          prefill_tokens_saved=stats["prefill_tokens_saved"],
          preemptions=stats["preemptions"],
@@ -1682,16 +1742,44 @@ FLEET_FAULT_STEP = 10
 FLEET_TIMEOUT_S = 300
 
 
+def serve_mount(mport: int) -> dict:
+    """The router's ``"serve"`` mount, read from ``/json``."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{mport}/json",
+                                timeout=10) as resp:
+        return json.loads(resp.read().decode())["serve"]
+
+
+def _sample_mount(mport: int, samples: list, stop: threading.Event):
+    """Read the mount every 0.1 s until ``stop``; (s since start, its
+    dict) appended."""
+    t0 = time.monotonic()
+    while not stop.is_set():
+        try:
+            samples.append((time.monotonic() - t0, serve_mount(mport)))
+        except (OSError, ValueError):
+            pass
+        stop.wait(0.1)
+
+
 def fleet_run(env, plan, restart, wait_ready):
     """One ``run.py --serve --replicas 2 --device cuda`` fleet driven by
-    ``bench_serve.run_load``; returns (aggregate, records, log, router
-    exit code, failures).  ``wait_ready``: how many READY lines replica 1
-    must print before the fleet is shut down."""
+    ``bench_serve.run_load``, its router serving the metrics endpoint
+    (``HOROVOD_METRICS_PORT``), whose ``"serve"`` mount is sampled every
+    0.1 s; returns (aggregate, records, log, router exit code, failures,
+    mount).  ``wait_ready``: how many READY lines replica 1 must print
+    before the fleet is shut down (and then both replicas must read
+    alive on the mount)."""
     shm_before = set(os.listdir("/dev/shm")) if os.path.isdir("/dev/shm") \
         else set()
+    mport = free_port()
     proc, port, log = bench_serve.start_fleet(
-        2, device="cuda", env=env, restart=restart, timeout=FLEET_TIMEOUT_S)
-    cli = None
+        2, device="cuda", env=dict(env, HOROVOD_METRICS_PORT=str(mport)),
+        restart=restart, timeout=FLEET_TIMEOUT_S)
+    cli, samples, stop = None, [], threading.Event()
+    sampler = threading.Thread(target=_sample_mount,
+                               args=(mport, samples, stop), daemon=True)
+    sampler.start()
+    mount = {"port": mport}
     try:
         cli, records, agg = bench_serve.run_load(port, plan,
                                                  timeout=FLEET_TIMEOUT_S)
@@ -1700,11 +1788,30 @@ def fleet_run(env, plan, restart, wait_ready):
                 "[replica 1] SERVE_REPLICA_READY" in ln
                 for ln in list(log)) < wait_ready:
             time.sleep(0.5)
+        while time.monotonic() < deadline and (
+                not samples or samples[-1][1]["replicas_alive"] != 2):
+            time.sleep(0.1)
+        stop.set()
+        sampler.join(timeout=30)
+        mount["final"] = serve_mount(mport)
+        with urllib.request.urlopen(f"http://127.0.0.1:{mport}/metrics",
+                                    timeout=10) as resp:
+            mount["prom"] = [ln for ln in resp.read().decode().splitlines()
+                             if "horovod_serve_" in ln
+                             and not ln.startswith("# HELP")]
     finally:
+        stop.set()
         rc = bench_serve.stop_fleet(proc, cli, timeout=120)
-    failures = bench_serve.leaks({proc.pid}, shm_before, [port])
+    alive = []
+    for t, sample in samples:
+        if not alive or alive[-1][1] != sample["replicas_alive"]:
+            alive.append((round(t, 2), sample["replicas_alive"]))
+    mount.update(samples=len(samples), replicas_alive=alive,
+                 metrics_ready=any(f"SERVE_METRICS_READY port={mport}" in ln
+                                   for ln in log))
+    failures = bench_serve.leaks({proc.pid}, shm_before, [port, mport])
     bench_serve.kill_fleet(proc)        # whatever leaked goes now
-    return agg, records, list(log), rc, failures
+    return agg, records, list(log), rc, failures, mount
 
 
 def replica_times(log):
@@ -1733,14 +1840,15 @@ def phase_fleet(seed):
         FLEET_REQUESTS, FLEET_RATE_HZ, seed=seed, vocab=vocab,
         prompt_lo=64, prompt_hi=512, max_tokens_lo=FLEET_NEW_TOKENS,
         max_tokens_hi=FLEET_NEW_TOKENS)
-    runs = {}
+    runs, mounts = {}, {}
     for name, extra, restart, ready in (
             ("clean", {}, 0, 1),
             ("fault", {"HOROVOD_FAULT_INJECT":
                        f"1:{FLEET_FAULT_STEP}:exit"}, 1, 2)):
-        agg, records, log, rc, failures = fleet_run(
+        agg, records, log, rc, failures, mount = fleet_run(
             dict(env, **extra), plan, restart, ready)
         runs[name] = (agg, records, log, rc, failures)
+        mounts[name] = mount
         keep = ("tokens_per_sec", "ttft_ms_p50", "ttft_ms_p99",
                 "req_latency_ms_p50", "req_latency_ms_p99",
                 "batch_occupancy", "completed", "requests", "requeued",
@@ -1752,7 +1860,8 @@ def phase_fleet(seed):
              router=agg["router"], replica_times=replica_times(log),
              replica1_ready=sum("[replica 1] SERVE_REPLICA_READY" in ln
                                 for ln in log),
-             leaks=failures, **{k: agg[k] for k in keep})
+             leaks=failures, metrics_mount=mount,
+             **{k: agg[k] for k in keep})
     clean, fault = runs["clean"], runs["fault"]
     for name, (agg, records, log, rc, failures) in runs.items():
         check(agg["completed"] == FLEET_REQUESTS,
@@ -1763,6 +1872,20 @@ def phase_fleet(seed):
         check(agg["kv_blocks_in_use_final"] == 0,
               f"fleet {name}: KV blocks in use after the run")
         check(agg["fused_attn_steps"] > 0, f"fleet {name}: no fused step")
+    for name, want in (("clean", [2]), ("fault", [2, 1, 2])):
+        mount, router = mounts[name], runs[name][0]["router"]
+        check(mount["metrics_ready"]
+              and [a for _, a in mount["replicas_alive"]] == want,
+              f"fleet {name}: the mount read replicas_alive "
+              f"{mount['replicas_alive']}, not {want}")
+        final = mount["final"]
+        check(all(final[k] == router[k] for k in (
+            "completed", "requeued", "replica_deaths", "failed")),
+              f"fleet {name}: mount {final} disagrees with the router's "
+              f"stats {router}")
+        check("# TYPE horovod_serve_completed counter" in mount["prom"]
+              and "horovod_serve_replicas_alive 2" in mount["prom"],
+              f"fleet {name}: /metrics serve gauges {mount['prom']}")
     check(clean[0]["requeued"] == 0, "the fault-free fleet requeued")
     check(fault[0]["requeued"] > 0, "replica 1 died owing no request")
     check(sum("[replica 1] SERVE_REPLICA_READY" in ln for ln in fault[2])
@@ -2732,15 +2855,18 @@ def engine_worker(rank: int, device: str) -> dict:
     return out
 
 
-def run_ranks(flag: str, phase: str, timeout_s: float, extra=()) -> list:
+def run_ranks(flag: str, phase: str, timeout_s: float, extra=(),
+              env_extra=None, rank_env=None, exit_codes=None) -> list:
     """Start this script once per rank (``flag RANK`` and ``extra``, every
     rank on cuda:0) and return each rank's last stdout line, parsed.  No
     torch.distributed collective runs in them (NCCL refuses two ranks on
     one device; the group is created lazily).  Any rank's failure or
     timeout fails the phase.  ``HOROVOD_SHM_DISABLE`` alone of the
-    caller's ``HOROVOD_*`` variables reaches the ranks; their output goes
-    to files, so no rank blocks on a full pipe while another is waited
-    on."""
+    caller's ``HOROVOD_*`` variables reaches the ranks, with
+    ``env_extra`` and ``rank_env[r]`` laid over; their output goes to
+    files, so no rank blocks on a full pipe while another is waited on.
+    ``exit_codes[r]`` is a rank's expected exit code other than 0 (an
+    injected death); such a rank's result is None."""
     port = free_port()
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
@@ -2748,13 +2874,16 @@ def run_ranks(flag: str, phase: str, timeout_s: float, extra=()) -> list:
                HOROVOD_LOCAL_SIZE=str(ENGINE_RANKS),
                HOROVOD_COORDINATOR=f"127.0.0.1:{port}",
                HOROVOD_SHM_DISABLE=os.environ.get("HOROVOD_SHM_DISABLE", "0"))
+    env.update(env_extra or {})
+    want = {r: (exit_codes or {}).get(r, 0) for r in range(ENGINE_RANKS)}
     logs = tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_")
     files = [(open(os.path.join(logs, f"rank{r}.out"), "w+"),
               open(os.path.join(logs, f"rank{r}.err"), "w+"))
              for r in range(ENGINE_RANKS)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), flag, str(r), *extra],
-        env=dict(env, HOROVOD_RANK=str(r), HOROVOD_LOCAL_RANK=str(r)),
+        env=dict(env, HOROVOD_RANK=str(r), HOROVOD_LOCAL_RANK=str(r),
+                 **(rank_env or {}).get(r, {})),
         stdout=files[r][0], stderr=files[r][1], text=True)
         for r in range(ENGINE_RANKS)]
     t0 = time.monotonic()
@@ -2768,8 +2897,8 @@ def run_ranks(flag: str, phase: str, timeout_s: float, extra=()) -> list:
         # its own error, not with its peer's hang.
         while any(p.poll() is None for p in procs):
             for r, p in enumerate(procs):
-                check(p.poll() in (None, 0), f"{phase} rank {r} exited "
-                                             f"{p.returncode}:\n{tail(r)}")
+                check(p.poll() in (None, want[r]),
+                      f"{phase} rank {r} exited {p.returncode}:\n{tail(r)}")
             if time.monotonic() - t0 > timeout_s:
                 raise RuntimeError(
                     f"chip_smoke check failed: {phase} ranks "
@@ -2779,8 +2908,11 @@ def run_ranks(flag: str, phase: str, timeout_s: float, extra=()) -> list:
             time.sleep(0.2)
         results = []
         for r, p in enumerate(procs):
-            check(p.returncode == 0, f"{phase} rank {r} exited "
-                                     f"{p.returncode}:\n{tail(r)}")
+            check(p.returncode == want[r], f"{phase} rank {r} exited "
+                                           f"{p.returncode}:\n{tail(r)}")
+            if want[r]:
+                results.append(None)
+                continue
             files[r][0].seek(0)
             results.append(json.loads(files[r][0].read().strip()
                                       .splitlines()[-1]))
@@ -2815,6 +2947,10 @@ def phase_engine():
 
 TRAIN_RANKS_TIMEOUT_S = 900
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+#: engine_train's depth: bench_llama's widths cut from 16 layers to 8,
+#: to keep the whole script well inside its time limit (the observe and
+#: autotune phases train the full 16).
+ENGINE_TRAIN_LAYERS = 8
 LOCAL_SGD_H, LOCAL_SGD_STEPS = 4, 8
 #: The anchors' depth (bench_llama's widths).
 ANCHOR_LAYERS = 2
@@ -3480,22 +3616,30 @@ def part_policy(cfg, batch, dev) -> dict:
     return out
 
 
+def rank_batch(cfg, rank: int, size: int, dev) -> torch.Tensor:
+    """This rank's rows of the bench's ``default_rng(0)`` batch of 8
+    sequences of 2048 (+1) tokens (fewer where ``cfg`` is shorter)."""
+    rows = 8 // size
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, 2049 if cfg.max_seq_len >= 2048
+                            else cfg.max_seq_len + 1), dtype=np.int32)
+    return torch.from_numpy(tokens[rank * rows:(rank + 1) * rows]).long() \
+        .to(dev)
+
+
 def train_worker(rank: int, device: str, cfg=None) -> dict:
     """One rank of the engine_train phase: bench_llama's model (``cfg``,
-    default ``bench.llama_config()``) at B 4 x S 2048, this rank's 4 rows
+    default ``bench.llama_config()`` at ENGINE_TRAIN_LAYERS) at B 4 x S
+    2048, this rank's 4 rows
     of the bench's ``default_rng(0)`` batch of 8.  Each part's failed
     check raises."""
     hvd.init(device=device)
     dev = hvd.device()
-    cfg = cfg or bench.llama_config()
-    rows = 8 // hvd.size()
-    tokens = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (8, 2049 if cfg.max_seq_len >= 2048
-                            else cfg.max_seq_len + 1), dtype=np.int32)
-    batch = torch.from_numpy(tokens[rank * rows:(rank + 1) * rows]).long() \
-        .to(dev)
+    cfg = cfg or dataclasses.replace(bench.llama_config(),
+                                     num_layers=ENGINE_TRAIN_LAYERS)
+    batch = rank_batch(cfg, rank, hvd.size(), dev)
     out = {"rank": hvd.rank(), "size": hvd.size(), "device": str(dev),
-           "batch": list(batch.shape)}
+           "batch": list(batch.shape), "layers": cfg.num_layers}
     t0 = time.monotonic()
     parts = (("hook", part_hook), ("zero1", part_zero1),
              ("fsdp", part_fsdp), ("local_sgd", part_local_sgd),
@@ -3533,7 +3677,7 @@ def phase_engine_train():
     for part in ("hook", "zero1", "fsdp", "local_sgd", "topk",
                  "local_sgd_topk", "policy"):
         emit("engine_train", part=part, ranks=ENGINE_RANKS,
-             batch_per_rank=results[0]["batch"],
+             layers=results[0]["layers"], batch_per_rank=results[0]["batch"],
              per_rank=[r[part] for r in results], nvidia_smi_after=smi)
     emit("engine_train", part="phase", wall_s=time.monotonic() - t0,
          worker_wall_s=[r["wall_s"] for r in results])
@@ -4532,14 +4676,20 @@ def graph_vs_eager(runner, model, seed) -> dict:
     return rows
 
 
+#: New tokens of each serve_weights stream, and the phase's KV pool
+#: (blocks of 16): 8 streams of at most 512 + 960 tokens fit without a
+#: preemption.  At a 2-layer model's pace (~180 tokens/s a stream with
+#: the RMSNorm kernel) the streams run ~5 s, well past the push's
+#: ~1.7-3 s (encode, send, decode) that must land while they do.
+SW_NEW_TOKENS, SW_KV_BLOCKS = 960, 1024
+
+
 def sw_requests(vocab, seed):
-    """8 requests of 64-512 prompt tokens and 480 new tokens each: at a
-    2-layer model's pace the streams run for seconds, so the push (encode,
-    send, decode) lands while they do; the pool (512 blocks of 16) holds
-    all 8 without a preemption."""
+    """8 requests of 64-512 prompt tokens and SW_NEW_TOKENS new tokens
+    each."""
     rng = np.random.default_rng(seed + 7)
-    return [(f"w{i}", rng.integers(0, vocab, int(n)).tolist(), 480)
-            for i, n in enumerate(rng.integers(64, 513, 8))]
+    return [(f"w{i}", rng.integers(0, vocab, int(n)).tolist(),
+             SW_NEW_TOKENS) for i, n in enumerate(rng.integers(64, 513, 8))]
 
 
 def phase_serve_weights(dev, seed):
@@ -4549,7 +4699,8 @@ def phase_serve_weights(dev, seed):
     through ``WeightPusher``; in this process, a runner restored from the
     same checkpoint holds its graphs against fresh eager runners before
     and after the same push."""
-    env = dict(SERVE_ENV, HOROVOD_SERVE_PARAM_SEED=str(seed))
+    env = dict(SERVE_ENV, HOROVOD_SERVE_PARAM_SEED=str(seed),
+               HOROVOD_SERVE_KV_BLOCKS=str(SW_KV_BLOCKS))
     cfg = dataclasses.replace(build_model_config(ServeConfig.from_env(env)),
                               num_layers=SW_LAYERS)
     directory = tempfile.mkdtemp(prefix="chip_smoke_serve_ckpt_")
@@ -4727,6 +4878,572 @@ def phase_serve_weights(dev, seed):
     check(not (shm_after - shm_before), "serve_weights: /dev/shm leaked")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: observability and tuning on the card: the timeline, the
+# metrics endpoint and run --status, the stall inspector, the flight
+# recorder's postmortem, the engine autotuner and the serve tuner
+# ---------------------------------------------------------------------------
+
+OBS_STEPS = 8
+OBS_TIMEOUT_S = 600
+#: Fleet totals against the sum of the ranks' stats() on these counters.
+OBS_SUM_KEYS = ("data_bytes_tx", "data_bytes_rx", "allreduce_bytes",
+                "tensors", "responses")
+#: The stall part: how long rank 1 withholds its tensor, at a warning
+#: interval of 1 s; and its tensor (4 MB).
+STALL_HOLD_S, STALL_VALUES = 3.0, 1 << 20
+#: The flight-recorder part: rank 1 exits at its 6th enqueue, the second
+#: of the second group of 4 CUDA tensors of 1 MB.
+FAULT_SPEC, FAULT_TENSORS, FAULT_VALUES = "1:6:exit", 4, 1 << 18
+#: The autotune part: the knobs swept, its seed, window and cap (16 =
+#: the whole schedule of these three knobs), and the steps timed at the
+#: default config before the search and at the committed one after it.
+#: The tuner starts suspended (rank 0 starts it after the default
+#: steps), and its post-commit watch never re-opens the search inside
+#: this short run.
+AUTOTUNE_ENV = {"HOROVOD_AUTOTUNE": "1", "HOROVOD_AUTOTUNE_SUSPEND": "1",
+                "HOROVOD_AUTOTUNE_KNOBS":
+                "chunk_bytes,fusion_threshold,cycle_time_ms",
+                "HOROVOD_AUTOTUNE_SEED": "7",
+                "HOROVOD_AUTOTUNE_WINDOW_BYTES": str(256 << 20),
+                "HOROVOD_AUTOTUNE_MAX_TRIALS": "16",
+                "HOROVOD_AUTOTUNE_TRIAL_TIMEOUT_SEC": "30",
+                "HOROVOD_AUTOTUNE_REPROBE_WINDOWS": str(1 << 30)}
+AUTOTUNE_TIMED, AUTOTUNE_MAX_SEARCH_STEPS = 3, 40
+
+
+def _write_json(path: str, obj) -> None:
+    """Atomic (tmp + rename), so a reader never sees half a file."""
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".tmp", path)
+
+
+def _wait_file(path: str, timeout_s: float) -> bool:
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.05)
+    return True
+
+
+def _hook_training(cfg, dev):
+    """bench_llama's model under the hook form over MasterWeights(AdamW):
+    (model, optimizer, step)."""
+    model = train_model(cfg, dev)
+    named = list(model.named_parameters())
+    opt = torch_frontend.DistributedOptimizer(masterweights(model),
+                                              named_parameters=named)
+    return model, opt, named
+
+
+def _quiet_stats(dev) -> dict:
+    """A barrier, a quiet 1.5 s in which the fleet table's telemetry
+    settles, then this rank's counters."""
+    hvd.allreduce(torch.zeros(4, device=dev), name="obs.quiet")
+    time.sleep(1.5)
+    st = get_engine().stats()
+    return {**{k: st[k] for k in OBS_SUM_KEYS},
+            "telem_bytes_tx": st["telem_bytes_tx"],
+            "stall_warnings": st["stall_warnings"],
+            "flight_events": st["flight_events"],
+            "flight_dumps": st["flight_dumps"], "config": st["config"]}
+
+
+def observe_train(rank: int, dev, cfg, batch, mode: str,
+                  directory: str) -> dict:
+    """``engine_train``'s hook part, OBS_STEPS timed steps, plain or with
+    the observability planes on (the env says which); then the quiet
+    counters, and with the planes on a hold until the parent has scraped
+    the endpoint (``ready.<rank>`` out, ``release`` in)."""
+    model, opt, named = _hook_training(cfg, dev)
+    part = TrainPart(dev, batch.numel() - batch.shape[0])
+
+    def step():
+        opt.zero_grad()
+        loss = bench.llama_loss_fn(model, batch)
+        loss.backward()
+        opt.step()
+        return loss
+
+    part.run(step, TRAIN_WARMUP, OBS_STEPS, model.parameters, f"obs.{mode}")
+    out = part.report(cfg.num_layers)
+    check(all(math.isfinite(x) for x in out["losses"])
+          and out["losses"][-1] < out["losses"][0],
+          f"observe {mode}: the loss did not fall: {out['losses']}")
+    check(all(out["ranks_agree"]),
+          f"observe {mode}: ranks' parameters differ: {out['ranks_agree']}")
+    out = {k: out[k] for k in ("step_ms", "step_ms_p50", "step_ms_max",
+                               "losses", "ranks_agree",
+                               "flash_launches_per_step",
+                               "engine_per_step")}
+    out["steps_in_all"] = TRAIN_WARMUP + OBS_STEPS
+    out["grad_names"] = [n for n, _ in named]
+    out["quiet"] = _quiet_stats(dev)
+    del model, opt
+    free_memory()
+    if mode == "on":
+        _write_json(os.path.join(directory, f"ready.{rank}"), out["quiet"])
+        check(_wait_file(os.path.join(directory, "release"), 300),
+              "observe: the parent never released the hold")
+    return out
+
+
+def observe_stall(rank: int, dev) -> dict:
+    """Rank 1 withholds ``stall.cuda`` (a CUDA tensor) STALL_HOLD_S under
+    ``HOROVOD_STALL_WARNING_SEC=1``; rank 0's engine warns, counts,
+    mirrors each warning into the flight recorder, and dumps once."""
+    x = torch.full((STALL_VALUES,), float(rank + 1), device=dev)
+    if rank == 1:
+        time.sleep(STALL_HOLD_S)
+    t = time.perf_counter()
+    got = hvd.synchronize(hvd.allreduce_async(x, average=False,
+                                              name="stall.cuda"))
+    waited = time.perf_counter() - t
+    check(got.device == dev and bool((got == 3.0).all()),
+          "observe stall: the withheld allreduce is wrong")
+    st = get_engine().stats()
+    return {"waited_s": waited, "stall_warnings": st["stall_warnings"],
+            "flight_events": st["flight_events"],
+            "flight_dumps": st["flight_dumps"]}
+
+
+def observe_fault(rank: int, dev) -> dict:
+    """Grouped allreduces of CUDA tensors until ``HOROVOD_FAULT_INJECT``
+    kills rank 1 mid-group (this rank never returns); rank 0's collective
+    fails, its engine aborts and dumps the flight recorder."""
+    xs = [torch.full((FAULT_VALUES,), float(i), device=dev)
+          for i in range(FAULT_TENSORS)]
+    try:
+        for i in range(40):
+            hvd.grouped_allreduce(xs, name="fault.group")
+    except HorovodInternalError as e:
+        st = get_engine().stats()
+        return {"aborted": True, "groups_done": i, "error": str(e)[:300],
+                "flight_dumps": st["flight_dumps"]}
+    raise RuntimeError("observe fault: no abort came")
+
+
+def observe_autotune(rank: int, dev, cfg, batch) -> dict:
+    """The hook part under the engine autotuner: AUTOTUNE_TIMED steps at
+    the default config, then the tuner (started on rank 0 once the
+    suspension set at init is lifted) runs its search while training
+    goes on, then AUTOTUNE_TIMED steps at the committed config."""
+    from horovod_tpu_torch.autotune import (CoordinateSearch, default_space,
+                                            start_autotuner)
+
+    eng = get_engine()
+    model, opt, named = _hook_training(cfg, dev)
+    losses = []
+
+    def step():
+        opt.zero_grad()
+        loss = bench.llama_loss_fn(model, batch)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def timed(n):
+        walls, s0 = [], eng.stats()
+        for _ in range(n):
+            sync()
+            t = time.perf_counter()
+            step()
+            sync()
+            walls.append((time.perf_counter() - t) * 1e3)
+        d = eng.stats_delta(s0)
+        return {"step_ms": walls, "step_ms_p50": statistics.median(walls),
+                "bus_gb_s": d["allreduce_bus_bw_bytes_per_sec"] / 1e9,
+                "allreduce_mb": d["allreduce_bytes"] / 1e6,
+                "config": {k: d["config"][k] for k in (
+                    "chunk_bytes", "fusion_threshold", "cycle_time_ms")}}
+
+    step()                                       # warm-up
+    check(eng.stats()["tune_trials"] == 0,
+          "observe autotune: a TUNE frame came while suspended")
+    before = timed(AUTOTUNE_TIMED)
+    os.environ.pop("HOROVOD_AUTOTUNE_SUSPEND")
+    tuner = start_autotuner(eng) if rank == 0 else None
+    keep, search_steps = 1, 0
+    t0 = time.monotonic()
+    while keep:
+        step()
+        search_steps += 1
+        if rank == 0:
+            keep = int(not tuner.converged
+                       and search_steps < AUTOTUNE_MAX_SEARCH_STEPS)
+        keep = int(hvd.broadcast(torch.tensor([keep], dtype=torch.int8),
+                                 root_rank=0, name="at.ctl")[0])
+    search_s = time.monotonic() - t0
+    keys = ("chunk_bytes", "fusion_threshold", "cycle_time_ms")
+    committed = torch.full((len(keys),), -1, dtype=torch.int64)
+    out = {"search_steps": search_steps, "search_s": search_s,
+           "before": before, "losses": losses}
+    if rank == 0:
+        check(tuner.converged and tuner.committed is not None,
+              f"observe autotune: no commit in {search_steps} steps")
+        st = eng.stats()
+        planned = CoordinateSearch(
+            default_space(st["config"]["num_channels"],
+                          st["config"]["priority_bands"]),
+            seed=int(AUTOTUNE_ENV["HOROVOD_AUTOTUNE_SEED"]),
+            max_trials=int(AUTOTUNE_ENV["HOROVOD_AUTOTUNE_MAX_TRIALS"])
+        ).planned_schedule()
+        check(tuner.planned == planned
+              and len(tuner.trace) == len(planned)
+              and all(t["config"][k] == v
+                      for (k, v), t in zip(planned, tuner.trace)),
+              "observe autotune: the executed schedule is not the planned "
+              "one")
+        committed = torch.tensor([tuner.committed[k] for k in keys],
+                                 dtype=torch.int64)
+        out.update(trials=len(tuner.trace), committed=tuner.committed,
+                   committed_score_gb_s=(tuner.committed_score or 0) / 1e9,
+                   trial_scores_gb_s=[
+                       None if t["score"] is None else t["score"] / 1e9
+                       for t in tuner.trace],
+                   planned=[list(p) for p in planned])
+    committed = hvd.broadcast(committed, root_rank=0, name="at.committed")
+    out["after"] = timed(AUTOTUNE_TIMED)
+    cfg_now = eng.stats()["config"]
+    check(all(cfg_now[k] == int(v) for k, v in zip(keys, committed)),
+          f"observe autotune: rank {rank}'s config {cfg_now} is not the "
+          f"committed {committed.tolist()}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"observe autotune: the loss did not fall: {losses}")
+    check(ranks_agree(model.parameters(), "at.agree"),
+          "observe autotune: ranks' parameters differ")
+    out["tune_trials"] = eng.stats()["tune_trials"]
+    out["config_after"] = {k: cfg_now[k] for k in keys}
+    del model, opt
+    free_memory()
+    return out
+
+
+def observe_worker(rank: int, device: str, mode: str, directory: str,
+                   cfg=None) -> dict:
+    """One rank of the observe and autotune phases; ``mode`` is ``plain``,
+    ``on``, ``stall``, ``fault`` or ``autotune``."""
+    hvd.init(device=device)
+    dev = hvd.device()
+    cfg = cfg or bench.llama_config()
+    out = {"rank": hvd.rank(), "mode": mode, "device": str(dev)}
+    t0 = time.monotonic()
+    if mode in ("plain", "on"):
+        out.update(observe_train(rank, dev, cfg,
+                                 rank_batch(cfg, rank, hvd.size(), dev),
+                                 mode, directory))
+    elif mode == "stall":
+        out.update(observe_stall(rank, dev))
+    elif mode == "fault":
+        out.update(observe_fault(rank, dev))
+    else:
+        out.update(observe_autotune(rank, dev, cfg,
+                                    rank_batch(cfg, rank, hvd.size(), dev)))
+    out["wall_s"] = time.monotonic() - t0
+    hvd.shutdown()
+    return out
+
+
+def _obs_scrape(directory: str, mport: int, into: dict) -> None:
+    """The parent's side of the ``on`` run: once both ranks are quiet and
+    holding, time one scrape of ``/json`` and of ``/metrics`` and run
+    ``run --status`` against the endpoint; then release the ranks."""
+    try:
+        if not all(_wait_file(os.path.join(directory, f"ready.{r}"),
+                              OBS_TIMEOUT_S) for r in range(ENGINE_RANKS)):
+            into["error"] = "the ranks never reached their hold"
+            return
+        base = f"http://127.0.0.1:{mport}"
+        for path in ("/json", "/metrics"):
+            t = time.perf_counter()
+            with urllib.request.urlopen(base + path, timeout=10) as resp:
+                into[path] = resp.read().decode()
+            into[f"{path}_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        status = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.run", "--status",
+             f"127.0.0.1:{mport}"], capture_output=True, text=True,
+            timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
+        into["status"] = {"rc": status.returncode, "stdout": status.stdout,
+                          "stderr": status.stderr[-2000:],
+                          "s": time.perf_counter() - t}
+    except Exception as e:  # noqa: BLE001 -- checked by the phase
+        into["error"] = repr(e)
+    finally:
+        _write_json(os.path.join(directory, "release"), {})
+
+
+def phase_observe() -> None:
+    """``engine_train``'s hook part on two ranks sharing the card, plain
+    and then with the timeline on every rank, telemetry every cycle, the
+    flight recorder and rank 0's metrics endpoint; then the stall
+    inspector and the flight recorder's postmortem on CUDA tensors."""
+    directory = tempfile.mkdtemp(prefix="chip_smoke_observe_")
+    t0 = time.monotonic()
+    try:
+        _phase_observe(directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    emit("observe", part="phase", wall_s=time.monotonic() - t0)
+
+
+def _phase_observe(directory: str) -> None:
+    smi = smi_now()
+    plain = run_ranks("--observe-worker", "observe_plain", OBS_TIMEOUT_S,
+                      extra=("--obs-mode", "plain", "--obs-dir", directory))
+    tl = os.path.join(directory, "timeline.json")
+    mport = free_port()
+    scrape: dict = {}
+    scraper = threading.Thread(target=_obs_scrape,
+                               args=(directory, mport, scrape))
+    scraper.start()
+    try:
+        on = run_ranks(
+            "--observe-worker", "observe_on", OBS_TIMEOUT_S,
+            extra=("--obs-mode", "on", "--obs-dir", directory),
+            env_extra={"HOROVOD_TIMELINE": tl,
+                       "HOROVOD_TIMELINE_ALL_RANKS": "1",
+                       "HOROVOD_TELEMETRY_CYCLES": "1",
+                       "HOROVOD_FLIGHT_RECORDER_DIR": directory},
+            rank_env={0: {"HOROVOD_METRICS_PORT": str(mport)}})
+    finally:
+        _write_json(os.path.join(directory, "release"), {})
+        scraper.join(timeout=150)
+    check("error" not in scrape, f"observe: scrape failed: "
+                                 f"{scrape.get('error')}")
+    payload = json.loads(scrape["/json"])
+    prom = scrape["/metrics"]
+    fleet = payload["fleet"]
+    quiet = [r["quiet"] for r in on]
+    sums = {k: sum(q[k] for q in quiet) for k in OBS_SUM_KEYS}
+    check(fleet.get("ranks_reporting") == ENGINE_RANKS
+          and all(fleet["totals"][k] == sums[k] for k in OBS_SUM_KEYS),
+          f"observe: fleet totals {fleet.get('totals')} != the ranks' "
+          f"sums {sums}")
+    check("# TYPE horovod_stall_warnings_total counter" in prom
+          and re.search(r'^horovod_fleet_data_bytes_tx\{rank="1",', prom,
+                        re.M) is not None,
+          "observe: /metrics lacks the stall counter or the per-rank "
+          "series")
+    status = scrape["status"]
+    check(status["rc"] == 0 and "ranks reporting 2" in status["stdout"]
+          and "row rank 1" in status["stdout"],
+          f"observe: run --status failed: {status}")
+    files = [tl, tl + ".rank1"]
+    check(all(os.path.exists(f) for f in files),
+          f"observe: timeline files missing: {os.listdir(directory)}")
+    merged = timeline.merge_traces(files)
+    nsrc, nsink, unresolved = timeline.check_flows(merged)
+    sources = {e["id"]: e["ts"] for e in merged if e.get("ph") == "s"}
+    late = [e["id"] for e in merged
+            if e.get("ph") == "f" and e["ts"] < sources.get(e["id"], -1)]
+    check(nsrc > 0 and nsink == 2 * nsrc and not unresolved
+          and all(e.get("ts", 0) >= 0 for e in merged) and not late,
+          f"observe: flows {nsrc} sources, {nsink} sinks, unresolved "
+          f"{unresolved[:5]}, sinks before their source {late[:5]}")
+    names = {str(e.get("name", "")) for e in merged} | {
+        str(e.get("args", {}).get("name", "")) for e in merged}
+    missing = [g for g in on[0]["grad_names"]
+               if not any(g in n for n in names)]
+    check(not missing, f"observe: gradients not in the timeline: "
+                       f"{missing[:5]}")
+    steps = on[0]["steps_in_all"]
+    tl_bytes = sum(os.path.getsize(f) for f in files)
+    for r in range(ENGINE_RANKS):
+        emit("observe", part="train", rank=r,
+             step_ms_off=plain[r]["step_ms"], step_ms_on=on[r]["step_ms"],
+             step_ms_p50_off=plain[r]["step_ms_p50"],
+             step_ms_p50_on=on[r]["step_ms_p50"],
+             step_ms_max_off=plain[r]["step_ms_max"],
+             step_ms_max_on=on[r]["step_ms_max"],
+             overhead_p50=on[r]["step_ms_p50"] / plain[r]["step_ms_p50"]
+             - 1.0,
+             flash_launches_per_step=on[r]["flash_launches_per_step"],
+             ranks_agree=on[r]["ranks_agree"],
+             telem_bytes_tx=on[r]["quiet"]["telem_bytes_tx"],
+             losses_on=on[r]["losses"], nvidia_smi=smi)
+    emit("observe", part="timeline", files=len(files),
+         timeline_mb=tl_bytes / 1e6, timeline_mb_per_step=tl_bytes / 1e6
+         / steps, events=len(merged), events_per_step=len(merged) / steps,
+         steps_in_all=steps, flow_sources=nsrc, flow_sinks=nsink,
+         unresolved=len(unresolved), grad_names=len(on[0]["grad_names"]))
+    emit("observe", part="scrape", json_ms=scrape["/json_ms"],
+         metrics_ms=scrape["/metrics_ms"], json_bytes=len(scrape["/json"]),
+         metrics_bytes=len(prom), status_s=status["s"],
+         fleet_totals={k: fleet["totals"][k] for k in OBS_SUM_KEYS},
+         per_rank_sums=sums, ranks_reporting=fleet["ranks_reporting"])
+
+    # The stall inspector on CUDA tensors.
+    stall_dir = os.path.join(directory, "stall")
+    os.makedirs(stall_dir)
+    stall = run_ranks("--observe-worker", "observe_stall", OBS_TIMEOUT_S,
+                      extra=("--obs-mode", "stall", "--obs-dir", stall_dir),
+                      env_extra={"HOROVOD_STALL_WARNING_SEC": "1",
+                                 "HOROVOD_FLIGHT_RECORDER_DIR": stall_dir})
+    dump = json.loads(open(os.path.join(stall_dir,
+                                        "flightrec.rank0.json")).read())
+    named = [e for e in dump["events"]
+             if e["kind"] == "stall" and "stall.cuda" in e["text"]]
+    check(1 <= stall[0]["stall_warnings"] <= 5
+          and stall[0]["flight_dumps"] == 1 and named
+          and "escalation" in dump["reason"]
+          and "stall.cuda" in dump["reason"],
+          f"observe stall: {stall[0]}, reason {dump['reason']!r}, "
+          f"{len(named)} stall events name the tensor")
+    emit("observe", part="stall", hold_s=STALL_HOLD_S, warning_sec=1,
+         tensor_mb=STALL_VALUES * 4 / 1e6, per_rank=stall,
+         dump_reason=dump["reason"], stall_events=len(named))
+
+    # The flight recorder: rank 1 dies with CUDA tensors in flight.
+    fault_dir = os.path.join(directory, "fault")
+    os.makedirs(fault_dir)
+    fault = run_ranks("--observe-worker", "observe_fault", OBS_TIMEOUT_S,
+                      extra=("--obs-mode", "fault", "--obs-dir", fault_dir),
+                      env_extra={"HOROVOD_FAULT_INJECT": FAULT_SPEC,
+                                 "HOROVOD_FAULT_TIMEOUT_SEC": "6",
+                                 "HOROVOD_TELEMETRY_CYCLES": "1",
+                                 "HOROVOD_FLIGHT_RECORDER_DIR": fault_dir},
+                      exit_codes={1: 41})
+    report = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.monitor.postmortem",
+         fault_dir, "--world-size", str(ENGINE_RANKS)],
+        capture_output=True, text=True, timeout=120,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    verdict = postmortem.analyze(postmortem.load_dumps(fault_dir),
+                                 world_size=ENGINE_RANKS)
+    check(fault[0]["aborted"] and report.returncode == 0
+          and "rank 1 is the culprit" in report.stdout
+          and verdict["culprit"] == 1 and verdict["missing_ranks"] == [1]
+          and verdict["last_committed_cycle"] >= 1,
+          f"observe fault: {fault[0]}, postmortem rc {report.returncode}:"
+          f"\n{report.stdout[-3000:]}{report.stderr[-2000:]}")
+    emit("observe", part="fault", spec=FAULT_SPEC, rank0=fault[0],
+         culprit=verdict["culprit"], votes=verdict["votes"],
+         missing_ranks=verdict["missing_ranks"],
+         last_committed_cycle=verdict["last_committed_cycle"],
+         report_head=report.stdout.splitlines()[:4])
+
+
+def phase_autotune() -> None:
+    """The hook part under ``HOROVOD_AUTOTUNE=1`` on two ranks sharing the
+    card: the schedule run, the commit on every rank, the loss falling
+    and the ranks' parameters equal; bus GB/s and step ms at the default
+    config and at the committed one (no gain is claimed)."""
+    t0 = time.monotonic()
+    res = run_ranks("--observe-worker", "autotune", OBS_TIMEOUT_S,
+                    extra=("--obs-mode", "autotune", "--obs-dir", "-"),
+                    env_extra=AUTOTUNE_ENV)
+    r0 = res[0]
+    emit("autotune", knobs=AUTOTUNE_ENV["HOROVOD_AUTOTUNE_KNOBS"],
+         seed=int(AUTOTUNE_ENV["HOROVOD_AUTOTUNE_SEED"]),
+         window_mb=int(AUTOTUNE_ENV["HOROVOD_AUTOTUNE_WINDOW_BYTES"]) / 2**20,
+         trials=r0["trials"], planned=r0["planned"],
+         committed=r0["committed"],
+         trial_scores_gb_s=r0["trial_scores_gb_s"],
+         committed_score_gb_s=r0["committed_score_gb_s"],
+         search_steps=r0["search_steps"], search_s=r0["search_s"],
+         per_rank=[{k: r[k] for k in ("before", "after", "tune_trials",
+                                      "config_after", "losses", "wall_s")}
+                   for r in res],
+         wall_s=time.monotonic() - t0, nvidia_smi=smi_now())
+
+
+#: The serve tuner's run: 16 streams of 64-512-token prompts that share
+#: no prefix, 96 new tokens each, greedy; windows of 16 decode steps, 6
+#: trials at most.
+TUNE_STREAMS, TUNE_NEW_TOKENS = 16, 96
+TUNE_WINDOW_STEPS, TUNE_MAX_TRIALS = 16, 6
+
+
+def serve_tune_requests(vocab: int, seed: int):
+    rng = np.random.default_rng(seed + 15)
+    return [Request(id=f"t{i}",
+                    prompt=rng.integers(0, vocab, int(rng.integers(
+                        64, 513))).tolist(), max_tokens=TUNE_NEW_TOKENS)
+            for i in range(TUNE_STREAMS)]
+
+
+def serve_streams(runner, cfg, reqs, timeout_s=600):
+    """Every request through a fresh ``Scheduler`` at once; returns
+    ({id: tokens}, the scheduler's stats, its tuner, wall s)."""
+    sched = Scheduler(runner, cfg)
+    done, lock, events = threading.Event(), threading.Lock(), {}
+
+    def emit_for(rid):
+        def emit_ev(ev):
+            if ev["event"] in ("done", "error", "cancelled"):
+                with lock:
+                    events[rid] = ev
+                    if len(events) == len(reqs):
+                        done.set()
+        return emit_ev
+
+    thread = threading.Thread(target=sched.run, daemon=True)
+    thread.start()
+    t0 = time.monotonic()
+    for req in reqs:
+        sched.submit(req, emit_for(req.id))
+    finished = done.wait(timeout_s)
+    wall = time.monotonic() - t0
+    sched.stop()
+    thread.join(timeout=30)
+    check(finished and not thread.is_alive(),
+          f"serve_tune: {len(events)} of {len(reqs)} streams finished")
+    bad = {rid: ev for rid, ev in events.items() if ev["event"] != "done"}
+    check(not bad, f"serve_tune: streams failed: {bad}")
+    return ({rid: ev["tokens"] for rid, ev in events.items()},
+            sched.stats(), sched._tuner, wall)
+
+
+def phase_serve_tune(runner, seed: int) -> None:
+    """The ``serve`` phase's runner (every pow2 graph captured) under the
+    serve tuner: its trials run over the captured graphs, and every
+    stream's tokens equal an untuned scheduler's on the same requests."""
+    reqs = serve_tune_requests(runner.model_cfg.vocab_size, seed)
+    captures = runner.captures
+    base = runner.serve_cfg
+    plain_tokens, plain_stats, _, plain_wall = serve_streams(runner, base,
+                                                             reqs)
+    tuned_cfg = dataclasses.replace(
+        base, autotune=1, autotune_window_steps=TUNE_WINDOW_STEPS,
+        autotune_max_trials=TUNE_MAX_TRIALS)
+    pa.reset_launches()
+    tokens, stats, tuner, wall = serve_streams(runner, tuned_cfg, reqs)
+    launches = pa.launches
+    layers, steps = runner.model_cfg.num_layers, stats["decode_steps"]
+    check(stats["tune_trials"] > 0 and tuner.committed is not None,
+          f"serve_tune: {stats['tune_trials']} trials, committed "
+          f"{tuner.committed}")
+    check(runner.captures == captures,
+          f"serve_tune: captures moved {captures} -> {runner.captures}")
+    check(launches == layers * steps,
+          f"serve_tune: B6 launches {launches} != layers x decode steps "
+          f"{layers} x {steps}")
+    check(stats["preemptions"] == 0 and plain_stats["preemptions"] == 0,
+          "serve_tune: a stream was preempted")
+    differ = [r.id for r in reqs if tokens[r.id] != plain_tokens[r.id]]
+    check(not differ, f"serve_tune: streams {differ} differ from the "
+                      "untuned scheduler's")
+    n_tokens = sum(len(t) for t in tokens.values())
+    emit("serve_tune", streams=len(reqs), new_tokens=TUNE_NEW_TOKENS,
+         prompt_tokens=[len(r.prompt) for r in reqs],
+         window_steps=TUNE_WINDOW_STEPS, max_trials=TUNE_MAX_TRIALS,
+         trials=stats["tune_trials"], committed=tuner.committed,
+         windows=[{"config": t["config"], "tokens_per_s": t["score"]}
+                  for t in tuner.trace],
+         tokens_per_s=n_tokens / wall, tokens_per_s_untuned=n_tokens
+         / plain_wall, decode_steps=steps, decode_steps_untuned=
+         plain_stats["decode_steps"], b6_launches=launches,
+         captures=runner.captures, streams_equal=True,
+         nvidia_smi=smi_now())
+
+
 def label_forward(module, name):
     """Open a profiler range ``name`` around ``module``'s forward."""
     inner = module.forward
@@ -4793,6 +5510,11 @@ def main(argv=None) -> int:
     # One rank of the ckpt_kill phase (started by the launcher).
     parser.add_argument("--kill-worker", action="store_true",
                         help=argparse.SUPPRESS)
+    # One rank of the observe and autotune phases, its mode and directory.
+    parser.add_argument("--observe-worker", type=int, default=None,
+                        metavar="RANK", help=argparse.SUPPRESS)
+    parser.add_argument("--obs-mode", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--obs-dir", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4820,6 +5542,11 @@ def main(argv=None) -> int:
         return 0
     if args.kill_worker:
         kill_worker()
+        return 0
+    if args.observe_worker is not None:
+        print(json.dumps(observe_worker(args.observe_worker, "cuda:0",
+                                        args.obs_mode, args.obs_dir)),
+              flush=True)
         return 0
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -4871,6 +5598,7 @@ def main(argv=None) -> int:
     entry["launches"] = launches
     phase_oracle(runner, served, args.seed)
     phase_serve_graph(runner, args.seed)
+    phase_serve_tune(runner, args.seed)
     phase_profile(runner)
     del runner, served               # the fleet and training need the memory
     gc.collect()
@@ -4907,6 +5635,8 @@ def main(argv=None) -> int:
     phase_serve_weights(dev, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
+    phase_observe()
+    phase_autotune()
     compare_profiles(
         phase_train_profile("train_profile",
                             llama_factory(args.seed, *train[:3]), train[3]),

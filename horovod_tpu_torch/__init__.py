@@ -46,7 +46,15 @@ with ``make_pipelined_llama_train_step``, and ``ops/ragged.py``; and the
 weight plane (``checkpoint/``: sharded async checkpoints of CUDA state,
 resharding restore, live weight pushes), elastic recovery
 (``hvd.elastic.ElasticState``, ``run_elastic``) and the training
-launcher (``python -m horovod_tpu_torch.run -np N``).
+launcher (``python -m horovod_tpu_torch.run -np N``); and the
+observability and tuning planes: the engine's timeline and its merge
+tool (``python -m horovod_tpu_torch.timeline merge``), the metrics
+endpoint (``HOROVOD_METRICS_PORT``, ``run --status``) and
+``hvd.fleet_stats()``, the flight recorder's postmortem
+(``python -m horovod_tpu_torch.monitor.postmortem``), the stall
+inspector (``HOROVOD_STALL_WARNING_SEC``), the engine autotuner
+(``HOROVOD_AUTOTUNE``, ``run --print-config``) and the serve tuner
+(``HOROVOD_SERVE_AUTOTUNE``).
 
 Two communicators, as ``common/basics.py`` sets out:
 
@@ -64,9 +72,9 @@ Two communicators, as ``common/basics.py`` sets out:
   through the engine.
 """
 
-from horovod_tpu_torch.common.basics import (device, epoch, init,
-                                             is_initialized, local_rank,
-                                             local_size,
+from horovod_tpu_torch.common.basics import (device, epoch, fleet_stats,
+                                             init, is_initialized,
+                                             local_rank, local_size,
                                              mpi_threads_supported, rank,
                                              shutdown, size)
 from horovod_tpu_torch import elastic, runtime, torch_frontend
@@ -99,7 +107,8 @@ __version__ = "0.1.0"
 
 __all__ = ["__version__", "resolve_device", "init", "shutdown",
            "is_initialized", "rank", "size", "local_rank", "local_size",
-           "device", "epoch", "mpi_threads_supported", "ReduceOp", "Sum",
+           "device", "epoch", "mpi_threads_supported", "fleet_stats",
+           "ReduceOp", "Sum",
            "Average", "Min", "Max", "Product", "allreduce",
            "grouped_allreduce", "allgather", "broadcast", "reducescatter",
            "alltoall", "allreduce_async", "allreduce_async_", "allreduce_",

@@ -4,8 +4,8 @@ Counterpart of ``horovod_tpu/checkpoint/stats.py``.
 
 Follows the ``_SPARSE_COUNT`` idiom from runtime.engine: module-level
 counters bumped by the checkpoint plane, merged into
-``NativeEngine.stats()`` (the metrics endpoint and ``--status`` come
-with ROADMAP.md Queue A item 6b) — and readable directly via
+``NativeEngine.stats()`` (and so into the metrics endpoint and
+``run --status``) — and readable directly via
 :func:`checkpoint_stats` in engine-free worlds (world size 1, unit
 tests).
 

@@ -27,12 +27,23 @@ is one process.  Queries raise before :func:`init`, as the reference's do.
 A world of one needs no coordinator for the engine, whose collectives are
 then identities.  The engine library fails loudly: a build or load error
 raises with the compiler's or loader's text.
+
+The observability and tuning planes start with the engine, as the
+reference's do: under ``HOROVOD_AUTOTUNE`` the state file's wiring is put
+into the env before the engine wires its rings, and rank 0 of a world of
+more than one runs the online autotuner (``autotune/tuner.py``); with
+``HOROVOD_METRICS_PORT`` set, rank 0 serves the metrics endpoint
+(``monitor/server.py``: ``/metrics``, ``/json``, ``/fleet``).  A port
+that cannot be bound disables the endpoint with a message; ``init`` goes
+on.  :func:`shutdown` stops the endpoint, then the tuner, then the
+engine.
 """
 
 from __future__ import annotations
 
 import atexit
 import os
+import sys
 import threading
 from typing import Optional, Sequence, Union
 
@@ -44,7 +55,7 @@ from horovod_tpu_torch.common.launch import TORCH_PORT_OFFSET, free_port
 
 __all__ = ["init", "shutdown", "is_initialized", "rank", "size",
            "local_rank", "local_size", "device", "epoch",
-           "mpi_threads_supported", "first_init_args"]
+           "mpi_threads_supported", "first_init_args", "fleet_stats"]
 
 
 # Env vars for rank discovery, in the reference's priority order.
@@ -94,6 +105,48 @@ def _group_store(addr: str, rank: int, size: int, epoch: int):
     return dist.PrefixStore(f"hvd.epoch{epoch}", store)
 
 
+def _env_on(name: str) -> bool:
+    return os.environ.get(name, "") not in ("", "0")
+
+
+def _maybe_start_autotuner(rank: int, size: int) -> None:
+    """Rank 0 of a world of more than one runs the online autotuner under
+    ``HOROVOD_AUTOTUNE=1``, unless ``HOROVOD_AUTOTUNE_SUSPEND`` is set
+    (``startup_probe`` sets it while it re-initialises)."""
+    if rank != 0 or size <= 1 or not _env_on("HOROVOD_AUTOTUNE") \
+            or _env_on("HOROVOD_AUTOTUNE_SUSPEND"):
+        return
+    from horovod_tpu_torch.autotune.tuner import start_autotuner
+    from horovod_tpu_torch.runtime.engine import get_engine
+    start_autotuner(get_engine())
+
+
+def _maybe_start_monitor(rank: int) -> None:
+    """Rank 0 serves the metrics endpoint on ``HOROVOD_METRICS_PORT``;
+    unset or 0, no thread and no socket.  A bad or busy port disables the
+    endpoint with a message and ``init`` goes on."""
+    raw = os.environ.get("HOROVOD_METRICS_PORT", "")
+    if rank != 0 or raw in ("", "0"):
+        return
+    try:
+        port = int(raw)
+    except ValueError:
+        print(f"horovod_tpu_torch: bad HOROVOD_METRICS_PORT={raw!r}; "
+              "metrics endpoint disabled", file=sys.stderr)
+        return
+    from horovod_tpu_torch.monitor.server import start_metrics_server
+    from horovod_tpu_torch.runtime.engine import get_engine
+    eng = get_engine()
+    try:
+        bound = start_metrics_server(port, eng.stats, eng.fleet_stats)
+    except (OSError, RuntimeError) as exc:
+        print(f"horovod_tpu_torch: metrics endpoint disabled: {exc}",
+              file=sys.stderr)
+        return
+    print(f"horovod_tpu_torch: metrics endpoint on :{bound} "
+          "(/metrics /json /fleet)", file=sys.stderr)
+
+
 def _start_engine(rank: int, size: int, local_rank: int, local_size: int,
                   addr: str):
     """Load the engine library and start it (``horovod_init``); raises
@@ -101,6 +154,11 @@ def _start_engine(rank: int, size: int, local_rank: int, local_size: int,
     from horovod_tpu_torch.runtime.engine import get_engine
 
     lib = get_engine().lib
+    if _env_on("HOROVOD_AUTOTUNE"):
+        # The state file's probed channels and drivers must be in the env
+        # before the engine wires its rings (a user's own values win).
+        from horovod_tpu_torch.autotune.store import apply_wiring_warm_start
+        apply_wiring_warm_start(os.environ)
     if lib.horovod_init(rank, size, local_rank, local_size,
                         addr.encode()) != 0:
         detail = lib.horovod_last_error().decode(errors="replace")
@@ -173,6 +231,8 @@ def init(device: Optional[Union[str, torch.device]] = None,
         _state.update(rank=rank, size=size, local_rank=local_rank,
                       local_size=local_size, device=dev,
                       backend=dist.get_backend())
+        _maybe_start_autotuner(rank, size)
+        _maybe_start_monitor(rank)
         global _atexit_registered
         if not _atexit_registered:
             atexit.register(shutdown)
@@ -189,7 +249,15 @@ def shutdown() -> None:
     """Stop the engine and destroy the process group :func:`init`
     created; queries raise again until the next :func:`init`.  After a
     peer's death (the engine aborted) an NCCL group's communicator is
-    aborted first, so the teardown does not wait on the dead rank."""
+    aborted first, so the teardown does not wait on the dead rank.  The
+    metrics endpoint and the autotuner stop first: they read counters and
+    queue TUNE frames, and must not race the engine's teardown."""
+    if _env_on("HOROVOD_METRICS_PORT"):
+        from horovod_tpu_torch.monitor.server import stop_metrics_server
+        stop_metrics_server()
+    if _env_on("HOROVOD_AUTOTUNE"):
+        from horovod_tpu_torch.autotune.tuner import stop_autotuner
+        stop_autotuner()
     with _lock:
         if not _state:
             return
@@ -257,3 +325,12 @@ def mpi_threads_supported() -> bool:
     reference's answer)."""
     _get("rank")
     return True
+
+
+def fleet_stats() -> dict:
+    """Rank 0's fleet telemetry table (``{}`` on workers, with telemetry
+    off, or before the first TELEM frame): see
+    :meth:`horovod_tpu_torch.runtime.engine.NativeEngine.fleet_stats`.
+    Readable after :func:`shutdown` too, for a postmortem scrape."""
+    from horovod_tpu_torch.runtime.engine import get_engine
+    return get_engine().fleet_stats()

@@ -27,8 +27,10 @@ any H (a row off the 16-byte vector width is read element by element),
 so no shape gives way quietly to the plain version.  rstd is an fp32
 ``[R]``, not the reference's sublane-replicated ``[8, R]``.
 
-:data:`launches` counts kernel launches (CUDA path only) and
-:data:`plain_calls` the plain versions' calls.
+:data:`launches` counts kernel launches (CUDA path only; a launch
+recorded into a CUDA graph counts in :data:`captured`, and the graph's
+owner adds it to :data:`launches` at each replay, :func:`count_replay`)
+and :data:`plain_calls` the plain versions' calls.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["rms_norm", "launches", "plain_calls", "reset_launches",
+__all__ = ["rms_norm", "launches", "captured", "count_replay",
+           "plain_calls", "reset_launches",
            "block_rows"]
 
 _KERNELS = ("rms_fwd", "rms_bwd")
@@ -52,8 +55,12 @@ TARGET_BLOCKS = 132
 MAX_H = 48 * 1024
 
 #: Kernel launches by kernel name (plain integers, reset by
-#: :func:`reset_launches`).
+#: :func:`reset_launches`): eager calls, plus the launches replayed from
+#: CUDA graphs (:func:`count_replay`).
 launches = dict.fromkeys(_KERNELS, 0)
+#: Launches recorded into a CUDA graph capture, by kernel name (they run
+#: at each replay, not when recorded).
+captured = dict.fromkeys(_KERNELS, 0)
 #: Calls of each kernel's plain PyTorch version.
 plain_calls = dict.fromkeys(_KERNELS, 0)
 
@@ -64,6 +71,13 @@ def reset_launches() -> None:
     for name in _KERNELS:
         launches[name] = 0
         plain_calls[name] = 0
+
+
+def count_replay(counts: dict) -> None:
+    """One replay of a CUDA graph that captured ``counts[name]`` launches
+    of each kernel: they ran now."""
+    for name, n in counts.items():
+        launches[name] += n
 
 
 def block_rows(R: int) -> int:
@@ -145,7 +159,10 @@ def _launch(name, ptrs, ints, dev, *extra):
         err = fn(*[t.data_ptr() for t in ptrs], *ints, *extra, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed (error {err})")
-    launches[name] += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured[name] += 1
+    else:
+        launches[name] += 1
 
 
 def _fwd_cuda(x, scale, eps, out_dtype):

@@ -25,13 +25,17 @@ the rest, as mpirun does).  A worker maps ``HOROVOD_LOCAL_RANK`` to
   command (``serve/router.py``); ``--serve-model`` is a LlamaConfig name
   or a checkpoint directory; every replica runs on ``--device``.
 
-``--status`` and ``--print-config`` need the monitor and autotune planes
-(ROADMAP.md Queue A item 6b) and raise.
+* ``--status HOST:PORT [--raw]``: query a live job's metrics endpoint
+  (``HOROVOD_METRICS_PORT`` on rank 0, or on a serving router) and print
+  its summary (``--raw``: the ``/json`` payload).
+* ``--print-config``: the resolved knob table (env, default, effective),
+  the engine's and the serve plane's.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import signal
 import subprocess
@@ -80,13 +84,14 @@ def _parser() -> argparse.ArgumentParser:
                         help="supervisor mode: wait SEC before relaunching "
                              "a dead worker or replica")
     parser.add_argument("--status", default=None, metavar="HOST:PORT",
-                        help="query a live job's metrics endpoint (not "
-                             "ported: ROADMAP.md Queue A item 6b)")
+                        help="query a live job's metrics endpoint "
+                             "(HOROVOD_METRICS_PORT on rank 0) and print "
+                             "a summary")
     parser.add_argument("--raw", action="store_true",
                         help="with --status: print the raw /json payload")
     parser.add_argument("--print-config", action="store_true",
-                        help="dump the resolved engine knob table (not "
-                             "ported: ROADMAP.md Queue A item 6b)")
+                        help="print the resolved knob table (env -> "
+                             "default -> effective) and exit")
     parser.add_argument("--serve", action="store_true",
                         help="inference serving mode: start the "
                              "multi-replica router + replica fleet")
@@ -118,13 +123,26 @@ def main(argv=None) -> int:
     parser = _parser()
     args = parser.parse_args(argv)
     if args.status:
-        raise NotImplementedError(
-            "--status needs the metrics endpoint of the monitor plane, "
-            "which is not ported yet (ROADMAP.md Queue A item 6b)")
+        from horovod_tpu_torch.monitor.server import (format_status,
+                                                      query_status)
+        try:
+            payload = query_status(args.status)
+        except (OSError, ValueError) as exc:
+            # ValueError: a malformed host:port, or a reply that is not
+            # the endpoint's JSON.
+            sys.stderr.write(
+                f"cannot reach metrics endpoint at {args.status}: {exc}\n"
+                "(is the job running with HOROVOD_METRICS_PORT set?)\n")
+            return 1
+        if args.raw:
+            print(json.dumps(payload, indent=2, sort_keys=True))
+        else:
+            print(format_status(payload))
+        return 0
     if args.print_config:
-        raise NotImplementedError(
-            "--print-config needs the autotune plane's knob table, which "
-            "is not ported yet (ROADMAP.md Queue A item 6b)")
+        from horovod_tpu_torch.autotune.config import format_table
+        print(format_table())
+        return 0
     if args.serve:
         from horovod_tpu_torch.serve.router import serve_main
 

@@ -7,7 +7,12 @@ collectives between the host processes.
 
 * ``enqueue_*`` -> int handle (async);
 * :meth:`NativeEngine.poll` / :meth:`NativeEngine.synchronize`;
-* :meth:`NativeEngine.stats`, the engine's cumulative counters.
+* :meth:`NativeEngine.stats`, the engine's cumulative counters, and
+  :meth:`NativeEngine.stats_delta`, their difference over a window;
+* :meth:`NativeEngine.fleet_stats` (rank 0's fleet telemetry table),
+  :meth:`NativeEngine.flight_dump` (the flight recorder on demand) and
+  :meth:`NativeEngine.autotune_set` (a TUNE proposal, the autotuner's
+  seam).
 
 Buffers are contiguous CPU tensors (plain or pinned) handed over as raw
 pointers (``data_ptr()``), so every dtype the engine takes, bf16 included,
@@ -20,6 +25,7 @@ buffer until then.  CUDA tensors are staged through pinned host memory by
 from __future__ import annotations
 
 import ctypes
+import json
 import os
 import threading
 from typing import Callable, Dict, Optional, Sequence
@@ -111,24 +117,49 @@ _SIGNATURES = (
     ("horovod_note_local_sgd_sync", [], None),
     ("horovod_note_moe_dispatch", [_I64], None),
     ("horovod_flight_note", [_STR, _STR], None),
-    ("horovod_flight_events", [], _I64),
+    ("horovod_fleet_json", [_STR, _I64], _I64),
+    ("horovod_flight_dump", [_STR], _INT),
+    ("horovod_autotune_set",
+     [_I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64P, _INT, _INT], _INT),
 )
 
-#: Cumulative counters and knobs read by :meth:`NativeEngine.stats`
-#: (int64 functions of no argument), under their ``stats()`` key.
+#: Counters and gauges read by :meth:`NativeEngine.stats` (int64
+#: functions of no argument), under their ``stats()`` key: the reference's
+#: keys and order.
 _COUNTERS = {
     "cycles": "exec_cycles", "responses": "responses_executed",
     "tensors": "tensors_executed", "cache_hits": "cache_hits",
-    "cache_misses": "cache_misses",
+    "cache_misses": "cache_misses", "cache_evictions": "cache_evictions",
     "negotiation_bytes_tx": "negotiation_bytes_tx",
     "negotiation_bytes_rx": "negotiation_bytes_rx",
     "control_round_trips": "control_round_trips",
+    "stale_epoch_msgs": "stale_epoch_msgs",
+    "assign_bytes_tx": "assign_bytes_tx",
+    "coordinator_cycle_ns_p50": "coordinator_cycle_ns_p50",
+    "coordinator_cycle_ns_p99": "coordinator_cycle_ns_p99",
+    "step_time_ns_p50": "step_time_ns_p50",
+    "step_time_ns_p99": "step_time_ns_p99",
+    "quorum_lag_ns_p50": "quorum_lag_ns_p50",
+    "quorum_lag_ns_p99": "quorum_lag_ns_p99",
+    "telem_bytes_tx": "telem_bytes_tx", "stall_warnings": "stall_warnings",
+    "clock_offset_ns": "clock_offset_ns", "flight_events": "flight_events",
+    "flight_dumps": "flight_dumps", "backup_skips": "backup_skips",
+    "link_reconnects": "link_reconnects",
+    "link_heal_failures": "link_heal_failures",
+    "link_heal_ns_p50": "link_heal_ns_p50",
+    "link_heal_ns_p99": "link_heal_ns_p99",
+    "local_sgd_syncs": "local_sgd_syncs",
+    "priority_inversions": "priority_inversions",
     "data_bytes_tx": "data_bytes_tx", "data_bytes_rx": "data_bytes_rx",
     "reduce_ns": "reduce_ns", "wire_ns": "wire_ns",
     "allreduce_bytes": "allreduce_bytes", "allreduce_ns": "allreduce_ns",
     "reducescatter_bytes": "reducescatter_bytes",
     "reducescatter_ns": "reducescatter_ns",
+    "reducescatter_fallbacks": "reducescatter_fallbacks",
+    "sharded_steps": "sharded_steps",
     "alltoall_bytes": "alltoall_bytes", "alltoall_ns": "alltoall_ns",
+    "moe_tokens_dropped": "moe_tokens_dropped",
+    "num_channels": "num_channels",
     "shm_bytes_tx": "shm_bytes_tx", "shm_bytes_rx": "shm_bytes_rx",
     "intra_host_bytes": "intra_host_bytes",
     "algo_small_count": "algo_small_count",
@@ -139,16 +170,53 @@ _COUNTERS = {
     "wire_bf16_count": "wire_bf16_count",
     "wire_int8_count": "wire_int8_count",
     "wire_fp8_count": "wire_fp8_count",
-    "step_time_ns_p50": "step_time_ns_p50",
-    "step_time_ns_p99": "step_time_ns_p99",
-    "sharded_steps": "sharded_steps", "local_sgd_syncs": "local_sgd_syncs",
-    "priority_inversions": "priority_inversions",
-    "moe_tokens_dropped": "moe_tokens_dropped",
+    "tune_trials": "tune_trials",
 }
-_CONFIG = ("num_channels", "chunk_bytes", "fusion_threshold",
-           "cycle_time_ms", "wave_width", "shm_enabled", "algo_threshold",
-           "wire_dtype", "priority_bands", "topology_hosts",
-           "topology_local_ranks")
+#: ``stats()["config"]``: the knobs in force (after autotuning), by the
+#: function that reads each; the flags and names are converted below.
+_CONFIG = {
+    "num_channels": "num_channels", "channel_drivers": "channel_drivers",
+    "chunk_bytes": "chunk_bytes", "fusion_threshold": "fusion_threshold",
+    "cycle_time_ms": "cycle_time_ms", "wave_width": "wave_width",
+    "cache_capacity": "cache_capacity",
+    "socket_buf_bytes": "socket_buf_bytes", "shm_enabled": "shm_enabled",
+    "algo_threshold": "algo_threshold",
+    "hierarchical_coordinator": "hier_coordinator",
+    "wire_dtype": "wire_dtype", "backup_workers": "backup_workers",
+    "backup_auto": "backup_auto",
+    "backup_auto_ratio": "backup_auto_ratio_milli",
+    "backup_armed": "backup_armed", "backup_auto_rule": "backup_auto_rule",
+    "link_retries": "link_retries",
+    "link_heal_timeout_ms": "link_heal_timeout_ms",
+    "priority_bands": "priority_bands",
+    "telemetry_cycles": "telemetry_cycles",
+}
+_TOPOLOGY = ("topology_hosts", "topology_local_ranks")
+#: Keys of :meth:`NativeEngine.stats` that are not cumulative counters:
+#: :meth:`NativeEngine.stats_delta` carries their current value (the
+#: sliding-window percentiles, the bus bandwidths it recomputes, gauges).
+_NOT_CUMULATIVE = frozenset((
+    "config", "num_channels", "topology", "allreduce_bus_bw_bytes_per_sec",
+    "reducescatter_bus_bw_bytes_per_sec", "alltoall_bus_bw_bytes_per_sec",
+    "moe_capacity_factor", "moe_experts", "coordinator_cycle_ns_p50",
+    "coordinator_cycle_ns_p99", "step_time_ns_p50", "step_time_ns_p99",
+    "quorum_lag_ns_p50", "quorum_lag_ns_p99", "clock_offset_ns",
+    "checkpoint_ns_p50", "checkpoint_ns_p99", "last_checkpoint_step",
+    "fsdp_units", "fsdp_param_bytes_resident",
+    "fsdp_param_bytes_resident_peak"))
+#: (kind, factor) of each bus bandwidth: factor·(N−1)/N · bytes / wall
+#: (NCCL's busbw convention; the allreduce's ring moves twice).
+_BUS_BW = (("allreduce", 2.0), ("reducescatter", 1.0), ("alltoall", 1.0))
+
+
+def _bus_bw(counters: dict, size: int) -> dict:
+    out = {}
+    for kind, factor in _BUS_BW:
+        ns = counters[f"{kind}_ns"]
+        out[f"{kind}_bus_bw_bytes_per_sec"] = (
+            counters[f"{kind}_bytes"] * factor * (size - 1) / size
+            / (ns / 1e9) if ns > 0 and size > 1 else 0.0)
+    return out
 
 
 def dtype_code(dtype: torch.dtype) -> int:
@@ -174,7 +242,8 @@ class NativeEngine:
         for name, args, res in _SIGNATURES:
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, res
-        for sym in list(_COUNTERS.values()) + list(_CONFIG):
+        for sym in (list(_COUNTERS.values()) + list(_CONFIG.values())
+                    + list(_TOPOLOGY)):
             fn = getattr(lib, f"horovod_{sym}")
             fn.argtypes, fn.restype = [], _I64
         self._name_lock = threading.Lock()
@@ -419,40 +488,106 @@ class NativeEngine:
     # -- counters --
 
     def stats(self) -> dict:
-        """Cumulative execution counters: negotiation ``cycles`` that
-        executed work, ``responses`` (a fused batch counts once) and
-        ``tensors``; data-plane bytes (``data_bytes_*``, of which
-        ``shm_bytes_*`` went through shared memory) and times; the ring
-        allreduce's payload and wall time with its bus bandwidth
-        2(N-1)/N · bytes / wall (NCCL's busbw convention); wire-compression
-        counters; the Python-side planes' counters (``sparse_count``, the
-        top-k sparse allreduces of ``runtime/sparse.py``; ``moe_*``, the
-        MoE plane's, beside the engine's ``moe_tokens_dropped``;
-        ``checkpoint_*`` and ``weight_push_count``, the weight plane's);
-        and
-        ``config``, the knobs in force."""
-        size = self.size()
-        out = {key: int(getattr(self._lib, f"horovod_{sym}")())
+        """Cumulative execution counters, under the reference's keys:
+        negotiation ``cycles`` that executed work, ``responses`` (a fused
+        batch counts once) and ``tensors``; the control plane (response
+        cache, negotiation bytes, round trips, stale-epoch frames, the
+        coordinator's cycle and quorum-lag percentiles); data-plane bytes
+        (``data_bytes_*``, of which ``shm_bytes_*`` went through shared
+        memory) and times; each collective's payload and wall time with
+        its bus bandwidth (:data:`_BUS_BW`); wire-compression counters;
+        the observability plane's (``telem_bytes_tx``, ``stall_warnings``,
+        ``flight_events``, ``flight_dumps``, ``clock_offset_ns``) and link
+        healing's; ``tune_trials``, the TUNE frames applied on this rank
+        (0 with autotuning off); the Python-side planes' counters
+        (``sparse_count``, the top-k sparse allreduces of
+        ``runtime/sparse.py``; ``checkpoint_*`` and ``weight_push_count``;
+        ``fsdp_*``; ``moe_*``); ``topology``; and ``config``, the knobs in
+        force (after autotuning, not the env defaults)."""
+        lib = self._lib
+        out = {key: int(getattr(lib, f"horovod_{sym}")())
                for key, sym in _COUNTERS.items()}
-        for kind, factor in (("allreduce", 2.0), ("reducescatter", 1.0),
-                             ("alltoall", 1.0)):
-            ns = out[f"{kind}_ns"]
-            out[f"{kind}_bus_bw_bytes_per_sec"] = (
-                out[f"{kind}_bytes"] * factor * (size - 1) / size
-                / (ns / 1e9) if ns > 0 and size > 1 else 0.0)
-        config = {k: int(getattr(self._lib, f"horovod_{k}")())
-                  for k in _CONFIG}
-        config["shm_enabled"] = bool(config["shm_enabled"])
-        config["wire_dtype"] = _WIRE_NAMES.get(config["wire_dtype"], "fp32")
+        out.update(_bus_bw(out, self.size()))
         out["sparse_count"] = _SPARSE_COUNT
         from horovod_tpu_torch.checkpoint.stats import checkpoint_stats
+        from horovod_tpu_torch.runtime.fsdp import fsdp_stats
         from horovod_tpu_torch.runtime.moe import moe_stats
-        out.update(moe_stats())
         out.update(checkpoint_stats())
-        out["topology"] = {"hosts": config.pop("topology_hosts"),
-                           "local_ranks": config.pop("topology_local_ranks")}
+        out.update(fsdp_stats())
+        out.update(moe_stats())
+        out["topology"] = {"hosts": int(lib.horovod_topology_hosts()),
+                           "local_ranks":
+                           int(lib.horovod_topology_local_ranks())}
+        config = {key: int(getattr(lib, f"horovod_{sym}")())
+                  for key, sym in _CONFIG.items()}
+        for flag in ("shm_enabled", "hierarchical_coordinator",
+                     "backup_auto", "backup_armed"):
+            config[flag] = bool(config[flag])
+        config["wire_dtype"] = _WIRE_NAMES.get(config["wire_dtype"], "fp32")
+        config["backup_auto_ratio"] = config["backup_auto_ratio"] / 1000.0
+        config["backup_auto_rule"] = ("steptime" if config["backup_auto_rule"]
+                                      else "quorum")
         out["config"] = config
         return out
+
+    def stats_delta(self, since: dict) -> dict:
+        """The counters' movement since an earlier :meth:`stats`: every
+        cumulative counter as ``now - since`` (a key missing from
+        ``since`` counts from 0), the keys of :data:`_NOT_CUMULATIVE` at
+        their current value, and each bus bandwidth recomputed from the
+        delta: the bandwidth of exactly the window between the two
+        snapshots, what the autotuner scores a trial on."""
+        delta = {}
+        for key, value in self.stats().items():
+            delta[key] = (value if key in _NOT_CUMULATIVE
+                          else value - since.get(key, 0))
+        delta.update(_bus_bw(delta, self.size()))
+        return delta
+
+    def fleet_stats(self) -> dict:
+        """Rank 0's fleet telemetry table (``HOROVOD_TELEMETRY_CYCLES``):
+        per-rank rows (per-host under hierarchical coordination), fleet
+        totals, the slowest rank and quorum-lag percentiles; ``{}`` on a
+        worker, with telemetry off, or before the first TELEM frame.  The
+        rows carry counter deltas summed on the coordinator, so once the
+        data plane is quiet the totals equal the sum of every rank's
+        :meth:`stats`.  The table outlives :func:`shutdown` (a postmortem
+        scrape can still read it)."""
+        need = int(self._lib.horovod_fleet_json(None, 0))
+        if need <= 2:           # "{}": nothing reported yet
+            return {}
+        buf = ctypes.create_string_buffer(need + 1)
+        self._lib.horovod_fleet_json(buf, need + 1)
+        return json.loads(buf.value.decode(errors="replace"))
+
+    def flight_dump(self, reason: str = "manual dump") -> bool:
+        """Write the flight recorder's ring to
+        ``HOROVOD_FLIGHT_RECORDER_DIR/flightrec.rank<r>.json`` now (the
+        engine also dumps on an abort, a stall warning's escalation and a
+        fatal signal).  False when the recorder is off or has no
+        directory."""
+        return int(self._lib.horovod_flight_dump(reason.encode())) == 0
+
+    def autotune_set(self, *, chunk_bytes: int = 0,
+                     fusion_threshold: int = 0, cycle_time_ms: int = 0,
+                     wave_width: int = 0, algo_threshold: int = -1,
+                     wire_dtype: int = -1, priority_bands: int = -1,
+                     fusion_ladder: Optional[Sequence[int]] = None,
+                     commit: bool = False) -> bool:
+        """Queue a TUNE proposal (the coordinator only): the engine sends
+        it in the next cycle's epoch-stamped frame and every rank applies
+        it between cycles.  A value <= 0 leaves its knob alone, except
+        ``algo_threshold``, ``wire_dtype`` (a :data:`WIRE_DTYPES` code)
+        and ``priority_bands``, where 0 is a value and < 0 leaves it.
+        ``fusion_ladder[b] > 0`` sets priority band b's fusion threshold.
+        ``commit`` marks the search's final frame.  False when the engine
+        refused (not running, or not the coordinator)."""
+        ladder = [int(v) for v in (fusion_ladder or [])]
+        arr = (ctypes.c_int64 * max(1, len(ladder)))(*(ladder or [0]))
+        return self._lib.horovod_autotune_set(
+            int(chunk_bytes), int(fusion_threshold), int(cycle_time_ms),
+            int(wave_width), int(algo_threshold), int(wire_dtype),
+            int(priority_bands), arr, len(ladder), 1 if commit else 0) == 0
 
 
 _engine: Optional[NativeEngine] = None

@@ -7,8 +7,9 @@ step as one CUDA graph per pow2 width), ``scheduler``, ``server``
 (``ReplicaServer``/``ServeClient``, router sessions), ``replica`` (fault
 schedule, engine world) and ``router`` (``Router``/``serve_main``), with
 checkpoint restore and live weight pushes (the weight plane,
-``horovod_tpu_torch.checkpoint``).  The serve autotuner comes with the
-autotune plane (ROADMAP.md Queue A item 6b).
+``horovod_tpu_torch.checkpoint``), the serve autotuner (``tuner``,
+``HOROVOD_SERVE_AUTOTUNE``) and the router's ``/metrics`` "serve" mount
+(``HOROVOD_METRICS_PORT``).
 
 Entry points: ``python -m horovod_tpu_torch.run --serve`` (router +
 replicas), ``python -m horovod_tpu_torch.serve.replica`` (one replica),

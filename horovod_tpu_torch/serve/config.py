@@ -6,11 +6,8 @@ JAX replica and a port replica alike.  Resolving starts nothing and
 imports no framework.  A live replica's ``stats()["config"]`` reports
 the values in force.
 
-Knobs whose machinery is not ported yet still resolve here (so
-``resolved_serve_config`` renders the full table), but the port refuses
-them where they would act: ``HOROVOD_SERVE_AUTOTUNE`` in ``Scheduler``.
 ``HOROVOD_PAGED_ATTN_CHUNK`` tunes the JAX package's XLA stand-in for its
-TPU kernel and has no counterpart here.
+TPU kernel and has no counterpart here, so its row is not in the table.
 """
 
 from __future__ import annotations

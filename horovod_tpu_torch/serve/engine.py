@@ -66,7 +66,7 @@ from horovod_tpu_torch.models.generation import (paged_decode_step,
                                                  paged_prefill,
                                                  paged_prefill_suffix)
 from horovod_tpu_torch.models.llama import LlamaConfig, LlamaModel
-from horovod_tpu_torch.ops import paged_attention
+from horovod_tpu_torch.ops import paged_attention, rms_norm
 from horovod_tpu_torch.serve.config import ServeConfig, _pow2_at_least
 from horovod_tpu_torch.serve.kv_cache import TRASH_BLOCK
 
@@ -100,12 +100,21 @@ def serve_collective_priority(environ=None) -> Optional[int]:
 
 
 def build_model_config(serve_cfg: ServeConfig) -> LlamaConfig:
-    """Resolve HOROVOD_SERVE_MODEL/_DTYPE into a LlamaConfig."""
+    """Resolve HOROVOD_SERVE_MODEL/_DTYPE into a LlamaConfig.
+
+    The served model's norms run through ``ops/rms_norm.py``
+    (``fused_rmsnorm``): on the card its kernel reduces each row in one
+    CTA in a fixed order, so a decoded row's bits depend on the row alone,
+    never on how many rows share its step.  PyTorch's eager mean picks its
+    reduction split by the row count, and on the card a row decoded at
+    width 1 and at width 8 then parts now and then by one bf16 rounding of
+    a norm, which lets a stream's tokens depend on its batch-mates.  On
+    the CPU the norms' plain version is the eager math itself."""
     builder = getattr(LlamaConfig, serve_cfg.model, None)
     if builder is None:
         raise ValueError(f"unknown serve model {serve_cfg.model!r} "
                          "(no LlamaConfig builder of that name)")
-    cfg = builder()
+    cfg = dataclasses.replace(builder(), fused_rmsnorm=True)
     if serve_cfg.dtype:
         dt = _DTYPES.get(serve_cfg.dtype)
         if dt is None:
@@ -150,8 +159,10 @@ class _DecodeProgram:
                             if self.cuda else None)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         #: paged-decode kernel launches the graph holds (one a layer when
-        #: the decode is fused)
+        #: the decode is fused), and RMSNorm kernel launches by name (two a
+        #: layer and the final norm)
         self.kernel_launches = 0
+        self.norm_launches: Dict[str, int] = {}
 
     def body(self) -> None:
         """The step on the static buffers: what the graph captures."""
@@ -174,10 +185,13 @@ class _DecodeProgram:
         torch.cuda.current_stream(r.device).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
         before = paged_attention.captured
+        norms = dict(rms_norm.captured)
         with torch.cuda.graph(graph, stream=stream,
                               capture_error_mode="thread_local"):
             self.body()
         self.kernel_launches = paged_attention.captured - before
+        self.norm_launches = {k: v - norms[k]
+                              for k, v in rms_norm.captured.items()}
         self.graph = graph
         r.captures += 1
         r.capture_seconds += time.perf_counter() - t0
@@ -200,6 +214,7 @@ class _DecodeProgram:
             self.capture()
         self.graph.replay()
         paged_attention.count_replay(self.kernel_launches)
+        rms_norm.count_replay(self.norm_launches)
         self.host_logits.copy_(self.logits, non_blocking=True)
         torch.cuda.current_stream(self.runner.device).synchronize()
         return self.host_logits[:b].numpy().copy()
@@ -389,14 +404,7 @@ class ModelRunner:
         if cap <= 0:
             return 0
         before = self.compilations
-        tbl = np.full((self.max_blocks_per_seq,), TRASH_BLOCK, np.int32)
-        b = 1
-        while True:
-            zeros = [0] * b
-            self.decode(zeros, [tbl] * b, zeros)
-            if b >= self.serve_cfg.max_batch:
-                break
-            b *= 2
+        self.warm_decode_widths()
         s = self.block_size
         top = min(_pow2_at_least(cap, self.block_size), self.cache_len)
         while s <= top:
@@ -406,6 +414,23 @@ class ModelRunner:
                 self.prefill([0] * (self.block_size + s), [],
                              start=self.block_size)
             s *= 2
+        return self.compilations - before
+
+    def warm_decode_widths(self) -> int:
+        """Build (on the card: capture) the decode program of every pow2
+        width up to ``max_batch`` that is not built yet, K/V writes to the
+        trash block; returns how many were built.  The serve tuner's
+        trials then never pay a capture inside a scoring window."""
+        before = self.compilations
+        tbl = np.full((self.max_blocks_per_seq,), TRASH_BLOCK, np.int32)
+        b = 1
+        while True:
+            if b not in self._decode_fns:
+                zeros = [0] * b
+                self.decode(zeros, [tbl] * b, zeros)
+            if b >= self.serve_cfg.max_batch:
+                break
+            b *= 2
         return self.compilations - before
 
     def prefill(self, prompt: Sequence[int], table: Sequence[int],

@@ -33,9 +33,15 @@ Live weight pushes (``{"op": "weights", ...}``, from
 replica; the router caches the latest frame and replays it to a
 relaunched replica before that replica takes traffic, so a rejoin serves
 the current pushed epoch, never boot-time weights (``weight_pushes``,
-``weight_replays`` in the router's stats).  Not ported yet: the
-``/metrics`` "serve" mount (the monitor plane, ROADMAP.md Queue A item
-6b).
+``weight_replays`` in the router's stats).
+
+Observability: with ``HOROVOD_METRICS_PORT`` set, the router serves the
+monitor plane's endpoint (``monitor/server.py``) and mounts its counters
+as ``"serve"``: the router's own, ``replicas`` and ``replicas_alive``,
+and the fleet-wide sum of each replica's latest scheduler counters (they
+ride the probe pongs, so a scrape costs no round trip), as
+``horovod_serve_*`` gauges on ``/metrics`` and key ``"serve"`` on
+``/json``.  It prints ``SERVE_METRICS_READY port=P``.
 """
 
 from __future__ import annotations
@@ -78,6 +84,9 @@ class _Replica:
         self.writer: Optional[asyncio.StreamWriter] = None
         self.pending: Dict[str, "_ClientConn"] = {}
         self.alive = False
+        #: the replica's latest scheduler counters, piggybacked on pongs:
+        #: summed into the /metrics "serve" mount
+        self.metrics: Dict[str, int] = {}
         # Link healing (HOROVOD_SERVE_LINK_RETRIES): session token the
         # replica parks our stream state under across a socket loss,
         # the highest event seq we have PROCESSED (the replay cursor),
@@ -364,6 +373,9 @@ class Router:
                                 max(2 * self.probe_sec, 5.0))
                     if age is None or age <= fresh:
                         rep.last_healthy = time.monotonic()
+                    counters = ev.get("counters")
+                    if isinstance(counters, dict):
+                        rep.metrics = counters
                     continue
                 rid = ev.get("id")
                 client = self._owners.get(rid)
@@ -718,6 +730,36 @@ class Router:
 
     # -- entry --
 
+    def router_stats(self) -> dict:
+        """The ``"serve"`` mount: the router's counters, ``replicas`` and
+        ``replicas_alive``, and each replica scheduler's latest counters
+        summed over the fleet."""
+        out = dict(self.counters)
+        out["replicas"] = self.num_replicas
+        out["replicas_alive"] = sum(1 for r in self.replicas if r.alive)
+        totals: Dict[str, int] = {}
+        for r in self.replicas:
+            for k, v in r.metrics.items():
+                if isinstance(v, (int, float)):
+                    totals[k] = totals.get(k, 0) + v
+        out.update(totals)
+        return out
+
+    def _mount_metrics(self) -> None:
+        """Start the metrics endpoint on ``HOROVOD_METRICS_PORT`` and
+        mount :meth:`router_stats` as ``"serve"``.  A port that cannot be
+        bound costs the endpoint, with a message, not the fleet."""
+        from horovod_tpu_torch.monitor.server import (get_metrics_server,
+                                                      start_metrics_server)
+        try:
+            mport = start_metrics_server(
+                int(os.environ["HOROVOD_METRICS_PORT"]), dict, dict)
+        except (OSError, RuntimeError, ValueError) as exc:
+            print(f"serve metrics endpoint disabled: {exc}", flush=True)
+            return
+        get_metrics_server().mount("serve", self.router_stats)
+        print(f"SERVE_METRICS_READY port={mport}", flush=True)
+
     async def run(self) -> int:
         t0 = time.monotonic()
         try:
@@ -737,6 +779,8 @@ class Router:
         if self.probe_sec > 0:
             self._tasks.append(asyncio.ensure_future(self._probe_loop()))
         port = server.sockets[0].getsockname()[1]
+        if os.environ.get("HOROVOD_METRICS_PORT", "") not in ("", "0"):
+            self._mount_metrics()
         print(f"SERVE_ROUTER_READY port={port} replicas="
               f"{self.num_replicas} startup_sec="
               f"{time.monotonic() - t0:.1f}", flush=True)

@@ -42,8 +42,10 @@ prompt on the new weights behind a ``requeued`` frame with ``reason:
 
 The port's counterpart of ``horovod_tpu/serve/scheduler.py``, with the
 same policy, counters and events.  The serve autotuner
-(``HOROVOD_SERVE_AUTOTUNE=1``) needs ``autotune.search`` (ROADMAP.md
-Queue A item 6b) and raises.
+(``HOROVOD_SERVE_AUTOTUNE=1``, ``serve/tuner.py``) rewrites
+``max_batch`` and ``prefill_waves`` between steps; before its first
+window the runner builds every decode width the tuner can reach, so
+``captures`` does not move while it runs.
 """
 
 from __future__ import annotations
@@ -113,11 +115,6 @@ class Scheduler:
 
     def __init__(self, runner: ModelRunner, serve_cfg: ServeConfig,
                  step_hook: Optional[Callable[[int], None]] = None):
-        if serve_cfg.autotune:
-            raise NotImplementedError(
-                "HOROVOD_SERVE_AUTOTUNE=1: the serve autotuner needs "
-                "autotune.search, which is not ported yet (ROADMAP.md "
-                "Queue A item 6b)")
         self.runner = runner
         self.cfg = serve_cfg
         # The allocator view may be tighter than the runner's physical
@@ -127,13 +124,23 @@ class Scheduler:
             min(runner.num_blocks, serve_cfg.kv_blocks + 1),
             runner.block_size, runner.max_blocks_per_seq,
             prefix_cache=bool(serve_cfg.prefix_cache))
-        # Live-tunable knobs (read once per step so a mid-step change
-        # cannot tear a batch).
+        # Live-tunable knobs (the serve autotuner rewrites them between
+        # steps; read once per step so a mid-step change cannot tear a
+        # batch).
         self.max_batch = serve_cfg.max_batch
         self.prefill_waves = serve_cfg.prefill_waves
         #: called with the decode-step counter after every decode step
         #: (the replica's fault schedule rides it)
         self._step_hook = step_hook
+        self._tuner = None
+        if serve_cfg.autotune:
+            from horovod_tpu_torch.serve.tuner import ServeTuner
+
+            # Every width the tuner's max_batch ladder can reach, built
+            # (captured) now: a capture inside a trial would skew its
+            # window's tokens/s.
+            runner.warm_decode_widths()
+            self._tuner = ServeTuner(self, serve_cfg)
 
         self._lock = threading.Lock()
         self._wake = threading.Condition(self._lock)
@@ -246,7 +253,9 @@ class Scheduler:
         out["weight_epoch"] = self._weight_epoch
         out["weight_swap_ms"] = self.last_swap_ms
         out.update(self.kv.stats())
-        out["tune_trials"] = 0
+        out["tune_trials"] = self._tuner.trials if self._tuner else 0
+        if self._tuner is not None:
+            out.update(self._tuner.stats())
         out["config"] = {
             "max_batch": self.max_batch,
             "prefill_waves": self.prefill_waves,
@@ -254,7 +263,7 @@ class Scheduler:
             "kv_blocks": self.kv.capacity_blocks,
             "max_model_len": self.cfg.max_model_len,
             "model": self.cfg.model,
-            "autotune": 0,
+            "autotune": int(self._tuner is not None),
             "fused_attn": int(self.runner.fused_attn),
             "prefix_cache": int(self.kv.prefix_cache),
             "checkpoint_step": self.runner.checkpoint_step,
@@ -311,6 +320,8 @@ class Scheduler:
                 break  # head-of-line sequence not fundable yet
         self.last_beat = time.monotonic()
         self._decode(max_batch)
+        if self._tuner is not None:
+            self._tuner.on_step()
 
     # -- internals (scheduler thread only) --
 

@@ -8,6 +8,8 @@ without JAX it runs on its own::
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1283,11 +1285,148 @@ def test_hook_allreduce_reads_the_gradient_its_gemm_wrote(dev, tmp_path):
             b"\n".join(logs).decode(errors="replace")[-6000:]
 
 
+def _observe_rank(flight_dir: str) -> None:
+    """One rank of the observability test on the card (``python
+    tests/test_torch_port_cuda.py observe DIR``): eager allreduces of CUDA
+    tensors with telemetry on, a quiet second, then this rank's counters,
+    rank 0's fleet table and a flight dump on demand, as one JSON line."""
+    import json
+    import time
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.runtime.engine import get_engine
+
+    hvd.init(device="cuda:0")           # both ranks on the one card
+    dev, rank = hvd.device(), hvd.rank()
+    for i in range(12):
+        x = torch.full((4096 * (1 + i % 3),), float(rank + 1), device=dev)
+        out = hvd.allreduce(x, op=hvd.Sum, name=f"obs.cuda.{i % 4}")
+        assert out.device == dev and bool((out == 3.0).all())
+    hvd.allreduce(torch.zeros(4, device=dev), name="obs.cuda.barrier")
+    time.sleep(1.5)
+    eng = get_engine()
+    s = eng.stats()
+    rec = {k: s[k] for k in ("data_bytes_tx", "data_bytes_rx",
+                             "allreduce_bytes", "tensors", "responses")}
+    rec.update(rank=rank, telem_bytes_tx=s["telem_bytes_tx"],
+               fleet=hvd.fleet_stats() if rank == 0 else None,
+               dumped=eng.flight_dump("card check"))
+    assert os.path.exists(os.path.join(flight_dir,
+                                       f"flightrec.rank{rank}.json"))
+    hvd.shutdown()
+    print("OBS " + json.dumps(rec), flush=True)
+
+
+def _two_card_ranks(mode, extra_args=(), extra_env=None, timeout=300):
+    """Start this file twice as ``mode`` on cuda:0; returns each rank's
+    output."""
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env.update(PYTHONPATH=repo, HOROVOD_SIZE="2", HOROVOD_LOCAL_SIZE="2",
+               HOROVOD_COORDINATOR=f"127.0.0.1:{port}", **(extra_env or {}))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), mode, *extra_args],
+        env=dict(env, HOROVOD_RANK=str(r), HOROVOD_LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p in procs:
+        assert p.returncode == 0, \
+            b"\n".join(logs).decode(errors="replace")[-6000:]
+    return [log.decode(errors="replace") for log in logs]
+
+
+def test_engine_world_on_the_card_reports_its_fleet_and_dumps(dev,
+                                                              tmp_path):
+    """Two ranks on the card, CUDA tensors through the engine with
+    telemetry every cycle: rank 0's fleet totals equal the sum of both
+    ranks' ``stats()``, and ``flight_dump`` writes each rank's file."""
+    import json
+
+    logs = _two_card_ranks("observe", [str(tmp_path)], {
+        "HOROVOD_TELEMETRY_CYCLES": "1", "HOROVOD_CYCLE_TIME": "2",
+        "HOROVOD_FLIGHT_RECORDER_DIR": str(tmp_path)})
+    recs = {}
+    for log in logs:
+        line = next(ln for ln in log.splitlines() if ln.startswith("OBS "))
+        rec = json.loads(line[4:])
+        recs[rec["rank"]] = rec
+    fleet = recs[0]["fleet"]
+    assert fleet["ranks_reporting"] == 2
+    for key in ("data_bytes_tx", "data_bytes_rx", "allreduce_bytes",
+                "tensors", "responses"):
+        assert fleet["totals"][key] == recs[0][key] + recs[1][key], key
+    assert recs[1]["telem_bytes_tx"] > 0
+    for rank in (0, 1):
+        assert recs[rank]["dumped"]
+        dump = json.loads((tmp_path / f"flightrec.rank{rank}.json")
+                          .read_text())
+        assert dump["reason"] == "card check"
+
+
+def test_serve_tuner_on_the_card_captures_nothing_new(dev):
+    """``HOROVOD_SERVE_AUTOTUNE=1`` on the card: the scheduler's tuner
+    runs its trials over the captured decode graphs and commits, and no
+    width is captured while it runs (``captures`` stays 4)."""
+    import threading
+
+    from horovod_tpu_torch.serve.config import ServeConfig
+    from horovod_tpu_torch.serve.engine import ModelRunner
+    from horovod_tpu_torch.serve.scheduler import Request, Scheduler
+
+    cfg = ServeConfig.from_env(dict(
+        _GRAPH_ENV, HOROVOD_SERVE_AUTOTUNE="1",
+        HOROVOD_SERVE_AUTOTUNE_WINDOW_STEPS="4",
+        HOROVOD_SERVE_AUTOTUNE_MAX_TRIALS="4"))
+    runner = ModelRunner(cfg, device=dev)
+    runner.warmup()
+    assert runner.captures == 4
+    sched = Scheduler(runner, cfg)
+    assert runner.captures == 4
+    rng = np.random.default_rng(5)
+    done, lock, finished = threading.Event(), threading.Lock(), []
+    n = 12
+
+    def emit(ev):
+        if ev["event"] in ("done", "error"):
+            with lock:
+                finished.append(ev)
+                if len(finished) == n:
+                    done.set()
+
+    thread = threading.Thread(target=sched.run, daemon=True)
+    thread.start()
+    for i in range(n):
+        sched.submit(Request(id=f"r{i}", prompt=rng.integers(
+            0, 512, 20 + 7 * i).tolist(), max_tokens=24), emit)
+    assert done.wait(300), f"{len(finished)} of {n} requests finished"
+    sched.stop()
+    thread.join(timeout=30)
+    assert all(ev["event"] == "done" for ev in finished)
+    stats = sched.stats()
+    assert stats["tune_trials"] > 0 and stats["tune_committed"] == 1
+    assert runner.captures == 4
+
+
 if __name__ == "__main__":
     import sys
 
     if sys.argv[1:] == ["ready"]:
         _ready_rank()
+    elif sys.argv[1:2] == ["observe"]:
+        _observe_rank(sys.argv[2])
 
 
 # ---------------------------------------------------------------------------

@@ -65,17 +65,24 @@ _TRAINING_MODULES = ["common.basics", "ops.collective_ops", "ops.compression",
 #: The serving slice, the router fleet and its launcher and benchmark.
 _SERVE_MODULES = ["serve", "serve.engine", "serve.scheduler", "serve.server",
                   "serve.replica", "serve.router", "run", "bench_serve"]
+#: The observability and tuning planes.
+_OBSERVABILITY_MODULES = ["timeline", "monitor", "monitor.metrics",
+                          "monitor.server", "monitor.postmortem",
+                          "autotune", "autotune.search", "autotune.store",
+                          "autotune.config", "autotune.tuner",
+                          "serve.tuner"]
 #: A call of PyTorch's own RMSNorm (``F.rms_norm``, ``torch.rms_norm``,
 #: ``torch.nn.functional.rms_norm``): a library kernel, not the port's.
 _LIBRARY_RMS_NORM = re.compile(r"\b(F|functional|torch)\.rms_norm\b")
 
 
 def test_training_slice_imports_no_jax_and_finds_no_library_attention():
-    """Each module of the training and serving slices, imported in a fresh
-    interpreter, loads no JAX; and no source of the port calls a
-    library attention or RMSNorm kernel."""
+    """Each module of the training, serving and observability slices,
+    imported in a fresh interpreter, loads no JAX; and no source of the
+    port calls a library attention or RMSNorm kernel."""
     code = ("import importlib, sys\n"
-            f"for m in {_TRAINING_MODULES + _SERVE_MODULES!r}:\n"
+            f"for m in {_TRAINING_MODULES + _SERVE_MODULES
+                        + _OBSERVABILITY_MODULES!r}:\n"
             "    importlib.import_module('horovod_tpu_torch.' + m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'horovod_tpu'))\n"

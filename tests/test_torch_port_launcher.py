@@ -4,13 +4,16 @@ The counterparts of ``tests/test_launcher.py:19-136`` on the port's
 launcher and workers (CPU, gloo + engine): spawn and coordinate, failure
 propagation, restart on failure, the exhausted budget, two launchers
 forming one multi-host world, and failures attributed to the global rank.
-Also the flags the port does not run yet: ``--status`` and
-``--print-config`` raise and cite ROADMAP.md Queue A item 6b.
+Also the launcher's two query flags: ``--status`` (and ``--raw``) against
+a live port job's metrics endpoint, and ``--print-config`` against the
+reference's table.
 """
 
+import json
 import os
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -165,15 +168,114 @@ def test_launcher_multihost_global_rank_error_attribution():
     assert b"rank 3 exited with code 5" in results[1][1], results[1][1]
 
 
+#: A world of 2 that serves its metrics endpoint until the test drops a
+#: release file (argv[1]).
+_HOLD = (
+    "import os, sys, time, torch\n"
+    "import horovod_tpu_torch as hvd\n"
+    "hvd.init(device='cpu')\n"
+    "for i in range(12):\n"
+    "    hvd.allreduce(torch.ones(256) * (hvd.rank() + 1), name=f'st.{i % 3}')\n"
+    "deadline = time.time() + 90\n"
+    "while not os.path.exists(sys.argv[1]) and time.time() < deadline:\n"
+    "    time.sleep(0.1)\n"
+    "hvd.shutdown()\n")
+
+
+def _query(flags, timeout=60):
+    return subprocess.run([sys.executable, "-m", "horovod_tpu_torch.run",
+                           *flags], cwd=REPO, env=_env(),
+                          capture_output=True, text=True, timeout=timeout)
+
+
 @pytest.mark.parametrize("flags", [["--status", "127.0.0.1:9"],
                                    ["--print-config"]])
-def test_status_and_print_config_cite_item_6b(flags):
-    p = subprocess.run([sys.executable, "-m", "horovod_tpu_torch.run",
-                        *flags], cwd=REPO, env=_env(), capture_output=True,
-                       text=True, timeout=120)
-    assert p.returncode != 0
-    assert "NotImplementedError" in p.stderr
-    assert "ROADMAP.md Queue A item 6b" in p.stderr
+def test_status_and_print_config_cite_item_6b(flags, tmp_path):
+    """``--status``: a dead address exits 1 with the reference's message;
+    against a live 2-rank port job (``HOROVOD_METRICS_PORT``, telemetry
+    every cycle) the summary names both fleet rows and ``--raw`` prints
+    the endpoint's JSON.  ``--print-config``: the reference's table for
+    the same environment, but for the rows listed in
+    ``_PORT_ROWS_DIFFER``."""
+    if flags[0] == "--print-config":
+        from horovod_tpu.autotune import format_table as jax_format_table
+
+        env = dict(_env(), HOROVOD_CHUNK_BYTES="5000",
+                   HOROVOD_SERVE_MAX_BATCH="6")
+        p = subprocess.run([sys.executable, "-m", "horovod_tpu_torch.run",
+                            *flags], cwd=REPO, env=env, capture_output=True,
+                           text=True, timeout=60)
+        assert p.returncode == 0, p.stderr
+        assert p.stdout.splitlines() == _reference_table(
+            jax_format_table(env))
+        return
+    p = _query(flags)
+    assert p.returncode == 1
+    assert "cannot reach metrics endpoint at 127.0.0.1:9" in p.stderr
+    assert "is the job running with HOROVOD_METRICS_PORT set?" in p.stderr
+    from horovod_tpu_torch.monitor.server import query_status
+
+    mport = free_port()
+    release = tmp_path / "release"
+    env = dict(_env(), HOROVOD_METRICS_PORT=str(mport),
+               HOROVOD_TELEMETRY_CYCLES="1", HOROVOD_CYCLE_TIME="2")
+    job = subprocess.Popen(
+        [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "2", "--",
+         sys.executable, "-c", _HOLD, str(release)], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        deadline, payload = time.time() + 90, None
+        while time.time() < deadline:
+            try:
+                payload = query_status(f"127.0.0.1:{mport}", timeout=3)
+                if payload["fleet"].get("totals", {}).get("tensors", 0) \
+                        >= 2 * 12:
+                    break
+            except (OSError, ValueError):
+                pass
+            time.sleep(0.3)
+        assert payload and payload["fleet"]["ranks_reporting"] == 2, payload
+        text = _query(["--status", f"127.0.0.1:{mport}"])
+        assert text.returncode == 0, text.stderr
+        assert text.stdout.startswith("== horovod_tpu live job status ==")
+        assert "ranks reporting 2" in text.stdout
+        assert "row rank 1" in text.stdout
+        raw = _query(["--status", f"127.0.0.1:{mport}", "--raw"])
+        assert raw.returncode == 0, raw.stderr
+        got = json.loads(raw.stdout)
+        assert got["fleet"]["world_size"] == 2
+        assert got["stats"]["config"]["telemetry_cycles"] == 1
+        assert "stall_warnings" in got["stats"]
+    finally:
+        release.write_text("go")
+        out, err = job.communicate(timeout=120)
+    assert job.returncode == 0, out.decode() + err.decode()
+
+
+#: Rows of ``--print-config`` where the port's table differs from the
+#: reference's, and why: the three knobs whose help names a command give
+#: the port's command (``python -m horovod_tpu_torch.<tool>``), and
+#: ``HOROVOD_PAGED_ATTN_CHUNK`` tunes the JAX package's XLA stand-in for
+#: its TPU kernel, which the port has no counterpart of.
+_PORT_ROWS_DIFFER = {"HOROVOD_METRICS_PORT": "command",
+                     "HOROVOD_FLIGHT_RECORDER_DIR": "command",
+                     "HOROVOD_TIMELINE_ALL_RANKS": "command",
+                     "HOROVOD_PAGED_ATTN_CHUNK": "absent"}
+
+
+def _reference_table(text):
+    """The reference's ``format_table`` text with ``_PORT_ROWS_DIFFER``
+    applied, as lines."""
+    out = []
+    for line in text.splitlines():
+        knob = line.split(" ", 1)[0]
+        kind = _PORT_ROWS_DIFFER.get(knob)
+        if kind == "absent":
+            continue
+        if kind == "command":
+            line = line.replace("horovod_tpu.", "horovod_tpu_torch.")
+        out.append(line)
+    return out
 
 
 def test_launcher_requires_np_or_a_mode():

@@ -387,9 +387,11 @@ def test_runner_refuses_without_gpu_and_unported_knobs(monkeypatch, runner):
     with pytest.raises(FileNotFoundError, match="no complete checkpoint"):
         ModelRunner(ServeConfig.from_env(
             {"HOROVOD_SERVE_CHECKPOINT": "/nonexistent"}), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        Scheduler(runner, ServeConfig.from_env(
-            dict(SERVE_ENV, HOROVOD_SERVE_AUTOTUNE="1")))
+    # HOROVOD_SERVE_AUTOTUNE=1 builds the serve tuner (no refusal).
+    tuned = Scheduler(runner, ServeConfig.from_env(
+        dict(SERVE_ENV, HOROVOD_SERVE_AUTOTUNE="1")))
+    assert tuned._tuner is not None
+    assert tuned.stats()["config"]["autotune"] == 1
     # A swap into a stopped scheduler acks without applying.
     stopped = Scheduler(runner, ServeConfig.from_env(SERVE_ENV))
     stopped.stop()
@@ -398,6 +400,56 @@ def test_runner_refuses_without_gpu_and_unported_knobs(monkeypatch, runner):
     with pytest.raises(ValueError, match="HOROVOD_SERVE_DTYPE"):
         ModelRunner(ServeConfig.from_env({"HOROVOD_SERVE_DTYPE": "int8"}),
                     device="cpu")
+
+
+def test_serve_tuner_matches_the_reference_and_commits(runner):
+    """The counterpart of ``tests/test_serve.py:496``: the port's serve
+    tuner plans the reference ``ServeTuner``'s schedule for the same
+    config (seeds 0 and 5), its stats keys are the reference's, and on
+    the tiny model it commits within the trial cap, its committed
+    ``max_batch`` in force; every width it can reach was built before
+    its first window."""
+    from horovod_tpu.serve.tuner import ServeTuner as JaxServeTuner
+    from horovod_tpu_torch.serve.tuner import ServeTuner
+
+    for seed in ("0", "5"):
+        env = dict(SERVE_ENV, HOROVOD_SERVE_AUTOTUNE="1",
+                   HOROVOD_SERVE_AUTOTUNE_SEED=seed,
+                   HOROVOD_SERVE_AUTOTUNE_WINDOW_STEPS="4",
+                   HOROVOD_SERVE_AUTOTUNE_MAX_TRIALS="3")
+        cfg, jcfg = ServeConfig.from_env(env), JaxServeConfig.from_env(env)
+
+        class _Stub:
+            max_batch = cfg.max_batch
+            prefill_waves = cfg.prefill_waves
+            _c = {"tokens_streamed": 0, "fused_attn_steps": 0}
+            kv = PagedKVCache(8, 4, 8)
+
+        got = ServeTuner(_Stub(), cfg)
+        want = JaxServeTuner(_Stub(), jcfg)
+        assert got.search.planned_schedule() == \
+            want.search.planned_schedule()
+        assert len(got.search.planned_schedule()) == 3
+        assert sorted(got.stats()) == sorted(want.stats())
+    fresh = ModelRunner(cfg, device="cpu")
+    sched = Scheduler(fresh, cfg)
+    assert sorted(fresh._decode_fns) == [1, 2, 4]
+    built = fresh.compilations
+    rng = np.random.default_rng(2)
+    reqs = [Request(id=f"r{i}", prompt=rng.integers(0, 512, 5).tolist(),
+                    max_tokens=14) for i in range(8)]
+    events = _run_requests(sched, reqs)
+    for req in reqs:
+        assert events[req.id][-1]["event"] == "done"
+    stats = sched.stats()
+    assert stats["tune_trials"] > 0 and stats["tune_committed"] == 1
+    assert sched._tuner.committed is not None
+    assert stats["config"]["max_batch"] == \
+        sched._tuner.committed["max_batch"]
+    # No decode width was built while the tuner ran.
+    assert sorted(fresh._decode_fns) == [1, 2, 4]
+    assert fresh.compilations - built == \
+        sum(1 for _ in fresh._prefill_buckets)
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,8 @@ import functools
 import json
 import subprocess
 import sys
+import time
+import urllib.request
 
 import numpy as np
 import pytest
@@ -267,9 +269,12 @@ def test_dead_fleet_without_budget_answers_with_a_clean_error():
 
 
 def test_run_refuses_training_and_checkpoint_directories(tmp_path):
-    """The launcher now runs training commands (-np), and still refuses a
-    checkpoint directory that holds no complete checkpoint, and the
-    monitor/autotune flags (ROADMAP.md Queue A item 6b)."""
+    """The launcher runs training commands (-np), and still refuses a
+    checkpoint directory that holds no complete checkpoint; a fleet under
+    ``HOROVOD_METRICS_PORT`` serves the router's ``"serve"`` mount on
+    ``/json`` and as ``horovod_serve_*`` on ``/metrics``: the router's
+    counters, the live replicas, and the replicas' pong-piggybacked
+    scheduler counters."""
     out = subprocess.run(
         [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "2", "--",
          sys.executable, "-c",
@@ -285,12 +290,36 @@ def test_run_refuses_training_and_checkpoint_directories(tmp_path):
         cwd=bench_serve.REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and "checkpoint" in out.stderr
     assert "READY" not in out.stdout
-    for flag in (["--status", "127.0.0.1:1"], ["--print-config"]):
-        out = subprocess.run(
-            [sys.executable, "-m", "horovod_tpu_torch.run", *flag],
-            cwd=bench_serve.REPO, capture_output=True, text=True,
-            timeout=120)
-        assert out.returncode != 0 and "Queue A item 6b" in out.stderr
+    from horovod_tpu_torch.common.launch import free_port
+    from horovod_tpu_torch.monitor.server import query_status
+
+    mport = free_port()
+    with _Fleet(replicas=1, extra_env={
+            "HOROVOD_METRICS_PORT": str(mport),
+            "HOROVOD_SERVE_PROBE_SEC": "0.5"}) as fleet:
+        assert any(f"SERVE_METRICS_READY port={mport}" in line
+                   for line in fleet.log), fleet.tail()
+        cli = fleet.client()
+        results = _run_jobs(cli, PROMPTS[:2], max_tokens=NEW_TOKENS)
+        assert all(evs[-1]["event"] == "done" for evs in results.values())
+        deadline, serve = time.time() + 60, {}
+        while time.time() < deadline:
+            serve = query_status(f"127.0.0.1:{mport}")["serve"]
+            if serve.get("completed") == 2 and "prefix_misses" in serve:
+                break
+            time.sleep(0.2)
+        router = cli.stats()["router"]
+        assert serve["replicas"] == 1 and serve["replicas_alive"] == 1
+        for key in ("completed", "requeued", "replica_deaths"):
+            assert serve[key] == router[key], (key, serve, router)
+        assert serve["prefix_misses"] > 0, serve
+        with urllib.request.urlopen(f"http://127.0.0.1:{mport}/metrics",
+                                    timeout=10) as resp:
+            prom = resp.read().decode()
+        assert "# TYPE horovod_serve_completed counter" in prom
+        assert "\nhorovod_serve_completed 2\n" in prom
+        assert "\nhorovod_serve_replicas_alive 1\n" in prom
+        assert fleet.stop(cli) == 0, fleet.tail()
 
 
 @pytest.mark.parametrize("gate", ["--gate", "--prefix-gate"])
