@@ -294,7 +294,28 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                the ranks' parameters are equal; trials, the committed
                config, bus GB/s (``stats_delta``) and step ms before and
                after (no gain is claimed);
-19. train_profile, train_packed_profile, train_bert_profile,
+19. zoo     — the rest of the model zoo, the training sugar and the
+               examples, each example's ``main(argv)`` driven in this
+               process on the card at its own sizes: ``flax_mnist_advanced``
+               (2 epochs through ``training.fit`` with the broadcast,
+               metric-average and warmup callbacks: the loss falls, epoch
+               2's accuracy >= 0.9, the lr ends at lr · n);
+               ``jax_mnist_estimator`` twice on one ``--model-dir`` (the
+               second warm-starts at epoch 4 with eval metrics within
+               1e-6); ``jax_word2vec`` at ``SkipGramModel``'s default
+               widths (vocab 50 000 × 128, B 128, 8 negatives, Adagrad,
+               400 steps: the loss falls; ms a step);
+               ``jax_imagenet_resnet50`` (bf16, B 64 × 224², ``--compression
+               bf16``, 256 images: epoch 1, then a run that resumes from
+               its checkpoint and trains epoch 2); ``torch_mnist`` and
+               ``torch_synthetic_benchmark`` (the hook form; img/s);
+               ``torch_imagenet_resnet50`` on two ranks sharing the card
+               through ``python -m horovod_tpu_torch.run -np 2`` (train,
+               then resume); and ``MnistConvNet`` and ``SkipGramModel``
+               forwards on the card against the CPU, fp32, TF32 off
+               (within 1e-5 of the largest value): each part's wall s,
+               steps/s and checks in one line;
+20. train_profile, train_packed_profile, train_bert_profile,
                train_resnet_profile, bench_llama_profile,
                train_moe_profile — where one step of each goes
                (torch.profiler), after every phase was timed: once the
@@ -308,7 +329,7 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                real step;
                and the flash kernels' ``kernel_time_bench`` lines with
                bench_llama's launches a step;
-20. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+21. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints one JSON line; any failed check raises (exit != 0) and
@@ -320,10 +341,14 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
+import copy
 import dataclasses
 import functools
 import gc
 import hashlib
+import importlib
+import io
 import json
 import math
 import os
@@ -5444,6 +5469,237 @@ def phase_serve_tune(runner, seed: int) -> None:
          nvidia_smi=smi_now())
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the rest of the model zoo, the training sugar and the examples,
+# driven through each example's main(argv) on the card
+# ---------------------------------------------------------------------------
+
+#: flax_mnist_advanced's second epoch must reach this accuracy (chance is
+#: 0.1; the classes are separable blobs).
+ZOO_MNIST_ACC_MIN = 0.9
+#: The estimator's warm-started eval metrics against the first run's.
+ZOO_WARM_START_TOL = 1e-6
+#: fp32 forwards on the card (TF32 off) against the CPU: max |d| over the
+#: largest |value|.
+ZOO_FWD_REL = 1e-5
+#: The two-rank hook-form ResNet-50 run: its launcher's time limit, and
+#: the device both ranks share.
+ZOO_RANKS_TIMEOUT_S = 300
+ZOO_HOOK_DEVICE = "cuda:0"
+#: ``jax_word2vec`` at SkipGramModel's default widths.
+ZOO_W2V_ARGS = ("--vocab", "50000", "--embedding", "128", "--batch-size",
+                "128", "--negatives", "8", "--steps", "400")
+#: The ResNet-50 examples' cut: a small synthetic set at 224².
+ZOO_RESNET_ARGS = ("--n-train", "256", "--n-val", "128")
+ZOO_HOOK_RESNET_ARGS = ("--n-train", "128", "--n-val", "64")
+
+
+def run_example(name: str, argv) -> tuple:
+    """``main(argv)`` of ``horovod_tpu_torch.examples.<name>`` in this
+    process (``hvd.init()`` ran already), its stdout captured: (result,
+    stdout, wall s up to a synchronised device)."""
+    mod = importlib.import_module(f"horovod_tpu_torch.examples.{name}")
+    buf = io.StringIO()
+    t = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(list(argv))
+    torch.cuda.synchronize()
+    text = buf.getvalue()
+    check(text.rstrip().endswith("done"), f"zoo {name}: no 'done' in "
+                                          f"{text[-500:]!r}")
+    return out, text, time.monotonic() - t
+
+
+def zoo_part(name, wall, steps, checks: dict, **info) -> dict:
+    """One part's line: wall s, steps, steps/s, its ``checks`` (each must
+    hold) and ``info``."""
+    failed = [k for k, ok in checks.items() if not ok]
+    check(not failed, f"zoo {name}: checks failed: {failed} ({info})")
+    return {"wall_s": wall, "steps": steps,
+            "steps_per_s": steps / wall if steps else None,
+            "checks": {k: bool(v) for k, v in checks.items()}, **info}
+
+
+def zoo_forwards(dev) -> dict:
+    """``MnistConvNet`` and ``SkipGramModel`` (default widths) forwards on
+    the card against the CPU on the same weights and inputs, fp32, TF32
+    off: max |d| over the largest |value|."""
+    from horovod_tpu_torch.models import MnistConvNet, SkipGramModel, \
+        nce_loss
+
+    gen = torch.Generator().manual_seed(19)
+    x = torch.randn(64, 28, 28, 1, generator=gen)
+    ids = [torch.randint(0, 50000, s, generator=gen)
+           for s in ((128,), (128,), (128, 8))]
+    mnist = MnistConvNet(dtype=torch.float32, device="cpu")
+    skipgram = SkipGramModel(device="cpu")
+    cases = {
+        "mnist_convnet": (mnist, lambda m, d: m(x.to(d))),
+        "skipgram_nce_loss": (skipgram, lambda m, d: nce_loss(
+            m, *(i.to(d) for i in ids))),
+        "skipgram_candidate_logits": (skipgram, lambda m, d:
+                                      m.candidate_logits(m(ids[0].to(d)),
+                                                         ids[2].to(d)))}
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        with torch.no_grad():
+            for name, (ref_model, fwd) in cases.items():
+                ref = fwd(ref_model, "cpu")
+                got = fwd(copy.deepcopy(ref_model).to(dev), dev).cpu()
+                rel = float((got - ref).abs().max() / ref.abs().max())
+                check(rel <= ZOO_FWD_REL, f"zoo forwards {name}: {rel} > "
+                                          f"{ZOO_FWD_REL}")
+                out[name] = rel
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    return out
+
+
+def zoo_hook_resnet(directory: str) -> dict:
+    """``torch_imagenet_resnet50`` on two ranks sharing the card through
+    ``python -m horovod_tpu_torch.run -np 2`` (the hook form's gradients
+    through the engine; no torch.distributed collective runs): a first
+    run trains epoch 1, a second resumes at epoch 1 and trains epoch 2."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for epochs in (1, 2):
+        t = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "2",
+             "--", sys.executable, "-m",
+             "horovod_tpu_torch.examples.torch_imagenet_resnet50",
+             "--device", ZOO_HOOK_DEVICE, "--epochs", str(epochs),
+             "--checkpoint-dir", directory, *ZOO_HOOK_RESNET_ARGS],
+            env=env, capture_output=True, text=True,
+            timeout=ZOO_RANKS_TIMEOUT_S)
+        check(proc.returncode == 0, f"zoo torch_imagenet_resnet50 "
+                                    f"(epochs {epochs}) exited "
+                                    f"{proc.returncode}:\n"
+                                    f"{proc.stdout[-2000:]}"
+                                    f"{proc.stderr[-3000:]}")
+        runs.append((proc.stdout, time.monotonic() - t))
+    (first, wall1), (second, wall2) = runs
+    steps = int(ZOO_HOOK_RESNET_ARGS[1]) // 2 // 32
+    return zoo_part(
+        "torch_imagenet_resnet50", wall1 + wall2, 2 * steps,
+        {"done_both_runs": first.count("done") == 2
+         and second.count("done") == 2,
+         "epoch1_trained": "epoch 1: train_loss=" in first,
+         "resumed": "resuming from epoch 1" in second,
+         "epoch2_trained": "epoch 2: train_loss=" in second},
+        ranks=2, batch=32, image=224, steps_per_rank_per_epoch=steps,
+        wall_s_per_run=[wall1, wall2],
+        epoch_lines=[ln for ln in (first + second).splitlines()
+                     if "train_loss=" in ln])
+
+
+def phase_zoo(dev) -> None:
+    """The nine example counterparts' card paths (seven in this process,
+    already ``hvd.init()``-ed on cuda:0; the hook-form ResNet-50 on two
+    ranks), the model zoo's forwards against the CPU, one JSON line."""
+    t0 = time.monotonic()
+    parts = {}
+    n = hvd.num_chips()
+
+    out, _, wall = run_example("flax_mnist_advanced", ["--epochs", "2"])
+    logs = out["logs"]
+    parts["flax_mnist_advanced"] = zoo_part(
+        "flax_mnist_advanced", wall, 2 * (4096 // 64),
+        {"loss_falls": logs[1]["loss"] < logs[0]["loss"],
+         "accuracy_above_min": logs[1]["accuracy"] >= ZOO_MNIST_ACC_MIN,
+         "lr_is_lr_times_n": out["lr"] == 0.01 * n},
+        logs=logs, accuracy_min=ZOO_MNIST_ACC_MIN, lr=out["lr"], n=n)
+    del out
+
+    model_dir = tempfile.mkdtemp(prefix="chip_smoke_zoo_est_")
+    try:
+        first, _, wall1 = run_example("jax_mnist_estimator",
+                                      ["--model-dir", model_dir])
+        second, _, wall2 = run_example("jax_mnist_estimator",
+                                       ["--model-dir", model_dir])
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
+    m1, m2 = first["metrics"], second["metrics"]
+    parts["jax_mnist_estimator"] = zoo_part(
+        "jax_mnist_estimator", wall1, 4 * ((4096 - 4096 // 5) // 64),
+        {"warm_started": second["start_epoch"] == 4,
+         "metrics_equal": set(m1) == set(m2) and all(
+             abs(m1[k] - m2[k]) <= ZOO_WARM_START_TOL for k in m1),
+         "accuracy_above_min": m1["accuracy"] >= ZOO_MNIST_ACC_MIN},
+        metrics=m1, warm_metrics=m2, warm_wall_s=wall2,
+        warm_start_epoch=second["start_epoch"])
+
+    out, _, wall = run_example("jax_word2vec", ZOO_W2V_ARGS)
+    losses = out["losses"]
+    head, tail = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    parts["jax_word2vec"] = zoo_part(
+        "jax_word2vec", wall, len(losses),
+        {"loss_falls": tail < head,
+         "finite": bool(np.isfinite(losses).all())},
+        vocab=50000, embedding=128, batch=128, negatives=8,
+        step_ms=out["step_ms"], loss_first20=head, loss_last20=tail)
+    del out
+    gc.collect()
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_zoo_resnet_")
+    argv = ["--compression", "bf16", "--checkpoint-dir", ckpt_dir,
+            *ZOO_RESNET_ARGS]
+    try:
+        first, _, wall1 = run_example("jax_imagenet_resnet50",
+                                      argv + ["--epochs", "1"])
+        second, text, wall2 = run_example("jax_imagenet_resnet50",
+                                          argv + ["--epochs", "2"])
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    logs = first["logs"] + second["logs"]
+    steps = int(ZOO_RESNET_ARGS[1]) // 64
+    parts["jax_imagenet_resnet50"] = zoo_part(
+        "jax_imagenet_resnet50", wall1 + wall2, 2 * steps,
+        {"finite": len(logs) == 2 and bool(np.isfinite(
+            [lg["loss"] for lg in logs]).all()),
+         "resumed": "resuming from epoch 1" in text
+         and second["start_epoch"] == 1},
+        batch=64, image=224, compression="bf16", steps_per_epoch=steps,
+        wall_s_per_run=[wall1, wall2], logs=logs,
+        val_acc=second["val_acc"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out, _, wall = run_example("torch_mnist", [])
+    parts["torch_mnist"] = zoo_part(
+        "torch_mnist", wall, 4 * (4096 // 64),
+        {"loss_falls": out["losses"][-1] < out["losses"][0]},
+        losses=out["losses"])
+
+    out, text, wall = run_example("torch_synthetic_benchmark", [])
+    line = [ln for ln in text.splitlines() if ln.startswith("Img/sec")]
+    parts["torch_synthetic_benchmark"] = zoo_part(
+        "torch_synthetic_benchmark", wall, 3 * 4 + 1,
+        {"printed": bool(line), "positive": out["img_sec_mean"] > 0},
+        img_sec_mean=out["img_sec_mean"], img_sec_conf=out["img_sec_conf"],
+        img_sec_line=line)
+
+    hook_dir = tempfile.mkdtemp(prefix="chip_smoke_zoo_hook_")
+    try:
+        parts["torch_imagenet_resnet50"] = zoo_hook_resnet(hook_dir)
+    finally:
+        shutil.rmtree(hook_dir, ignore_errors=True)
+
+    t = time.monotonic()
+    rel = zoo_forwards(dev)
+    parts["forwards"] = zoo_part("forwards", time.monotonic() - t, 0, {},
+                                 rel_err=rel, tolerance=ZOO_FWD_REL)
+    emit("zoo", parts=parts, wall_s=time.monotonic() - t0,
+         nvidia_smi=smi_now())
+
+
 def label_forward(module, name):
     """Open a profiler range ``name`` around ``module``'s forward."""
     inner = module.forward
@@ -5637,6 +5893,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_observe()
     phase_autotune()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_zoo(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     compare_profiles(
         phase_train_profile("train_profile",
                             llama_factory(args.seed, *train[:3]), train[3]),

@@ -54,7 +54,12 @@ endpoint (``HOROVOD_METRICS_PORT``, ``run --status``) and
 (``python -m horovod_tpu_torch.monitor.postmortem``), the stall
 inspector (``HOROVOD_STALL_WARNING_SEC``), the engine autotuner
 (``HOROVOD_AUTOTUNE``, ``run --print-config``) and the serve tuner
-(``HOROVOD_SERVE_AUTOTUNE``).
+(``HOROVOD_SERVE_AUTOTUNE``); and the rest of the model zoo (the MNIST
+models, skip-gram word2vec), the Keras-role training layer
+(``horovod_tpu_torch.training``: ``fit``, the callbacks, per-epoch and
+sharded checkpoints, the Estimator; the counterpart of
+``horovod_tpu/flax/``) and the reference's examples
+(``horovod_tpu_torch/examples/``).
 
 Two communicators, as ``common/basics.py`` sets out:
 
@@ -74,9 +79,11 @@ Two communicators, as ``common/basics.py`` sets out:
 
 from horovod_tpu_torch.common.basics import (device, epoch, fleet_stats,
                                              init, is_initialized,
-                                             local_rank, local_size,
-                                             mpi_threads_supported, rank,
-                                             shutdown, size)
+                                             local_devices, local_rank,
+                                             local_size,
+                                             mpi_threads_supported,
+                                             num_chips, rank, shutdown,
+                                             size)
 from horovod_tpu_torch import elastic, runtime, torch_frontend
 from horovod_tpu_torch.runtime import moe, sparse, wire_policy  # noqa: F401
 from horovod_tpu_torch.common.device import resolve_device
@@ -107,7 +114,8 @@ __version__ = "0.1.0"
 
 __all__ = ["__version__", "resolve_device", "init", "shutdown",
            "is_initialized", "rank", "size", "local_rank", "local_size",
-           "device", "epoch", "mpi_threads_supported", "fleet_stats",
+           "device", "num_chips", "local_devices", "epoch",
+           "mpi_threads_supported", "fleet_stats",
            "ReduceOp", "Sum",
            "Average", "Min", "Max", "Product", "allreduce",
            "grouped_allreduce", "allgather", "broadcast", "reducescatter",

@@ -54,7 +54,8 @@ from horovod_tpu_torch.common.device import resolve_device
 from horovod_tpu_torch.common.launch import TORCH_PORT_OFFSET, free_port
 
 __all__ = ["init", "shutdown", "is_initialized", "rank", "size",
-           "local_rank", "local_size", "device", "epoch",
+           "local_rank", "local_size", "device", "num_chips",
+           "local_devices", "epoch",
            "mpi_threads_supported", "first_init_args", "fleet_stats"]
 
 
@@ -309,6 +310,19 @@ def local_size() -> int:
 def device() -> torch.device:
     """The device :func:`init` bound this process to."""
     return _get("device")
+
+
+def num_chips() -> int:
+    """Total number of cards across all processes: one card is one rank,
+    so the world size (the reference counts its TPU chips, which a
+    process may hold several of)."""
+    return _get("size")
+
+
+def local_devices() -> list:
+    """The devices this process computes on: the one :func:`init`
+    bound."""
+    return [_get("device")]
 
 
 def epoch() -> int:

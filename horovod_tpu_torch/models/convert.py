@@ -1,5 +1,6 @@
-"""Parameters for the port's ``LlamaModel``, ``BertForPretraining`` and
-``ResNet``: seeded, or carried over from the JAX package.
+"""Parameters for the port's ``LlamaModel``, ``BertForPretraining``,
+``ResNet``, MNIST models and ``SkipGramModel``: seeded, or carried over
+from the JAX package.
 
 Both functions return a state dict keyed by the port's module names, ready
 for ``LlamaModel.from_state_dict`` / ``BertForPretraining.from_state_dict``
@@ -39,14 +40,26 @@ statistics (flax's ``batch_stats``) as the buffers ``<norm>.mean`` and
   saw ``token_type_ids``).  ResNet travels as the whole ``{"params",
   "batch_stats"}`` variables, both ways.
 
+The MNIST models (``MnistConfig``) and the skip-gram model
+(``SkipGramConfig``) travel the same way, all fp32: the MNIST ``Conv``
+and ``Dense`` kernels transposed as above (``conv_<i>``/``dense_<i>`` are
+flax's ``Conv_<i>``/``Dense_<i>``), the skip-gram tables as they are.
+:func:`init_params` draws their kernels from ``lecun_normal`` with zero
+biases, and the skip-gram tables from flax's own laws: ``embeddings``
+uniform on [-1, 1), ``nce_weights`` a standard normal truncated to ±2
+times ``1/sqrt(embedding_size)`` (``truncated_normal(stddev)``, with no
+variance correction), ``nce_biases`` zeros.
+
 Both functions place the tensors on the CUDA device unless given
-``device="cpu"``, and raise without a GPU otherwise.
+``device="cpu"``, and raise without a GPU otherwise.  ``init_params``
+takes a seed or an explicit ``torch.Generator``; with a generator it
+draws on the generator's device and moves the result to ``device``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterator, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -54,7 +67,9 @@ import torch
 from horovod_tpu_torch.common.device import resolve_device
 from horovod_tpu_torch.models.bert import BertConfig
 from horovod_tpu_torch.models.llama import LlamaConfig
+from horovod_tpu_torch.models.mnist import MnistConfig
 from horovod_tpu_torch.models.resnet import ResNetConfig, block_convs
+from horovod_tpu_torch.models.word2vec import SkipGramConfig
 
 __all__ = ["init_params", "params_from_jax", "params_to_jax", "jax_tree",
            "jax_paths"]
@@ -150,61 +165,117 @@ def _resnet_layout(cfg: ResNetConfig
     yield "head.bias", "zero", (cfg.num_classes,)
 
 
+def _mnist_layout(cfg: MnistConfig
+                  ) -> Iterator[Tuple[str, str, Tuple[int, ...]]]:
+    """(port name, kind, torch shape) of ``MnistConvNet`` or
+    ``MnistMLP``; kind is "conv", "dense" (torch [out, in]) or "zero"."""
+    def layer(name, kind, shape):
+        yield name + ".weight", kind, shape
+        yield name + ".bias", "zero", (shape[0],)
+
+    if cfg.kind == "conv":
+        yield from layer("conv_0", "conv", (32, 1, 5, 5))
+        yield from layer("conv_1", "conv", (64, 32, 5, 5))
+        yield from layer("dense_0", "dense", (512, 7 * 7 * 64))
+        yield from layer("dense_1", "dense", (cfg.num_classes, 512))
+    else:
+        yield from layer("dense_0", "dense", (cfg.hidden, 28 * 28))
+        yield from layer("dense_1", "dense", (cfg.num_classes, cfg.hidden))
+
+
+def _skipgram_layout(cfg: SkipGramConfig
+                     ) -> Iterator[Tuple[str, str, Tuple[int, ...]]]:
+    """(name, kind, shape) of ``SkipGramModel``: "uniform" (on [-1, 1)),
+    "trunc" (flax's uncorrected truncated normal) and "zero"."""
+    V, E = cfg.vocab_size, cfg.embedding_size
+    yield "embeddings", "uniform", (V, E)
+    yield "nce_weights", "trunc", (V, E)
+    yield "nce_biases", "zero", (V,)
+
+
 def _layout_of(cfg, type_emb: bool = True):
     if isinstance(cfg, BertConfig):
         return _bert_layout(cfg, type_emb)
     if isinstance(cfg, ResNetConfig):
         return _resnet_layout(cfg)
+    if isinstance(cfg, MnistConfig):
+        return _mnist_layout(cfg)
+    if isinstance(cfg, SkipGramConfig):
+        return _skipgram_layout(cfg)
     return _layout(cfg)
 
 
+#: Configs whose parameters are all fp32 (the models cast at each use).
+_FP32_CONFIGS = (BertConfig, ResNetConfig, MnistConfig, SkipGramConfig)
+
+
 def _dtype(cfg, kind: str) -> torch.dtype:
-    if isinstance(cfg, (BertConfig, ResNetConfig)):
+    if isinstance(cfg, _FP32_CONFIGS):
         return torch.float32
     return {"norm": torch.float32, "router": torch.float32,
             "head": cfg.logits_dtype}.get(kind, cfg.dtype)
 
 
-def _trunc_normal(shape, std: float, gen: torch.Generator,
-                  device) -> torch.Tensor:
+def _unit_trunc_normal(shape, gen: torch.Generator,
+                       device) -> torch.Tensor:
     """fp32 samples of N(0, 1) truncated to [-2, 2] (inverse-CDF of a
-    uniform draw), rescaled to ``std`` after truncation."""
+    uniform draw)."""
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
     u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
     x = torch.erfinv((2.0 * (lo + u * (1.0 - 2.0 * lo)) - 1.0))
-    x = (x * math.sqrt(2.0)).clamp_(-2.0, 2.0)
-    return x.mul_(std / _TRUNC_STD)
+    return (x * math.sqrt(2.0)).clamp_(-2.0, 2.0)
 
 
-def init_params(cfg, seed: int, device=None, *,
+def _trunc_normal(shape, std: float, gen: torch.Generator,
+                  device) -> torch.Tensor:
+    """:func:`_unit_trunc_normal` rescaled to ``std`` after truncation
+    (``lecun_normal``)."""
+    return _unit_trunc_normal(shape, gen, device).mul_(std / _TRUNC_STD)
+
+
+def init_params(cfg, seed: Union[int, torch.Generator], device=None, *,
                 token_types: bool = True) -> Dict[str, torch.Tensor]:
-    """Seeded weights for ``cfg`` (a ``LlamaConfig``, ``BertConfig`` or
-    ``ResNetConfig``; for ResNet also the running statistics) drawn on
-    ``device`` (``None``: the CUDA device) with an explicit generator.  ``token_types`` (BERT only): whether to make the
-    ``type_emb`` table, as the reference's ``init`` does when it is given
+    """Seeded weights for ``cfg`` (a ``LlamaConfig``, ``BertConfig``,
+    ``ResNetConfig``, ``MnistConfig`` or ``SkipGramConfig``; for ResNet
+    also the running statistics) on ``device`` (``None``: the CUDA
+    device), drawn with an explicit generator: a new one seeded with
+    ``seed`` on ``device``, or ``seed`` itself when it is a
+    ``torch.Generator`` (drawn on its device, then moved).
+    ``token_types`` (BERT only): whether to make the ``type_emb`` table,
+    as the reference's ``init`` does when it is given
     ``token_type_ids``."""
     layout = _layout_of(cfg, token_types)
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
+    if isinstance(seed, torch.Generator):
+        gen = seed
+    else:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
+    draw = gen.device
     out: Dict[str, torch.Tensor] = {}
     for name, kind, shape in layout:
         if kind in ("norm", "var"):
-            t = torch.ones(shape, dtype=torch.float32, device=device)
+            t = torch.ones(shape, dtype=torch.float32, device=draw)
         elif kind in ("zero", "norm0", "mean"):
-            t = torch.zeros(shape, dtype=torch.float32, device=device)
+            t = torch.zeros(shape, dtype=torch.float32, device=draw)
         elif kind == "embed":
-            t = torch.randn(shape, generator=gen, device=device,
+            t = torch.randn(shape, generator=gen, device=draw,
                             dtype=torch.float32)
             t.mul_(1.0 / math.sqrt(cfg.hidden_size))
+        elif kind == "uniform":
+            t = torch.rand(shape, generator=gen, device=draw,
+                           dtype=torch.float32).mul_(2.0).sub_(1.0)
+        elif kind == "trunc":
+            t = _unit_trunc_normal(shape, gen, draw).mul_(
+                1.0 / math.sqrt(cfg.embedding_size))
         else:   # lecun_normal over flax's fan_in
             # dense / head / router / conv: everything but the out dim;
             # expert [E, in, out]: in times the batch dims (flax's
             # receptive field).
             fan_in = (shape[-2] * math.prod(shape[:-2]) if kind == "expert"
                       else math.prod(shape[1:]))
-            t = _trunc_normal(shape, 1.0 / math.sqrt(fan_in), gen, device)
-        out[name] = t.to(_dtype(cfg, kind))
+            t = _trunc_normal(shape, 1.0 / math.sqrt(fan_in), gen, draw)
+        out[name] = t.to(device=device, dtype=_dtype(cfg, kind))
     return out
 
 
@@ -238,10 +309,21 @@ def _resnet_jax_path(cfg: ResNetConfig, name: str,
     return coll, tuple(parts[:-1]) + (leaf,)
 
 
+def _mnist_jax_path(name: str) -> Tuple[str, ...]:
+    """``conv_<i>.weight`` is flax's ``Conv_<i>/kernel``, ``dense_<i>.bias``
+    its ``Dense_<i>/bias``."""
+    module, leaf = name.split(".")
+    kind, index = module.split("_")
+    return (f"{kind.capitalize()}_{index}",
+            {"weight": "kernel"}.get(leaf, leaf))
+
+
 def _path(cfg, name: str, kind: str) -> Tuple[str, Tuple[str, ...]]:
     """(collection, flax path) of a port name of the given kind."""
     if isinstance(cfg, ResNetConfig):
         return _resnet_jax_path(cfg, name, kind)
+    if isinstance(cfg, MnistConfig):
+        return "params", _mnist_jax_path(name)
     return "params", _jax_path(name, kind)
 
 
@@ -260,8 +342,9 @@ def _has_type_emb(cfg, tree: Mapping) -> bool:
 
 def params_from_jax(tree: Mapping, cfg,
                     device=None) -> Dict[str, torch.Tensor]:
-    """Convert the JAX package's ``LlamaModel`` or ``BertForPretraining``
-    parameters (``variables`` or ``variables["params"]``, leaves
+    """Convert the JAX package's ``LlamaModel``, ``BertForPretraining``,
+    ``MnistConvNet``, ``MnistMLP`` or ``SkipGramModel`` parameters
+    (``variables`` or ``variables["params"]``, leaves
     convertible with ``np.asarray``), or a ``ResNet``'s whole ``{"params",
     "batch_stats"}`` variables, into the port's state dict on ``device``
     (``None``: the CUDA device)."""
