@@ -7,7 +7,10 @@ Builds every CUDA kernel of the port from ``horovod_tpu_torch/csrc``
 (one nvcc per source, all started together) and, beside them, the eager
 engine from ``horovod_tpu_torch/cpp`` (g++), then:
 
-1. device    — ``nvidia-smi`` name and power limit, torch device, build s;
+1. device    — ``nvidia-smi`` name and power limit, torch device, build s
+               (and ``import_cache``, before the fleet: the s of one import
+               of every module into the bytecode cache that the processes
+               the script starts share);
 2. kernels   — each kernel against its plain PyTorch version on the card
                at the main path's shapes (stated tolerances), with its
                median time, its bound, the plain version's time and one
@@ -152,12 +155,12 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                (an allreduce enqueued right behind the GEMM that writes its
                input); staging and engine times, the plane, the pinned pool;
 11. engine_train — the engine-driven optimizers (``torch_frontend``)
-               training ``bench_llama``'s model at its widths cut to 8
+               training ``bench_llama``'s model at its widths cut to 2
                layers (ENGINE_TRAIN_LAYERS; the full 16 train in
-               ``observe``) on two
-               ranks of the engine on the one card (``--train-worker
+               ``autotune``) in two worlds of two ranks of the engine on
+               the one card that run side by side (``--train-worker
                RANK``, through ``run_ranks``, the engine phase's
-               launcher), B 4 x S 2048 each, the rows of the bench's
+               launcher; ENGINE_TRAIN_WORLDS), B 4 x S 2048 each, the rows of the bench's
                ``default_rng(0)`` batch, weights broadcast from rank 0 by
                ``torch_frontend.broadcast_parameters``; four parts, 2
                warm-up and 5 timed steps each: ``hook`` (the hook form
@@ -168,7 +171,7 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                steps); each checks that its loss falls, the ranks'
                parameters agree bit for bit (an allgather of
                per-tensor digests; for local SGD right after steps 4 and
-               8 only, with 2 syncs counted), 24 flash launches a step and
+               8 only, with 2 syncs counted), 6 flash launches a step and
                no plain call, and a bitwise anchor at 2 layers: the hook
                step against ``grouped_allreduce`` of the same gradients
                and the same inner step, ZeRO-1 (fp32, SGD) against the
@@ -176,14 +179,14 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                replicated loop; one line per part with step ms, tokens/s,
                peak memory, the engine's and the staging's counters a
                step; then three parts of the sparse plane: ``topk`` (the
-               hook form with ``Compression.topk(0.01)``: 67 sparse
-               allreduces a step, D2H bytes under 5 % of ``hook``'s, the
+               hook form with ``Compression.topk(0.01)``: a sparse
+               allreduce a leaf a step, D2H bytes under 5 % of ``hook``'s, the
                first step's selection, residual and output bitwise
                against the CPU's on 11 leaves of every shape, one step
                split into selection, allgathers and scatter, and a 2-layer
                anchor against ``hvd.allreduce(topk)`` of the same
                gradients), ``local_sgd_topk`` (H 4, the masters' deltas
-               top-k'd: 2 syncs of 67 sparse allreduces) and ``policy``
+               top-k'd: 2 syncs of a sparse allreduce a leaf) and ``policy``
                (``HOROVOD_WIRE_POLICY=1`` on an fp32 copy with AdamW: the
                leaves sent int8, every 0/1-D leaf fp32,
                ``wire_int8_count`` growing, the card's statistics against
@@ -224,8 +227,32 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                B1-B3 launches as the part's schedule gives (the ring: 2
                hops x 2 layers a step), no fallback; step ms, the bytes
                that cross between ranks and the bytes staged a step;
+14b. parallel_zoo — the reference's sharding rules on BERT and ResNet
+               through ``shard_params`` and ``make_parallel_train_step``
+               on two ranks sharing the card (``--parallel-zoo-worker
+               RANK``, gloo), fp32 (TF32 off), SGD 0.05, 3 steps a part:
+               ``bert_tensor`` (tensor 2) and ``bert_fsdp`` (fsdp 2,
+               placed by hand) on BERT-base at its published widths and
+               depth (12 layers), the flash seam, ``train_bert``'s first 4
+               rows (S 512, its key mask), ``train=False``;
+               ``resnet_tensor`` and ``resnet_fsdp`` (BatchNorm over the
+               global batch, 4 rows a rank) on ResNet-50 at 224², 1000
+               classes, global B 8, train mode, each block's last
+               BatchNorm scale at 0.1; each part against the world of one
+               on the same rank, seeds and global batch (loss rtol 1e-4,
+               each leaf within 1e-3 of the world of one's own update,
+               the running statistics within 1e-5 of their scale; for
+               ResNet, whose ReLUs and max-pool ties flip under rounding,
+               a leaf may also be off by up to twice the farthest that 4
+               runs of the world of one with one ulp of weight noise land
+               from it), the ranks' losses equal, B1-B3 12 launches a
+               step in the BERT parts, none plain, no fallback; the
+               models' sizes, step ms, the bytes that cross between ranks
+               and the bytes staged a step, collectives a step, peak
+               memory, the noise floor;
 15. ckpt    — the weight plane on CUDA state: ``bench_llama``'s model at
-               its full config under the hook form's ZeRO-1 (AdamW 3e-4,
+               its widths cut to 2 of its 16 layers (CKPT_LAYERS) under
+               the hook form's ZeRO-1 (AdamW 3e-4,
                fp32 masters) on two ranks of the card (``--ckpt-worker
                RANK``), B 4 x S 2048 each: step 1 and its save (the
                writer's pinned buffers are made), step 2, ``save()``
@@ -243,8 +270,8 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                script's ``--kill-worker`` (bench_llama's widths at 2
                layers, ``MasterWeights(AdamW)``, gradients averaged by
                the engine, ``run_elastic`` with the env-configured writer
-               every 2 steps, 8 steps), without and then with
-               ``HOROVOD_FAULT_INJECT=1:5:ckpt-kill`` (rank 1 killed
+               every 2 steps, 8 steps), without and, side by side with
+               that run, with ``HOROVOD_FAULT_INJECT=1:5:ckpt-kill`` (rank 1 killed
                between the halves of its step-6 shard write): no manifest
                names the torn step, the relaunched world enters at the
                survivors' last commit, the final digest equals the clean
@@ -253,7 +280,8 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
 17. serve_weights — a checkpoint of seeded Llama-3-8B weights cut to 2
                layers (1.49 B parameters, fp32 on disk) written by the
                JAX-form capture; a replica serving it behind the router
-               (``run --serve --serve-model D``), 8 streams of 960 new
+               (``run --serve --serve-model D``, started while this
+               process restores the same checkpoint), 8 streams of 960 new
                tokens (a pool of 1024 blocks), and mid-stream
                a partial push (layer 0's q and o on the int8 wire, every
                norm scale) through ``WeightPusher``: every stream requeued
@@ -265,8 +293,9 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                the same push copied in place (``captures`` unchanged):
                restore s, push MB, swap ms, requeued, tokens/s before and
                after;
-18. observe — ``engine_train``'s hook part (bench_llama's model, bf16,
-               B 4 x S 2048 a rank, 2 warm-up and 8 timed steps) on two
+18. observe — ``engine_train``'s hook part (bench_llama's widths cut to
+               4 of its 16 layers (OBSERVE_LAYERS), bf16, B 4 x S 2048 a
+               rank, 2 warm-up and 8 timed steps) on two
                ranks sharing the card (``--observe-worker RANK``), plain,
                then with the timeline on every rank, telemetry every
                cycle, the flight recorder and rank 0's metrics endpoint:
@@ -277,7 +306,7 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                per-rank series are there, the merged timeline's flows all
                resolve (sinks after their sources, none before 0), the
                hook form's gradient names are its spans, the ranks'
-               parameters are bitwise equal, 16 launches of each of B1-B3
+               parameters are bitwise equal, 4 launches of each of B1-B3
                a step; step ms off and on, timeline MB and events a step,
                scrape ms; then the stall inspector (rank 1 withholds a
                4 MB CUDA tensor 3 s under ``HOROVOD_STALL_WARNING_SEC=1``:
@@ -332,7 +361,11 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
 21. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
-Each phase prints one JSON line; any failed check raises (exit != 0) and
+``parallel`` runs side by side with ``ckpt``, and ``parallel_zoo`` with
+``ckpt_kill``: each of these phases works in processes it starts, each
+world on a coordinator port of its own.  Each phase prints one JSON line
+(``script_s``: seconds since the script started); any failed check
+raises (exit != 0) and
 no result line is printed.  Without a CUDA device it exits 2 at once.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -341,6 +374,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import atexit
 import contextlib
 import copy
 import dataclasses
@@ -378,7 +412,8 @@ from horovod_tpu_torch.examples import bert_pretraining_fsdp as bert_example
 from horovod_tpu_torch.examples.llama_packed_pretraining import (
     boundary_mask, make_packed_batch, packed_lm_loss)
 from horovod_tpu_torch.experiments import conv_bn_spike
-from horovod_tpu_torch.models.bert import BertConfig, dot_product_attention
+from horovod_tpu_torch.models.bert import (BertConfig, BertForPretraining,
+                                           dot_product_attention)
 from horovod_tpu_torch.models.convert import (init_params, jax_paths,
                                               params_to_jax)
 from horovod_tpu_torch.models.generation import (generate, paged_decode_step,
@@ -386,7 +421,7 @@ from horovod_tpu_torch.models.generation import (generate, paged_decode_step,
 from horovod_tpu_torch.models.llama import (LlamaConfig, LlamaModel, RMSNorm,
                                             attend, causal_attention)
 from horovod_tpu_torch.common import native_build
-from horovod_tpu_torch.common.launch import free_port
+from horovod_tpu_torch.common.launch import TORCH_PORT_OFFSET, free_port
 from horovod_tpu_torch.models.resnet import ResNet, ResNetConfig
 from horovod_tpu_torch.monitor import postmortem
 from horovod_tpu_torch.ops import _build
@@ -427,8 +462,63 @@ SERVE_ENV = {
 }
 
 
+#: The script's start: each phase line carries the seconds since it
+#: (``script_s``), so the lines give each phase's share of the time limit.
+SCRIPT_T0 = time.monotonic()
+
+
+_EMIT_LOCK = threading.Lock()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    line = json.dumps({"phase": phase,
+                       "script_s": time.monotonic() - SCRIPT_T0, **fields})
+    with _EMIT_LOCK:        # whole lines, also from phases run side by side
+        sys.stdout.write(line + "\n")
+        sys.stdout.flush()
+
+
+def side_by_side(*calls) -> list:
+    """Run each of ``calls`` (a callable of no argument) in a thread of its
+    own and return their results in order, once every one has ended; the
+    first exception raised in any of them is raised here.  For phases
+    whose work is in processes they start, so that two such phases share
+    the card's host instead of waiting for each other."""
+    results, errors = [None] * len(calls), [None] * len(calls)
+
+    def run(i):
+        try:
+            results[i] = calls[i]()
+        except BaseException as e:  # noqa: BLE001 -- raised after the join
+            errors[i] = e
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(calls))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for e in errors:
+        if e is not None:
+            raise e
+    return results
+
+
+_PORTS_LOCK = threading.Lock()
+_PORTS_HANDED: set = set()
+
+
+def distinct_port() -> int:
+    """A free port (``free_port``: it and the port TORCH_PORT_OFFSET above
+    it) that no earlier launch of this script was handed, so launches
+    that start side by side never pick the same one."""
+    with _PORTS_LOCK:
+        while True:
+            port = free_port()
+            pair = {port, port + TORCH_PORT_OFFSET}
+            if not pair & _PORTS_HANDED:
+                _PORTS_HANDED.update(pair)
+                return port
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1796,7 +1886,7 @@ def fleet_run(env, plan, restart, wait_ready):
     alive on the mount)."""
     shm_before = set(os.listdir("/dev/shm")) if os.path.isdir("/dev/shm") \
         else set()
-    mport = free_port()
+    mport = distinct_port()
     proc, port, log = bench_serve.start_fleet(
         2, device="cuda", env=dict(env, HOROVOD_METRICS_PORT=str(mport)),
         restart=restart, timeout=FLEET_TIMEOUT_S)
@@ -2892,7 +2982,7 @@ def run_ranks(flag: str, phase: str, timeout_s: float, extra=(),
     files, so no rank blocks on a full pipe while another is waited on.
     ``exit_codes[r]`` is a rank's expected exit code other than 0 (an
     injected death); such a rank's result is None."""
-    port = free_port()
+    port = distinct_port()
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
     env.update(HOROVOD_SIZE=str(ENGINE_RANKS),
@@ -2972,10 +3062,10 @@ def phase_engine():
 
 TRAIN_RANKS_TIMEOUT_S = 900
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
-#: engine_train's depth: bench_llama's widths cut from 16 layers to 8,
-#: to keep the whole script well inside its time limit (the observe and
-#: autotune phases train the full 16).
-ENGINE_TRAIN_LAYERS = 8
+#: engine_train's depth: bench_llama's widths cut from 16 layers to 2
+#: (the anchors' depth), to keep the whole script well inside its time
+#: limit (the autotune phase trains the full 16).
+ENGINE_TRAIN_LAYERS = 2
 LOCAL_SGD_H, LOCAL_SGD_STEPS = 4, 8
 #: The anchors' depth (bench_llama's widths).
 ANCHOR_LAYERS = 2
@@ -3652,12 +3742,18 @@ def rank_batch(cfg, rank: int, size: int, dev) -> torch.Tensor:
         .to(dev)
 
 
-def train_worker(rank: int, device: str, cfg=None) -> dict:
+#: engine_train's parts in two worlds of two ranks that run side by side
+#: (``topk`` reads the ``hook`` part's report, so they share a world).
+ENGINE_TRAIN_WORLDS = (("hook", "topk", "local_sgd_topk"),
+                       ("zero1", "fsdp", "local_sgd", "policy"))
+
+
+def train_worker(rank: int, device: str, cfg=None, names=None) -> dict:
     """One rank of the engine_train phase: bench_llama's model (``cfg``,
     default ``bench.llama_config()`` at ENGINE_TRAIN_LAYERS) at B 4 x S
     2048, this rank's 4 rows
-    of the bench's ``default_rng(0)`` batch of 8.  Each part's failed
-    check raises."""
+    of the bench's ``default_rng(0)`` batch of 8, through the parts
+    ``names`` (default all, in order).  Each part's failed check raises."""
     hvd.init(device=device)
     dev = hvd.device()
     cfg = cfg or dataclasses.replace(bench.llama_config(),
@@ -3672,6 +3768,8 @@ def train_worker(rank: int, device: str, cfg=None) -> dict:
              ("local_sgd_topk", part_local_sgd_topk),
              ("policy", part_policy))
     for name, part in parts:
+        if names is not None and name not in names:
+            continue
         t = time.monotonic()
         out[name] = part(cfg, batch, dev)
         out[name]["part_s"] = time.monotonic() - t
@@ -3694,18 +3792,25 @@ def train_worker(rank: int, device: str, cfg=None) -> dict:
 def phase_engine_train():
     """bench_llama's model trained by the engine-driven optimizers, on two
     ranks of the eager engine on the one card: the hook form, ZeRO-1,
-    FSDP units and local SGD.  Prints one line per part."""
+    FSDP units, local SGD and the sparse plane, in two worlds of two ranks
+    side by side (ENGINE_TRAIN_WORLDS).  Prints one line per part."""
     t0 = time.monotonic()
-    results = run_ranks("--train-worker", "engine_train",
-                        TRAIN_RANKS_TIMEOUT_S)
+    worlds = side_by_side(*(
+        functools.partial(run_ranks, "--train-worker", "engine_train",
+                          TRAIN_RANKS_TIMEOUT_S,
+                          extra=("--train-parts", ",".join(names)))
+        for names in ENGINE_TRAIN_WORLDS))
     smi = smi_now()
     for part in ("hook", "zero1", "fsdp", "local_sgd", "topk",
                  "local_sgd_topk", "policy"):
-        emit("engine_train", part=part, ranks=ENGINE_RANKS,
+        world = next(i for i, names in enumerate(ENGINE_TRAIN_WORLDS)
+                     if part in names)
+        results = worlds[world]
+        emit("engine_train", part=part, ranks=ENGINE_RANKS, world=world,
              layers=results[0]["layers"], batch_per_rank=results[0]["batch"],
              per_rank=[r[part] for r in results], nvidia_smi_after=smi)
     emit("engine_train", part="phase", wall_s=time.monotonic() - t0,
-         worker_wall_s=[r["wall_s"] for r in results])
+         worker_wall_s=[[r["wall_s"] for r in w] for w in worlds])
 
 
 # ---------------------------------------------------------------------------
@@ -4209,11 +4314,287 @@ def phase_parallel():
 
 
 # ---------------------------------------------------------------------------
+# phase 14b: parallel_zoo: BERT-base and ResNet-50 placed by the rules
+# (tensor, and fsdp by hand) through make_parallel_train_step on two ranks
+# ---------------------------------------------------------------------------
+
+PARALLEL_ZOO_TIMEOUT_S = 600
+PARALLEL_ZOO_PARTS = ("bert_tensor", "bert_fsdp", "resnet_tensor",
+                      "resnet_fsdp")
+PZOO_BERT_B, PZOO_RESNET_B, PZOO_RESNET_HW = 4, 8, 224
+PZOO_LAST_SCALE = 0.1
+#: ResNet's world-of-one runs with one ulp of weight noise, and how many
+#: times the farthest of them from the world of one a leaf of the placed
+#: run may be, where that exceeds PAR_PARAM_REL (see parallel_zoo_worker).
+PZOO_NOISE_RUNS, PZOO_FLOOR_FACTOR = 4, 2.0
+#: Running statistics against the world of one, each BatchNorm's buffer
+#: as ||got - want|| over its scale (:func:`stats_scale`).
+PZOO_STATS_REL = 1e-5
+
+
+def stats_scale(name: str, buffers: dict) -> torch.Tensor:
+    """What a running statistic's error is measured against: a variance
+    against itself, a mean against the standard deviation beside it (a
+    mean after a convolution sits near zero, where its own norm would
+    measure rounding against nothing)."""
+    if name.endswith(".var"):
+        return buffers[name]
+    return buffers[name[:-len("mean")] + "var"].sqrt()
+
+
+def pzoo_model(family: str, dev):
+    """(model, global batch, loss_fn): BERT-base at its published widths
+    and depth, fp32, the flash seam, ``train_bert``'s first 4 rows (its
+    key mask and token types), ``train=False``; or ResNet-50 at 224², 1000
+    classes, fp32, train mode, B 8 of seeded images.  The same weights
+    and batch on every rank."""
+    if family == "bert":
+        cfg = dataclasses.replace(BertConfig.base(), dtype=torch.float32)
+        model = BertForPretraining.from_state_dict(
+            cfg, init_params(cfg, 7, dev), fa.flash_attention_fn)
+        batch = bert_batch(7).rows(slice(0, PZOO_BERT_B)).to(dev)
+        return model, batch, bert_example.pretraining_loss
+    cfg = ResNetConfig.resnet50(dtype=torch.float32)
+    state = init_params(cfg, 7, dev)
+    # Each block's zero-initialised last BatchNorm scale at 0.1: the main
+    # paths move from the first step, so every leaf's update is far above
+    # fp32's resolution of it (from zero some move by ~3 ulps in 3 steps,
+    # which no bound relative to the update can hold), and the steps stay
+    # well-conditioned (at 1.0, one ulp of noise on the weights moves the
+    # second step's loss by ~1 %: no two fp32 runs agree).
+    for k, v in state.items():
+        if k.endswith(".scale") and not v.any():
+            v.fill_(PZOO_LAST_SCALE)
+    model = ResNet.from_state_dict(cfg, state)
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((PZOO_RESNET_B, PZOO_RESNET_HW, PZOO_RESNET_HW, 3))
+    y = rng.integers(0, cfg.num_classes, PZOO_RESNET_B)
+    batch = (torch.from_numpy(x.astype(np.float32)).to(dev),
+             torch.from_numpy(y).to(dev))
+
+    def loss_fn(model, batch):
+        return softmax_cross_entropy(model(batch[0], train=True), batch[1])
+    return model, batch, loss_fn
+
+
+def pzoo_world_of_one(family: str, dev, noise_seed=None):
+    """The plain model's SGD steps on this rank alone, on the global
+    batch: (losses, parameters and buffers after the steps, {leaf:
+    ||update||}).  ``noise_seed``: first multiply each weight by 1 + 1e-7
+    · N(0, 1) (about one fp32 ulp), a run that differs from the plain one
+    by rounding only."""
+    model, batch, loss_fn = pzoo_model(family, dev)
+    if noise_seed is not None:
+        gen = torch.Generator(device=dev).manual_seed(noise_seed)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen,
+                                              device=dev))
+    start = {k: v.detach().clone() for k, v in model.named_parameters()}
+    opt = torch.optim.SGD(model.parameters(), lr=PAR_LR)
+    losses = []
+    for _ in range(PAR_STEPS):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(model, batch)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    update = {k: float((v - start[k]).norm()) for k, v in params.items()}
+    buffers = {k: v.detach().clone() for k, v in model.named_buffers()}
+    del model, opt, start
+    free_memory()
+    return losses, params, buffers, update
+
+
+def pzoo_off(params, buffers, ref) -> tuple:
+    """(each leaf's ||got - want|| / ||want's update||, the running
+    statistics' error over their scale) against one world of one."""
+    _, ref_params, ref_buffers, update = ref
+    rel = {n: float((p - ref_params[n]).norm()) / max(update[n], 1e-30)
+           for n, p in params.items()}
+    stats = [float((b - ref_buffers[n]).norm())
+             / float(stats_scale(n, ref_buffers).norm())
+             for n, b in buffers.items()]
+    return rel, max(stats, default=0.0)
+
+
+def pzoo_sizes() -> dict:
+    """Each family's parameter count and fp32 bytes (the meta device:
+    nothing allocated)."""
+    out = {}
+    for family, model in (
+            ("bert", BertForPretraining(dataclasses.replace(
+                BertConfig.base(), dtype=torch.float32), device="meta")),
+            ("resnet", ResNet(ResNetConfig.resnet50(dtype=torch.float32),
+                              device="meta"))):
+        n = sum(p.numel() for p in model.parameters())
+        out[family] = {"params": n, "param_gb_fp32": 4 * n / 1e9}
+    return out
+
+
+def pzoo_part(part: str, dev) -> dict:
+    """One part's steps on a mesh of both ranks: the placement, the
+    parallel step's losses and ms, the flash launches, the collectives'
+    counters a step, peak memory; the whole parameters and buffers."""
+    from horovod_tpu_torch.parallel.placement import full_state_dict
+
+    family, axis = part.split("_")
+    mesh = build_mesh({axis: hvd.size()})
+    model, batch, loss_fn = pzoo_model(family, dev)
+    if family == "bert":
+        batch = batch.over(hvd.size() if axis == "fsdp" else 1)
+    shard_params(model, mesh)
+    split = {n: p.shape for n, p in model.named_parameters()
+             if model.placement.specs.get(p)
+             and any(model.placement.specs[p])}
+    opt = torch.optim.SGD(model.parameters(), lr=PAR_LR)
+    step = make_parallel_train_step(model, opt, mesh, loss_fn=loss_fn)
+    card = dev.type == "cuda"
+    if card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launches()
+    comm.reset_stats()
+    losses, step_ms = [], []
+    for _ in range(PAR_STEPS):
+        t = time.perf_counter()
+        losses.append(float(step(batch)))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    # The kernels on the card; their plain versions on a CPU rehearsal.
+    out = dict(losses=losses, step_ms=step_ms,
+               kernel_launches=dict(fa.launches if card else fa.plain_calls),
+               plain_calls=dict(fa.plain_calls) if card else {},
+               params_split=len(split),
+               params_split_bytes_here=4 * sum(math.prod(s)
+                                               for s in split.values()),
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9
+               if card else None,
+               **{k + "_per_step": v / PAR_STEPS
+                  for k, v in comm.stats.items()})
+    params = full_state_dict(model)
+    buffers = {k: v.detach().clone() for k, v in model.named_buffers()}
+    del model, opt, step
+    free_memory()
+    return out, params, buffers
+
+
+def parallel_zoo_worker(rank: int, device: str) -> dict:
+    """One rank of the parallel_zoo phase: each part on a mesh of both
+    ranks (gloo, the card shared), held against the world of one on this
+    rank (fp32, TF32 off).  Each part's failed check raises."""
+    hvd.init(device=device, backend="gloo")
+    dev = hvd.device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": hvd.rank(), "size": hvd.size(),
+           "backend": torch.distributed.get_backend()}
+    for family in ("bert", "resnet"):
+        # The world of one's parameters stay on the card through its
+        # family's parts (BERT-base 0.44 GB, ResNet-50 0.10 GB, fp32); a
+        # ResNet's also in PZOO_NOISE_RUNS runs that differ from it by one
+        # ulp of weight noise: its ReLUs and max-pool ties flip under
+        # rounding, and such runs part from it by up to a few % of some
+        # small leaves' 3-step updates, above PAR_PARAM_REL (BERT's GELU
+        # has no kink: its bound is PAR_PARAM_REL alone).
+        refs = [pzoo_world_of_one(family, dev)]
+        if family == "resnet":
+            refs += [pzoo_world_of_one(family, dev, seed)
+                     for seed in range(PZOO_NOISE_RUNS)]
+        # Each leaf's (and the statistics') fp32 floor: the farthest a
+        # run that differs from the world of one by rounding lands from it.
+        noise = [pzoo_off(r[1], r[2], refs[0]) for r in refs[1:]]
+        floor = {n: max((o[0][n] for o in noise), default=0.0)
+                 for n in refs[0][1]}
+        stats_floor = max((o[1] for o in noise), default=0.0)
+        for part in PARALLEL_ZOO_PARTS:
+            if not part.startswith(family):
+                continue
+            fallbacks = fa.fallback_count()
+            res, params, buffers = pzoo_part(part, dev)
+            ref_losses = refs[0][0]
+            loss_err = max(abs(a - b) / abs(b)
+                           for a, b in zip(res["losses"], ref_losses))
+            rel, stats = pzoo_off(params, buffers, refs[0])
+            bound = {n: max(PAR_PARAM_REL, PZOO_FLOOR_FACTOR * floor[n])
+                     for n in rel}
+            over = {n: (rel[n], bound[n]) for n in rel if rel[n] > bound[n]}
+            worst = max(rel, key=rel.get)
+            stats_bound = max(PZOO_STATS_REL, PZOO_FLOOR_FACTOR * stats_floor)
+            res.update(world_of_one_losses=ref_losses, loss_rel_err=loss_err,
+                       param_rel_err=rel[worst], param_rel_worst=worst,
+                       param_rel_bound_worst=bound[worst],
+                       noise_floor_param_rel=max(floor.values()),
+                       leaves_over_1e3=sum(v > PAR_PARAM_REL
+                                           for v in rel.values()),
+                       params_compared=len(params), stats_rel_err=stats,
+                       stats_bound=stats_bound, stats_compared=len(buffers),
+                       fallbacks=fa.fallback_count() - fallbacks)
+            out[part] = res
+            check(len(params) == len(refs[0][1]),
+                  f"parallel_zoo {part}: {len(params)} leaves of "
+                  f"{len(refs[0][1])}")
+            check(loss_err <= PAR_LOSS_RTOL,
+                  f"parallel_zoo {part}: losses {res['losses']} vs "
+                  f"{ref_losses}")
+            check(not over, f"parallel_zoo {part}: leaves off the world of "
+                            f"one beyond their bound (rel, bound): {over}")
+            check(stats <= stats_bound,
+                  f"parallel_zoo {part}: running statistics off by "
+                  f"{stats} (bound {stats_bound})")
+            want = 12 * PAR_STEPS if family == "bert" else 0
+            check(all(n == want for n in res["kernel_launches"].values())
+                  and not any(res["plain_calls"].values()),
+                  f"parallel_zoo {part}: flash launches "
+                  f"{res['kernel_launches']}, plain {res['plain_calls']}")
+            check(res["fallbacks"] == 0, f"parallel_zoo {part}: a fallback "
+                                         "ran")
+            del params, buffers
+            free_memory()
+        del refs
+        free_memory()
+    hvd.shutdown()
+    return out
+
+
+def phase_parallel_zoo():
+    """The four parts on two ranks of the card; the ranks' losses must be
+    equal."""
+    t0 = time.monotonic()
+    results = run_ranks("--parallel-zoo-worker", "parallel_zoo",
+                        PARALLEL_ZOO_TIMEOUT_S)
+    smi = smi_now()
+    emit("parallel_zoo", part="sizes", **pzoo_sizes(),
+         bert_batch=[PZOO_BERT_B, BERT_S],
+         resnet_batch=[PZOO_RESNET_B, PZOO_RESNET_HW, PZOO_RESNET_HW, 3],
+         peak_gb_by_part={p: [r[p]["peak_gb"] for r in results]
+                          for p in PARALLEL_ZOO_PARTS})
+    for part in PARALLEL_ZOO_PARTS:
+        per_rank = [r[part] for r in results]
+        check(per_rank[0]["losses"] == per_rank[1]["losses"],
+              f"parallel_zoo {part}: ranks' losses differ: "
+              f"{[r['losses'] for r in per_rank]}")
+        emit("parallel_zoo", part=part, ranks=ENGINE_RANKS,
+             backend=results[0]["backend"], steps=PAR_STEPS, lr=PAR_LR,
+             loss_rtol=PAR_LOSS_RTOL, param_rel=PAR_PARAM_REL,
+             stats_rel=PZOO_STATS_REL, per_rank=per_rank,
+             nvidia_smi_after=smi)
+    emit("parallel_zoo", part="phase", wall_s=time.monotonic() - t0)
+
+
+# ---------------------------------------------------------------------------
 # phase 15: the weight plane: sharded async checkpoints of CUDA state,
 # bench_llama's model under ZeRO-1 on two ranks of the card
 # ---------------------------------------------------------------------------
 
 CKPT_TIMEOUT_S = 600
+#: ckpt's depth: bench_llama's widths cut from 16 layers to 2, to keep the
+#: whole script inside its limit.
+CKPT_LAYERS = 2
+
+
+def ckpt_config():
+    return dataclasses.replace(bench.llama_config(), num_layers=CKPT_LAYERS)
 
 
 def sync(dev) -> None:
@@ -4280,7 +4661,7 @@ def ckpt_worker(rank: int, device: str, directory: str) -> dict:
     restore against the uninterrupted step 3."""
     hvd.init(device=device)
     dev = hvd.device()
-    cfg = bench.llama_config()
+    cfg = ckpt_config()
     rows = 8 // hvd.size()
     tokens = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (8, 2049), dtype=np.int32)
@@ -4324,6 +4705,9 @@ def ckpt_worker(rank: int, device: str, directory: str) -> dict:
     step(model, opt)
     writer.wait(timeout=CKPT_TIMEOUT_S)
     writer.close()
+    # Rank 0 writes the manifest after the commit barrier, so the other
+    # ranks' wait() can return before it: read only once rank 0's has.
+    hvd.allreduce(torch.zeros(1, device=dev), name="ckpt.committed")
     after = {k: v.detach().clone()
              for k, v in zero_leaves(opt, model).items()}
     loader = CheckpointLoader(directory)
@@ -4384,7 +4768,7 @@ def phase_ckpt(dev):
         t0 = time.monotonic()
         results = run_ranks("--ckpt-worker", "ckpt", CKPT_TIMEOUT_S,
                             extra=("--ckpt-dir", directory))
-        cfg = bench.llama_config()
+        cfg = ckpt_config()
         model = LlamaModel.from_state_dict(
             cfg, init_params(cfg, 1, dev), attention_fn=fa.flash_attention_fn)
         opt = zero_optimizer(model)
@@ -4519,9 +4903,11 @@ def kill_run(directory: str, fault: bool, worker=None) -> dict:
         env["HOROVOD_FAULT_INJECT"] = "1:5:ckpt-kill"
     cmd = [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "2",
            "--restart-on-failure", "1" if fault else "0",
+           "--coordinator", f"127.0.0.1:{distinct_port()}",
            "--checkpoint-dir", directory, "--",
            *(worker or [sys.executable, os.path.abspath(__file__),
                         "--kill-worker"])]
+    port = int(cmd[cmd.index("--coordinator") + 1].rsplit(":", 1)[1])
     t0 = time.monotonic()
     proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
@@ -4540,7 +4926,8 @@ def kill_run(directory: str, fault: bool, worker=None) -> dict:
                            "timed out:\n" + "\n".join(
                                ln for _, ln in lines[-40:]))
     reader.join(timeout=30)
-    return {"rc": rc, "lines": lines, "wall_s": time.monotonic() - t0}
+    return {"rc": rc, "lines": lines, "wall_s": time.monotonic() - t0,
+            "port": port}
 
 
 def _kill_events(lines, tag):
@@ -4555,13 +4942,14 @@ def _kill_events(lines, tag):
 
 def phase_ckpt_kill(worker=None):
     """``python -m horovod_tpu_torch.run -np 2 --restart-on-failure 1
-    --checkpoint-dir D`` over the kill worker, without and then with
+    --checkpoint-dir D`` over the kill worker, without and with
     ``HOROVOD_FAULT_INJECT=1:5:ckpt-kill`` (rank 1 SIGKILLed between the
-    halves of its step-6 shard write)."""
+    halves of its step-6 shard write).  The two runs go side by side
+    (each its own coordinator, directory and ranks)."""
     shm_before = set(os.listdir("/dev/shm")) if os.path.isdir("/dev/shm") \
         else set()
-    runs = {}
-    for name in ("clean", "fault"):
+
+    def one(name):
         directory = tempfile.mkdtemp(prefix=f"chip_smoke_kill_{name}_")
         try:
             run = kill_run(directory, fault=name == "fault", worker=worker)
@@ -4572,7 +4960,11 @@ def phase_ckpt_kill(worker=None):
             run["latest"] = found[1] if found else None
         finally:
             shutil.rmtree(directory, ignore_errors=True)
-        runs[name] = run
+        return run
+
+    runs = dict(zip(("clean", "fault"), side_by_side(
+        lambda: one("clean"), lambda: one("fault"))))
+    for name, run in runs.items():
         text = "\n".join(ln for _, ln in run["lines"])
         check(run["rc"] == 0, f"ckpt_kill {name}: launcher exited "
                               f"{run['rc']}:\n{text[-4000:]}")
@@ -4617,7 +5009,13 @@ def phase_ckpt_kill(worker=None):
                              f"the runs and ranks: {digests}")
     check(relaunched_first is not None, "ckpt_kill: the relaunched rank "
                                         "never stepped")
-    leaked = sorted(shm_after - shm_before)
+    # The engine names its segments by its coordinator's port: those of
+    # another world that runs beside this phase are that world's.
+    own = {f"hvd{r['port']}_" for r in runs.values()}
+    with _PORTS_LOCK:
+        others = tuple({f"hvd{p}_" for p in _PORTS_HANDED} - own)
+    leaked = sorted(n for n in shm_after - shm_before
+                    if not n.startswith(others))
     check(not leaked, f"ckpt_kill: /dev/shm entries leaked: {leaked}")
     emit("ckpt_kill", ranks=2, layers=KILL_LAYERS, steps=KILL_STEPS,
          batch_per_rank=[KILL_B, KILL_S], interval=2,
@@ -4628,6 +5026,14 @@ def phase_ckpt_kill(worker=None):
          relaunch_to_first_step_s=relaunched_first - t_kill,
          digest=digests.pop(), wall_s_clean=clean["wall_s"],
          wall_s_fault=fault["wall_s"],
+         stamps_s={name: {
+             "first_enter": min((t for t, _, _ in _kill_events(
+                 r["lines"], "CKPT_KILL_ENTER")), default=None),
+             "first_step": min((t for t, _, _ in _kill_events(
+                 r["lines"], "CKPT_KILL_STEP")), default=None),
+             "last_step": max((t for t, _, _ in _kill_events(
+                 r["lines"], "CKPT_KILL_STEP")), default=None)}
+             for name, r in runs.items()},
          steps_run_fault=[int(ok[3]) for ok in fault["oks"]],
          dev_shm_leaked=leaked)
 
@@ -4731,7 +5137,7 @@ def phase_serve_weights(dev, seed):
     directory = tempfile.mkdtemp(prefix="chip_smoke_serve_ckpt_")
     shm_before = set(os.listdir("/dev/shm")) if os.path.isdir("/dev/shm") \
         else set()
-    proc = None
+    proc, starter, fleet = None, None, {}
     try:
         seeded = init_params(cfg, seed, dev)
         seeded_model = LlamaModel.from_state_dict(cfg, seeded)
@@ -4746,6 +5152,23 @@ def phase_serve_weights(dev, seed):
         write_s = time.monotonic() - t
         ckpt_bytes = w.last_bytes
         del st, sh
+
+        # The replica behind the router starts (and restores the
+        # checkpoint) while this process restores it too.
+        def start_fleet():
+            t = time.monotonic()
+            try:
+                fleet["got"] = bench_serve.start_fleet(
+                    1, device=dev.type,
+                    env=dict(env, HOROVOD_SERVE_WARMUP="512"),
+                    timeout=SW_TIMEOUT_S,
+                    extra_args=("--serve-model", directory))
+            except BaseException as e:  # noqa: BLE001 -- raised on join
+                fleet["error"] = e
+            fleet["s"] = time.monotonic() - t
+
+        starter = threading.Thread(target=start_fleet, daemon=True)
+        starter.start()
 
         # In this process: the runner restored from the checkpoint.
         renv = dict(env, HOROVOD_SERVE_CHECKPOINT=directory)
@@ -4774,11 +5197,11 @@ def phase_serve_weights(dev, seed):
                                        f"{line_bytes} bytes")
         check({f["wire"] for f in frames} == {"int8", "fp32"},
               f"serve_weights: wires {({f['wire'] for f in frames})}")
-        t = time.monotonic()
-        proc, port, log = bench_serve.start_fleet(
-            1, device=dev.type, env=dict(env, HOROVOD_SERVE_WARMUP="512"),
-            timeout=SW_TIMEOUT_S, extra_args=("--serve-model", directory))
-        fleet_start_s = time.monotonic() - t
+        starter.join()
+        if "error" in fleet:
+            raise fleet["error"]
+        proc, port, log = fleet.pop("got")
+        fleet_start_s = fleet["s"]
         check(any("serving checkpoint step 0" in ln for ln in log),
               "serve_weights: the router did not serve the checkpoint")
         cli = ServeClient("127.0.0.1", port, timeout=SW_TIMEOUT_S)
@@ -4876,7 +5299,7 @@ def phase_serve_weights(dev, seed):
         emit("serve_weights", model=model_name, layers=SW_LAYERS,
              params=n_params, checkpoint_bytes=ckpt_bytes,
              checkpoint_write_s=write_s, restore_s=restore_s,
-             fleet_start_s=fleet_start_s,
+             fleet_start_s=fleet_start_s, fleet_started_beside_restore=True,
              replica_times=replica_times(log), requests=len(reqs),
              push_leaves=len(frames), push_line_mb=line_bytes / 2 ** 20,
              push_wire="int8", push_round_trip_s=t_ack - t_push,
@@ -4895,6 +5318,10 @@ def phase_serve_weights(dev, seed):
         del runner, fresh, seeded_model, seeded, expected
         free_memory()
     finally:
+        if starter is not None:
+            starter.join()
+            if "got" in fleet:
+                proc = fleet["got"][0]
         if proc is not None:
             bench_serve.kill_fleet(proc)
         shutil.rmtree(directory, ignore_errors=True)
@@ -4911,6 +5338,9 @@ def phase_serve_weights(dev, seed):
 
 OBS_STEPS = 8
 OBS_TIMEOUT_S = 600
+#: The plain and on runs' depth: bench_llama's widths cut from 16 layers
+#: to 4, to keep the whole script inside its limit (autotune trains 16).
+OBSERVE_LAYERS = 4
 #: Fleet totals against the sum of the ranks' stats() on these counters.
 OBS_SUM_KEYS = ("data_bytes_tx", "data_bytes_rx", "allreduce_bytes",
                 "tensors", "responses")
@@ -5157,6 +5587,8 @@ def observe_worker(rank: int, device: str, mode: str, directory: str,
     hvd.init(device=device)
     dev = hvd.device()
     cfg = cfg or bench.llama_config()
+    if mode in ("plain", "on"):
+        cfg = dataclasses.replace(cfg, num_layers=OBSERVE_LAYERS)
     out = {"rank": hvd.rank(), "mode": mode, "device": str(dev)}
     t0 = time.monotonic()
     if mode in ("plain", "on"):
@@ -5223,7 +5655,7 @@ def _phase_observe(directory: str) -> None:
     plain = run_ranks("--observe-worker", "observe_plain", OBS_TIMEOUT_S,
                       extra=("--obs-mode", "plain", "--obs-dir", directory))
     tl = os.path.join(directory, "timeline.json")
-    mport = free_port()
+    mport = distinct_port()
     scrape: dict = {}
     scraper = threading.Thread(target=_obs_scrape,
                                args=(directory, mport, scrape))
@@ -5743,6 +6175,15 @@ def range_kernels(prof, name):
     return total, calls, groups
 
 
+#: What the bytecode cache is filled with: every module of the port, and
+#: this script.
+WARM_IMPORTS = ("import importlib, pkgutil, horovod_tpu_torch\n"
+                "for m in pkgutil.walk_packages(horovod_tpu_torch.__path__,"
+                " 'horovod_tpu_torch.'):\n"
+                "    importlib.import_module(m.name)\n"
+                "import chip_smoke\n")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -5750,14 +6191,19 @@ def main(argv=None) -> int:
     # One rank of the engine phase, started by the phase itself.
     parser.add_argument("--engine-worker", type=int, default=None,
                         metavar="RANK", help=argparse.SUPPRESS)
-    # One rank of the engine_train phase.
+    # One rank of the engine_train phase, and the parts its world runs.
     parser.add_argument("--train-worker", type=int, default=None,
                         metavar="RANK", help=argparse.SUPPRESS)
+    parser.add_argument("--train-parts", default=None,
+                        help=argparse.SUPPRESS)
     # One rank of the engine_moe phase.
     parser.add_argument("--moe-worker", type=int, default=None,
                         metavar="RANK", help=argparse.SUPPRESS)
     # One rank of the parallel phase.
     parser.add_argument("--parallel-worker", type=int, default=None,
+                        metavar="RANK", help=argparse.SUPPRESS)
+    # One rank of the parallel_zoo phase.
+    parser.add_argument("--parallel-zoo-worker", type=int, default=None,
                         metavar="RANK", help=argparse.SUPPRESS)
     # One rank of the ckpt phase, and its checkpoint directory.
     parser.add_argument("--ckpt-worker", type=int, default=None,
@@ -5782,7 +6228,9 @@ def main(argv=None) -> int:
               flush=True)
         return 0
     if args.train_worker is not None:
-        print(json.dumps(train_worker(args.train_worker, "cuda:0")),
+        print(json.dumps(train_worker(
+            args.train_worker, "cuda:0",
+            names=args.train_parts and args.train_parts.split(","))),
               flush=True)
         return 0
     if args.moe_worker is not None:
@@ -5791,6 +6239,10 @@ def main(argv=None) -> int:
     if args.parallel_worker is not None:
         print(json.dumps(parallel_worker(args.parallel_worker, "cuda:0")),
               flush=True)
+        return 0
+    if args.parallel_zoo_worker is not None:
+        print(json.dumps(parallel_zoo_worker(args.parallel_zoo_worker,
+                                             "cuda:0")), flush=True)
         return 0
     if args.ckpt_worker is not None:
         print(json.dumps(ckpt_worker(args.ckpt_worker, "cuda:0",
@@ -5820,6 +6272,20 @@ def main(argv=None) -> int:
             engine_build["error"] = e
         engine_build["s"] = time.monotonic() - t
 
+    # Every process this script starts imports torch and the port anew.
+    # Where the interpreter writes no bytecode (PYTHONDONTWRITEBYTECODE)
+    # and the installation ships none, each such import compiles them
+    # from source (8-10 s a process on an H100 host).  The processes it
+    # starts share one bytecode cache in the build directory instead,
+    # filled by one import of every module while the kernels build.
+    os.environ["PYTHONPYCACHEPREFIX"] = str(_build.BUILD_DIR / "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    t_warm = time.monotonic()
+    warm = subprocess.Popen(
+        [sys.executable, "-c", WARM_IMPORTS],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: warm.poll() is None and warm.kill())
     engine_thread = threading.Thread(target=build_engine)
     engine_thread.start()
     build_s = _build.build()
@@ -5859,6 +6325,12 @@ def main(argv=None) -> int:
     del runner, served               # the fleet and training need the memory
     gc.collect()
     torch.cuda.empty_cache()
+    # The first phase that starts processes: the cache is full by now.
+    warm_err = warm.communicate()[1]
+    check(warm.returncode == 0, f"importing every module of the port "
+                                f"failed:\n{warm_err[-3000:]}")
+    emit("import_cache", warm_s=time.monotonic() - t_warm,
+         directory=os.environ["PYTHONPYCACHEPREFIX"])
     phase_fleet(args.seed)
     train_launches, train = phase_train(dev, args.seed)
     for e in flash_entries:
@@ -5885,9 +6357,9 @@ def main(argv=None) -> int:
     moe_tokens = phase_train_moe(dev, args.seed)[1]
     gc.collect()
     torch.cuda.empty_cache()
-    phase_parallel()
-    phase_ckpt(dev)
-    phase_ckpt_kill()
+    # Phases whose work is in the processes they start go two by two.
+    side_by_side(phase_parallel, lambda: phase_ckpt(dev))
+    side_by_side(phase_parallel_zoo, phase_ckpt_kill)
     phase_serve_weights(dev, args.seed)
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,24 +1,27 @@
 """BERT pretraining with FSDP-style sharding: MLM + NSP on synthetic
 batches.
 
-Counterpart of ``examples/bert_pretraining_fsdp.py``.  The pieces:
-``hvd.init()``, ``build_mesh({"data": n // fsdp, "fsdp": fsdp})``,
-``BertForPretraining`` (fp32 parameters, bf16 compute; ``--flash`` puts
-the flash kernels behind the attention seam, bidirectional through the
-key-bias sideband), ``shard_params`` (FSDP2 when ``fsdp`` > 1), AdamW with
-optax.adamw's defaults, and ``hvd.make_train_step`` over
-:func:`pretraining_loss`.
+Counterpart of ``examples/bert_pretraining_fsdp.py``, whose step is one
+GSPMD program over ``("data", "fsdp")``.  The pieces: ``hvd.init()``,
+``build_mesh({"data": n // fsdp, "fsdp": fsdp})``, ``BertForPretraining``
+(fp32 parameters, bf16 compute; ``--flash`` puts the flash kernels behind
+the attention seam, bidirectional through the key-bias sideband),
+``shard_params`` (the reference's rules, placed by hand at ``fsdp`` > 1:
+each rank keeps its block of the embedding tables and the Dense kernels,
+the norms, biases, ``mlm_bias`` and ``nsp`` replicated), AdamW with
+optax.adamw's defaults, and ``make_parallel_train_step`` over
+:func:`pretraining_loss` (:func:`make_step`).
 
 The reference's step is one GSPMD program over the *global* batch, so its
 MLM term is the sum over every masked position of the global batch
 divided by their global count.  Here every rank draws the same global
-batch from ``default_rng(0)`` (the reference's rank-0 stream) and steps
-its own rows (:meth:`BertBatch.shard`), which carry the global count
-over n as their MLM divisor: the ranks' average — what the optimizer's
-gradient averaging and ``make_train_step``'s loss average compute — is
-then the global loss, with no collective in the loss.  An n-rank run and
-the reference's one-process run on an n-device mesh see the same batch
-and the same loss.
+batch from ``default_rng(0)`` (the reference's rank-0 stream) and hands
+it whole to the step, which keeps the rank's rows; the batch carries the
+global count over the data-like size as its MLM divisor
+(:meth:`BertBatch.over`), so the ranks' average loss — what the step
+averages — is the global loss, with no collective in the loss.  An
+n-rank run and the reference's one-process run on an n-device mesh see
+the same batch and the same loss.
 
     python -m horovod_tpu_torch.examples.bert_pretraining_fsdp --smoke \\
         [--flash] [--fsdp N] [--device cpu]
@@ -34,7 +37,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-__all__ = ["BertBatch", "make_batch", "pretraining_loss", "build", "main"]
+__all__ = ["BertBatch", "make_batch", "pretraining_loss", "build",
+           "make_step", "main"]
 
 
 class BertBatch(NamedTuple):
@@ -59,17 +63,13 @@ class BertBatch(NamedTuple):
         return BertBatch(*(t[index] if isinstance(t, torch.Tensor) else t
                            for t in self))
 
-    def shard(self, rank: int, n: int) -> "BertBatch":
-        """Rank ``rank``'s 1/n of this global batch's rows, whose MLM sum
-        is divided by the global masked count over n: the average over
-        the n ranks of :func:`pretraining_loss` is the global batch's."""
-        B = len(self.input_ids)
-        if B % n:
-            raise ValueError(f"a batch of {B} rows does not split over "
-                             f"{n} ranks")
+    def over(self, n: int) -> "BertBatch":
+        """This global batch for a step over ``n`` data-parallel shards:
+        its MLM sum divided by the global masked count over n, so the
+        average over the shards of :func:`pretraining_loss` on their rows
+        is the global batch's."""
         count = max(int(self.mask_positions.sum()), 1)
-        return self.rows(slice(rank * B // n, (rank + 1) * B // n)) \
-            ._replace(mlm_count=count / n)
+        return self._replace(mlm_count=count / n)
 
     def to(self, device) -> "BertBatch":
         return BertBatch(*(t.to(device) if isinstance(t, torch.Tensor)
@@ -118,22 +118,29 @@ def build(cfg, state, mesh, lr: float, attention_fn):
     on every rank (``broadcast_parameters``) and placed by
     ``shard_params``; AdamW with optax.adamw's defaults (betas 0.9/0.999,
     eps 1e-8, weight decay 1e-4 — torch's own default decay is 1e-2) in a
-    ``DistributedOptimizer`` that averages the gradients unless FSDP
-    units reduce them."""
+    ``DistributedOptimizer`` (:func:`make_step` unwraps it, as the
+    reference's GSPMD step switches its reduction off)."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.bert import BertForPretraining
     from horovod_tpu_torch.parallel.api import shard_params
-    from horovod_tpu_torch.parallel.mesh import AXIS_FSDP, axis_sizes
 
     model = BertForPretraining.from_state_dict(cfg, state, attention_fn)
     hvd.broadcast_parameters(model)
     model = shard_params(model, mesh)
-    fsdp = axis_sizes(mesh).get(AXIS_FSDP, 1) > 1
     opt = hvd.DistributedOptimizer(
         torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999),
-                          eps=1e-8, weight_decay=1e-4),
-        reduce_gradients=not fsdp)
+                          eps=1e-8, weight_decay=1e-4))
     return model, opt
+
+
+def make_step(model, opt, mesh):
+    """``step(global batch) -> loss``: ``make_parallel_train_step`` over
+    :func:`pretraining_loss` (pass the batch through
+    :meth:`BertBatch.over` the data-like size)."""
+    from horovod_tpu_torch.parallel.api import make_parallel_train_step
+
+    return make_parallel_train_step(model, opt, mesh,
+                                    loss_fn=pretraining_loss)
 
 
 def main(argv=None) -> int:
@@ -160,12 +167,12 @@ def main(argv=None) -> int:
     state = init_params(cfg, 0, dev, token_types=False)
     model, opt = build(cfg, state, mesh, args.lr, flash_attention_fn
                        if args.flash else dot_product_attention)
-    step = hvd.make_train_step(model, pretraining_loss, opt)
+    step = make_step(model, opt, mesh)
 
     rng = np.random.default_rng(0)
     for i in range(steps):
         batch = make_batch(rng, cfg.vocab_size, args.batch_size, seq)
-        loss = float(step(batch.shard(rank, n).to(dev)))
+        loss = float(step(batch.over(n).to(dev)))
         if i % max(steps // 5, 1) == 0 and rank == 0:
             print(f"step {i}: loss={loss:.4f}", flush=True)
     hvd.shutdown()

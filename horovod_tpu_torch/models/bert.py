@@ -43,6 +43,23 @@ D]`` tensors with a ``[B, 1, 1, S]`` key mask (True = attend) or None;
 :func:`dot_product_attention` by default, ``ops.flash_attention.
 flash_attention_fn`` for the flash kernels (bidirectional with a mask,
 causal without one).
+
+A model placed on a mesh (``parallel/api.py`` ``shard_params``) holds
+only its rank's block of each parameter, and its modules' ``placement``
+(``parallel/placement.py``; None on one rank) names the axes of the
+collectives (``parallel/comm.py``) in their forward, as in
+``models/llama.py``: every weight is gathered over ``fsdp`` for its use;
+``qkv``, ``mlp_in`` and ``mlm_transform`` are column-parallel and
+``proj`` and ``mlp_out`` row-parallel over ``tensor``; the attention runs
+on each rank's heads (on every head, from the gathered ``qkv`` product,
+where the heads do not divide ``tensor``); ``mlm_transform``'s output is
+gathered before ``mlm_ln``, which needs the whole H; the token table is
+split on its vocabulary, so the lookup sums the ranks' rows and the tied
+head's logits are gathered whole; the LayerNorms and ``nsp`` are
+replicated.  Dropout draws on whole activations only, so ranks of one
+``tensor`` group given generators in the same state draw the same bits.
+Unplaced, every axis is None and each collective returns its input, so
+one rank runs the same ops as before any placement.
 """
 
 from __future__ import annotations
@@ -53,6 +70,9 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from horovod_tpu_torch.parallel import comm
+from horovod_tpu_torch.parallel.placement import UNPLACED
 
 __all__ = ["BertConfig", "BertEncoder", "BertForPretraining", "BertLayer",
            "SelfAttention", "dot_product_attention", "LN_EPS"]
@@ -124,7 +144,13 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
 class Dense(nn.Linear):
     """flax ``nn.Dense(features, dtype=compute_dtype)``: an fp32 weight
     ``[out, in]`` and bias, cast with the input to ``compute_dtype`` at
-    every use."""
+    every use.  Placed, it is column-parallel where its weight's
+    dimension 0 is split over ``tensor`` (the input through
+    ``comm.copy_to``, this rank's part of the bias) and row-parallel where
+    dimension 1 is (the partial sums through ``comm.reduce_from``, the
+    bias added once after)."""
+
+    placement = None
 
     def __init__(self, in_features: int, out_features: int,
                  compute_dtype: torch.dtype, device=None):
@@ -133,13 +159,26 @@ class Dense(nn.Linear):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pl = self.placement or UNPLACED
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        w = pl.weight(self.weight).to(dt)
+        row = pl.tensor_at(self.weight, 1)
+        if row is not None:
+            return comm.reduce_from(F.linear(x.to(dt), w), row) \
+                + self.bias.to(dt)
+        x = comm.copy_to(x, pl.tensor_at(self.weight, 0))
+        return F.linear(x.to(dt), w,
+                        pl.column_part(self.bias, self.weight).to(dt))
 
 
 class Embed(nn.Embedding):
     """flax ``nn.Embed(dtype=compute_dtype)``: an fp32 table read in
-    ``compute_dtype``; :meth:`attend` is the tied output projection."""
+    ``compute_dtype``; :meth:`attend` is the tied output projection.
+    With its rows split over ``tensor``, each rank looks up its own rows
+    (zeros for the others' ids), the parts summed over the axis, and
+    :meth:`attend` gives this rank's columns of the logits."""
+
+    placement = None
 
     def __init__(self, num: int, features: int, compute_dtype: torch.dtype,
                  device=None):
@@ -147,11 +186,23 @@ class Embed(nn.Embedding):
         self.compute_dtype = compute_dtype
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self.weight).to(self.compute_dtype)
+        pl = self.placement or UNPLACED
+        w = pl.weight(self.weight)
+        vocab = pl.tensor_at(self.weight, 0)
+        if vocab is None:
+            return F.embedding(ids, w).to(self.compute_dtype)
+        rows = w.shape[0]
+        local = ids - vocab.index * rows
+        inside = (local >= 0) & (local < rows)
+        x = F.embedding(local.clamp(0, rows - 1), w) \
+            * inside[..., None].to(w.dtype)
+        return comm.reduce_from(x, vocab).to(self.compute_dtype)
 
     def attend(self, h: torch.Tensor) -> torch.Tensor:
+        pl = self.placement or UNPLACED
         dt = self.compute_dtype
-        return F.linear(h.to(dt), self.weight.to(dt))
+        h = comm.copy_to(h, pl.tensor_at(self.weight, 0))
+        return F.linear(h.to(dt), pl.weight(self.weight).to(dt))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -166,6 +217,8 @@ class LayerNorm(nn.LayerNorm):
 
 
 class SelfAttention(nn.Module):
+    placement = None
+
     def __init__(self, cfg: BertConfig, device=None,
                  attention_fn: Callable = dot_product_attention):
         super().__init__()
@@ -176,12 +229,23 @@ class SelfAttention(nn.Module):
         self.proj = Dense(H, H, cfg.dtype, device)
 
     def forward(self, x, mask=None, *, train: bool = False, generator=None):
+        """Where ``qkv``'s ``tensor`` block holds this rank's heads of q, k
+        and v, the attention runs on them; where it is split otherwise,
+        the product is gathered whole, every head attends, and the slice
+        of the output the row-parallel ``proj`` reads is kept."""
         cfg = self.config
-        B, S, H = x.shape
-        qkv = self.qkv(x).reshape(B, S, 3, cfg.num_heads, cfg.head_dim)
-        q, k, v = qkv.unbind(2)
-        out = self.attention_fn(q, k, v, mask)
-        out = self.proj(out.reshape(B, S, H))
+        pl = self.placement or UNPLACED
+        B, S, _ = x.shape
+        col = pl.tensor_at(self.qkv.weight, 0)
+        local = self.qkv.weight in pl.parts
+        qkv = self.qkv(x)
+        if not local:
+            qkv = comm.gather(qkv, col, -1)
+        q, k, v = qkv.reshape(B, S, 3, -1, cfg.head_dim).unbind(2)
+        out = self.attention_fn(q, k, v, mask).reshape(B, S, -1)
+        if not local:
+            out = comm.split(out, pl.tensor_at(self.proj.weight, 1), -1)
+        out = self.proj(out)
         return dropout(out, cfg.dropout_rate, train, generator)
 
 
@@ -280,13 +344,19 @@ class BertForPretraining(nn.Module):
         model.load_state_dict(state, strict=True, assign=True)
         return model
 
+    placement = None
+
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 *, train: bool = False, generator=None):
         cfg = self.config
+        pl = self.placement or UNPLACED
         x = self.encoder(input_ids, token_type_ids, attention_mask,
                          train=train, generator=generator)
         h = F.gelu(self.mlm_transform(x), approximate="tanh")
+        h = comm.gather(h, pl.tensor_at(self.mlm_transform.weight, 0), -1)
         h = self.mlm_ln(h).to(cfg.dtype)
-        mlm_logits = self.encoder.attend(h).float() + self.mlm_bias
+        vocab = pl.tensor_at(self.encoder.tok_emb.weight, 0)
+        mlm_logits = self.encoder.attend(h).float() \
+            + comm.split(self.mlm_bias, vocab, 0)
         nsp_logits = self.nsp(x[:, 0])
-        return mlm_logits, nsp_logits
+        return comm.gather(mlm_logits, vocab, -1), nsp_logits

@@ -59,7 +59,7 @@ draws on the generator's device and moves the result to ``device``.
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterator, Mapping, Tuple, Union
+from typing import Dict, Iterator, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -72,7 +72,7 @@ from horovod_tpu_torch.models.resnet import ResNetConfig, block_convs
 from horovod_tpu_torch.models.word2vec import SkipGramConfig
 
 __all__ = ["init_params", "params_from_jax", "params_to_jax", "jax_tree",
-           "jax_paths"]
+           "jax_paths", "flax_layout"]
 
 #: Standard deviation of a unit normal truncated to [-2, 2]; lecun_normal
 #: divides by it so the truncated samples have the requested std.
@@ -327,12 +327,19 @@ def _path(cfg, name: str, kind: str) -> Tuple[str, Tuple[str, ...]]:
     return "params", _jax_path(name, kind)
 
 
+#: The flax dimension of each of the port tensor's dimensions, by kind
+#: (the same order where a kind is absent): a ``Linear`` weight [out, in]
+#: is flax's [in, out] kernel, an OIHW conv weight its HWIO kernel.
+_FLAX_DIMS = {"dense": (1, 0), "head": (1, 0), "router": (1, 0),
+              "conv": (3, 2, 0, 1)}
+
+
+def _flax_dims(kind: str, ndim: int) -> Tuple[int, ...]:
+    return _FLAX_DIMS.get(kind, tuple(range(ndim)))
+
+
 def _from_jax_layout(arr: np.ndarray, kind: str) -> np.ndarray:
-    if kind in ("dense", "head", "router"):
-        return arr.T                              # [in, out] -> [out, in]
-    if kind == "conv":
-        return arr.transpose(3, 2, 0, 1)          # HWIO -> OIHW
-    return arr
+    return arr.transpose(_flax_dims(kind, arr.ndim))
 
 
 def _has_type_emb(cfg, tree: Mapping) -> bool:
@@ -375,11 +382,8 @@ def params_from_jax(tree: Mapping, cfg,
 def _to_jax_view(t: torch.Tensor, kind: str) -> torch.Tensor:
     """The flax layout of a port tensor, as a view (no copy): ``[out, in]``
     to ``[in, out]``, OIHW to HWIO."""
-    if kind in ("dense", "head", "router"):
-        return t.t()
-    if kind == "conv":
-        return t.permute(2, 3, 1, 0)
-    return t
+    dims = _flax_dims(kind, t.dim())
+    return t.permute(*sorted(range(t.dim()), key=dims.__getitem__))
 
 
 def jax_tree(state: Mapping[str, torch.Tensor], cfg) -> Dict:
@@ -409,6 +413,26 @@ def jax_paths(cfg) -> Dict[str, Tuple[str, str]]:
     for name, kind, _ in _layout_of(cfg, True):
         coll, path = _path(cfg, name, kind)
         out[".".join((coll,) + path)] = (name, kind)
+    return out
+
+
+def flax_layout(cfg, type_emb: bool = True
+                ) -> Optional[Dict[str, Tuple[str, Tuple[int, ...]]]]:
+    """``{port parameter name: (its path in the reference's tree,
+    "params/<flax path>"; the flax dimension of each port dimension)}``
+    for the model ``cfg`` describes (a ResNet's running statistics are
+    buffers and are not listed), or None for a config this module does
+    not know.  ``type_emb`` (BERT): whether the model has the token-type
+    table.  ``parallel/api.py`` applies the reference's sharding rules
+    through it."""
+    if not isinstance(cfg, (LlamaConfig,) + _FP32_CONFIGS):
+        return None
+    out = {}
+    for name, kind, shape in _layout_of(cfg, type_emb):
+        coll, path = _path(cfg, name, kind)
+        if coll == "params":
+            out[name] = ("/".join((coll,) + path),
+                         _flax_dims(kind, len(shape)))
     return out
 
 

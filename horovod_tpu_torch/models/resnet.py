@@ -30,9 +30,31 @@ math is the reference's:
   ``make_train_step`` averages the running
   statistics across ranks after each step, as the reference averages its
   ``batch_stats``.  The last BatchNorm scale of each block starts at zero
-  (``convert.init_params``).
+  (``convert.init_params``).  Placed for the reference's GSPMD step
+  (below), they are the global batch's.
 * **Tail.** The global average pool takes an fp32 mean over H and W and
   returns ``dtype`` (``jnp.mean`` of bf16); the head is an fp32 ``Dense``.
+
+**Placed** on a mesh (``parallel/api.py`` ``shard_params``, for
+``make_parallel_train_step``), the modules' ``placement``
+(``parallel/placement.py``; None on one rank) names the collectives'
+axes (``parallel/comm.py``).  Every convolution is split on its
+out-channels over ``tensor``, so the activations between the stem and the
+pool are split on channels: each convolution reads its input gathered
+whole over ``tensor`` (on the NHWC view, which ``channels_last`` makes
+contiguous; the backward reduce-scatters), while BatchNorm (with this
+rank's part of its scale and bias), ReLU, the max pool, the residual add
+(both sides split alike) and the average pool run on the slice; the
+pooled [B, C/t] is gathered (far fewer bytes than [B, C, 7, 7]); the head
+is column-parallel over the classes, its logits gathered.  In train mode
+BatchNorm sums each channel's Σx and Σx² (fp32) and the count over the
+data-like axes (``comm.psum``: every rank's loss reads every rank's rows
+through them, so the backward sums too) before it forms the mean and
+variance, as the reference's one program normalises over the global
+batch; the running statistics are updated from those and gathered over
+``tensor``, whole and equal on every rank.  Unplaced, or with every
+data-like axis of size 1, the statistics are computed as above, op for
+op.
 
 ``ResNet50()`` and its siblings build a seeded model (flax's
 initializers' distributions, not its bits) on the CUDA device, or on the
@@ -48,6 +70,9 @@ from typing import Dict, Iterator, List, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from horovod_tpu_torch.parallel import comm
+from horovod_tpu_torch.parallel.placement import UNPLACED
 
 __all__ = ["ResNetConfig", "ResNet", "BasicBlock", "BottleneckBlock",
            "BatchNorm", "Conv", "ResNet18", "ResNet34", "ResNet50",
@@ -141,12 +166,27 @@ def block_convs(block: str, cin: int, filters: int, stride: int
     return convs
 
 
+def gather_channels(x: torch.Tensor, axis) -> torch.Tensor:
+    """An NCHW activation split on channels over ``axis`` (a ``comm``
+    axis, or None for ``x`` itself), whole, for convolutions split over
+    it: gathered on the NHWC view (contiguous under ``channels_last``),
+    the backward summing the ranks' cotangents and keeping this rank's
+    channels."""
+    if axis is None:
+        return x
+    return comm.gather_shards(x.permute(0, 2, 3, 1), axis,
+                              3).permute(0, 3, 1, 2)
+
+
 class Conv(nn.Module):
     """flax ``nn.Conv(features, (k, k), strides, padding, use_bias=False,
     dtype=compute_dtype)``: an fp32 weight ``[out, in, k, k]`` (flax's
     kernel is ``[k, k, in, out]``) cast with the input to
     ``compute_dtype`` at every use.  ``padding``: ``"SAME"`` or a
-    symmetric int."""
+    symmetric int.  Placed, the weight holds this rank's out-channels and
+    the input is whole."""
+
+    placement = None
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int,
                  compute_dtype: torch.dtype, padding="SAME", device=None):
@@ -157,8 +197,9 @@ class Conv(nn.Module):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pl = self.placement or UNPLACED
         dt = self.compute_dtype
-        w = self.weight.to(dt, memory_format=torch.channels_last)
+        w = pl.weight(self.weight).to(dt, memory_format=torch.channels_last)
         x = x.to(dt)
         pad = self.padding
         if pad == "SAME":
@@ -176,7 +217,11 @@ class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(dtype=compute_dtype)`` over N, H, W of an NCHW
     input: fp32 ``scale`` and ``bias`` parameters, fp32 running ``mean``
     and ``var`` buffers (flax's ``batch_stats``), updated in place in train
-    mode."""
+    mode.  ``chan``: the ``comm`` axis the input's channels are split
+    over, or None; placed with data-like axes larger than 1, the train
+    statistics are the global batch's."""
+
+    placement = None
 
     def __init__(self, features: int, compute_dtype: torch.dtype,
                  device=None):
@@ -188,28 +233,49 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features, **f32))
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool,
+                chan=None) -> torch.Tensor:
+        pl = self.placement or UNPLACED
         if train:
             x32 = x.float()
-            mean = x32.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((x32 * x32).mean(dim=(0, 2, 3))
-                                  - mean * mean, 0.0)
+            if pl.batch:
+                mean, var = _global_stats(x32, pl.batch)
+            else:
+                mean = x32.mean(dim=(0, 2, 3))
+                var = torch.clamp_min((x32 * x32).mean(dim=(0, 2, 3))
+                                      - mean * mean, 0.0)
             with torch.no_grad():
                 m = BN_MOMENTUM
-                self.mean.copy_(m * self.mean + (1 - m) * mean)
-                self.var.copy_(m * self.var + (1 - m) * var)
+                new_mean, new_var = (comm.gather(s.detach(), chan, 0)
+                                     for s in (mean, var))
+                self.mean.copy_(m * self.mean + (1 - m) * new_mean)
+                self.var.copy_(m * self.var + (1 - m) * new_var)
         else:
-            mean, var = self.mean, self.var
-        mul = torch.rsqrt(var + BN_EPS) * self.scale
+            mean, var = (comm.split(s, chan, 0) for s in (self.mean,
+                                                          self.var))
+        mul = torch.rsqrt(var + BN_EPS) * comm.split(self.scale, chan, 0)
         c = (1, -1, 1, 1)
-        y = (x - mean.view(c)) * mul.view(c) + self.bias.view(c)
+        y = (x - mean.view(c)) * mul.view(c) \
+            + comm.split(self.bias, chan, 0).view(c)
         return y.to(self.compute_dtype)
+
+
+def _global_stats(x32: torch.Tensor, axes):
+    """Each channel's mean and (fast, biased) variance over N, H, W of
+    every rank's rows: Σx, Σx² and the count summed over ``axes``."""
+    C = x32.shape[1]
+    sums = torch.cat([x32.sum(dim=(0, 2, 3)), (x32 * x32).sum(dim=(0, 2, 3)),
+                      x32.new_full((1,), x32.numel() // C)])
+    sums = comm.psum(sums, axes)
+    mean = sums[:C] / sums[-1]
+    return mean, torch.clamp_min(sums[C:2 * C] / sums[-1] - mean * mean, 0.0)
 
 
 class _Block(nn.Module):
     """Shared by both blocks: ``convs[j]`` and ``norms[j]`` are flax's
     ``Conv_j`` and ``BatchNorm_j``; a projection of the residual, when
-    the shapes change, is the last pair."""
+    the shapes change, is the last pair.  ``chan``: the ``comm`` axis the
+    input's and output's channels are split over, or None."""
 
     block = ""
 
@@ -224,15 +290,17 @@ class _Block(nn.Module):
                                    for _, o, _, _ in shapes)
         self.n_main = 3 if self.block == "bottleneck" else 2
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        y = x
+    def forward(self, x: torch.Tensor, train: bool,
+                chan=None) -> torch.Tensor:
+        whole = gather_channels(x, chan)
+        y = whole
         for j in range(self.n_main):
-            y = self.norms[j](self.convs[j](y), train)
+            y = self.norms[j](self.convs[j](y), train, chan)
             if j < self.n_main - 1:
-                y = F.relu(y)
+                y = gather_channels(F.relu(y), chan)
         residual = x
         if len(self.convs) > self.n_main:
-            residual = self.norms[-1](self.convs[-1](x), train)
+            residual = self.norms[-1](self.convs[-1](whole), train, chan)
         return F.relu(residual + y)
 
 
@@ -277,19 +345,27 @@ class ResNet(nn.Module):
         model.load_state_dict(state, strict=True, assign=True)
         return model
 
+    placement = None
+
     def forward(self, x: torch.Tensor, *, train: bool = False
                 ) -> torch.Tensor:
+        pl = self.placement or UNPLACED
         dt = self.config.dtype
+        chan = pl.tensor_at(self.conv_init.weight, 0)
         x = x.to(dt).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        x = F.relu(self.bn_init(self.conv_init(x), train))
+        x = F.relu(self.bn_init(self.conv_init(x), train, chan))
         ph = same_padding(x.shape[2], 3, 2)
         pw = same_padding(x.shape[3], 3, 2)
         x = F.max_pool2d(F.pad(x, (*pw, *ph), value=-math.inf), 3, 2)
         for block in self.blocks:
-            x = block(x, train)
+            x = block(x, train, chan)
         x = x.float().mean(dim=(2, 3)).to(dt)
-        return self.head(x.float())
+        classes = pl.tensor_at(self.head.weight, 0)
+        x = comm.copy_to(comm.gather(x, chan, 1), classes)
+        logits = F.linear(x.float(), pl.weight(self.head.weight),
+                          comm.split(self.head.bias, classes, 0))
+        return comm.gather(logits, classes, -1)
 
 
 def _build(cfg: ResNetConfig, seed: int, device) -> ResNet:

@@ -8,29 +8,34 @@ annotates each parameter with a ``NamedSharding`` and lets GSPMD insert
 the collectives; here:
 
 * the same regexes run over each parameter's path in the reference's
-  tree (``params/encoder/layer_0/attention/qkv/kernel`` for the port's
-  ``encoder.layers.0.attention.qkv.weight``: ``layers.<i>`` is
-  ``layer_<i>``, a ``Linear`` weight is a ``kernel``, an ``Embedding``
-  weight an ``embedding``, a ``LayerNorm`` weight a ``scale``) and give
-  the reference's spec over the reference's shape; a ``Linear`` weight is
-  ``[out, in]`` here, ``[in, out]`` there, so its spec is reversed — each
-  parameter puts the same mesh axis on the same logical dimension
-  (:func:`param_specs`);
-* a ``LlamaModel`` (dense or MoE) on a mesh whose ``fsdp``, ``tensor`` or
-  ``expert`` axis is larger than 1 is placed by hand
-  (``parallel/placement.py``): each rank keeps its block of each
-  parameter and the forward adds the collectives (the Megatron pair for
-  ``tensor``, an allgather with a reduce-scatter backward for ``fsdp``,
-  a sum of the experts' parts for ``expert``);
+  tree and give the reference's spec over the reference's shape, which
+  is laid onto the port's dimensions (:func:`param_specs`).  The path
+  and the layout come from ``models/convert.py`` (:func:`~horovod_tpu_
+  torch.models.convert.flax_layout`): ``encoder.layers.0.attention.qkv.
+  weight`` is ``params/encoder/layer_0/attention/qkv/kernel``, a
+  ``Linear`` weight ``[out, in]`` is the reference's ``[in, out]``
+  kernel, and a ResNet's ``blocks.3.convs.1.weight`` (OIHW) is
+  ``params/BottleneckBlock_3/Conv_1/kernel`` (HWIO), so the rules' conv
+  ``tensor`` dimension, the kernel's out-channels, falls on the port's
+  dimension 0.  A module the converter does not know gets its dotted
+  name as its path (a ``Linear`` weight a transposed ``kernel``);
+* a ``LlamaModel`` (dense or MoE), a ``BertForPretraining`` or a
+  ``ResNet`` on a mesh whose ``fsdp``, ``tensor`` or ``expert`` axis is
+  larger than 1 (a ResNet also when ``data`` is: its BatchNorm reads the
+  global batch) is placed by hand (``parallel/placement.py``): each rank
+  keeps its block of each parameter and the forward adds the collectives
+  (the Megatron pair for ``tensor``, an allgather with a reduce-scatter
+  backward for ``fsdp``, a sum of the experts' parts for ``expert``, and
+  a ResNet's BatchNorm statistics summed over the data-like axes);
 * any other model at ``fsdp`` > 1 gets FSDP2 (``fully_shard``) per layer
   of its ``layers`` stack and at the root, HSDP over (``data``, ``fsdp``)
   when ``data`` is larger than 1 too, each parameter sharded on the
   dimension the rules give ``fsdp`` (one the rules replicate on its first
   dimension: the same values in another placement); its FSDP units reduce
   their own gradients (wrap the optimizer with
-  ``DistributedOptimizer(reduce_gradients=False)``).  ``tensor`` and
-  ``expert`` placement for those models is not ported (ROADMAP.md Queue A
-  item 7);
+  ``DistributedOptimizer(reduce_gradients=False)``) and it is stepped by
+  ``make_train_step``.  ``tensor`` and ``expert`` placement for those
+  models is not written, and raises;
 * ``seq`` and ``pipe`` axes replicate every parameter, as the rules do
   (the families that shard over them are ``parallel/seq.py`` and
   ``parallel/pipeline.py``).
@@ -100,36 +105,55 @@ def infer_param_spec(path: str, shape: Tuple[int, ...],
     return ()  # replicate by default (norms, biases, small tables)
 
 
-def _reference_path(module_name: str, module: nn.Module,
-                    param_name: str) -> Tuple[str, bool]:
-    """(the parameter's path in the reference's tree, whether the port
-    stores it transposed)."""
-    parts = module_name.split(".") if module_name else []
-    if "layers" in parts:
-        i = parts.index("layers")
-        parts[i:i + 2] = [f"layer_{parts[i + 1]}"]
-    leaf, transposed = param_name, False
+def _generic_path(name: str, module: nn.Module,
+                  param_name: str) -> Tuple[str, Tuple[int, ...]]:
+    """(a path for the rules, the flax dimension of each port dimension)
+    of a parameter of a module ``models/convert.py`` does not know: its
+    dotted name, a ``Linear`` weight a transposed ``kernel``, an
+    ``Embedding`` weight an ``embedding``."""
+    leaf, dims = param_name, None
     if isinstance(module, nn.Linear) and param_name == "weight":
-        leaf, transposed = "kernel", True
+        leaf, dims = "kernel", (1, 0)
     elif isinstance(module, nn.Embedding):
         leaf = "embedding"
-    elif isinstance(module, nn.LayerNorm) and param_name == "weight":
-        leaf = "scale"
-    return "/".join(["params"] + parts + [leaf]), transposed
+    parts = name.split(".") if name else []
+    return "/".join(["params"] + parts + [leaf]), dims
+
+
+def _reference_layout(model: nn.Module) -> Dict[str, Tuple[str, Tuple]]:
+    """{port parameter name: (its path in the reference's tree, the flax
+    dimension of each port dimension or None for the same order)}."""
+    from horovod_tpu_torch.models.convert import flax_layout
+
+    names = [n for n, _ in model.named_parameters()]
+    layout = flax_layout(getattr(model, "config", None),
+                         "encoder.type_emb.weight" in names)
+    if layout is not None and all(n in layout for n in names):
+        return {n: layout[n] for n in names}
+    out = {}
+    for mod_name, mod in model.named_modules():
+        for p_name, _ in mod.named_parameters(recurse=False):
+            out[f"{mod_name}.{p_name}" if mod_name else p_name] = \
+                _generic_path(mod_name, mod, p_name)
+    return out
 
 
 def param_specs(model: nn.Module,
                 mesh) -> Dict[str, Tuple[Optional[str], ...]]:
     """{port parameter name: spec over the port's shape}: the reference's
-    spec for the same parameter, reversed for a ``Linear`` weight."""
+    spec for the same parameter, each mesh axis on the port dimension that
+    holds the reference's (a ``Linear`` weight's spec reversed, a conv
+    weight's out-channels on dimension 0)."""
+    layout = _reference_layout(model)
     out = {}
-    for mod_name, mod in model.named_modules():
-        for p_name, p in mod.named_parameters(recurse=False):
-            path, transposed = _reference_path(mod_name, mod, p_name)
-            shape = tuple(p.shape)[::-1] if transposed else tuple(p.shape)
-            spec = infer_param_spec(path, shape, mesh)
-            name = f"{mod_name}.{p_name}" if mod_name else p_name
-            out[name] = spec[::-1] if transposed else spec
+    for name, p in model.named_parameters():
+        path, dims = layout[name]
+        dims = dims or tuple(range(p.dim()))
+        ref_shape = [0] * p.dim()
+        for d, j in enumerate(dims):
+            ref_shape[j] = p.shape[d]
+        spec = infer_param_spec(path, tuple(ref_shape), mesh)
+        out[name] = tuple(spec[j] for j in dims) if spec else ()
     return out
 
 
@@ -138,24 +162,35 @@ def param_shardings(model: nn.Module,
     """The placement :func:`shard_params` gives ``model`` on ``mesh``:
     {parameter name: one mesh axis or None per dimension of the port's
     shape} (the reference returns the matching ``NamedSharding`` tree).
-    A ``LlamaModel``'s fused gate/up weight under ``tensor`` holds, on its
-    ``tensor`` dimension, the gate half's block then the up half's
-    (``parallel/placement.py``)."""
+    Two fused weights hold their ``tensor`` block in another order inside
+    the rules' dimension (``parallel/placement.py``): a ``LlamaModel``'s
+    gate/up weight the gate half's block then the up half's, a
+    ``BertForPretraining``'s ``qkv`` its heads' block of q, of k and of
+    v."""
     return param_specs(model, mesh)
 
 
 def _hand_placed(model: nn.Module, sizes) -> bool:
+    """Whether :func:`shard_params` places ``model`` by hand on a mesh of
+    these axis sizes (``parallel/placement.py``); raises for tensor or
+    expert placement of a model that has none."""
+    from horovod_tpu_torch.models.bert import BertForPretraining
     from horovod_tpu_torch.models.llama import LlamaModel
+    from horovod_tpu_torch.models.resnet import ResNet
 
-    wide = any(sizes.get(a, 1) > 1 for a in _HAND_PLACED_AXES)
-    if not isinstance(model, LlamaModel):
+    axes = _HAND_PLACED_AXES
+    if isinstance(model, ResNet):
+        # BatchNorm over the global batch: data-parallel ranks share the
+        # statistics too.
+        axes = axes + (AXIS_DATA,)
+    elif not isinstance(model, (LlamaModel, BertForPretraining)):
         if any(sizes.get(a, 1) > 1 for a in (AXIS_TENSOR, AXIS_EXPERT)):
             raise NotImplementedError(
-                f"shard_params: tensor and expert placement is ported for "
-                f"LlamaModel only, not {type(model).__name__} (ROADMAP.md "
-                "Queue A item 7)")
+                f"shard_params: tensor and expert placement is written for "
+                f"LlamaModel, BertForPretraining and ResNet, not "
+                f"{type(model).__name__} (ROADMAP.md Queue A item 7)")
         return False
-    return wide
+    return any(sizes.get(a, 1) > 1 for a in axes)
 
 
 def shard_params(model: nn.Module, mesh) -> nn.Module:
@@ -246,35 +281,63 @@ def sum_gradients(params, axes_of: Callable, divisor: float) -> None:
             p.grad.copy_(g.view_as(p.grad))
 
 
+def _tensor_leaves(batch) -> list:
+    if isinstance(batch, torch.Tensor):
+        return [batch]
+    if isinstance(batch, dict):
+        batch = list(batch.values())
+    if isinstance(batch, (tuple, list)):
+        return [t for b in batch for t in _tensor_leaves(b)]
+    return []
+
+
+def _rows(batch, lo: int, hi: int):
+    """Rows ``lo:hi`` of every tensor of ``batch`` (a tensor, or a tuple,
+    named tuple, list or dict of them; other leaves, such as None or a
+    number, kept as they are)."""
+    if isinstance(batch, torch.Tensor):
+        return batch[lo:hi]
+    if isinstance(batch, dict):
+        return type(batch)((k, _rows(v, lo, hi)) for k, v in batch.items())
+    if isinstance(batch, (tuple, list)):
+        parts = [_rows(b, lo, hi) for b in batch]
+        return type(batch)(*parts) if hasattr(batch, "_fields") \
+            else type(batch)(parts)
+    return batch
+
+
 def make_parallel_train_step(model: nn.Module, optimizer, mesh, *,
                              loss_fn: Optional[Callable] = None):
-    """``step(tokens) -> loss``: the reference's GSPMD step over ``mesh``
+    """``step(batch) -> loss``: the reference's GSPMD step over ``mesh``
     (a ``DeviceMesh`` from ``build_mesh``).
 
-    ``tokens`` is the GLOBAL batch, the same on every rank, as the
-    reference's step takes it; each rank keeps the rows of its index over
+    ``batch`` is the GLOBAL batch, the same on every rank, as the
+    reference's step takes it: a tensor, or a tuple (named tuples too),
+    list or dict of tensors whose dimension 0 is the global batch (other
+    leaves pass unchanged).  Each rank keeps the rows of its index over
     the data-like axes (``data`` outer, ``fsdp`` inner), and ranks that
     differ only in ``tensor``, ``expert``, ``seq`` or ``pipe`` compute on
     the same rows.  The model is placed by :func:`shard_params` if it is
     not yet (before the optimizer steps for the first time).  The step
     zeroes the gradients, runs ``loss_fn(model, rows)`` (default
-    :func:`lm_loss_fn`), the backward, sums each gradient over the
-    data-like axes (over ``fsdp`` already inside the backward for a
-    parameter sharded on it) and divides it by their size, then steps the
-    optimizer (a ``DistributedOptimizer`` is unwrapped: it must not
-    reduce again).  Gradients of parameters replicated over ``tensor`` or
-    ``expert`` are whole on each rank and are not summed over them.
-    Returns the global mean loss (fp32, 0-dim).
+    :func:`lm_loss_fn` on a tokens tensor), the backward, sums each
+    gradient over the data-like axes (over ``fsdp`` already inside the
+    backward for a parameter sharded on it) and divides it by their size,
+    then steps the optimizer (a ``DistributedOptimizer`` is unwrapped: it
+    must not reduce again).  ``loss_fn`` returns the mean over its rows,
+    so the ranks' mean is the global batch's loss (a loss normalised by a
+    global count divides by that count over the data-like size).
+    Gradients of parameters replicated over ``tensor`` or ``expert`` are
+    whole on each rank and are not summed over them.  Returns the global
+    mean loss (fp32, 0-dim).
     """
-    from horovod_tpu_torch.models.llama import LlamaModel
-
     sizes = axis_sizes(mesh)
-    if sizes.get(AXIS_FSDP, 1) > 1 and not isinstance(model, LlamaModel):
+    if sizes.get(AXIS_FSDP, 1) > 1 and not _hand_placed(model, sizes):
         raise NotImplementedError(
             f"make_parallel_train_step: an fsdp axis is placed by hand for "
-            f"LlamaModel only, not {type(model).__name__}; shard it with "
-            "shard_params (FSDP2) and step it with make_train_step "
-            "(ROADMAP.md Queue A item 7)")
+            f"LlamaModel, BertForPretraining and ResNet, not "
+            f"{type(model).__name__}; shard it with shard_params (FSDP2) "
+            "and step it with make_train_step (ROADMAP.md Queue A item 7)")
     loss_fn = loss_fn or lm_loss_fn(model)
     inner = _inner_optimizer(optimizer)
     shard_params(model, mesh)
@@ -295,13 +358,22 @@ def make_parallel_train_step(model: nn.Module, optimizer, mesh, *,
         done = pl is not None and pl.dim(p, AXIS_FSDP) is not None
         return tuple(axes[a] for a in dp if not (a == AXIS_FSDP and done))
 
-    def step(tokens: torch.Tensor) -> torch.Tensor:
-        rows = tokens.shape[0] // n_dp
-        if rows * n_dp != tokens.shape[0]:
-            raise ValueError(f"batch {tokens.shape[0]} not divisible by the "
+    def step(batch) -> torch.Tensor:
+        leaves = _tensor_leaves(batch)
+        if not leaves:
+            raise ValueError("make_parallel_train_step: the batch holds no "
+                             "tensor")
+        size = leaves[0].shape[0]
+        if any(t.shape[0] != size for t in leaves):
+            raise ValueError(f"batch tensors of {[t.shape[0] for t in leaves]}"
+                             " rows: every leaf's dimension 0 is the global "
+                             "batch")
+        rows = size // n_dp
+        if rows * n_dp != size:
+            raise ValueError(f"batch {size} not divisible by the "
                              f"data-like axes' size {n_dp}")
         inner.zero_grad(set_to_none=True)
-        loss = loss_fn(model, tokens[index * rows:(index + 1) * rows])
+        loss = loss_fn(model, _rows(batch, index * rows, (index + 1) * rows))
         loss.backward()
         if dp:
             sum_gradients(params, axes_of, n_dp)

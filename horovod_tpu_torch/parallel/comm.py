@@ -18,11 +18,15 @@ written out:
   backward) where a replicated activation enters rank-specific work, and
   :func:`reduce_from` (allreduce forward, identity backward) where the
   ranks' partial sums leave it;
+* :func:`psum` (allreduce forward and backward): a sum every rank's loss
+  reads, of parts computed from every rank's rows (a BatchNorm's
+  statistics over the global batch, as SyncBatchNorm sums them);
 * :func:`gather` (allgather forward; backward: this rank's slice of a
   cotangent every rank holds whole) and its mirror :func:`split`;
   :func:`gather_shards` (allgather forward, reduce-scatter backward: a
   parameter sharded over a data-like axis, whose ranks saw different
-  data).
+  data, or an activation split over ``tensor`` read whole by work split
+  over it).
 
 Given no axis (None, or an axis of size 1), each returns its input: the
 unplaced model runs the same forward as a placed one.
@@ -46,7 +50,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["axis_group", "permute", "all_to_all", "copy_to", "reduce_from",
-           "gather", "split", "gather_shards", "allreduce", "broadcast",
+           "psum", "gather", "split", "gather_shards", "allreduce",
+           "broadcast",
            "send", "recv", "stats", "reset_stats"]
 
 #: Calls, bytes that cross between ranks, and bytes staged through the
@@ -282,6 +287,21 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None
 
 
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.axes = axes
+        for a in axes:
+            x = allreduce(x, a)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        for a in ctx.axes:
+            g = allreduce(g, a)
+        return g, None
+
+
 def copy_to(x: torch.Tensor, axes: Optional[Axes]) -> torch.Tensor:
     """Identity forward; the cotangent summed over ``axes`` backward."""
     axes = _axes(axes)
@@ -292,6 +312,14 @@ def reduce_from(x: torch.Tensor, axes: Optional[Axes]) -> torch.Tensor:
     """``x`` summed over ``axes`` forward; identity backward."""
     axes = _axes(axes)
     return _ReduceFrom.apply(x, axes) if axes else x
+
+
+def psum(x: torch.Tensor, axes: Optional[Axes]) -> torch.Tensor:
+    """``x`` summed over ``axes`` forward; the cotangent summed over them
+    backward: every rank's loss reads the sum, so each part's cotangent
+    is the sum of theirs."""
+    axes = _axes(axes)
+    return _Psum.apply(x, axes) if axes else x
 
 
 class _Gather(torch.autograd.Function):
@@ -336,10 +364,12 @@ def split(x: torch.Tensor, axis: Optional[_Axis], dim: int) -> torch.Tensor:
     return _Split.apply(x, axis, dim)
 
 
-def gather_shards(x: torch.Tensor, axis: _Axis, dim: int) -> torch.Tensor:
-    """A parameter sharded over a data-like axis, whole: allgather
-    forward; backward, the ranks' cotangents summed and this rank's slice
-    kept (a reduce-scatter)."""
+def gather_shards(x: torch.Tensor, axis: Optional[_Axis],
+                  dim: int) -> torch.Tensor:
+    """``x``'s parts whole: allgather forward; backward, the ranks'
+    cotangents summed and this rank's slice kept (a reduce-scatter) — a
+    parameter sharded over a data-like axis, or an activation split over
+    ``tensor`` that rank-specific work reads whole."""
     if axis is None or axis.size == 1:
         return x
     return _Gather.apply(x, axis, dim, True)

@@ -1,13 +1,14 @@
-"""A ``LlamaModel``'s parameters placed over the ``tensor``, ``expert`` and
-``fsdp`` axes of a mesh.
+"""A ``LlamaModel``'s, a ``BertForPretraining``'s or a ``ResNet``'s
+parameters placed over the ``tensor``, ``expert`` and ``fsdp`` axes of a
+mesh.
 
 Counterpart of what GSPMD does with the reference's ``shard_params``
 placement under ``make_parallel_train_step``: each rank keeps only its
 block of each parameter, by ``SHARDING_RULES`` (``api.param_specs``), and
-the model's one forward (``models/llama.py``) adds the collectives XLA
-would insert, on the axes its :class:`Placement` names.  Tensor
-parallelism is built on the Megatron pair of ``parallel/comm.py`` (not
-DTensor):
+the model's one forward (``models/llama.py``, ``models/bert.py``,
+``models/resnet.py``) adds the collectives XLA would insert, on the axes
+its :class:`Placement` names.  Tensor parallelism is built on the
+Megatron pair of ``parallel/comm.py`` (not DTensor):
 
 * a parameter sharded over ``fsdp`` is gathered whole for its use
   (:meth:`Placement.weight`; the backward reduce-scatters, so the
@@ -15,26 +16,43 @@ DTensor):
 * a column-parallel projection (output features over ``tensor``) takes
   its input through ``comm.copy_to`` (the input's cotangent is summed
   over ``tensor``); a row-parallel one (input features over ``tensor``)
-  hands its partial sum to ``comm.reduce_from``; the attention runs on
-  each rank's heads where both head counts divide ``tensor``, and on
-  gathered heads otherwise;
+  hands its partial sum to ``comm.reduce_from`` and adds its own bias
+  once after it; the attention runs on each rank's heads where the head
+  counts divide ``tensor``, and on gathered heads otherwise;
+* a replicated parameter used on a split activation — the bias of a
+  column-parallel projection, BERT's ``mlm_bias`` on vocabulary-split
+  logits, a BatchNorm's scale and bias on channel-split activations — is
+  cut to this rank's part through ``comm.split`` (a fused layout's
+  through :meth:`Placement.column_part`), whose backward gathers the
+  parts' gradients: the gradient is whole on every rank, as the rules'
+  replication wants;
 * the vocabulary: the embedding's rows are split over ``tensor`` (each
   rank looks up its rows, zeros elsewhere, summed over ``tensor``), the
   head's columns too, and its logits are gathered over ``tensor`` whole
   before the loss, so the loss is the reference's on every rank;
+* a ResNet's convolutions are split on their out-channels, so its
+  activations are split on channels: each convolution reads them
+  gathered whole (``comm.gather_shards``), and BatchNorm, ReLU, the
+  residual add and the pooling run on the slice; its BatchNorm sums each
+  channel's statistics over the data-like axes (:attr:`Placement.batch`,
+  ``comm.psum``), as the reference's one program normalises over the
+  global batch;
 * the MoE block routes every token on every rank (the router is
   replicated, its gradient whole on each rank), each ``expert`` rank runs
   its own experts on the tokens routed to them, and the parts are summed
   over ``expert`` (and ``tensor``) in fp32 before the cast.
 
-The fused gate/up projection: the reference splits ``w_gate_up``'s 2F
-outputs in halves after the product, so a contiguous ``tensor`` shard of
-them would give one rank every gate column and the other every up column.
-Where F divides by ``tensor``, each rank holds the gate half's block and
-the up half's block instead (``paired``): the rules' dimension and
-sizes, another order of the columns inside it.  Where only 2F divides,
-the product is gathered over ``tensor`` before the split
-(:meth:`Placement.swiglu`).  :func:`full_state_dict` undoes either layout.
+Two fused weights are split after their product in the reference, so a
+contiguous ``tensor`` block of their outputs would not hold whole parts:
+``w_gate_up``'s 2F outputs are a gate and an up half, ``qkv``'s 3H are q,
+k and v (each heads-major).  Where the parts divide by ``tensor`` (F for
+gate/up; the heads for ``qkv``), each rank holds its block of each part
+in turn (:attr:`Placement.parts`): the rules' dimension and sizes,
+another order inside it, and ``qkv``'s bias is cut the same way.
+Otherwise the product is gathered over ``tensor`` before the split
+(:meth:`Placement.swiglu`; BERT's attention then runs every head and
+keeps the slice of its output the row-parallel ``proj`` reads).
+:func:`full_state_dict` undoes either layout.
 """
 
 from __future__ import annotations
@@ -44,14 +62,27 @@ from typing import Dict, Optional
 import torch
 
 from horovod_tpu_torch.parallel import comm
-from horovod_tpu_torch.parallel.mesh import (AXIS_EXPERT, AXIS_FSDP,
-                                             AXIS_TENSOR, axis_sizes)
+from horovod_tpu_torch.parallel.mesh import (AXIS_DATA, AXIS_EXPERT,
+                                             AXIS_FSDP, AXIS_TENSOR,
+                                             axis_sizes)
 
 __all__ = ["Placement", "UNPLACED", "place", "full_state_dict"]
 
 
-def _is_gate_up(name: str) -> bool:
-    return name.endswith(("mlp.w_gate_up.weight", "moe.w_gate_up"))
+def _parts(model, name: str, spec, sizes) -> int:
+    """How many parts of a fused weight the ``tensor`` block of ``name``
+    holds one after another: 2 for a Llama gate/up weight whose F divides
+    by ``tensor``, 3 for a BERT ``qkv`` weight whose heads do, else 1."""
+    from horovod_tpu_torch.models.bert import BertForPretraining
+
+    t = sizes.get(AXIS_TENSOR, 1)
+    if AXIS_TENSOR not in spec:
+        return 1
+    if isinstance(model, BertForPretraining):
+        qkv = name.endswith("attention.qkv.weight")
+        return 3 if qkv and model.config.num_heads % t == 0 else 1
+    gate_up = name.endswith(("mlp.w_gate_up.weight", "moe.w_gate_up"))
+    return 2 if gate_up and model.config.intermediate_size % t == 0 else 1
 
 
 class Placement:
@@ -61,7 +92,8 @@ class Placement:
     unplaced model's, :data:`UNPLACED`, has every axis None and every
     parameter whole, so each collective returns its input."""
 
-    def __init__(self, mesh=None, specs: Optional[Dict] = None, paired=()):
+    def __init__(self, mesh=None, specs: Optional[Dict] = None,
+                 parts: Optional[Dict] = None):
         sizes = axis_sizes(mesh) if mesh is not None else {}
 
         def axis(name):
@@ -69,8 +101,13 @@ class Placement:
                     if sizes.get(name, 1) > 1 else None)
         self.tensor, self.expert, self.fsdp = (
             axis(AXIS_TENSOR), axis(AXIS_EXPERT), axis(AXIS_FSDP))
+        #: The data-like axes larger than 1, over which the ranks' rows
+        #: differ (``data`` outer, ``fsdp`` inner).
+        self.batch = tuple(a for a in (axis(AXIS_DATA), self.fsdp) if a)
         self.specs = specs or {}
-        self.paired = set(paired)
+        #: {parameter: k} for a fused weight whose ``tensor`` block holds
+        #: its block of each of k parts in turn.
+        self.parts = dict(parts or {})
 
     def dim(self, p, axis: str) -> Optional[int]:
         """The dimension of ``p`` split over ``axis``, or None."""
@@ -87,15 +124,25 @@ class Placement:
         over it, else None."""
         return self.tensor if self.dim(p, AXIS_TENSOR) == d else None
 
+    def column_part(self, bias: torch.Tensor, weight) -> torch.Tensor:
+        """The part of ``bias`` (replicated) that goes with this rank's
+        output block of the column-parallel ``weight`` (its dimension 0
+        split over ``tensor``), in ``weight``'s layout."""
+        col = self.tensor_at(weight, 0)
+        k = self.parts.get(weight, 1)
+        if col is None or k == 1:
+            return comm.split(bias, col, 0)
+        return comm.split(bias.view(k, -1), col, 1).reshape(-1)
+
     def swiglu(self, p_gate_up, p_down):
         """The ``tensor`` group, or None, at each step of a SwiGLU on these
         weights: where its input enters column-split work, where the
         gate/up product is gathered whole before its split (a layout that
-        is not ``paired``), where the activation is cut back after, and
-        where the output's partial sums leave."""
+        does not hold the halves' blocks in turn), where the activation is
+        cut back after, and where the output's partial sums leave."""
         col, row = (self.tensor if self.dim(p, AXIS_TENSOR) is not None
                     else None for p in (p_gate_up, p_down))
-        widen = None if p_gate_up in self.paired else col
+        widen = None if p_gate_up in self.parts else col
         return col, widen, row if widen else None, row
 
 
@@ -109,35 +156,47 @@ def _sizes_and_coords(mesh):
 
 
 def place(model, mesh) -> Placement:
-    """Cut each parameter of ``model`` (a ``LlamaModel`` holding whole
-    parameters) to this rank's block, in place (``p.data``: the
-    ``Parameter`` objects stay, so an optimizer built over them before
-    keeps them, but its state must not exist yet), and hand the model's
-    modules the placement.  Returns the placement."""
+    """Cut each parameter of ``model`` (a ``LlamaModel``,
+    ``BertForPretraining`` or ``ResNet`` holding whole parameters) to this
+    rank's block, in place (``p.data``: the ``Parameter`` objects stay, so
+    an optimizer built over them before keeps them, but its state must not
+    exist yet), and hand the model's modules the placement.  Buffers (a
+    ResNet's running statistics) stay whole.  Returns the placement;
+    raises for a ResNet whose convolutions ``tensor`` splits only in part
+    (the channel counts that do not divide by it), a layout no forward
+    here runs."""
+    from horovod_tpu_torch.models.resnet import ResNet
     from horovod_tpu_torch.parallel.api import param_specs
 
     sizes, coords = _sizes_and_coords(mesh)
-    specs, paired = {}, set()
-    F_ = model.config.intermediate_size
-    t = sizes.get(AXIS_TENSOR, 1)
-    for name, spec in param_specs(model, mesh).items():
+    specs, parts = {}, {}
+    all_specs = param_specs(model, mesh)
+    if isinstance(model, ResNet):
+        split = {AXIS_TENSOR in spec for name, spec in all_specs.items()
+                 if name.endswith("weight") and name != "head.weight"}
+        if len(split) > 1:
+            raise NotImplementedError(
+                f"place: tensor {sizes[AXIS_TENSOR]} divides some of the "
+                "ResNet's convolution widths and not others; the forward "
+                "splits every one or none")
+    for name, spec in all_specs.items():
         p = model.get_parameter(name)
         block = p.data
-        pair = _is_gate_up(name) and AXIS_TENSOR in spec and F_ % t == 0
+        k = _parts(model, name, spec, sizes)
         for d, a in enumerate(spec):
             if a is None:
                 continue
             n, i = sizes[a], coords[a]
-            if a == AXIS_TENSOR and pair:
+            if a == AXIS_TENSOR and k > 1:
                 block = torch.cat([h.chunk(n, d)[i]
-                                   for h in block.chunk(2, d)], d)
+                                   for h in block.chunk(k, d)], d)
             else:
                 block = block.chunk(n, d)[i]
         p.data = block.contiguous().clone()
         specs[p] = spec
-        if pair:
-            paired.add(p)
-    pl = Placement(mesh, specs, paired)
+        if k > 1:
+            parts[p] = k
+    pl = Placement(mesh, specs, parts)
     for mod in model.modules():
         if hasattr(type(mod), "placement"):
             mod.placement = pl
@@ -147,8 +206,9 @@ def place(model, mesh) -> Placement:
 @torch.no_grad()
 def full_state_dict(model) -> Dict[str, torch.Tensor]:
     """The whole parameters of a placed model (every rank gets them; a
-    model never placed gives its own tensors), by name, as
-    ``LlamaModel.state_dict()`` would hold them on one rank."""
+    model never placed gives its own tensors), by name, as the model's
+    ``state_dict()`` would hold them on one rank (its buffers, whole on
+    every rank, are not listed)."""
     pl = model.placement
     out = {}
     for name, p in model.named_parameters():
@@ -159,12 +219,9 @@ def full_state_dict(model) -> Dict[str, torch.Tensor]:
                     continue
                 axis = {AXIS_TENSOR: pl.tensor, AXIS_EXPERT: pl.expert,
                         AXIS_FSDP: pl.fsdp}[a]
-                parts = comm._all_gather(t, axis, d).chunk(axis.size, d)
-                if a == AXIS_TENSOR and p in pl.paired:
-                    halves = [part.chunk(2, d) for part in parts]
-                    t = torch.cat([h[0] for h in halves]
-                                  + [h[1] for h in halves], d)
-                else:
-                    t = torch.cat(parts, d)
+                blocks = comm._all_gather(t, axis, d).chunk(axis.size, d)
+                k = pl.parts.get(p, 1) if a == AXIS_TENSOR else 1
+                pieces = [b.chunk(k, d) for b in blocks]
+                t = torch.cat([b[j] for j in range(k) for b in pieces], d)
         out[name] = t.clone()
     return out

@@ -37,12 +37,14 @@ in the configs' bf16 compute with fp32 parameters:
 * ``params_to_jax`` ∘ ``params_from_jax`` is the identity, with and
   without the ``type_emb`` table;
 * three AdamW steps of the example's pieces (``build_mesh``,
-  ``shard_params``, ``DistributedOptimizer``, ``make_train_step``,
-  ``pretraining_loss``) on one rank and on two gloo ranks (``--fsdp 1``:
-  replicated, gradients averaged by the optimizer; ``--fsdp 2``: FSDP2
-  units) against the reference step on a two-device mesh over the same
-  global batch: loss rtol 1e-5, parameters within 2 x lr (ROADMAP Queue
-  C's AdamW rule).  A rank drives the port alone (:func:`_rank_main`).
+  ``shard_params``, ``DistributedOptimizer``, ``pretraining_loss``) on
+  one rank (through ``make_train_step``) and on two gloo ranks through
+  the example's ``make_parallel_train_step`` (``--fsdp 1``: replicated,
+  gradients summed over ``data``; ``--fsdp 2``: the rules' placement by
+  hand, the norms, biases, ``mlm_bias`` and ``nsp`` replicated) against
+  the reference step on a two-device mesh over the same global batch:
+  loss rtol 1e-5, parameters within 2 x lr (ROADMAP Queue C's AdamW
+  rule).  A rank drives the port alone (:func:`_rank_main`).
 """
 
 import dataclasses
@@ -357,6 +359,7 @@ def _rank_main(src: str, dst: str) -> None:
     full weights after the steps (``final.<name>``) and each sharded
     parameter's shard dimension (``shard.<name>``)."""
     from horovod_tpu_torch.parallel.mesh import build_mesh
+    from horovod_tpu_torch.parallel.placement import full_state_dict
 
     hvd.init(device="cpu")
     rank, n = hvd.rank(), hvd.size()
@@ -371,19 +374,19 @@ def _rank_main(src: str, dst: str) -> None:
     mesh = build_mesh({"data": n // fsdp, "fsdp": fsdp})
     model, opt = example.build(cfg, state, mesh, float(data["lr"]),
                                dot_product_attention)
-    step = hvd.make_train_step(model, example.pretraining_loss, opt)
+    step = example.make_step(model, opt, mesh)
     batch, seq = int(data["batch"]), int(data["seq"])
     rng = np.random.default_rng(0)
     losses = [float(step(example.make_batch(rng, cfg.vocab_size, batch,
-                                            seq).shard(rank, n)))
+                                            seq).over(n)))
               for _ in range(int(data["steps"]))]
     out = {"losses": np.array(losses)}
+    pl = model.placement
     for name, p in model.named_parameters():
-        placements = getattr(p, "placements", None)
-        if placements is not None:
-            out["shard." + name] = np.array(placements[-1].dim)
-            p = p.full_tensor()
-        out["final." + name] = p.detach().numpy()
+        if pl is not None and pl.dim(p, "fsdp") is not None:
+            out["shard." + name] = np.array(pl.dim(p, "fsdp"))
+    for name, t in full_state_dict(model).items():
+        out["final." + name] = t.numpy()
     np.savez(dst, **out)
     hvd.shutdown()
 
@@ -523,15 +526,16 @@ def test_two_gloo_ranks_match_the_reference_step(fsdp, reference_run,
     if fsdp == 1:
         assert not shards
     else:
-        # Every parameter sharded, on the dimension the rules give fsdp
-        # (their first where the rules replicate).
-        assert set(shards) == set(start)
-        assert shards["encoder.tok_emb.weight"] == 1           # [V, H]
-        assert shards["encoder.layers.0.attention.qkv.weight"] == 1
-        assert shards["encoder.layers.0.attention.proj.weight"] == 0
-        assert shards["encoder.layers.1.mlp_in.weight"] == 1
-        assert shards["encoder.layers.1.mlp_out.weight"] == 0
-        assert shards["nsp.weight"] == 0
+        # The rules' placement: the tables and the Dense kernels sharded
+        # on the dimension the rules give fsdp; the norms, the biases,
+        # mlm_bias and nsp replicated.
+        assert shards == {
+            "encoder.tok_emb.weight": 1,                       # [V, H]
+            "encoder.pos_emb.weight": 1,
+            **{f"encoder.layers.{i}.{k}.weight": d for i in range(2)
+               for k, d in (("attention.qkv", 1), ("attention.proj", 0),
+                            ("mlp_in", 1), ("mlp_out", 0))},
+            "mlm_transform.weight": 1}
     _assert_close_to_reference(final, jparams, res[0]["losses"], jlosses)
 
 

@@ -4,12 +4,15 @@ The port's ``parallel/mesh.py`` and ``parallel/api.py`` against the JAX
 package's: ``_resolve_shape`` (results and error messages),
 ``data_axes`` / ``mesh_axis_size``, and ``infer_param_spec`` — the port
 applies the reference's rules to each of its parameters through the
-reference's tree path and reverses the spec of a ``Linear`` weight
-(``[out, in]`` here, ``[in, out]`` there), so every parameter of BERT-base
-(and of Llama-3-8B's layout) must get the reference's mesh axis on the
-same logical dimension, for meshes ``{"data": 2, "fsdp": 4}`` and
-``{"data": 8}``.  FSDP2 placement on two ranks is held in
-``test_torch_port_bert.py``.
+reference's tree path and lays the spec on the port's dimensions (a
+``Linear`` weight is ``[out, in]`` here, ``[in, out]`` there; a conv
+weight OIHW here, HWIO there), so every parameter of BERT-base, of
+Llama-3-8B's layout and of ResNet-50 must get the reference's mesh axis
+on the same logical dimension, for meshes ``{"data": 2, "fsdp": 4}``,
+``{"data": 8}`` and ``{"fsdp": 2, "tensor": 2}``.  The hand placement on
+gloo ranks is held in ``test_torch_port_parallel_step.py`` (Llama) and
+``test_torch_port_parallel_zoo.py`` (BERT, ResNet, and FSDP2 on a model
+with no hand placement).
 """
 
 import dataclasses
@@ -24,16 +27,24 @@ from horovod_tpu.models import LlamaConfig as JaxLlamaConfig
 from horovod_tpu.models import LlamaModel as JaxLlamaModel
 from horovod_tpu.models.bert import BertConfig as JaxBertConfig
 from horovod_tpu.models.bert import BertForPretraining as JaxBert
+from horovod_tpu.models.resnet import ResNet50 as JaxResNet50
 from horovod_tpu.parallel import api as japi
 from horovod_tpu.parallel import mesh as jmesh
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.models.bert import BertConfig, BertForPretraining
-from horovod_tpu_torch.models.convert import _bert_layout, _jax_path, _layout
+from horovod_tpu_torch.models.convert import (_bert_layout, _jax_path,
+                                              _layout, _resnet_jax_path,
+                                              _resnet_layout)
 from horovod_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from horovod_tpu_torch.models.mnist import MnistMLP
+from horovod_tpu_torch.models.resnet import ResNet, ResNetConfig
 from horovod_tpu_torch.parallel import api, mesh
 
-MESHES = [{"data": 2, "fsdp": 4}, {"data": 8}]
+MESHES = [{"data": 2, "fsdp": 4}, {"data": 8}, {"fsdp": 2, "tensor": 2}]
+#: The reference dimension of each port dimension, by convert's kind (an
+#: independent account of the layouts ``param_specs`` reads).
+FLAX_DIMS = {"dense": (1, 0), "head": (1, 0), "conv": (3, 2, 0, 1)}
 
 
 def _reference_specs(variables, jax_mesh):
@@ -48,42 +59,73 @@ def _reference_specs(variables, jax_mesh):
     return out
 
 
-def _layout_pairs(layout):
-    """(port name, reference path, transposed) from convert's layout —
-    an independent account of the name mapping ``param_specs`` makes."""
+def _layout_pairs(layout, path_of=_jax_path):
+    """(port name, reference path, reference dimension of each port
+    dimension or None) of every parameter in convert's layout — an
+    independent account of the name mapping ``param_specs`` makes."""
     for name, kind, _ in layout:
-        path = "params/" + "/".join(_jax_path(name, kind))
-        yield name, path, kind in ("dense", "head")
+        if kind in ("mean", "var"):       # ResNet's running statistics
+            continue
+        yield (name, "params/" + "/".join(path_of(name, kind)),
+               FLAX_DIMS.get(kind))
 
 
-@pytest.mark.parametrize("axes", MESHES, ids=["data2_fsdp4", "data8"])
-@pytest.mark.parametrize("model", ["bert_base", "llama3_8b"])
+def _resnet_path(cfg):
+    def path_of(name, kind):
+        coll, path = _resnet_jax_path(cfg, name, kind)
+        assert coll == "params"
+        return path
+    return path_of
+
+
+@pytest.mark.parametrize("axes", MESHES,
+                         ids=["data2_fsdp4", "data8", "fsdp2_tensor2"])
+@pytest.mark.parametrize("model", ["bert_base", "llama3_8b", "resnet50"])
 def test_param_specs_match_the_reference(model, axes):
-    jax_mesh = jmesh.build_mesh(axes)
+    """Every parameter's spec, laid on the port's dimensions, is the
+    rules' on the reference's tree: BERT-base, Llama-3-8B's layout and
+    ResNet-50 (its convolutions' ``tensor`` on the out-channels, the
+    port's dimension 0 of an OIHW weight)."""
+    n = 1
+    for size in axes.values():
+        n *= size
+    jax_mesh = jmesh.build_mesh(axes, devices=jax.devices()[:n])
     ids = jnp.zeros((1, 8), jnp.int32)
     if model == "bert_base":
         variables = jax.eval_shape(JaxBert(JaxBertConfig.base()).init,
                                    jax.random.key(0), ids, ids)
         torch_model = BertForPretraining(BertConfig.base(), device="meta")
         pairs = _layout_pairs(_bert_layout(BertConfig.base()))
+    elif model == "resnet50":
+        cfg = ResNetConfig.resnet50()
+        variables = jax.eval_shape(
+            lambda k: JaxResNet50(num_classes=1000).init(
+                k, jnp.zeros((1, 224, 224, 3)), train=False),
+            jax.random.key(0))
+        torch_model = ResNet(cfg, device="meta")
+        pairs = _layout_pairs(_resnet_layout(cfg), _resnet_path(cfg))
     else:
         variables = jax.eval_shape(
             JaxLlamaModel(JaxLlamaConfig.llama3_8b()).init,
             jax.random.key(0), ids)
         torch_model = LlamaModel(LlamaConfig.llama3_8b(), device="meta")
         pairs = _layout_pairs(_layout(LlamaConfig.llama3_8b()))
-    want = _reference_specs(variables, jax_mesh)
+    want = {k: v for k, v in _reference_specs(variables, jax_mesh).items()
+            if k.startswith("params/")}
     got = api.param_specs(torch_model, axes)
     pairs = list(pairs)
     assert sorted(got) == sorted(name for name, _, _ in pairs)
     assert len(want) == len(pairs)
-    for name, path, transposed in pairs:
+    for name, path, dims in pairs:
         ref = want[path]
-        assert got[name] == (ref[::-1] if transposed else ref), (name, path)
-    if axes.get("fsdp", 1) > 1:
-        # The rules do shard something on the fsdp axis.
-        assert any("fsdp" in s for s in got.values())
-    else:
+        if ref and dims:
+            ref = tuple(ref[j] for j in dims)
+        assert got[name] == ref, (name, path)
+    placed = [a for a in ("fsdp", "tensor") if axes.get(a, 1) > 1]
+    for a in placed:
+        # The rules do shard something on each of these axes.
+        assert any(a in s for s in got.values()), a
+    if not placed:
         assert all(a is None for spec in got.values() for a in spec)
 
 
@@ -149,9 +191,10 @@ def test_one_rank_mesh_replicates_and_refuses_unported_axes(cpu_world):
     DeviceMesh over the default group; ``shard_params`` leaves the model
     as it is, and so does a mesh with ``tensor``, ``seq``, ``expert`` and
     ``pipe`` axes of size 1 (for a Llama too: nothing to place).  Still
-    refused: tensor or expert placement of a model other than Llama (BERT
-    here, ROADMAP Queue A item 7), and a mesh that does not cover the
-    world, as in the reference."""
+    refused: tensor or expert placement of a model with no hand placement
+    (``MnistMLP`` here; Llama, BERT and ResNet are placed), the parallel
+    step at fsdp > 1 for it (FSDP2's route is ``make_train_step``), and a
+    mesh that does not cover the world, as in the reference."""
     m = mesh.build_mesh({"data": 1, "fsdp": -1})
     assert m.mesh_dim_names == ("data", "fsdp") and tuple(m.shape) == (1, 1)
     assert mesh.axis_sizes(m) == {"data": 1, "fsdp": 1}
@@ -169,11 +212,12 @@ def test_one_rank_mesh_replicates_and_refuses_unported_axes(cpu_world):
         assert api.shard_params(target, wide) is target
     assert llama.placement is None
     assert {n: p.shape for n, p in llama.named_parameters()} == shapes
+    mlp = MnistMLP(dtype=torch.float32, device="cpu")
     for axis in ("tensor", "expert"):
         with pytest.raises(NotImplementedError, match="Queue A item 7"):
-            api.shard_params(model, {"data": 1, "fsdp": 1, axis: 2})
+            api.shard_params(mlp, {"data": 1, "fsdp": 1, axis: 2})
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        api.make_parallel_train_step(model, None, {"data": 1, "fsdp": 2})
+        api.make_parallel_train_step(mlp, None, {"data": 1, "fsdp": 2})
     with pytest.raises(ValueError, match="does not cover"):
         mesh.build_mesh({"data": 2})
     with mesh.use_mesh(m):
