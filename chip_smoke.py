@@ -142,6 +142,12 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                every bench key; the loss must fall and each layer's
                attention go through the three flash kernels (48 launches a
                step, no plain call);
+9b. collectives — the device plane (``ops/collective_ops.py``) in this
+               process's NCCL world of one (the group ``train`` built),
+               through the frontend's names in a step's context: every
+               call of ``parallel``'s ``collectives`` part below returns
+               its input bit for bit, with no call on the wire and no
+               engine response; wall ms p50 and max of each;
 10. engine   — the eager native engine on CUDA tensors: two ranks on the one
                card (this script, ``--engine-worker RANK``, started by the
                phase; no torch.distributed collective runs): ResNet-50's
@@ -243,6 +249,25 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                B1-B3 launches as the part's schedule gives (the ring: 2
                hops x 2 layers a step), no fallback; step ms, the bytes
                that cross between ranks and the bytes staged a step;
+               then, in the same two ranks, the ``collectives`` part:
+               the device plane through the frontend's names in a step's
+               context at the sizes of models the repo runs: ResNet-50's
+               161 fp32 gradients through ``grouped_allreduce``,
+               ``bench_llama``'s activations (4 x 2048 x 1024 bf16 a rank)
+               through ``allgather`` and ``reducescatter`` on axes 0 and
+               1, ``engine_moe``'s dispatch buffer (16 384 x 1024 bf16)
+               through ``alltoall``, ``broadcast`` from rank 1 (bf16,
+               int64), every ``ReduceOp`` on 1 Mi fp32 and int32 values,
+               the backward of ``allgather`` and ``alltoall``: each
+               result bitwise the host's arithmetic on every rank's host
+               copy, the ranks' replicated results equal, no engine
+               response; wall ms p50 and max of 5 calls, wire and staged
+               bytes, calls; and ``make_train_step`` of the 2-layer model
+               whose loss gathers every rank's loss through
+               ``hvd.allgather`` (3 SGD steps, each rank its row) against
+               the world of one (loss rtol 1e-4, leaves within 1e-3 of
+               their update), 2 device-plane calls and no engine
+               response a step;
 14b. parallel_zoo — the reference's sharding rules on BERT and ResNet
                through ``shard_params`` and ``make_parallel_train_step``
                on two ranks sharing the card (``--parallel-zoo-worker
@@ -4361,6 +4386,244 @@ def parallel_part(part, cfg, seed, tokens):
     return losses, params, step_ms, launches, per_step
 
 
+# ---------------------------------------------------------------------------
+# collectives: the device plane (ops/collective_ops.py), the collectives a
+# loss function calls inside the step; in the parallel phase's two gloo
+# ranks and in this process's NCCL world of one
+# ---------------------------------------------------------------------------
+
+COLL_ITERS = 5
+#: bench_llama's activations a rank: B 4 x S 2048 rows of hidden 1024.
+COLL_ACT_SHAPE = (4 * 2048, 1024)
+#: engine_moe's dispatch buffer: 16 384 tokens of hidden 1024.
+COLL_A2A_SHAPE = (16384, 1024)
+#: Each ReduceOp's input: 1 Mi values.
+COLL_OP_VALUES = 1 << 20
+
+
+def host_sum(xs):
+    """The ranks' tensors summed in rank order, in fp32 for a half type,
+    rounded once: the device plane's arithmetic, on the host."""
+    acc = (torch.float32 if xs[0].dtype in (torch.float16, torch.bfloat16)
+           else xs[0].dtype)
+    out = xs[0].to(acc)
+    for x in xs[1:]:
+        out = out + x.to(acc)
+    return out.to(xs[0].dtype)
+
+
+def coll_inputs(seed, dtype, shape, size):
+    """Every rank's seeded input, made on the host (rank r's from seed +
+    r): fp32 or bf16 normals, int32 in [-1000, 1000), int64 as
+    ``host_input``'s."""
+    out = []
+    for r in range(size):
+        gen = torch.Generator().manual_seed(seed + r)
+        if dtype in (torch.int32, torch.int64):
+            out.append(torch.randint(-1000, 1000, shape, generator=gen,
+                                     dtype=dtype))
+        else:
+            out.append(torch.randn(shape, generator=gen).to(dtype))
+    return out
+
+
+def coll_call(name, fn, want, dev, size, into: dict) -> None:
+    """``fn()`` on the card, its result (a tensor or a list) bitwise
+    ``want`` and on ``dev``; then ``COLL_ITERS`` timed calls: wall ms p50
+    and max, and ``comm``'s counters a call; a digest of the result, which
+    ranks holding the same result compare."""
+    got = fn()
+    got_l = got if isinstance(got, (list, tuple)) else [got]
+    want_l = want if isinstance(want, (list, tuple)) else [want]
+    check(len(got_l) == len(want_l) and all(
+        a.device == dev and bitwise_equal(a, b)
+        for a, b in zip(got_l, want_l)),
+        f"collectives: {name} at world {size} differs from the host's "
+        "arithmetic")
+    digest = hashlib.sha1()
+    for t in got_l:
+        digest.update(t.detach().cpu().contiguous().view(
+            torch.uint8).numpy().tobytes())
+    del got, got_l
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    comm.reset_stats()
+    walls = []
+    for _ in range(COLL_ITERS):
+        sync()
+        t = time.perf_counter()
+        fn()
+        sync()
+        walls.append((time.perf_counter() - t) * 1e3)
+    into[name] = dict(p50_ms=statistics.median(walls), max_ms=max(walls),
+                      wire_bytes=comm.stats["wire_bytes"] / COLL_ITERS,
+                      staged_bytes=comm.stats["staged_bytes"] / COLL_ITERS,
+                      calls=comm.stats["calls"] / COLL_ITERS,
+                      digest=digest.hexdigest(), bitwise_vs_host=True)
+
+
+def collectives_checks(dev, rank: int, size: int) -> dict:
+    """Every device-plane collective at the sizes of the models the repo
+    runs, on ``dev``, through the frontend's names in the context
+    ``make_train_step`` gives its loss function (the default group, the
+    step's data axis): each result bitwise the host's arithmetic on every
+    rank's host copy; per call, wall ms p50 and max, wire and staged
+    bytes, calls.  Any failed check raises; no engine response may run,
+    and nothing falls back to the CPU."""
+    from horovod_tpu_torch.ops import collective_ops as cops
+    from horovod_tpu_torch.runtime import engine_or_none
+
+    eng = engine_or_none()
+    responses = eng.stats()["responses"] if eng is not None else 0
+    with cops.in_step(comm.world_axis()):
+        out = _collectives_calls(dev, rank, size, cops)
+    return out
+
+
+def _collectives_calls(dev, rank: int, size: int, cops) -> dict:
+    out = {}
+    root = 1 % size
+
+    def call(name, fn, want):
+        coll_call(name, fn, want, dev, size, out)
+
+    # ResNet-50's 161 fp32 gradients, averaged in fused buckets.
+    shapes = [p.shape for p in ResNet(ResNetConfig.resnet50(),
+                                      device="meta").parameters()]
+    per_rank = [coll_inputs(100 + 10 * i, torch.float32, sh, size)
+                for i, sh in enumerate(shapes)]
+    grads = [xs[rank].to(dev) for xs in per_rank]
+    want = [host_sum(xs) / size for xs in per_rank]
+    del per_rank
+    check(len(grads) == 161 and sum(g.numel() for g in grads)
+          == 25_557_032, "collectives: ResNet-50's gradient set")
+    call("grouped_allreduce_rn50", lambda: hvd.grouped_allreduce(grads),
+         want)
+    out["grouped_allreduce_rn50"]["bytes"] = 4 * 25_557_032
+    del grads, want
+    # bench_llama's activations: allgather and reducescatter, axes 0, 1.
+    xs = coll_inputs(200, torch.bfloat16, COLL_ACT_SHAPE, size)
+    x = xs[rank].to(dev)
+    total = host_sum(xs)
+    for ax in (0, 1):
+        call(f"allgather_act_ax{ax}",
+             lambda ax=ax: hvd.allgather(x, axis=ax), torch.cat(xs, ax))
+        call(f"reducescatter_act_ax{ax}",
+             lambda ax=ax: hvd.reducescatter(x, scatter_axis=ax),
+             torch.chunk(total, size, ax)[rank])
+    # engine_moe's dispatch buffer through the all-to-all.
+    xs = coll_inputs(300, torch.bfloat16, COLL_A2A_SHAPE, size)
+    x = xs[rank].to(dev)
+    call("alltoall_moe", lambda: hvd.alltoall(x),
+         torch.cat([torch.chunk(xs[j], size, 0)[rank]
+                    for j in range(size)]))
+    # The backward of allgather (a reduce-scatter of the cotangents) and
+    # of alltoall (the inverse exchange), bf16, forward and backward a call.
+    xs = coll_inputs(400, torch.bfloat16, COLL_ACT_SHAPE, size)
+    cots = coll_inputs(500, torch.bfloat16,
+                       (size * COLL_ACT_SHAPE[0], COLL_ACT_SHAPE[1]), size)
+    x, cot = xs[rank].to(dev), cots[rank].to(dev)
+
+    def gather_grad():
+        leaf = x.detach().requires_grad_(True)
+        hvd.allgather(leaf).backward(cot)
+        return leaf.grad
+    call("allgather_backward", gather_grad,
+         torch.chunk(host_sum(cots), size, 0)[rank])
+    cots = coll_inputs(600, torch.bfloat16, COLL_ACT_SHAPE, size)
+    cot = cots[rank].to(dev)
+
+    def a2a_grad():
+        leaf = x.detach().requires_grad_(True)
+        hvd.alltoall(leaf).backward(cot)
+        return leaf.grad
+    call("alltoall_backward", a2a_grad,
+         torch.cat([torch.chunk(cots[j], size, 0)[rank]
+                    for j in range(size)]))
+    del xs, cots, x, cot
+    # broadcast from rank 1 (rank 0 at a world of one).
+    for dtype in (torch.bfloat16, torch.int64):
+        xs = coll_inputs(700, dtype, COLL_ACT_SHAPE, size)
+        x = xs[rank].to(dev)
+        call(f"broadcast_{str(dtype)[6:]}",
+             lambda x=x: hvd.broadcast(x, root), xs[root])
+    # every ReduceOp on fp32 and int32.
+    for dtype in (torch.float32, torch.int32):
+        xs = coll_inputs(800, dtype, (COLL_OP_VALUES,), size)
+        x = xs[rank].to(dev)
+        prod = xs[0]
+        for y in xs[1:]:
+            prod = prod * y
+        wants = {cops.Sum: host_sum(xs), cops.Average: host_sum(xs) / size,
+                 cops.Min: torch.stack(xs).amin(0),
+                 cops.Max: torch.stack(xs).amax(0), cops.Product: prod}
+        for op, w in wants.items():
+            call(f"allreduce_{op.value}_{str(dtype)[6:]}",
+                 lambda op=op, x=x: hvd.allreduce(x, op=op), w)
+    return out
+
+
+def collectives_train(cfg, seed, tokens, ref) -> dict:
+    """``hvd.make_train_step`` of the model (``parallel_cfg``) whose loss
+    gathers every rank's mean token loss through ``hvd.allgather`` (the
+    device plane; its backward a reduce-scatter) and averages them: each
+    rank steps its rows of ``tokens``, 3 SGD steps, against the world of
+    one's (``ref``: losses, state) on the whole batch.  No engine
+    response may run in the steps."""
+    from horovod_tpu_torch.runtime import engine_or_none
+
+    rank, size = hvd.rank(), hvd.size()
+    rows = tokens.shape[0] // size
+    mine = tokens[rank * rows:(rank + 1) * rows]
+    model = LlamaModel.from_state_dict(
+        cfg, init_params(cfg, seed, tokens.device),
+        attention_fn=fa.flash_attention_fn)
+    opt = torch.optim.SGD(model.parameters(), lr=PAR_LR)
+
+    def loss_fn(model, batch):
+        local = lm_loss(model, batch)
+        return hvd.allgather(local.reshape(1)).mean()
+
+    step = hvd.make_train_step(model, loss_fn, opt)
+    eng = engine_or_none()
+    responses = eng.stats()["responses"] if eng else 0
+    comm.reset_stats()
+    losses, walls = [], []
+    for _ in range(PAR_STEPS):
+        t = time.perf_counter()
+        losses.append(float(step(mine)))
+        walls.append((time.perf_counter() - t) * 1e3)
+    calls = comm.stats["calls"]
+    moved = (eng.stats()["responses"] - responses) if eng else 0
+    ref_losses, ref_state, update = ref
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    rel = {n: float((p.detach().float() - ref_state[n].float()).norm())
+           / max(update[n][0], 1e-30) for n, p in model.named_parameters()}
+    worst = max(rel, key=rel.get)
+    check(loss_err <= PAR_LOSS_RTOL,
+          f"collectives train: losses {losses} vs {ref_losses}")
+    check(rel[worst] <= PAR_PARAM_REL,
+          f"collectives train: {worst} off the world of one by "
+          f"{rel[worst]} of its update")
+    check(calls >= 2 * PAR_STEPS and moved == 0,
+          f"collectives train: {calls} device-plane calls and {moved} "
+          "engine responses in the steps")
+    return dict(losses=losses, world_of_one_losses=ref_losses,
+                loss_rel_err=loss_err, param_rel_err=rel[worst],
+                param_rel_worst=worst, step_ms=walls,
+                device_plane_calls_per_step=calls / PAR_STEPS,
+                engine_responses=moved)
+
+
+def phase_collectives_one(dev) -> None:
+    """The device plane in this process's world of one (the NCCL group
+    the training phases built): every call returns its input's value."""
+    t0 = time.monotonic()
+    out = collectives_checks(dev, hvd.rank(), hvd.size())
+    emit("collectives", world=hvd.size(),
+         backend=torch.distributed.get_backend(), calls=out,
+         wall_s=time.monotonic() - t0)
+
+
 def parallel_worker(rank: int, device: str) -> dict:
     """One rank of the parallel phase: each family on a mesh of both ranks
     (gloo, the card shared), held against the world of one on this rank.
@@ -4415,6 +4678,11 @@ def parallel_worker(rank: int, device: str) -> dict:
               f"parallel {part}: a fallback ran")
         del params
         free_memory()
+    t0 = time.monotonic()
+    out["collectives"] = collectives_checks(dev, hvd.rank(), hvd.size())
+    out["collectives_train"] = collectives_train(
+        parallel_cfg("tensor"), seed, tokens, refs[1])
+    out["collectives_s"] = time.monotonic() - t0
     hvd.shutdown()
     return out
 
@@ -4444,6 +4712,21 @@ def phase_parallel():
              nvidia_smi_after=smi)
     for key in sorted(k for k in results[0] if k.startswith("world_of_one")):
         emit("parallel", part=key, update_norm_max_abs_by_leaf=results[0][key])
+    # The replicated results equal across the ranks (a reduce-scatter's,
+    # an all-to-all's and a gathered input's gradient are each rank's own).
+    for name, call in results[0]["collectives"].items():
+        if name.startswith(("grouped", "allgather_act", "broadcast",
+                            "allreduce")):
+            check(call["digest"] == results[1]["collectives"][name]["digest"],
+                  f"collectives: ranks' {name} results differ")
+    check(results[0]["collectives_train"]["losses"]
+          == results[1]["collectives_train"]["losses"],
+          "collectives train: ranks' losses differ")
+    emit("parallel", part="collectives", ranks=ENGINE_RANKS,
+         backend=results[0]["backend"],
+         per_rank=[{k: r[k] for k in ("collectives", "collectives_train",
+                                       "collectives_s")} for r in results],
+         nvidia_smi_after=smi)
     emit("parallel", part="phase", wall_s=time.monotonic() - t0)
 
 
@@ -6491,6 +6774,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     bench_launches = phase_bench_llama(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_collectives_one(dev)
     gc.collect()
     torch.cuda.empty_cache()
     phase_engine()

@@ -63,22 +63,29 @@ sharded checkpoints, the Estimator; the counterpart of
 frontends over the engine (``horovod_tpu_torch.keras``, on Keras's torch
 backend with CUDA gradients, and ``horovod_tpu_torch.tf``), which this
 module does not import: they need Keras or TensorFlow, which
-``horovod_tpu_torch.keras.impl``'s core of torch tensors does not.
+``horovod_tpu_torch.keras.impl``'s core of torch tensors does not; and
+the device-plane collectives a step's loss function calls
+(``ops/collective_ops.py``).
 
-Two communicators, as ``common/basics.py`` sets out:
+Two communicators, as in the reference:
 
-* ``hvd.allreduce``, ``grouped_allreduce``, ``allgather``, ``broadcast``,
-  ``reducescatter`` and ``alltoall`` on tensors, and their handles
-  (``*_async``, ``poll``, ``synchronize``), are the reference's eager
-  collectives: named tensors through the native engine (``name=``,
-  ``priority=``), on CPU or CUDA tensors, results on the input's device
-  (``runtime/eager.py``, ``runtime/mpi_ops.py``);
-* ``make_train_step``, ``DistributedOptimizer``, ``allreduce_gradients``
+* the device plane (``ops/collective_ops.py``): while a step built by
+  ``make_train_step`` or ``parallel.api.make_parallel_train_step`` runs
+  the user's loss function, ``hvd.allreduce``, ``grouped_allreduce``,
+  ``allgather``, ``broadcast``, ``reducescatter`` and ``alltoall`` are
+  collectives over ``torch.distributed`` groups of the step's mesh axes
+  (default: its data axes; NCCL on the card), differentiable, with the
+  backward ``jax.grad`` gives the reference's traced collectives;
+  ``make_train_step``, ``DistributedOptimizer``, ``allreduce_gradients``
   and ``broadcast_parameters`` reduce over ``torch.distributed``'s default
-  group (NCCL on the card), the counterpart of the reference's traced
-  ``psum`` (``ops/collective_ops.py``); ``DistributedOptimizer``'s
+  group too, the counterpart of the reference's traced ``psum``;
+* the native engine: the same six names anywhere else, and their handles
+  (``*_async``, ``poll``, ``synchronize``) everywhere, are the reference's
+  eager collectives: named tensors through the native engine (``name=``,
+  ``priority=``), on CPU or CUDA tensors, results on the input's device
+  (``runtime/eager.py``, ``runtime/mpi_ops.py``); ``DistributedOptimizer``'s
   sharded, FSDP and local-SGD rungs, and all of ``torch_frontend``, go
-  through the engine.
+  through it.
 """
 
 from horovod_tpu_torch.common.basics import (device, epoch, fleet_stats,
@@ -91,19 +98,18 @@ from horovod_tpu_torch.common.basics import (device, epoch, fleet_stats,
 from horovod_tpu_torch import elastic, runtime, torch_frontend
 from horovod_tpu_torch.runtime import moe, sparse, wire_policy  # noqa: F401
 from horovod_tpu_torch.common.device import resolve_device
-from horovod_tpu_torch.frontend import (DistributedOptimizer,
-                                        allreduce_gradients,
+from horovod_tpu_torch.frontend import (DistributedOptimizer, allgather,
+                                        allreduce, allreduce_gradients,
+                                        alltoall, broadcast,
                                         broadcast_optimizer_state,
                                         broadcast_parameters,
-                                        make_train_step)
+                                        grouped_allreduce, make_train_step,
+                                        reducescatter)
 from horovod_tpu_torch.ops.collective_ops import (Average, Max, Min, Product,
                                                   ReduceOp, Sum)
 from horovod_tpu_torch.ops.compression import Compression
 from horovod_tpu_torch.parallel.mesh import (build_mesh, data_parallel_mesh,
                                              default_mesh, use_mesh)
-from horovod_tpu_torch.runtime.eager import (allgather, allreduce, alltoall,
-                                             broadcast, grouped_allreduce,
-                                             reducescatter)
 from horovod_tpu_torch.runtime.mpi_ops import (allgather_async, allreduce_,
                                                allreduce_async,
                                                allreduce_async_,

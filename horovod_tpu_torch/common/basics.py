@@ -14,12 +14,14 @@ is one process.  Queries raise before :func:`init`, as the reference's do.
   (``host:port``), the reference's meaning of the variable.  It carries
   the eager collectives on named tensors, ``hvd.allreduce``,
   ``allgather``, ``broadcast``, ``reducescatter``, ``alltoall`` and their
-  handles (``runtime/eager.py``, ``runtime/mpi_ops.py``);
+  handles (``runtime/eager.py``, ``runtime/mpi_ops.py``), outside a step;
 * ``torch.distributed``'s default process group, NCCL when the process
   runs on the card and gloo on the CPU, the counterpart of the traced
-  ``psum``: ``make_train_step``, ``DistributedOptimizer``,
-  ``allreduce_gradients`` and ``broadcast_parameters`` reduce through it
-  (``ops/collective_ops.py``).  It rendezvous at the coordinator's port
+  collectives: ``make_train_step``, ``DistributedOptimizer``,
+  ``allreduce_gradients`` and ``broadcast_parameters`` reduce through it,
+  and so do the same six names inside a step's loss function, on the
+  groups of the step's mesh axes (``ops/collective_ops.py``).  It
+  rendezvous at the coordinator's port
   + 64, where the reference puts its second rendezvous (JAX's); comm
   subsets of the reference take port + 1 + min(comm), below it.  A world
   of one without ``HOROVOD_COORDINATOR`` picks a free port.

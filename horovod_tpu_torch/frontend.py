@@ -1,11 +1,21 @@
-"""The training half of the frontend: gradient reduction, the
-distributed optimizer, broadcasts and ``make_train_step``.
+"""The frontend: the context-dispatching collectives, gradient
+reduction, the distributed optimizer, broadcasts and ``make_train_step``.
 
-Counterpart of the training half of ``horovod_tpu/jax/__init__.py``,
-re-exported from ``horovod_tpu_torch`` so that ``import
-horovod_tpu_torch as hvd`` reads like ``import horovod_tpu.jax as hvd``.
-There is no mesh: the default process group (``hvd.init()``) is the data
-axis, and each rank passes its own shard of the batch.
+Counterpart of ``horovod_tpu/jax/__init__.py``, re-exported from
+``horovod_tpu_torch`` so that ``import horovod_tpu_torch as hvd`` reads
+like ``import horovod_tpu.jax as hvd``.  There is no mesh: the default
+process group (``hvd.init()``) is the data axis, and each rank passes its
+own shard of the batch.
+
+``allreduce``, ``grouped_allreduce``, ``allgather``, ``broadcast``,
+``reducescatter`` and ``alltoall`` dispatch as the reference's do on a
+traced value: called while a step of :func:`make_train_step` or
+``parallel.api.make_parallel_train_step`` runs the user's loss function,
+they are the device plane (``ops/collective_ops.py``), differentiable,
+over ``axis_name`` (default: the step's data axes); called anywhere
+else, the native engine's eager collectives (``runtime/eager.py``), with
+the engine's options (``name=``, ``priority=``, ``splits=``, ...) and
+``axis_name`` ignored, as the reference ignores it on concrete values.
 
 The reference's optimizer is an optax transformation inside a jitted
 step; here it wraps a ``torch.optim`` optimizer (or
@@ -30,15 +40,112 @@ import torch
 import torch.nn as nn
 
 from horovod_tpu_torch.common import basics
-from horovod_tpu_torch.ops.collective_ops import (Average, Sum, allreduce,
-                                                  allreduce_)
+from horovod_tpu_torch.ops import collective_ops as _cops
+from horovod_tpu_torch.ops.collective_ops import Average, Sum, allreduce_
 from horovod_tpu_torch.ops.compression import Compression, TopKCompressor
 from horovod_tpu_torch.ops.fusion import FusionPlan, fuse_apply, plan_fusion
+from horovod_tpu_torch.parallel import comm
+from horovod_tpu_torch.runtime import eager
 from horovod_tpu_torch.runtime import wire_policy as _wp
 
-__all__ = ["allreduce_gradients", "DistributedOptimizer",
-           "broadcast_parameters", "broadcast_optimizer_state",
-           "make_train_step"]
+__all__ = ["allreduce", "grouped_allreduce", "allgather", "broadcast",
+           "reducescatter", "alltoall", "allreduce_gradients",
+           "DistributedOptimizer", "broadcast_parameters",
+           "broadcast_optimizer_state", "make_train_step"]
+
+
+# ---------------------------------------------------------------------------
+# Collectives (context-dispatching wrappers)
+# ---------------------------------------------------------------------------
+
+def _step_axis(axis_name):
+    """The axis of a device-plane call (``axis_name``, or the step's data
+    axes), or None outside a step."""
+    step = _cops.step_axis()
+    if step is None:
+        return None
+    return step if axis_name is None else axis_name
+
+
+def allreduce(tensor, *, axis_name=None, op=Average, average=None,
+              compression=Compression.none, name=None, priority=None):
+    """Allreduce.  Inside a step: the device plane over ``axis_name``.
+    Elsewhere: the engine's eager allreduce (an identity at ``size() ==
+    1``); ``priority`` (0 = most urgent) orders responses under
+    HOROVOD_PRIORITY_BANDS."""
+    axis = _step_axis(axis_name)
+    if axis is not None:
+        return _cops.allreduce(tensor, axis_name=axis, op=op,
+                               average=average, compression=compression)
+    return eager.allreduce(tensor, op=op, average=average,
+                           compression=compression, name=name,
+                           priority=priority)
+
+
+def grouped_allreduce(tensors, *, axis_name=None, op=Average,
+                      compression=Compression.none, name=None, **engine_kw):
+    """Allreduce a list of tensors.  Inside a step: one device-plane
+    collective per fused bucket.  Elsewhere: the engine's, with its
+    options (``average``, ``priorities``, ``wire_dtypes``, ...)."""
+    axis = _step_axis(axis_name)
+    if axis is not None:
+        if engine_kw.get("average") is not None:
+            op = Average if engine_kw["average"] else Sum
+        return _cops.grouped_allreduce(tensors, axis_name=axis, op=op,
+                                       compression=compression)
+    return eager.grouped_allreduce(tensors, op=op, compression=compression,
+                                   name=name, **engine_kw)
+
+
+def allgather(tensor, *, axis_name=None, axis=0, name=None):
+    """Inside a step: the device plane's tiled allgather along ``axis``.
+    Elsewhere: the engine's, along dim 0 (counts may differ)."""
+    step = _step_axis(axis_name)
+    if step is not None:
+        return _cops.allgather(tensor, axis_name=step, axis=axis)
+    return eager.allgather(tensor, name=name)
+
+
+def broadcast(tensor, root_rank=0, *, axis_name=None, name=None):
+    axis = _step_axis(axis_name)
+    if axis is not None:
+        return _cops.broadcast(tensor, root_rank, axis_name=axis)
+    return eager.broadcast(tensor, root_rank=root_rank, name=name)
+
+
+def reducescatter(tensor, *, axis_name=None, op=Sum, average=None,
+                  scatter_axis=0, tiled=True, name=None):
+    """Inside a step: the device plane's reduce-scatter over
+    ``axis_name``.  Elsewhere: the engine's, axis-general (rows split as
+    evenly as possible)."""
+    axis = _step_axis(axis_name)
+    if axis is not None:
+        if average is not None:
+            op = Average if average else Sum
+        return _cops.reducescatter(tensor, axis_name=axis, op=op,
+                                   scatter_axis=scatter_axis, tiled=tiled)
+    return eager.reducescatter(tensor, op=op, average=average,
+                               scatter_axis=scatter_axis, tiled=tiled,
+                               name=name)
+
+
+def alltoall(tensor, *, axis_name=None, split_axis=0, concat_axis=0,
+             name=None, splits=None, **engine_kw):
+    """All-to-all.  Inside a step: the device plane's, equal blocks.
+    Elsewhere: the engine's; ``splits`` (dim 0 only) sends variable row
+    counts, which only the engine can."""
+    axis = _step_axis(axis_name)
+    if axis is not None:
+        if splits is not None:
+            raise NotImplementedError(
+                "variable splits are eager-only (the output shape is "
+                "data-dependent; XLA all_to_all exchanges equal blocks)")
+        return _cops.alltoall(tensor, axis_name=axis, split_axis=split_axis,
+                              concat_axis=concat_axis)
+    return eager.alltoall(tensor, split_axis=split_axis,
+                          concat_axis=concat_axis, name=name, splits=splits,
+                          **engine_kw)
+
 
 
 def _grads_of(items: Iterable) -> List[torch.Tensor]:
@@ -80,8 +187,6 @@ def _engine_reduce_(grads: List[torch.Tensor], names: List[str], op,
     leaf (per-leaf residuals keyed by ``names``), or one grouped allreduce
     with priorities in registration order and the policy's advisory wire
     per leaf."""
-    from horovod_tpu_torch.runtime import eager
-
     if isinstance(compression, TopKCompressor):
         outs = [eager.allreduce(g, op=op, compression=compression, name=n)
                 for g, n in zip(grads, names)]
@@ -405,6 +510,10 @@ def make_train_step(model: nn.Module, loss_fn: Callable, optimizer
     place, in fused same-dtype buckets — the reference's ``has_aux`` step,
     which averages its non-differentiated ``aux_state`` over the data
     axes.  Integer buffers are left alone.
+
+    While ``loss_fn`` runs, ``hvd.allreduce`` and the other collectives
+    are the device plane over every rank (the reference's traced branch);
+    their backward runs in ``loss.backward()``.
     """
     if getattr(model, "placement", None) is not None:
         raise ValueError("make_train_step averages over every rank; a model "
@@ -422,12 +531,13 @@ def make_train_step(model: nn.Module, loss_fn: Callable, optimizer
 
     def step(batch) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model, batch)
+        with _cops.in_step(comm.world_axis()):
+            loss = loss_fn(model, batch)
         loss.backward()
         optimizer.step()
         if buffers:
             with torch.no_grad():
                 _reduce_(buffers, Average, Compression.none, plan)
-        return allreduce(loss.detach().float(), op=Average)
+        return allreduce_(loss.detach().float().clone(), Average)
 
     return step

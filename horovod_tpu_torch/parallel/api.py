@@ -49,12 +49,13 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from horovod_tpu_torch.ops.collective_ops import in_step
 from horovod_tpu_torch.ops.losses import softmax_cross_entropy
 from horovod_tpu_torch.parallel import comm
 from horovod_tpu_torch.parallel.mesh import (AXIS_DATA, AXIS_EXPERT,
                                              AXIS_FSDP, AXIS_TENSOR,
                                              axis_index, axis_sizes,
-                                             data_axes)
+                                             data_axes, use_mesh)
 
 __all__ = ["SHARDING_RULES", "infer_param_spec", "param_specs",
            "param_shardings", "shard_params", "lm_loss_fn",
@@ -330,6 +331,11 @@ def make_parallel_train_step(model: nn.Module, optimizer, mesh, *,
     Gradients of parameters replicated over ``tensor`` or ``expert`` are
     whole on each rank and are not summed over them.  Returns the global
     mean loss (fp32, 0-dim).
+
+    While ``loss_fn`` runs, ``mesh`` is the mesh in use and
+    ``hvd.allreduce`` and the other collectives are the device plane over
+    its data-like axes unless given another ``axis_name`` (the
+    reference's traced branch).
     """
     sizes = axis_sizes(mesh)
     if sizes.get(AXIS_FSDP, 1) > 1 and not _hand_placed(model, sizes):
@@ -373,7 +379,9 @@ def make_parallel_train_step(model: nn.Module, optimizer, mesh, *,
             raise ValueError(f"batch {size} not divisible by the "
                              f"data-like axes' size {n_dp}")
         inner.zero_grad(set_to_none=True)
-        loss = loss_fn(model, _rows(batch, index * rows, (index + 1) * rows))
+        with use_mesh(mesh), in_step(data_axes(mesh)):
+            loss = loss_fn(model, _rows(batch, index * rows,
+                                        (index + 1) * rows))
         loss.backward()
         if dp:
             sum_gradients(params, axes_of, n_dp)

@@ -26,7 +26,19 @@ written out:
   :func:`gather_shards` (allgather forward, reduce-scatter backward: a
   parameter sharded over a data-like axis, whose ranks saw different
   data, or an activation split over ``tensor`` read whole by work split
-  over it).
+  over it) and its mirror :func:`reduce_scatter` (``lax.psum_scatter``:
+  reduce-scatter forward, allgather backward);
+* :func:`broadcast_from` (``x`` of one rank on every rank; backward, the
+  ranks' cotangents summed on that rank and zero on the others: the
+  transpose of the reference's masked ``psum``).
+
+The reduce-scatters sum in rank order: each rank receives every rank's
+chunk of its slice (an all-to-all) and adds them up, rank 0's first, in
+fp32 for a half type, rounded once -- the order and the accumulation of
+the reference's ``psum`` on the CPU, so the bits do not depend on the
+backend's algorithm.  :func:`sum_in_order` is a reduce-scatter and an
+allgather of that kind (the bytes of a ring), differentiable; the
+families' :func:`psum` runs the group's own allreduce.
 
 Given no axis (None, or an axis of size 1), each returns its input: the
 unplaced model runs the same forward as a placed one.
@@ -49,10 +61,13 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
-__all__ = ["axis_group", "permute", "all_to_all", "copy_to", "reduce_from",
-           "psum", "gather", "split", "gather_shards", "allreduce",
-           "broadcast",
-           "send", "recv", "stats", "reset_stats"]
+from horovod_tpu_torch.common import basics
+
+__all__ = ["axis_group", "axes_group", "world_axis", "permute", "all_to_all",
+           "copy_to", "reduce_from", "psum", "gather", "split",
+           "gather_shards", "reduce_scatter", "sum_in_order",
+           "broadcast_from", "allreduce",
+           "broadcast", "send", "recv", "stats", "reset_stats"]
 
 #: Calls, bytes that cross between ranks, and bytes staged through the
 #: host (D2H plus H2D), since the last :func:`reset_stats`.
@@ -84,6 +99,42 @@ def axis_group(mesh, axis: str) -> _Axis:
         raise ValueError(f"mesh has no axis {axis!r} (axes {names})")
     return _Axis(mesh.get_group(axis), mesh.get_local_rank(axis),
                  mesh.size(names.index(axis)))
+
+
+def world_axis() -> _Axis:
+    """The default process group as one axis: every rank, in rank
+    order."""
+    return _Axis(dist.group.WORLD, dist.get_rank(), dist.get_world_size())
+
+
+#: {(the mesh's rank layout, the axes): their flattened group}; a group
+#: goes with the world that made it.
+_flat_groups: dict = {}
+basics.on_shutdown(_flat_groups.clear)
+
+
+def axes_group(mesh, axes: Sequence[str]) -> _Axis:
+    """``axes`` of ``mesh`` taken together as one axis, the first
+    outermost (the reference's tuple ``axis_name``): a group over each
+    set of ranks that differ only in them, made on first use by every
+    rank of the mesh at once."""
+    names = mesh.mesh_dim_names
+    missing = [a for a in axes if a not in names]
+    if missing:
+        raise ValueError(f"mesh has no axis {missing[0]!r} (axes {names})")
+    dims = [names.index(a) for a in axes]
+    index, size = 0, 1
+    for a, d in zip(axes, dims):
+        index = index * mesh.size(d) + mesh.get_local_rank(a)
+        size *= mesh.size(d)
+    layout = mesh.mesh
+    key = (tuple(layout.flatten().tolist()), tuple(layout.shape),
+           tuple(names), tuple(axes))
+    if key not in _flat_groups:
+        rest = [d for d in range(layout.dim()) if d not in dims]
+        rows = layout.permute(rest + dims).reshape(-1, size).tolist()
+        _flat_groups[key] = dist.new_subgroups_by_enumeration(rows)[0]
+    return _Axis(_flat_groups[key], index, size)
 
 
 Axes = Union[_Axis, Sequence[_Axis]]
@@ -129,13 +180,16 @@ def _nbytes(t: torch.Tensor) -> int:
 # plain collectives (no autograd)
 # ---------------------------------------------------------------------------
 
-def allreduce(x: torch.Tensor, axis: _Axis) -> torch.Tensor:
-    """Sum of ``x`` over the axis (a new tensor)."""
+def allreduce(x: torch.Tensor, axis: _Axis,
+              op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced over the axis by the group's allreduce (a new
+    tensor; ``op`` a ``torch.distributed`` op, the sum by default)."""
     out = x.contiguous().clone()
     if axis.size == 1:
         return out
     n = axis.size
-    _on_wire(axis, lambda ts: dist.all_reduce(ts[0], group=axis.group),
+    _on_wire(axis, lambda ts: dist.all_reduce(ts[0], op=op,
+                                              group=axis.group),
              2 * (n - 1) * _nbytes(out) // n, inout=[out])
     return out
 
@@ -170,22 +224,42 @@ def _own(x: torch.Tensor, axis: _Axis, dim: int) -> torch.Tensor:
     return torch.chunk(x, axis.size, dim=dim)[axis.index].contiguous()
 
 
-def _a2a(x: torch.Tensor, axis: _Axis, split_dim: int,
-         concat_dim: int) -> torch.Tensor:
+def _exchange(x: torch.Tensor, axis: _Axis, split_dim: int,
+              what: str) -> torch.Tensor:
+    """Chunk ``j`` of ``split_dim`` sent to rank ``j``: the chunks
+    received, stacked in rank order."""
     n = axis.size
     if x.shape[split_dim] % n:
-        raise ValueError(f"all_to_all: dimension {split_dim} of "
+        raise ValueError(f"{what}: dimension {split_dim} of "
                          f"{tuple(x.shape)} does not split into {n}")
     parts = torch.stack(torch.chunk(x, n, dim=split_dim)).contiguous()
     if n == 1:
-        return parts[0]
+        return parts
     out = torch.empty_like(parts)
 
     def run(ts):
         dist.all_to_all_single(ts[0], ts[1], group=axis.group)
     _on_wire(axis, run, (n - 1) * _nbytes(parts) // n, out=[out],
              inp=[parts])
+    return out
+
+
+def _a2a(x: torch.Tensor, axis: _Axis, split_dim: int,
+         concat_dim: int) -> torch.Tensor:
+    out = _exchange(x, axis, split_dim, "all_to_all")
     return torch.cat(out.unbind(0), dim=concat_dim)
+
+
+def _reduce_scatter(x: torch.Tensor, axis: _Axis, dim: int) -> torch.Tensor:
+    """The axis's ``x`` summed, this rank's chunk of ``dim``: the chunks
+    added in rank order, in fp32 for a half type, rounded once."""
+    parts = _exchange(x, axis, dim, "reduce_scatter")
+    acc = (torch.float32 if x.dtype in (torch.float16, torch.bfloat16)
+           else x.dtype)
+    out = parts[0].to(acc)
+    for p in parts[1:]:
+        out = out + p.to(acc)
+    return out.to(x.dtype)
 
 
 def send(x: torch.Tensor, axis: _Axis, dst: int) -> None:
@@ -332,7 +406,7 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, g):
         axis, dim, reduce = ctx.args
         if reduce:
-            g = allreduce(g, axis)
+            return _reduce_scatter(g, axis, dim), None, None, None
         return _own(g, axis, dim), None, None, None
 
 
@@ -345,6 +419,30 @@ class _Split(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _all_gather(g, *ctx.args), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.args = (axis, dim)
+        return _reduce_scatter(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, *ctx.args), None, None
+
+
+class _BroadcastFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, src):
+        ctx.args = (axis, src)
+        return broadcast(x, axis, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, src = ctx.args
+        g = sum_in_order(g, axis)
+        return (g if axis.index == src else torch.zeros_like(g)), None, None
 
 
 def gather(x: torch.Tensor, axis: Optional[_Axis], dim: int) -> torch.Tensor:
@@ -373,3 +471,39 @@ def gather_shards(x: torch.Tensor, axis: Optional[_Axis],
     if axis is None or axis.size == 1:
         return x
     return _Gather.apply(x, axis, dim, True)
+
+
+def reduce_scatter(x: torch.Tensor, axis: Optional[_Axis],
+                   dim: int) -> torch.Tensor:
+    """The ranks' ``x`` summed in rank order, this rank's chunk of
+    ``dim`` (which the axis size must divide); backward, the chunks'
+    cotangents gathered.  ``x`` itself for no axis."""
+    if axis is None or axis.size == 1:
+        return x
+    return _ReduceScatter.apply(x, axis, dim)
+
+
+def sum_in_order(x: torch.Tensor, axis: Optional[_Axis]) -> torch.Tensor:
+    """``x`` summed over the axis in rank order, on every rank: a
+    :func:`reduce_scatter` and an allgather of the flattened tensor,
+    padded to the axis size.  Backward, the same sum of the cotangents
+    (the transposes compose: an allgather's is the reduce-scatter and
+    back).  ``x`` itself for no axis."""
+    if axis is None or axis.size == 1:
+        return x
+    flat = x.reshape(-1)
+    pad = -flat.numel() % axis.size
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    out = gather_shards(reduce_scatter(flat, axis, 0), axis, 0)
+    return out[:x.numel()].view(x.shape)
+
+
+def broadcast_from(x: torch.Tensor, axis: Optional[_Axis],
+                   src: int) -> torch.Tensor:
+    """The axis's rank ``src``'s ``x`` on every rank; backward, the ranks'
+    cotangents summed in rank order on ``src`` and zero elsewhere.  ``x``
+    itself for no axis."""
+    if axis is None or axis.size == 1:
+        return x
+    return _BroadcastFrom.apply(x, axis, src)

@@ -32,8 +32,8 @@ from horovod_tpu_torch.common import basics
 
 __all__ = ["AXIS_DATA", "AXIS_FSDP", "AXIS_TENSOR", "AXIS_SEQ", "AXIS_EXPERT",
            "AXIS_PIPE", "build_mesh", "data_parallel_mesh", "default_mesh",
-           "set_default_mesh", "use_mesh", "mesh_axis_size", "axis_sizes",
-           "data_axes", "axis_index"]
+           "current_mesh", "set_default_mesh", "use_mesh", "mesh_axis_size",
+           "axis_sizes", "data_axes", "axis_index"]
 
 AXIS_DATA = "data"
 AXIS_FSDP = "fsdp"
@@ -98,6 +98,12 @@ def default_mesh() -> DeviceMesh:
         mesh = data_parallel_mesh()
         _state.mesh = mesh
     return mesh
+
+
+def current_mesh() -> Optional[DeviceMesh]:
+    """The mesh set (by :func:`use_mesh`, :func:`set_default_mesh` or a
+    first :func:`default_mesh`), or None; builds none."""
+    return getattr(_state, "mesh", None)
 
 
 def set_default_mesh(mesh: Optional[DeviceMesh]) -> None:

@@ -16,9 +16,9 @@ replicas), ``python -m horovod_tpu_torch.serve.replica`` (one replica),
 ``python -m horovod_tpu_torch.bench_serve`` (Poisson open-loop load).
 """
 
-from horovod_tpu_torch.serve.config import ServeConfig
+from horovod_tpu_torch.serve.config import ServeConfig, resolved_serve_config
 from horovod_tpu_torch.serve.kv_cache import TRASH_BLOCK, PagedKVCache
 from horovod_tpu_torch.serve.router import Router, serve_main
 
-__all__ = ["ServeConfig", "PagedKVCache", "TRASH_BLOCK", "Router",
+__all__ = ["ServeConfig", "resolved_serve_config", "PagedKVCache", "TRASH_BLOCK", "Router",
            "serve_main"]
