@@ -176,6 +176,17 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                ``keras``, ``tensorflow`` or ``jax`` in ``sys.modules``:
                wall ms p50 and max of 10 calls of each batch and
                compression, D2H and H2D ms, responses and cycles a call;
+10c. engine_bench — the engine bench's sweep bodies
+               (``horovod_tpu_torch.bench_engine.measure``) on seeded CUDA
+               tensors, two ranks on the one card (``--engine-bench-worker
+               RANK``): allreduce at 4 KB, 1 MB, 16 MB and 64 MB on four
+               planes (4 and 1 channels, TCP and shm), reducescatter and
+               alltoall at 16 MB on the default plane, the small-allreduce
+               latency, and the fp32 / fp16 / int8 wires at 1 MB: each
+               point's bus GB/s from the engine's own counters, the wall
+               ms of a call with its staging, D2H and H2D ms, each result
+               bitwise its host copy's and moving the same bytes a call;
+               the wire byte ratios the same on both ranks;
 11. engine_train — the engine-driven optimizers (``torch_frontend``)
                training ``bench_llama``'s model at its widths cut to 2
                layers (ENGINE_TRAIN_LAYERS; the full 16 train in
@@ -3212,6 +3223,215 @@ def phase_engine():
          per_rank=results, nvidia_smi_after=smi_now())
     emit("keras_core", ranks=ENGINE_RANKS, iters=KERAS_CORE_ITERS,
          nvidia_smi=smi_now(), per_rank=keras_core)
+
+
+# ---------------------------------------------------------------------------
+# phase 10c: the engine bench's sweep bodies (horovod_tpu_torch.bench_engine)
+# on CUDA tensors, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+ENGINE_BENCH_TIMEOUT_S = 240
+#: The allreduce points: the bench's sizes from 4 KB to 64 MB.
+ENGINE_BENCH_SIZES = (("4KB", 4 << 10), ("1MB", 1 << 20),
+                      ("16MB", 16 << 20), ("64MB", 64 << 20))
+#: The planes: four channels and one, each on TCP and on shm (the
+#: bench's ``allreduce_bus_bw_mb_s``, ``_1ch`` and ``_shm`` keys, and the
+#: one-channel shm plane between them).
+ENGINE_BENCH_PLANES = (
+    ("tcp_ch4", {"HOROVOD_NUM_CHANNELS": "4", "HOROVOD_SHM_DISABLE": "1"}),
+    ("tcp_ch1", {"HOROVOD_NUM_CHANNELS": "1", "HOROVOD_SHM_DISABLE": "1"}),
+    ("shm_ch4", {"HOROVOD_NUM_CHANNELS": "4", "HOROVOD_SHM_DISABLE": "0"}),
+    ("shm_ch1", {"HOROVOD_NUM_CHANNELS": "1", "HOROVOD_SHM_DISABLE": "0"}))
+#: The reducescatter, alltoall and wire points' size.
+ENGINE_BENCH_RS_BYTES, ENGINE_BENCH_WIRE_BYTES = 16 << 20, 1 << 20
+#: The grouped points: 161 tensors (ResNet-50's gradient count) of 1 Ki
+#: fp32 values, through one grouped allreduce and one allreduce a tensor,
+#: then ResNet-50's own 161 gradients grouped beside one tensor of their
+#: 25 557 032 values: a call's cost per tensor against its cost per byte.
+ENGINE_BENCH_GROUP_VALUES, ENGINE_BENCH_GROUP_ITERS = 1024, 5
+
+
+def engine_bench_point(be, kind, x, iters, name, wire_dtype=None,
+                       want=None) -> dict:
+    """One sweep point of the bench (``bench_engine.measure``) on the CUDA
+    tensor ``x``, its last result held bitwise against the same call on
+    a host copy of ``x`` and, where given, against ``want`` (the plain
+    host sum of every rank's input); returns the point's figures and both
+    sides' ``data_bytes_tx``."""
+    m = be.measure(kind, x, iters, name=name, wire_dtype=wire_dtype)
+    host = be.measure(kind, x.cpu(), 1, name=f"{name}.host",
+                      wire_dtype=wire_dtype)
+    check(m["out"].device == x.device and bitwise_equal(m["out"],
+                                                        host["out"]),
+          f"engine_bench: {name} on the card differs from the host copy's")
+    check(want is None or bitwise_equal(m["out"], want),
+          f"engine_bench: {name} differs from the host sum of the ranks' "
+          "inputs")
+    check(m["tx"] % iters == 0 and m["tx"] // iters == host["tx"],
+          f"engine_bench: {name} moved {m['tx']} bytes in {iters} calls "
+          f"on the card, {host['tx']} a call on the host")
+    return {"kind": kind, "bytes": x.numel() * x.element_size(),
+            "iters": iters, "bus_gb_per_s": m["bus_mb_s"] / 1e3,
+            "wall_ms": m["wall_ms"], "engine_ms": m["engine_ms"],
+            "d2h_ms": m["d2h_ms"], "h2d_ms": m["h2d_ms"],
+            "tx_per_call": host["tx"], "bitwise_vs_host": True,
+            "bitwise_vs_host_sum": want is not None}
+
+
+def engine_bench_inputs(seed, shapes, size, dev):
+    """Every rank's seeded fp32 inputs of one point (rank r's from
+    ``seed + r``), made on the card: ``(card tensors of each rank, their
+    plain host sum in rank order)``."""
+    every = []
+    for r in range(size):
+        gen = torch.Generator(device=dev).manual_seed(seed + r)
+        every.append([torch.randn(sh, generator=gen, device=dev)
+                      for sh in shapes])
+    sums = [host_sum([xs[i].cpu() for xs in every])
+            for i in range(len(shapes))]
+    return every, sums
+
+
+def engine_bench_group(hvd_, eng, name, xs, want, grouped) -> dict:
+    """``ENGINE_BENCH_GROUP_ITERS`` averages of the tensors ``xs``: one
+    ``grouped_allreduce`` a call, or (``grouped`` false) one ``allreduce``
+    a tensor, each waited for before the next.  The results are held
+    bitwise against the host copies' and against ``want`` (the plain host
+    sums) over the world's size.  Returns the wall ms of a call (the card
+    synchronized before and after), the engine's allreduce ms, D2H and
+    H2D ms, negotiation cycles and responses, each per call."""
+    size = hvd_.size()
+    sync = (torch.cuda.synchronize if xs[0].device.type == "cuda"
+            else (lambda: None))
+
+    def call(ts, tag):
+        if grouped:
+            return hvd_.grouped_allreduce(ts, name=f"{name}{tag}")
+        return [hvd_.allreduce(t, name=f"{name}{tag}.{i}")
+                for i, t in enumerate(ts)]
+
+    got = call(xs, "")
+    host = call([x.cpu() for x in xs], ".host")
+    div = torch.full((), size, dtype=torch.float32)
+    check(all(g.device == x.device and bitwise_equal(g, h)
+              and bitwise_equal(g, w / div)
+              for g, h, w, x in zip(got, host, want, xs)),
+          f"engine_bench: {name} differs from the host copies' or from "
+          "the host mean of the ranks' inputs")
+    st0, eg0 = staging.stats(), eng.stats()
+    walls = []
+    for _ in range(ENGINE_BENCH_GROUP_ITERS):
+        sync()
+        t = time.perf_counter()
+        call(xs, "")
+        sync()
+        walls.append((time.perf_counter() - t) * 1e3)
+    st1, eg1 = staging.stats(), eng.stats()
+    n = ENGINE_BENCH_GROUP_ITERS
+    return {"tensors": len(xs), "bytes": sum(4 * x.numel() for x in xs),
+            "grouped": grouped, "iters": n, "wall_ms": walls,
+            "wall_ms_median": statistics.median(walls),
+            "engine_ms": (eg1["allreduce_ns"] - eg0["allreduce_ns"]) / 1e6 / n,
+            "d2h_ms": (st1["d2h_ms"] - st0["d2h_ms"]) / n,
+            "h2d_ms": (st1["h2d_ms"] - st0["h2d_ms"]) / n,
+            "cycles": (eg1["cycles"] - eg0["cycles"]) / n,
+            "responses": (eg1["responses"] - eg0["responses"]) / n,
+            "bitwise_vs_host": True, "bitwise_vs_host_mean": True}
+
+
+def engine_bench_worker(rank: int, device: str) -> dict:
+    """One rank of the engine_bench phase: the bench's allreduce sweep on
+    four planes, reducescatter and alltoall at 16 MB, the small-allreduce
+    latency and the fp16 / int8 wires at 1 MB, on seeded CUDA tensors;
+    every point bitwise against its host copy's and moving the same bytes
+    a call.  Any failed check raises."""
+    from horovod_tpu_torch import bench_engine as be
+
+    be._DEVICE = device
+    t0 = time.monotonic()
+    hvd_, eng = be._engine_setup()
+    dev, size = hvd_.device(), hvd_.size()
+    gen = torch.Generator(device=dev).manual_seed(2000 + rank)
+    out = {"rank": rank, "size": size, "device": str(dev), "points": {}}
+    pts = out["points"]
+    seed = 3000
+    for plane, env in ENGINE_BENCH_PLANES:
+        os.environ.update(env)
+        be._reinit(hvd_)
+        cfg = eng.stats()["config"]
+        check(cfg["shm_enabled"] == (env["HOROVOD_SHM_DISABLE"] == "0")
+              and cfg["num_channels"] == int(env["HOROVOD_NUM_CHANNELS"]),
+              f"engine_bench: plane {plane} came up as {cfg}")
+        for label, nbytes in ENGINE_BENCH_SIZES:
+            seed += 16
+            every, (want,) = engine_bench_inputs(seed, [(nbytes // 4,)],
+                                                 size, dev)
+            pts[f"allreduce.{plane}.{label}"] = engine_bench_point(
+                be, "allreduce", every[rank][0], be._iters(nbytes),
+                f"eb.{plane}.{label}", want=want)
+            del every
+    for k in ("HOROVOD_NUM_CHANNELS", "HOROVOD_SHM_DISABLE"):
+        os.environ.pop(k, None)
+    be._reinit(hvd_)       # the default plane, the bench's RS and A2A keys
+    n = ENGINE_BENCH_RS_BYTES // 4 // size * size
+    for kind in ("reducescatter", "alltoall"):
+        x = torch.randn(n, generator=gen, device=dev)
+        pts[f"{kind}.default.16MB"] = engine_bench_point(
+            be, kind, x, be._iters(ENGINE_BENCH_RS_BYTES), f"eb.{kind}")
+    out["small_latency_ms"] = be._lat_ms("eb.lat")
+    every, (want,) = engine_bench_inputs(
+        seed + 16, [(ENGINE_BENCH_WIRE_BYTES // 4,)], size, dev)
+    tx = {}
+    for wd in ("fp32", "fp16", "int8"):
+        pt = engine_bench_point(be, "allreduce", every[rank][0],
+                                be._iters(ENGINE_BENCH_WIRE_BYTES),
+                                f"eb.wire.{wd}", wire_dtype=wd,
+                                want=want if wd == "fp32" else None)
+        pts[f"allreduce.wire_{wd}.1MB"] = pt
+        tx[wd] = pt["tx_per_call"]
+    out["wire_bytes_ratio"] = {wd: tx[wd] / tx["fp32"]
+                               for wd in ("fp16", "int8")}
+    # Per tensor against per byte, on the default plane: 161 small
+    # tensors grouped and one by one; ResNet-50's 161 gradients grouped
+    # and the same values as one tensor.
+    groups = out["grouped"] = {}
+    every, want = engine_bench_inputs(
+        seed + 32, [(ENGINE_BENCH_GROUP_VALUES,)] * 161, size, dev)
+    for grouped in (True, False):
+        groups["161x4KB." + ("grouped" if grouped else "one_by_one")] = \
+            engine_bench_group(hvd_, eng, "eb.small", every[rank], want,
+                               grouped)
+    shapes = [p.shape for p in ResNet(ResNetConfig.resnet50(),
+                                      device="meta").parameters()]
+    every, want = engine_bench_inputs(seed + 48, shapes, size, dev)
+    groups["rn50.grouped"] = engine_bench_group(
+        hvd_, eng, "eb.rn50", every[rank], want, True)
+    flat = torch.cat([x.reshape(-1) for x in every[rank]])
+    del every
+    groups["rn50.one_tensor"] = engine_bench_group(
+        hvd_, eng, "eb.rn50flat", [flat],
+        [torch.cat([w.reshape(-1) for w in want])], False)
+    check(groups["rn50.grouped"]["bytes"] == 4 * 25_557_032
+          == groups["rn50.one_tensor"]["bytes"],
+          "engine_bench: ResNet-50's gradients are not 25 557 032 values")
+    del flat, want
+    out["staging"] = {k: v for k, v in staging.stats().items()
+                      if k.startswith("pinned")}
+    hvd_.shutdown()
+    out["wall_s"] = time.monotonic() - t0
+    return out
+
+
+def phase_engine_bench():
+    """The engine bench's sweep bodies on two ranks sharing the card
+    (``--engine-bench-worker RANK``)."""
+    t0 = time.monotonic()
+    results = run_ranks("--engine-bench-worker", "engine_bench",
+                        ENGINE_BENCH_TIMEOUT_S)
+    check(results[0]["wire_bytes_ratio"] == results[1]["wire_bytes_ratio"],
+          "engine_bench: the ranks' wire byte ratios differ")
+    emit("engine_bench", ranks=ENGINE_RANKS, wall_s=time.monotonic() - t0,
+         per_rank=results, nvidia_smi_after=smi_now())
 
 
 # ---------------------------------------------------------------------------
@@ -6616,6 +6836,9 @@ def main(argv=None) -> int:
     # One rank of the engine phase, started by the phase itself.
     parser.add_argument("--engine-worker", type=int, default=None,
                         metavar="RANK", help=argparse.SUPPRESS)
+    # One rank of the engine_bench phase.
+    parser.add_argument("--engine-bench-worker", type=int, default=None,
+                        metavar="RANK", help=argparse.SUPPRESS)
     # One rank of the engine_train phase, and the parts its world runs.
     parser.add_argument("--train-worker", type=int, default=None,
                         metavar="RANK", help=argparse.SUPPRESS)
@@ -6651,6 +6874,10 @@ def main(argv=None) -> int:
     if args.engine_worker is not None:
         print(json.dumps(engine_worker(args.engine_worker, "cuda:0")),
               flush=True)
+        return 0
+    if args.engine_bench_worker is not None:
+        print(json.dumps(engine_bench_worker(args.engine_bench_worker,
+                                             "cuda:0")), flush=True)
         return 0
     if args.train_worker is not None:
         print(json.dumps(train_worker(
@@ -6780,8 +7007,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_engine()
-    phase_engine_train()
-    phase_engine_moe()
+    phase_engine_bench()
+    # Both work in the processes they start: side by side.
+    side_by_side(phase_engine_train, phase_engine_moe)
     moe_tokens = phase_train_moe(dev, args.seed)[1]
     gc.collect()
     torch.cuda.empty_cache()

@@ -44,8 +44,14 @@ The default run also merges the serving benchmark
 (``serve_bench_error`` if it fails; ``HOROVOD_SKIP_SERVE_BENCH=1`` skips
 it), as the reference's does.
 
-Not ported: ``scaling_efficiency_8dev`` and the ``engine_*``
-(``bench_engine.py``) sub-bench.
+The default run also merges the eager engine's data-plane benchmark
+(``horovod_tpu_torch.bench_engine``: the sweeps, frontend loops and
+control-plane worlds at 2 and 4 ranks, every rank on the same device)
+under ``engine_`` (``engine_bench_error`` if it fails;
+``HOROVOD_SKIP_ENGINE_BENCH=1`` skips it), as the reference's does.
+
+Not ported: ``scaling_efficiency_8dev``, a compile-time figure of an
+8-device XLA mesh that one card cannot give.
 """
 
 from __future__ import annotations
@@ -66,7 +72,7 @@ import torch.nn.functional as F
 __all__ = ["make_step_and_state", "loss_fn", "run_steps", "time_step",
            "model_flops_per_step", "llama_config", "llama_loss_fn",
            "make_llama_step", "llama_flops_per_step", "llama_result",
-           "serve_result", "main", "PEAK_BF16_FLOPS",
+           "serve_result", "engine_result", "main", "PEAK_BF16_FLOPS",
            "REFERENCE_IMG_PER_SEC_PER_DEVICE"]
 
 #: docs/benchmarks.md:22-37: tf_cnn_benchmarks ResNet-101, 1656.82 images/s
@@ -358,26 +364,48 @@ def main(argv=None) -> int:
     device = hvd.device().type
     hvd.shutdown()
     if args.model == "resnet50" and \
+            os.environ.get("HOROVOD_SKIP_ENGINE_BENCH") != "1":
+        result.update(engine_result(device))
+    if args.model == "resnet50" and \
             os.environ.get("HOROVOD_SKIP_SERVE_BENCH") != "1":
         result.update(serve_result(device))
     print(json.dumps(result), flush=True)
     return 0
 
 
-def serve_result(device: str) -> dict:
-    """The serving benchmark's line under ``serve_`` keys, or
-    ``serve_bench_error``."""
+#: The engine bench's budget: its sweeps, frontend loops and 4/16/64-rank
+#: control-plane worlds (the reference's 1500 s).
+ENGINE_BENCH_TIMEOUT_S = 1500
+
+
+def _last_line_keys(argv, timeout: float, prefix: str) -> dict:
+    """Run ``argv`` and return its last stdout line's JSON keys (but
+    ``metric``) under ``prefix``, or ``{prefix + "bench_error": ...}``."""
     try:
-        proc = subprocess.run(
-            [sys.executable, "-m", "horovod_tpu_torch.bench_serve",
-             "--device", device], capture_output=True, timeout=900,
-            text=True)
-        srv = json.loads(proc.stdout.strip().splitlines()[-1])
-        return {f"serve_{k}": v for k, v in srv.items()
+        proc = subprocess.run(argv, capture_output=True, timeout=timeout,
+                              text=True)
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        return {f"{prefix}{k}": v for k, v in out.items()
                 if k not in ("metric", "router")}
     except (OSError, subprocess.SubprocessError, ValueError,
             IndexError) as e:
-        return {"serve_bench_error": f"{type(e).__name__}: {e}"}
+        return {f"{prefix}bench_error": f"{type(e).__name__}: {e}"}
+
+
+def engine_result(device: str) -> dict:
+    """The engine bench's line under ``engine_`` keys, or
+    ``engine_bench_error``."""
+    return _last_line_keys(
+        [sys.executable, "-m", "horovod_tpu_torch.bench_engine",
+         "--device", device], ENGINE_BENCH_TIMEOUT_S, "engine_")
+
+
+def serve_result(device: str) -> dict:
+    """The serving benchmark's line under ``serve_`` keys, or
+    ``serve_bench_error``."""
+    return _last_line_keys(
+        [sys.executable, "-m", "horovod_tpu_torch.bench_serve",
+         "--device", device], 900, "serve_")
 
 
 if __name__ == "__main__":

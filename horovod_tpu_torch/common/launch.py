@@ -14,26 +14,37 @@ to fail ends the wait with its own output, not with its peers' hang.
 from __future__ import annotations
 
 import os
+import random
 import socket
 import subprocess
 import tempfile
 import time
 from typing import Dict, List, Optional, Sequence
 
-__all__ = ["TORCH_PORT_OFFSET", "free_port", "World"]
+__all__ = ["TORCH_PORT_OFFSET", "PORT_RANGE", "free_port", "World"]
 
 #: The torch group's rendezvous sits this far above the coordinator's
 #: port (``common/basics.py``).
 TORCH_PORT_OFFSET = 64
 
+#: The ports :func:`free_port` draws from: below both Linux's (32768 on)
+#: and IANA's (49152 on) ephemeral ranges, so that no other process's
+#: ``connect()`` or ``bind(0)`` is handed a port between its probe and
+#: the rank that binds it (an engine world opens many such sockets).
+PORT_RANGE = (20000, 32768 - TORCH_PORT_OFFSET)
+
 
 def free_port() -> int:
-    """A free local port whose + :data:`TORCH_PORT_OFFSET` is free too."""
+    """A free local port of :data:`PORT_RANGE` whose +
+    :data:`TORCH_PORT_OFFSET` is free too, drawn at random from the
+    operating system's entropy (processes that seed ``random`` alike
+    still draw apart)."""
+    draw = random.SystemRandom()
     while True:
+        port = draw.randrange(*PORT_RANGE)
         with socket.socket() as s, socket.socket() as t:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
             try:
+                s.bind(("127.0.0.1", port))
                 t.bind(("127.0.0.1", port + TORCH_PORT_OFFSET))
             except OSError:
                 continue

@@ -261,6 +261,40 @@ print("alone ok")
 """
 
 
+#: The engine bench, its gates' rank bodies and the control-plane harness.
+_ENGINE_BENCH_MODULES = ["bench_engine", "bench_engine_workers",
+                         "scale_harness"]
+
+
+def test_engine_bench_imports_no_jax_and_its_scale_rank_no_torch():
+    """The engine bench's modules, imported in a fresh
+    interpreter, load neither JAX nor the JAX package (and reach no
+    reference worker under ``tests/``); the control plane's rank script,
+    run by its path, loads neither torch nor the package (64 of them share
+    one host)."""
+    code = ("import importlib, sys\n"
+            f"for m in {_ENGINE_BENCH_MODULES!r}:\n"
+            "    importlib.import_module('horovod_tpu_torch.' + m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'horovod_tpu', 'scale', 'bench_engine',"
+            " 'fsdp_worker', 'sharded_worker', 'native_worker'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    probe = ("import runpy, sys\n"
+             "runpy.run_path(%r, run_name='not_main')\n"
+             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('torch', 'numpy', 'horovod_tpu_torch', 'jax', "
+             "'horovod_tpu'))\n"
+             "assert not bad, bad\n"
+             % os.path.join(REPO, "horovod_tpu_torch", "scale_worker.py"))
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=60)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_engine_builds_and_runs_from_the_package_alone(tmp_path):
     """A copy of ``horovod_tpu_torch/`` with no ``horovod_tpu/`` beside it
     (and the library already built here, so nothing is compiled twice)
