@@ -260,6 +260,19 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                B1-B3 launches as the part's schedule gives (the ring: 2
                hops x 2 layers a step), no fallback; step ms, the bytes
                that cross between ranks and the bytes staged a step;
+               after parallel_zoo, four ranks (``--parallel4-worker
+               RANK``, beside ``ckpt_kill``): ``pipe_fsdp``
+               (pipe 2 x fsdp 2, B 4 x S 2048, 2 microbatches,
+               ``DistributedOptimizer(AdamW, fsdp=True)``: the pipelined
+               step's ZeRO rung) against the AdamW world of one (loss
+               rtol 1e-4, each leaf within 1e-3 of its update), each
+               rank's optimizer state the exact bytes of its halves
+               (about half the unsharded stage's), the card's bytes it
+               holds after the steps equal to its stage's
+               parameters, gradients, the rung's blocks and that state
+               (within 16 MiB; peak reported), every leaf held by
+               some stage, the ranks' losses equal, B1-B3 2 launches a
+               step; and parallel_zoo's ``user_fsdp_tensor``;
                then, in the same two ranks, the ``collectives`` part:
                the device plane through the frontend's names in a step's
                context at the sizes of models the repo runs: ResNet-50's
@@ -301,7 +314,16 @@ engine from ``horovod_tpu_torch/cpp`` (g++), then:
                step in the BERT parts, none plain, no fallback; the
                models' sizes, step ms, the bytes that cross between ranks
                and the bytes staged a step, collectives a step, peak
-               memory, the noise floor;
+               memory, the noise floor; then the rules' placement of
+               modules with no hand placement, gathered for use, each
+               against the world of one (loss rtol 1e-4, each leaf within
+               1e-3 of its update) with each rank holding the rules'
+               block: ``mnist_tensor`` (``MnistConvNet`` fp32 at tensor 2,
+               B 256: its convolutions split on their out-channels) and,
+               on the four ranks of ``parallel``, ``user_fsdp_tensor`` (a
+               user's ``body``/``head`` Linear pair at fsdp 2 x tensor 2,
+               4096 rows of 1024 features over bench_llama's 32000
+               classes: ``head`` split over both axes);
 15. ckpt    — the weight plane on CUDA state: ``bench_llama``'s model at
                its widths cut to 2 of its 16 layers (CKPT_LAYERS) under
                the hook form's ZeRO-1 (AdamW 3e-4,
@@ -472,6 +494,7 @@ from horovod_tpu_torch.models.generation import (generate, paged_decode_step,
                                                  paged_prefill)
 from horovod_tpu_torch.models.llama import (LlamaConfig, LlamaModel, RMSNorm,
                                             attend, causal_attention)
+from horovod_tpu_torch.models.mnist import MnistConvNet
 from horovod_tpu_torch.common import native_build
 from horovod_tpu_torch.common.launch import TORCH_PORT_OFFSET, free_port
 from horovod_tpu_torch.models.resnet import ResNet, ResNetConfig
@@ -723,6 +746,10 @@ def phase_kernels(dev, flush, seed):
                            c["dtype"], seed + i, dev)
         got = pa.paged_attention_decode(*args)
         torch.cuda.synchronize()
+        # The plain version's default, one pass over the table: closer to
+        # the kernel's order than the per-block walk, as the kernel takes
+        # each 128-slot range's softmax in one pass against the range's
+        # max and merges the ranges once.
         ref = pa._decode_blockwise(*args)
         check(tuple(got.shape) == tuple(args[0].shape)
               and got.dtype == c["dtype"], f"case {i}: output shape/dtype")
@@ -3138,9 +3165,11 @@ def engine_worker(rank: int, device: str) -> dict:
 
 
 def run_ranks(flag: str, phase: str, timeout_s: float, extra=(),
-              env_extra=None, rank_env=None, exit_codes=None) -> list:
+              env_extra=None, rank_env=None, exit_codes=None,
+              ranks: int = ENGINE_RANKS) -> list:
     """Start this script once per rank (``flag RANK`` and ``extra``, every
-    rank on cuda:0) and return each rank's last stdout line, parsed.  No
+    rank on cuda:0; ``ranks`` of them) and return each rank's last stdout
+    line, parsed.  No
     torch.distributed collective runs in them (NCCL refuses two ranks on
     one device; the group is created lazily).  Any rank's failure or
     timeout fails the phase.  ``HOROVOD_SHM_DISABLE`` alone of the
@@ -3152,22 +3181,22 @@ def run_ranks(flag: str, phase: str, timeout_s: float, extra=(),
     port = distinct_port()
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
-    env.update(HOROVOD_SIZE=str(ENGINE_RANKS),
-               HOROVOD_LOCAL_SIZE=str(ENGINE_RANKS),
+    env.update(HOROVOD_SIZE=str(ranks),
+               HOROVOD_LOCAL_SIZE=str(ranks),
                HOROVOD_COORDINATOR=f"127.0.0.1:{port}",
                HOROVOD_SHM_DISABLE=os.environ.get("HOROVOD_SHM_DISABLE", "0"))
     env.update(env_extra or {})
-    want = {r: (exit_codes or {}).get(r, 0) for r in range(ENGINE_RANKS)}
+    want = {r: (exit_codes or {}).get(r, 0) for r in range(ranks)}
     logs = tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_")
     files = [(open(os.path.join(logs, f"rank{r}.out"), "w+"),
               open(os.path.join(logs, f"rank{r}.err"), "w+"))
-             for r in range(ENGINE_RANKS)]
+             for r in range(ranks)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), flag, str(r), *extra],
         env=dict(env, HOROVOD_RANK=str(r), HOROVOD_LOCAL_RANK=str(r),
                  **(rank_env or {}).get(r, {})),
         stdout=files[r][0], stderr=files[r][1], text=True)
-        for r in range(ENGINE_RANKS)]
+        for r in range(ranks)]
     t0 = time.monotonic()
 
     def tail(r, n=4000):
@@ -3186,7 +3215,7 @@ def run_ranks(flag: str, phase: str, timeout_s: float, extra=(),
                     f"chip_smoke check failed: {phase} ranks "
                     f"{[r for r, p in enumerate(procs) if p.poll() is None]}"
                     f" timed out after {timeout_s} s:\n"
-                    + "\n".join(tail(r, 2000) for r in range(ENGINE_RANKS)))
+                    + "\n".join(tail(r, 2000) for r in range(ranks)))
             time.sleep(0.2)
         results = []
         for r, p in enumerate(procs):
@@ -4529,15 +4558,17 @@ def parallel_cfg(part):
         num_experts=8 if part == "expert" else 1)
 
 
-def world_of_one(cfg, seed, tokens):
-    """The plain model's SGD steps on this rank alone (the flash kernels):
-    (losses, state dict after the steps, {leaf: (||update||, max |update|)}
-    for the steps' update of each leaf)."""
+def world_of_one(cfg, seed, tokens, adamw=None):
+    """The plain model's SGD steps (AdamW's, given its arguments) on this
+    rank alone (the flash kernels): (losses, state dict after the steps,
+    {leaf: (||update||, max |update|)} for the steps' update of each
+    leaf)."""
     model = LlamaModel.from_state_dict(
         cfg, init_params(cfg, seed, tokens.device),
         attention_fn=fa.flash_attention_fn)
     start = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    opt = torch.optim.SGD(model.parameters(), lr=PAR_LR)
+    opt = (torch.optim.AdamW(model.parameters(), **adamw) if adamw
+           else torch.optim.SGD(model.parameters(), lr=PAR_LR))
     losses = []
     for _ in range(PAR_STEPS):
         opt.zero_grad(set_to_none=True)
@@ -4951,6 +4982,279 @@ def phase_parallel():
 
 
 # ---------------------------------------------------------------------------
+# phase 14a: four ranks sharing the card (gloo): the pipelined step's ZeRO
+# rung (parallel pipe_fsdp) and the rules' placement of a user's module
+# with no hand placement (parallel_zoo user_fsdp_tensor)
+# ---------------------------------------------------------------------------
+
+PARALLEL4_RANKS = 4
+PARALLEL4_TIMEOUT_S = 600
+#: pipe_fsdp's optimizer: AdamW, whose two moments the rung shards.
+PIPE_FSDP_ADAMW = dict(lr=1e-4, weight_decay=0.01)
+#: pipe_fsdp's resident bytes beyond what it accounts for: the caching
+#: allocator's rounding of each tensor to 512 bytes and small buffers.
+MEM_SLACK = 16 << 20
+#: The user's module: bench_llama's activations (B 2 x S 2048 rows of its
+#: hidden 1024) through a body Linear and a head over its vocabulary.
+USER_ROWS, USER_WIDTH = 4096, 1024
+
+
+class UserNet(torch.nn.Module):
+    """A user's two-``Linear`` module with no hand placement: the rules
+    shard ``head``'s kernel over ``fsdp`` x ``tensor`` (the ``head/kernel``
+    rule) and replicate ``body``."""
+
+    def __init__(self, vocab: int, dev, seed: int):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        self.body = torch.nn.Linear(USER_WIDTH, USER_WIDTH)
+        self.head = torch.nn.Linear(USER_WIDTH, vocab)
+        with torch.no_grad():
+            for p in self.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen)
+                        / math.sqrt(USER_WIDTH))
+        self.to(dev)
+
+    def forward(self, x):
+        return self.head(torch.relu(self.body(x)))
+
+
+def nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def state_bytes(opt) -> int:
+    """The bytes of an optimizer's state tensors on this rank."""
+    return sum(nbytes(t) for st in opt.state.values()
+               for t in st.values() if torch.is_tensor(t))
+
+
+def pipe_fsdp_part(cfg, seed, tokens) -> tuple:
+    """``pipe`` 2 x ``fsdp`` 2 under ``DistributedOptimizer(AdamW,
+    fsdp=True)``: (result, {name: this stage's parameter}).  The state
+    check: two fp32 moments of half of each leaf with an even dimension
+    (the rule's), all of any other, and each leaf's step count whole; and
+    the card's allocated bytes after the steps are the stage's
+    parameters, gradients, the rung's blocks and that state, within
+    ``MEM_SLACK``."""
+    from horovod_tpu_torch.parallel.pipeline import (
+        init_pipelined_llama, make_pipelined_llama_train_step)
+
+    dev = tokens.device
+    on_card = dev.type == "cuda"
+    free_memory()
+    if on_card:
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    mesh = build_mesh({"pipe": 2, "fsdp": 2})
+    model = init_pipelined_llama(cfg, init_params(cfg, seed, dev),
+                                 2, mesh=mesh,
+                                 attention_fn=fa.flash_attention_fn)
+    inner = torch.optim.AdamW(model.parameters(), **PIPE_FSDP_ADAMW)
+    run = make_pipelined_llama_train_step(
+        cfg, hvd.DistributedOptimizer(inner, fsdp=True), mesh,
+        n_microbatches=2)
+    params = {model.global_name(n): p for n, p in model.named_parameters()}
+    whole = sum(8 * p.numel() + 4 for p in params.values())
+    want = sum(8 * p.numel() // (2 if any(d % 2 == 0 for d in p.shape)
+                                 else 1) + 4 for p in params.values())
+    fa.reset_launches()
+    comm.reset_stats()
+    losses, step_ms = [], []
+    for _ in range(PAR_STEPS):
+        t = time.perf_counter()
+        losses.append(float(run(model, tokens[:, :-1], tokens[:, 1:])))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    held = state_bytes(inner)
+    # What the rank holds after the steps, against what it should: the
+    # stage's parameters and gradients, the rung's blocks (its parameters
+    # in the optimizer's groups) and their state.  Anything else resident
+    # (an optimizer built and never used, say) shows as unaccounted.
+    gc.collect()
+    resident = torch.cuda.memory_allocated(dev) - base if on_card else 0
+    peak = torch.cuda.max_memory_allocated(dev) - base if on_card else 0
+    mine = {id(p) for p in model.parameters()}
+    param_b = sum(nbytes(p) for p in model.parameters())
+    grad_b = sum(nbytes(p.grad) for p in model.parameters()
+                 if p.grad is not None)
+    block_b = sum(nbytes(p) for g in inner.param_groups for p in g["params"]
+                  if id(p) not in mine)
+    unaccounted = (resident - (param_b + grad_b + block_b + held)
+                   if on_card else 0)
+    out = dict(losses=losses, step_ms=step_ms, state_bytes=held,
+               state_bytes_want=want, state_bytes_unsharded=whole,
+               state_ratio=held / whole, mem_resident_bytes=resident,
+               mem_peak_bytes=peak, param_bytes=param_b, grad_bytes=grad_b,
+               block_bytes=block_b, mem_unaccounted_bytes=unaccounted,
+               kernel_launches=dict(fa.launches if tokens.is_cuda
+                                    else fa.plain_calls),
+               **{k + "_per_step": v / PAR_STEPS
+                  for k, v in comm.stats.items()})
+    check(held == want, f"parallel pipe_fsdp: optimizer state {held} bytes, "
+                        f"want {want} (unsharded {whole})")
+    check(abs(unaccounted) <= MEM_SLACK,
+          f"parallel pipe_fsdp: {unaccounted} bytes resident beyond the "
+          f"stage's parameters {param_b}, gradients {grad_b}, blocks "
+          f"{block_b} and state {held}")
+    return out, {n: p.detach() for n, p in params.items()}
+
+
+def user_batch(vocab: int, dev):
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((USER_ROWS, USER_WIDTH)).astype(np.float32)
+    y = rng.integers(0, vocab, USER_ROWS)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
+def classify_loss(model, batch):
+    return softmax_cross_entropy(model(batch[0]), batch[1])
+
+
+def rules_world_of_one(build, batch) -> tuple:
+    """A module with no hand placement stepped by SGD on this rank alone,
+    on the global batch: (losses, parameters after the steps, {leaf:
+    ||update||})."""
+    model = build()
+    start = {k: v.detach().clone() for k, v in model.named_parameters()}
+    opt = torch.optim.SGD(model.parameters(), lr=PAR_LR)
+    losses = []
+    for _ in range(PAR_STEPS):
+        opt.zero_grad(set_to_none=True)
+        loss = classify_loss(model, batch)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    return losses, params, {k: float((v - start[k]).norm())
+                            for k, v in params.items()}
+
+
+def rules_part(part: str, build, batch, axes: dict) -> dict:
+    """``part``: a module with no hand placement placed by the rules on
+    ``axes`` (gathered for use) and stepped by the parallel step, held
+    against the world of one: losses within PAR_LOSS_RTOL, each leaf
+    within PAR_PARAM_REL of its update, and each rank holding the rules'
+    block of each parameter."""
+    from horovod_tpu_torch.parallel.api import param_shardings
+    from horovod_tpu_torch.parallel.placement import full_state_dict
+
+    ref_losses, ref_params, update = rules_world_of_one(build, batch)
+    mesh = build_mesh(axes)
+    model = build()
+    specs = param_shardings(model, mesh)
+    whole = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    shard_params(model, mesh)
+    blocks = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    for n, spec in specs.items():
+        want = list(whole[n])
+        for d, a in enumerate(spec):
+            if a is not None:
+                want[d] //= axes[a]
+        check(blocks[n] == tuple(want), f"{part}: {n} held as {blocks[n]}, "
+                                        f"the rules' block {tuple(want)}")
+    check(any(any(s) for s in specs.values()),
+          f"{part}: the rules shard no parameter")
+    step = make_parallel_train_step(
+        model, torch.optim.SGD(model.parameters(), lr=PAR_LR), mesh,
+        loss_fn=classify_loss)
+    comm.reset_stats()
+    losses, step_ms = [], []
+    for _ in range(PAR_STEPS):
+        t = time.perf_counter()
+        losses.append(float(step(batch)))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    params = full_state_dict(model)
+    rel = {n: float((p - ref_params[n]).norm()) / max(update[n], 1e-30)
+           for n, p in params.items()}
+    worst = max(rel, key=rel.get)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    check(loss_err <= PAR_LOSS_RTOL,
+          f"{part}: losses {losses} vs {ref_losses}")
+    check(rel[worst] <= PAR_PARAM_REL,
+          f"{part}: {worst} off the world of one by {rel[worst]} of its "
+          f"update; by leaf {rel}")
+    check(len(params) == len(ref_params), f"{part}: leaves {sorted(params)}")
+    return dict(losses=losses, world_of_one_losses=ref_losses,
+                loss_rel_err=loss_err, param_rel_err=rel[worst],
+                param_rel_worst=worst, param_rel_by_leaf=rel,
+                step_ms=step_ms, specs={n: list(s) for n, s in specs.items()},
+                blocks=blocks, **{k + "_per_step": v / PAR_STEPS
+                                  for k, v in comm.stats.items()})
+
+
+def parallel4_worker(rank: int, device: str) -> dict:
+    """One rank of the four-rank world: pipe_fsdp, held against the AdamW
+    world of one (each leaf of this rank's stage), then user_fsdp_tensor.
+    Each failed check raises."""
+    hvd.init(device=device, backend="gloo")
+    dev = hvd.device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seed = 7
+    cfg = parallel_cfg("pipe")
+    # fsdp splits the rows: 2 a rank, one a microbatch (as in pipe).
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2 * PAR_B, PAR_S + 1))).to(dev)
+    out = {"rank": hvd.rank(), "size": hvd.size(),
+           "backend": torch.distributed.get_backend()}
+    ref_losses, ref_state, update = world_of_one(cfg, seed, tokens,
+                                                 PIPE_FSDP_ADAMW)
+    fallbacks = fa.fallback_count()
+    res, params = pipe_fsdp_part(cfg, seed, tokens)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(res["losses"],
+                                                       ref_losses))
+    rel = {n: float((p.float() - ref_state[n].float()).norm())
+           / max(update[n][0], 1e-30) for n, p in params.items()}
+    worst = max(rel, key=rel.get)
+    res.update(world_of_one_losses=ref_losses, loss_rel_err=loss_err,
+               param_rel_err=rel[worst], param_rel_worst=worst,
+               param_rel_by_leaf=rel, leaves_all=sorted(update),
+               fallbacks=fa.fallback_count() - fallbacks)
+    check(loss_err <= PAR_LOSS_RTOL,
+          f"parallel pipe_fsdp: losses {res['losses']} vs {ref_losses}")
+    check(rel[worst] <= PAR_PARAM_REL,
+          f"parallel pipe_fsdp: {worst} off the world of one by "
+          f"{rel[worst]} of its update; by leaf {rel}")
+    check(all(n == 2 * PAR_STEPS for n in res["kernel_launches"].values()),
+          f"parallel pipe_fsdp: flash launches {res['kernel_launches']}")
+    check(res["fallbacks"] == 0, "parallel pipe_fsdp: a fallback ran")
+    out["pipe_fsdp"] = res
+    del params, ref_state
+    free_memory()
+    out["user_fsdp_tensor"] = rules_part(
+        "parallel_zoo user_fsdp_tensor",
+        lambda: UserNet(cfg.vocab_size, dev, seed),
+        user_batch(cfg.vocab_size, dev), {"fsdp": 2, "tensor": 2})
+    hvd.shutdown()
+    return out
+
+
+def phase_parallel4():
+    """pipe_fsdp and user_fsdp_tensor on four ranks of the card; the
+    ranks' losses must be equal (pipe_fsdp: and every leaf held by a
+    stage)."""
+    t0 = time.monotonic()
+    results = run_ranks("--parallel4-worker", "parallel4",
+                        PARALLEL4_TIMEOUT_S, ranks=PARALLEL4_RANKS)
+    smi = smi_now()
+    for phase, part in (("parallel", "pipe_fsdp"),
+                        ("parallel_zoo", "user_fsdp_tensor")):
+        per_rank = [r[part] for r in results]
+        check(all(r["losses"] == per_rank[0]["losses"] for r in per_rank),
+              f"{phase} {part}: ranks' losses differ: "
+              f"{[r['losses'] for r in per_rank]}")
+        if part == "pipe_fsdp":
+            held = set().union(*(r["param_rel_by_leaf"] for r in per_rank))
+            check(held == set(per_rank[0]["leaves_all"]),
+                  f"parallel pipe_fsdp: leaves held {sorted(held)} of "
+                  f"{per_rank[0]['leaves_all']}")
+        emit(phase, part=part, ranks=PARALLEL4_RANKS,
+             backend=results[0]["backend"], steps=PAR_STEPS,
+             loss_rtol=PAR_LOSS_RTOL, param_rel=PAR_PARAM_REL,
+             per_rank=per_rank, nvidia_smi_after=smi,
+             world_wall_s=time.monotonic() - t0)
+
+
+# ---------------------------------------------------------------------------
 # phase 14b: parallel_zoo: BERT-base and ResNet-50 placed by the rules
 # (tensor, and fsdp by hand) through make_parallel_train_step on two ranks
 # ---------------------------------------------------------------------------
@@ -4959,6 +5263,8 @@ PARALLEL_ZOO_TIMEOUT_S = 600
 PARALLEL_ZOO_PARTS = ("bert_tensor", "bert_fsdp", "resnet_tensor",
                       "resnet_fsdp")
 PZOO_BERT_B, PZOO_RESNET_B, PZOO_RESNET_HW = 4, 8, 224
+#: mnist_tensor: MnistConvNet (no hand placement) at tensor 2, fp32.
+PZOO_MNIST_B = 256
 PZOO_LAST_SCALE = 0.1
 #: ResNet's world-of-one runs with one ulp of weight noise, and how many
 #: times the farthest of them from the world of one a leaf of the placed
@@ -5190,6 +5496,19 @@ def parallel_zoo_worker(rank: int, device: str) -> dict:
             free_memory()
         del refs
         free_memory()
+    # cuDNN's default convolution algorithms need not sum in one order
+    # from one run to the next (with them, this part's leaves land 1.4e-3
+    # to 3.5e-3 of their update off the world of one on an H100); the
+    # deterministic ones hold both runs to the same order.
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.default_rng(5)
+    images = torch.from_numpy(rng.random((PZOO_MNIST_B, 28, 28, 1),
+                                         np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 10, PZOO_MNIST_B)).to(dev)
+    out["mnist_tensor"] = rules_part(
+        "parallel_zoo mnist_tensor",
+        lambda: MnistConvNet(dtype=torch.float32, seed=7, device=dev),
+        (images, labels), {"tensor": hvd.size()})
     hvd.shutdown()
     return out
 
@@ -5206,7 +5525,7 @@ def phase_parallel_zoo():
          resnet_batch=[PZOO_RESNET_B, PZOO_RESNET_HW, PZOO_RESNET_HW, 3],
          peak_gb_by_part={p: [r[p]["peak_gb"] for r in results]
                           for p in PARALLEL_ZOO_PARTS})
-    for part in PARALLEL_ZOO_PARTS:
+    for part in PARALLEL_ZOO_PARTS + ("mnist_tensor",):
         per_rank = [r[part] for r in results]
         check(per_rank[0]["losses"] == per_rank[1]["losses"],
               f"parallel_zoo {part}: ranks' losses differ: "
@@ -6850,6 +7169,9 @@ def main(argv=None) -> int:
     # One rank of the parallel phase.
     parser.add_argument("--parallel-worker", type=int, default=None,
                         metavar="RANK", help=argparse.SUPPRESS)
+    # One rank of the parallel phase's four-rank world.
+    parser.add_argument("--parallel4-worker", type=int, default=None,
+                        help=argparse.SUPPRESS)
     # One rank of the parallel_zoo phase.
     parser.add_argument("--parallel-zoo-worker", type=int, default=None,
                         metavar="RANK", help=argparse.SUPPRESS)
@@ -6890,6 +7212,10 @@ def main(argv=None) -> int:
         return 0
     if args.parallel_worker is not None:
         print(json.dumps(parallel_worker(args.parallel_worker, "cuda:0")),
+              flush=True)
+        return 0
+    if args.parallel4_worker is not None:
+        print(json.dumps(parallel4_worker(args.parallel4_worker, "cuda:0")),
               flush=True)
         return 0
     if args.parallel_zoo_worker is not None:
@@ -7015,7 +7341,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # Phases whose work is in the processes they start go two by two.
     side_by_side(phase_parallel, lambda: phase_ckpt(dev))
-    side_by_side(phase_parallel_zoo, phase_ckpt_kill)
+    # The four-rank world after parallel_zoo: the pair then ends about
+    # with ckpt_kill, the longer of the two.
+    side_by_side(lambda: (phase_parallel_zoo(), phase_parallel4()),
+                 phase_ckpt_kill)
     phase_serve_weights(dev, args.seed)
     gc.collect()
     torch.cuda.empty_cache()

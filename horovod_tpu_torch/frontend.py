@@ -305,28 +305,57 @@ class DistributedOptimizer:
                 "sharded/fsdp reduces gradients with SUM/AVERAGE only")
         self._named = (None if named_parameters is None
                        else list(named_parameters))
-        #: The sharded rung (ZeRO-1 or FSDP) that steps, or None.
-        self.zero = None
+        #: ``fsdp=True``: a parallel step that takes this wrapper
+        #: (``parallel/pipeline.py``) shards the optimizer state over its
+        #: mesh's ``fsdp`` axis, as the reference's reads ``_fsdp``.
+        self._fsdp = fsdp
+        self._zero = None
+        #: Builds the FSDP rung at its first use (:attr:`zero`), so a
+        #: parallel step that takes the inner optimizer never pays for
+        #: its plane (:meth:`release_inner` drops it unbuilt).
+        self._make_zero = None
         if sharded:
             from horovod_tpu_torch.torch_frontend import _ShardedOptimizer
-            self.zero = _ShardedOptimizer(optimizer, compression,
-                                          average=op is Average)
+            self._zero = _ShardedOptimizer(optimizer, compression,
+                                           average=op is Average)
         elif fsdp:
             from horovod_tpu_torch.torch_frontend import (
-                _FsdpOptimizer, _refuse_master_weights)
+                _FsdpOptimizer, _refuse_master_weights, _refuse_topk_scatter)
             _refuse_master_weights("fsdp=True", optimizer)
-            self.zero = _FsdpOptimizer(
-                _regroup(optimizer, _fsdp_units(optimizer, self._named,
-                                                fsdp_units)),
-                compression, fsdp_prefetch, average=op is Average)
+            _refuse_topk_scatter("fsdp=True", compression)
+            regrouped = _regroup(optimizer, _fsdp_units(
+                optimizer, self._named, fsdp_units))
+            self._make_zero = lambda: _FsdpOptimizer(
+                regrouped, compression, fsdp_prefetch, average=op is Average)
         #: The periodic-sync policy (None when H <= 1).
         self.local_sgd = (LocalSGD(self._local_sgd_steps,
                                    compression=compression)
                           if self._local_sgd_steps > 1 else None)
 
     @property
+    def zero(self):
+        """The sharded rung (ZeRO-1 or FSDP) that steps, or None; the FSDP
+        rung is built here at its first use."""
+        if self._make_zero is not None:
+            self._zero, self._make_zero = self._make_zero(), None
+        return self._zero
+
+    @property
     def state(self):
         return (self.zero or self.inner).state
+
+    def release_inner(self):
+        """The inner optimizer, for a parallel step that reduces the
+        gradients and steps it itself.  An FSDP rung not yet built never
+        is; one already used holds the state, so it is refused."""
+        if self._fsdp and self._zero is not None:
+            raise ValueError(
+                "a parallel step takes the inner optimizer of "
+                "DistributedOptimizer(fsdp=True), whose FSDP rung has been "
+                "used already and holds the state; pass the wrapper to the "
+                "parallel step before any eager step")
+        self._make_zero = None
+        return self.inner
 
     def grad_params(self) -> List[nn.Parameter]:
         """The parameters whose ``.grad`` the backward fills."""

@@ -17,11 +17,14 @@ Two implementations of one function, chosen by the tensors' device:
   ``ops/_build.py``; one launch a call, which merges each row's token
   ranges itself) — or an exception, never a quiet fallback;
 * on a CPU tensor, :func:`_decode_blockwise`, the plain PyTorch version:
-  the table walked block by block with a masked fp32 online softmax (the
-  kernel takes the softmax of each range of slots and merges the ranges:
-  the same function, summed in another order).  The CPU tests hold it
-  against the JAX package's Pallas kernel, and ``chip_smoke.py`` holds
-  the CUDA kernel against it on the card.
+  a masked fp32 online softmax over the table, by default in one pass
+  over the whole table, and block by block under
+  ``HOROVOD_PAGED_ATTN_CHUNK=1`` (the JAX package's variable, read the
+  same way; the kernel takes the softmax of each range of slots and
+  merges the ranges: the same function, summed in another order).  The
+  CPU tests hold the walk against the JAX package's Pallas kernel and the
+  one pass against the walk, and ``chip_smoke.py`` holds the CUDA kernel
+  against the plain version on the card.
 
 Both are numerically equivalent to the gather oracle, not bitwise: the
 online softmax re-associates the reduction over keys (the reference's
@@ -39,6 +42,7 @@ really runs.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -77,35 +81,59 @@ def count_replay(n: int) -> None:
     launches += n
 
 
+def _chunk_cols(maxb: int) -> int:
+    """Table columns folded into one online-softmax iteration of
+    :func:`_decode_blockwise`: the whole table by default (one gather,
+    one masked softmax: per-block dispatch, not flops, is the CPU's
+    cost), ``HOROVOD_PAGED_ATTN_CHUNK`` columns where set (``1``: the
+    per-block walk), as the JAX package's stand-in reads it."""
+    raw = os.environ.get("HOROVOD_PAGED_ATTN_CHUNK", "").strip()
+    if not raw:
+        return maxb
+    return max(1, min(int(raw), maxb))
+
+
 def _decode_blockwise(q, pool_k, pool_v, tables, pos):
-    """Online-softmax walk over the table, one block per step.
+    """Online-softmax walk over the table, :func:`_chunk_cols` columns a
+    step (by default one step over the whole table).
 
     q: [B, 1, Hq, D]; pool_k/pool_v: [NB, BS, Hkv, D]; tables: [B, MAXB]
     int32; pos: [B].  Returns [B, 1, Hq, D] in ``q.dtype``.  Scores are
     fp32 products of the stored values (bf16 x bf16 is exact in fp32),
     probabilities are rounded to ``v.dtype`` before the PV product, as in
-    the kernel.  Columns past the longest row's ``pos`` are not walked:
-    they are fully masked, contribute exactly zero, and block 0 is live
-    for every row, so the result is the full-table walk's bit for bit.
+    the kernel.  A walk of more than one step reads ``pos`` on the host
+    and stops after the longest row's last live chunk: the chunks past it
+    are fully masked, contribute exactly zero, and block 0 is live for
+    every row, so the result is the full-table walk's bit for bit.  The
+    one-step default reads nothing back.
     """
     B, _, Hq, D = q.shape
     BS, Hkv = pool_k.shape[1], pool_k.shape[2]
     G = Hq // Hkv
     maxb = tables.shape[1]
-    nblk = min(maxb, int(pos.max()) // BS + 1)
+    C = _chunk_cols(maxb)
+    nchunks = -(-maxb // C)
+    tables = tables.long()
+    if nchunks * C != maxb:
+        # A ragged tail reads trash block 0: every padded column's slots
+        # lie past MAXB*BS > pos, so the mask kills them.
+        tables = torch.cat([tables, tables.new_zeros(
+            (B, nchunks * C - maxb))], dim=1)
+    if nchunks > 1:
+        nchunks = min(nchunks, int(pos.max()) // (C * BS) + 1)
     scale = 1.0 / torch.sqrt(torch.tensor(D, dtype=torch.float32))
     qg = q.reshape(B, Hkv, G, D).float()
-    tables = tables.long()
     m = torch.full((B, Hkv, G), _NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((B, Hkv, G), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, Hkv, G, D), dtype=torch.float32, device=q.device)
-    slots = torch.arange(BS, device=q.device)
-    for j in range(nblk):
-        kb = pool_k[tables[:, j]].float()            # [B, BS, Hkv, D]
-        vb = pool_v[tables[:, j]]
+    slots = torch.arange(C * BS, device=q.device)
+    for j in range(nchunks):
+        bids = tables[:, j * C:(j + 1) * C]
+        kb = pool_k[bids].reshape(B, C * BS, Hkv, D).float()
+        vb = pool_v[bids].reshape(B, C * BS, Hkv, D)
         s = torch.einsum("bhgd,bkhd->bhgk", qg, kb) * scale
-        live = (j * BS + slots)[None, :] <= pos[:, None]      # [B, BS]
+        live = (j * C * BS + slots)[None, :] <= pos[:, None]   # [B, C*BS]
         s = torch.where(live[:, None, None, :], s, _NEG_INF)
         new_m = torch.maximum(m, s.amax(dim=-1))
         alpha = torch.exp(m - new_m)

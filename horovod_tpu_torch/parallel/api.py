@@ -27,15 +27,12 @@ the collectives; here:
   (the Megatron pair for ``tensor``, an allgather with a reduce-scatter
   backward for ``fsdp``, a sum of the experts' parts for ``expert``, and
   a ResNet's BatchNorm statistics summed over the data-like axes);
-* any other model at ``fsdp`` > 1 gets FSDP2 (``fully_shard``) per layer
-  of its ``layers`` stack and at the root, HSDP over (``data``, ``fsdp``)
-  when ``data`` is larger than 1 too, each parameter sharded on the
-  dimension the rules give ``fsdp`` (one the rules replicate on its first
-  dimension: the same values in another placement); its FSDP units reduce
-  their own gradients (wrap the optimizer with
-  ``DistributedOptimizer(reduce_gradients=False)``) and it is stepped by
-  ``make_train_step``.  ``tensor`` and ``expert`` placement for those
-  models is not written, and raises;
+* any other module on such a mesh is placed by the same rules and
+  gathered for use (``placement._gather_for_use``): each rank keeps its
+  block of each parameter the rules shard, the model's forward reads it
+  whole (the ``fsdp`` gather's backward reduce-scatters; a ``tensor`` or
+  ``expert`` gather's keeps this rank's slice, the compute being
+  replicated over those ranks), and what the rules replicate stays whole;
 * ``seq`` and ``pipe`` axes replicate every parameter, as the rules do
   (the families that shard over them are ``parallel/seq.py`` and
   ``parallel/pipeline.py``).
@@ -76,7 +73,7 @@ SHARDING_RULES: Tuple[Tuple[str, Tuple[Optional[str], ...]], ...] = (
     (r"kernel$", (None, None, None, "tensor")),  # convs: shard out-channels
 )
 
-_HAND_PLACED_AXES = (AXIS_FSDP, AXIS_TENSOR, AXIS_EXPERT)
+_PLACED_AXES = (AXIS_FSDP, AXIS_TENSOR, AXIS_EXPERT)
 
 
 def infer_param_spec(path: str, shape: Tuple[int, ...],
@@ -171,26 +168,17 @@ def param_shardings(model: nn.Module,
     return param_specs(model, mesh)
 
 
-def _hand_placed(model: nn.Module, sizes) -> bool:
-    """Whether :func:`shard_params` places ``model`` by hand on a mesh of
-    these axis sizes (``parallel/placement.py``); raises for tensor or
-    expert placement of a model that has none."""
-    from horovod_tpu_torch.models.bert import BertForPretraining
-    from horovod_tpu_torch.models.llama import LlamaModel
+def _placed(model: nn.Module, sizes) -> bool:
+    """Whether :func:`shard_params` places ``model`` on a mesh of these
+    axis sizes (``parallel/placement.py``): an axis that shards parameters
+    is larger than 1 (for a ResNet, ``data`` too)."""
     from horovod_tpu_torch.models.resnet import ResNet
 
-    axes = _HAND_PLACED_AXES
+    axes = _PLACED_AXES
     if isinstance(model, ResNet):
         # BatchNorm over the global batch: data-parallel ranks share the
         # statistics too.
         axes = axes + (AXIS_DATA,)
-    elif not isinstance(model, (LlamaModel, BertForPretraining)):
-        if any(sizes.get(a, 1) > 1 for a in (AXIS_TENSOR, AXIS_EXPERT)):
-            raise NotImplementedError(
-                f"shard_params: tensor and expert placement is written for "
-                f"LlamaModel, BertForPretraining and ResNet, not "
-                f"{type(model).__name__} (ROADMAP.md Queue A item 7)")
-        return False
     return any(sizes.get(a, 1) > 1 for a in axes)
 
 
@@ -198,31 +186,13 @@ def shard_params(model: nn.Module, mesh) -> nn.Module:
     """Place ``model``'s parameters on ``mesh`` (a ``DeviceMesh`` from
     ``build_mesh``) by the rules; returns the model, placed in place (see
     the module's docstring), or untouched where every axis that shards
-    parameters has size 1.  Build the optimizer after this call."""
-    sizes = axis_sizes(mesh)
-    if _hand_placed(model, sizes):
-        if model.placement is None:
-            from horovod_tpu_torch.parallel.placement import place
-            place(model, mesh)
-        return model
-    if sizes.get(AXIS_FSDP, 1) == 1:
-        return model
-    from torch.distributed.fsdp import fully_shard
-    from torch.distributed.tensor import Shard
-
-    specs = param_specs(model, mesh)
-    by_param = {p: specs[n] for n, p in model.named_parameters()}
-
-    def placement(p):
-        spec = by_param.get(p, ())
-        return Shard(spec.index(AXIS_FSDP)) if AXIS_FSDP in spec else None
-
-    dp_mesh = (mesh[(AXIS_DATA, AXIS_FSDP)]
-               if sizes.get(AXIS_DATA, 1) > 1 else mesh[AXIS_FSDP])
-    for name, mod in model.named_modules():
-        if name.split(".")[-2:-1] == ["layers"]:
-            fully_shard(mod, mesh=dp_mesh, shard_placement_fn=placement)
-    fully_shard(model, mesh=dp_mesh, shard_placement_fn=placement)
+    parameters has size 1, or where the rules shard none of a module's
+    parameters that no hand placement covers.  Build the optimizer after
+    this call."""
+    if getattr(model, "placement", None) is None and \
+            _placed(model, axis_sizes(mesh)):
+        from horovod_tpu_torch.parallel.placement import place
+        place(model, mesh)
     return model
 
 
@@ -241,11 +211,12 @@ def lm_loss_fn(model: nn.Module) -> Callable:
 def _inner_optimizer(optimizer):
     """The optimizer that steps: a ``DistributedOptimizer`` unwrapped (the
     step reduces the gradients itself, as the reference's GSPMD step
-    switches the wrapper's reduction off)."""
+    switches the wrapper's reduction off; its FSDP rung is never
+    built)."""
     from horovod_tpu_torch.frontend import DistributedOptimizer
 
     if isinstance(optimizer, DistributedOptimizer):
-        return optimizer.inner
+        return optimizer.release_inner()
     return optimizer
 
 
@@ -338,12 +309,6 @@ def make_parallel_train_step(model: nn.Module, optimizer, mesh, *,
     reference's traced branch).
     """
     sizes = axis_sizes(mesh)
-    if sizes.get(AXIS_FSDP, 1) > 1 and not _hand_placed(model, sizes):
-        raise NotImplementedError(
-            f"make_parallel_train_step: an fsdp axis is placed by hand for "
-            f"LlamaModel, BertForPretraining and ResNet, not "
-            f"{type(model).__name__}; shard it with shard_params (FSDP2) "
-            "and step it with make_train_step (ROADMAP.md Queue A item 7)")
     loss_fn = loss_fn or lm_loss_fn(model)
     inner = _inner_optimizer(optimizer)
     shard_params(model, mesh)

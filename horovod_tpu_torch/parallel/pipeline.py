@@ -19,6 +19,19 @@ parts to sum, so summing them would multiply every stage's gradient by
 the stage count), then the cotangents run back through the stages in
 microbatch order, each stage's parameter gradients summed over its
 microbatches.
+
+The pipelined step's ZeRO rung (:class:`_ZeroRung`): with
+``DistributedOptimizer(inner, fsdp=True)`` on a mesh whose ``fsdp`` axis
+is larger than 1, the inner optimizer's state is sharded over ``fsdp`` by
+the reference's ``_fsdp_state_spec`` rule on the reference's leaf (its
+stage-stacked ``[pipe, L/pipe, ...]`` layers, its ``[in, out]`` kernels):
+keep the stage dimension, shard the first dimension ``fsdp`` divides,
+keep scalars and leaves it divides nowhere whole.  Each ``fsdp`` rank
+steps only its block of each such leaf (whole layers of its stage where
+``fsdp`` divides their count, else its block of each parameter), with
+state of the block's size, then the blocks are gathered over ``fsdp`` so
+every rank holds the whole parameters for the next forward: the
+allgather half GSPMD inserts around the reference's update.
 """
 
 from __future__ import annotations
@@ -32,8 +45,9 @@ import torch.nn.functional as F
 from horovod_tpu_torch.ops.losses import softmax_cross_entropy
 from horovod_tpu_torch.parallel import comm
 from horovod_tpu_torch.parallel.api import _inner_optimizer, sum_gradients
-from horovod_tpu_torch.parallel.mesh import (axis_index, axis_sizes,
-                                             data_axes, default_mesh)
+from horovod_tpu_torch.parallel.mesh import (AXIS_FSDP, axis_index,
+                                             axis_sizes, data_axes,
+                                             default_mesh)
 
 __all__ = ["pipeline_apply", "stack_pytrees", "unstack_pytree",
            "init_pipelined_llama", "make_pipelined_llama_train_step",
@@ -197,6 +211,126 @@ def init_pipelined_llama(cfg, params, n_stages: int, *, stage=None,
     return model
 
 
+class _ZeroRung:
+    """The inner optimizer's state sharded over ``fsdp`` for a
+    :class:`PipelinedLlama` (see the module's docstring).  Built at the
+    first step, before the optimizer has state: each sharded leaf's
+    parameters leave the optimizer's groups and one block parameter of
+    this rank takes their place; :meth:`step` hands each block its part
+    of the reduced gradients, steps the optimizer and gathers the blocks
+    back into the whole parameters."""
+
+    def __init__(self, model: PipelinedLlama, inner, axis):
+        from horovod_tpu_torch.models.convert import flax_layout
+
+        self.axis, self.inner = axis, inner
+        f, per = axis.size, len(model.layers)
+        layout = flax_layout(model.config)
+        #: [(members, dim, block)]: ``dim`` is the sharded dimension of
+        #: the members stacked on a new dimension 0 (0: whole layers).
+        self.leaves = []
+        by_layer: Dict[str, List[nn.Parameter]] = {}
+        for name, p in model.named_parameters():
+            parts = name.split(".")
+            if parts[0] == "layers":
+                by_layer.setdefault(".".join(parts[2:]), []).append(p)
+            else:
+                self._add([p], _state_dim(p, layout[name][1], f,
+                                          model.n_stages))
+        for local, members in by_layer.items():
+            if per >= f and per % f == 0:
+                self._add(members, 0)
+                continue
+            ref = layout[model.global_name(f"layers.0.{local}")][1]
+            dim = _state_dim(members[0], ref, f)
+            for p in members:
+                self._add([p], dim)
+        sharded = {id(p): i for i, leaf in enumerate(self.leaves)
+                   for p in leaf[0]}
+        placed = set()
+        for group in inner.param_groups:
+            kept, here = [], set()
+            for p in group["params"]:
+                if p in inner.state:
+                    raise ValueError(
+                        "make_pipelined_llama_train_step: the optimizer has "
+                        "state already; build it before the first step")
+                i = sharded.get(id(p))
+                if i is None:
+                    kept.append(p)
+                elif i not in here:
+                    if i in placed:
+                        raise ValueError(
+                            "make_pipelined_llama_train_step: the layers' "
+                            "parameters of one name in several param "
+                            "groups")
+                    here.add(i)
+                    kept.append(self.leaves[i][2])
+            placed |= here
+            group["params"] = kept
+
+    def _add(self, members, dim):
+        if dim is None:
+            return
+        f, k = self.axis.size, self.axis.index
+        if dim == 0:
+            n = len(members) // f
+            block = torch.stack([p.detach() for p in
+                                 members[k * n:(k + 1) * n]])
+        else:
+            block = members[0].detach().chunk(f, dim - 1)[k]
+        self.leaves.append((members, dim,
+                            nn.Parameter(block.clone().contiguous())))
+
+    @torch.no_grad()
+    def step(self) -> None:
+        f, k = self.axis.size, self.axis.index
+        for members, dim, block in self.leaves:
+            if dim == 0:
+                n = len(members) // f
+                block.grad = torch.stack([p.grad for p in
+                                          members[k * n:(k + 1) * n]])
+            else:
+                block.grad = members[0].grad.chunk(f, dim - 1)[k].contiguous()
+        self.inner.step()
+        by_dtype: Dict[torch.dtype, list] = {}
+        for leaf in self.leaves:
+            by_dtype.setdefault(leaf[2].dtype, []).append(leaf)
+        for leaves in by_dtype.values():
+            flat = torch.cat([b.reshape(-1) for _, _, b in leaves])
+            ranks = comm.gather(flat, self.axis, 0).view(f, -1).unbind(0)
+            at = 0
+            for members, dim, block in leaves:
+                parts = [r[at:at + block.numel()].view(block.shape)
+                         for r in ranks]
+                at += block.numel()
+                if dim == 0:
+                    for p, w in zip(members, torch.cat(parts)):
+                        p.copy_(w)
+                else:
+                    members[0].copy_(torch.cat(parts, dim - 1))
+        for members, _, block in self.leaves:
+            block.grad = None
+
+
+def _state_dim(p, ref_dims, f: int, n_stages=None):
+    """The reference's ``_fsdp_state_spec`` on the reference's leaf of
+    ``p`` past its stage dimensions (``ref_dims``: the reference dimension
+    of each port dimension, None for the same order; ``n_stages``, for a
+    replicated leaf: whose first dimension the rule keeps where it equals
+    the stage count): 1 + the port dimension it shards over ``fsdp``, or
+    None where the leaf stays whole."""
+    dims = ref_dims or tuple(range(p.dim()))
+    ref = [0] * p.dim()
+    for d, j in enumerate(dims):
+        ref[j] = p.shape[d]
+    start = 1 if ref and ref[0] == n_stages else 0
+    for j in range(start, len(ref)):
+        if ref[j] >= f and ref[j] % f == 0:
+            return dims.index(j) + 1
+    return None
+
+
 def make_pipelined_llama_train_step(cfg, optimizer, mesh, *,
                                     n_microbatches: int,
                                     pipe_axis: str = "pipe"):
@@ -211,11 +345,20 @@ def make_pipelined_llama_train_step(cfg, optimizer, mesh, *,
     the broadcast output; the embedding's gradient, which only stage 0
     has, is summed over ``pipe``; every gradient is summed over the data
     axes and divided by the global token count.  Returns the global mean
-    loss (fp32, 0-dim)."""
+    loss (fp32, 0-dim).
+
+    ``DistributedOptimizer(inner, fsdp=True)`` on a mesh whose ``fsdp``
+    axis is larger than 1 takes the ZeRO rung (the module's docstring):
+    from the first step, the inner optimizer's groups hold this rank's
+    blocks of the leaves the rule shards, so build it fresh over the
+    model's parameters."""
     from horovod_tpu_torch.models.llama import rope_freqs
 
     sizes = axis_sizes(mesh)
+    fsdp = getattr(optimizer, "_fsdp", False) and \
+        sizes.get(AXIS_FSDP, 1) > 1
     inner = _inner_optimizer(optimizer)
+    rung = None
     pipe = comm.axis_group(mesh, pipe_axis)
     dp = [comm.axis_group(mesh, a) for a in data_axes(mesh) if sizes[a] > 1]
     n_data = 1
@@ -225,6 +368,7 @@ def make_pipelined_llama_train_step(cfg, optimizer, mesh, *,
 
     def step(model: PipelinedLlama, inputs: torch.Tensor,
              targets: torch.Tensor) -> torch.Tensor:
+        nonlocal rung
         B, S = inputs.shape
         if B % n_data:
             raise ValueError(f"batch {B} not divisible by the data axes' "
@@ -238,6 +382,9 @@ def make_pipelined_llama_train_step(cfg, optimizer, mesh, *,
                 h = layer(h, cos, sin)
             return h
 
+        if fsdp and rung is None:
+            rung = _ZeroRung(model, inner, comm.axis_group(mesh, AXIS_FSDP))
+        model.zero_grad(set_to_none=True)
         inner.zero_grad(set_to_none=True)
         h = pipeline_apply(stage_fn, dict(model.layers.named_parameters()),
                            model.tok_emb(inputs[rows]), axis_name=pipe_axis,
@@ -253,7 +400,10 @@ def make_pipelined_llama_train_step(cfg, optimizer, mesh, *,
         emb.grad = comm.allreduce(emb.grad, pipe)
         params = [p for p in model.parameters() if p.requires_grad]
         sum_gradients(params, lambda p: dp, B * S)
-        inner.step()
+        if rung is not None:
+            rung.step()
+        else:
+            inner.step()
         loss = loss_sum.detach().float()
         for a in dp:
             loss = comm.allreduce(loss, a)

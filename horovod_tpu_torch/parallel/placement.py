@@ -1,14 +1,32 @@
-"""A ``LlamaModel``'s, a ``BertForPretraining``'s or a ``ResNet``'s
-parameters placed over the ``tensor``, ``expert`` and ``fsdp`` axes of a
-mesh.
+"""A model's parameters placed over the ``tensor``, ``expert`` and
+``fsdp`` axes of a mesh: by hand for a ``LlamaModel``, a
+``BertForPretraining`` or a ``ResNet``, gathered for use for any other
+module.
 
 Counterpart of what GSPMD does with the reference's ``shard_params``
 placement under ``make_parallel_train_step``: each rank keeps only its
-block of each parameter, by ``SHARDING_RULES`` (``api.param_specs``), and
-the model's one forward (``models/llama.py``, ``models/bert.py``,
-``models/resnet.py``) adds the collectives XLA would insert, on the axes
-its :class:`Placement` names.  Tensor parallelism is built on the
-Megatron pair of ``parallel/comm.py`` (not DTensor):
+block of each parameter, by ``SHARDING_RULES`` (``api.param_specs``).
+
+Any other module (``MnistConvNet``, a user's ``head`` / ``wq`` /
+``mlp_in`` ``Linear``) runs its own forward, which knows nothing of the
+mesh, so it is placed by **gather for use** (:func:`place` without hand
+placement): each parameter the rules shard is read whole by the forward
+(:meth:`Placement.whole`, swapped in by a pre-forward hook on the model
+and swapped back after it).  Its ``fsdp`` gather's backward
+reduce-scatters, so each block's gradient arrives summed over ``fsdp``
+(whose ranks saw different rows); a ``tensor`` or ``expert`` gather's
+backward keeps this rank's slice of a gradient the axis's ranks computed
+alike, as the compute is replicated over them (a replicated GSPMD
+program's is too).  What the rules replicate stays whole on every rank.
+A module that reads a parameter outside its forward, or a forward that
+mixes rows (BatchNorm normalises over this rank's rows here), is outside
+what this placement promises.
+
+The three hand-placed models' one forward (``models/llama.py``,
+``models/bert.py``, ``models/resnet.py``) instead adds the collectives
+XLA would insert, on the axes its :class:`Placement` names.  Tensor
+parallelism is built on the Megatron pair of ``parallel/comm.py`` (not
+DTensor):
 
 * a parameter sharded over ``fsdp`` is gathered whole for its use
   (:meth:`Placement.weight`; the backward reduce-scatters, so the
@@ -52,7 +70,7 @@ another order inside it, and ``qkv``'s bias is cut the same way.
 Otherwise the product is gathered over ``tensor`` before the split
 (:meth:`Placement.swiglu`; BERT's attention then runs every head and
 keeps the slice of its output the row-parallel ``proj`` reads).
-:func:`full_state_dict` undoes either layout.
+:func:`full_state_dict` undoes either layout, and the generic blocks.
 """
 
 from __future__ import annotations
@@ -66,7 +84,8 @@ from horovod_tpu_torch.parallel.mesh import (AXIS_DATA, AXIS_EXPERT,
                                              AXIS_FSDP, AXIS_TENSOR,
                                              axis_sizes)
 
-__all__ = ["Placement", "UNPLACED", "place", "full_state_dict"]
+__all__ = ["Placement", "UNPLACED", "place", "hand_placed",
+           "full_state_dict"]
 
 
 def _parts(model, name: str, spec, sizes) -> int:
@@ -119,6 +138,20 @@ class Placement:
         d = self.dim(p, AXIS_FSDP)
         return p if d is None else comm.gather_shards(p, self.fsdp, d)
 
+    def whole(self, p: torch.nn.Parameter) -> torch.Tensor:
+        """``p`` whole for a forward that does not know the mesh: gathered
+        over ``fsdp`` first (backward: the reduce-scatter of
+        :meth:`weight`), then over ``tensor`` and ``expert`` (backward:
+        this rank's slice, the axis's ranks having computed the same
+        gradient)."""
+        spec = self.specs.get(p, ())
+        t = self.weight(p)
+        for d, a in enumerate(spec):
+            if a in (AXIS_TENSOR, AXIS_EXPERT):
+                t = comm.gather(t, self.tensor if a == AXIS_TENSOR
+                                else self.expert, d)
+        return t
+
     def tensor_at(self, p, d: int):
         """The ``tensor`` group where dimension ``d`` of ``p`` is split
         over it, else None."""
@@ -155,12 +188,24 @@ def _sizes_and_coords(mesh):
     return sizes, {a: mesh.get_local_rank(a) for a in sizes}
 
 
-def place(model, mesh) -> Placement:
-    """Cut each parameter of ``model`` (a ``LlamaModel``,
-    ``BertForPretraining`` or ``ResNet`` holding whole parameters) to this
+def hand_placed(model) -> bool:
+    """Whether ``model``'s forward places itself (``LlamaModel``,
+    ``BertForPretraining``, ``ResNet``)."""
+    from horovod_tpu_torch.models.bert import BertForPretraining
+    from horovod_tpu_torch.models.llama import LlamaModel
+    from horovod_tpu_torch.models.resnet import ResNet
+
+    return isinstance(model, (LlamaModel, BertForPretraining, ResNet))
+
+
+def place(model, mesh) -> Optional[Placement]:
+    """Cut each parameter of ``model`` (holding whole parameters) to this
     rank's block, in place (``p.data``: the ``Parameter`` objects stay, so
     an optimizer built over them before keeps them, but its state must not
-    exist yet), and hand the model's modules the placement.  Buffers (a
+    exist yet), and hand the model's modules the placement: a
+    ``LlamaModel``, ``BertForPretraining`` or ``ResNet`` by hand, any
+    other module through :func:`_gather_for_use` (None, and the model
+    untouched, where the rules shard none of its parameters).  Buffers (a
     ResNet's running statistics) stay whole.  Returns the placement;
     raises for a ResNet whose convolutions ``tensor`` splits only in part
     (the channel counts that do not divide by it), a layout no forward
@@ -168,9 +213,12 @@ def place(model, mesh) -> Placement:
     from horovod_tpu_torch.models.resnet import ResNet
     from horovod_tpu_torch.parallel.api import param_specs
 
+    hand = hand_placed(model)
+    all_specs = param_specs(model, mesh)
+    if not hand and not any(any(spec) for spec in all_specs.values()):
+        return None
     sizes, coords = _sizes_and_coords(mesh)
     specs, parts = {}, {}
-    all_specs = param_specs(model, mesh)
     if isinstance(model, ResNet):
         split = {AXIS_TENSOR in spec for name, spec in all_specs.items()
                  if name.endswith("weight") and name != "head.weight"}
@@ -180,9 +228,11 @@ def place(model, mesh) -> Placement:
                 "ResNet's convolution widths and not others; the forward "
                 "splits every one or none")
     for name, spec in all_specs.items():
+        if not hand and not any(spec):
+            continue
         p = model.get_parameter(name)
         block = p.data
-        k = _parts(model, name, spec, sizes)
+        k = _parts(model, name, spec, sizes) if hand else 1
         for d, a in enumerate(spec):
             if a is None:
                 continue
@@ -197,10 +247,40 @@ def place(model, mesh) -> Placement:
         if k > 1:
             parts[p] = k
     pl = Placement(mesh, specs, parts)
+    if not hand:
+        _gather_for_use(model, pl)
+        return pl
     for mod in model.modules():
         if hasattr(type(mod), "placement"):
             mod.placement = pl
     return pl
+
+
+def _gather_for_use(model, pl: Placement) -> None:
+    """Set ``model.placement`` and hook its forward: before it, each
+    parameter ``pl`` shards is swapped for :meth:`Placement.whole` of it in
+    its owning modules (once a forward, where modules share it); after it,
+    even one that raised, the block is swapped back, so
+    ``named_parameters``, the optimizer and ``full_state_dict`` see the
+    blocks."""
+    owned = [(mod, name, p) for mod in model.modules()
+             for name, p in mod.named_parameters(recurse=False)
+             if p in pl.specs]
+
+    def gather(_module, _args):
+        whole = {}
+        for mod, name, p in owned:
+            if id(p) not in whole:
+                whole[id(p)] = pl.whole(p)
+            mod._parameters[name] = whole[id(p)]
+
+    def restore(_module, _args, _output):
+        for mod, name, p in owned:
+            mod._parameters[name] = p
+
+    model.placement = pl
+    model.register_forward_pre_hook(gather)
+    model.register_forward_hook(restore, always_call=True)
 
 
 @torch.no_grad()
@@ -209,7 +289,7 @@ def full_state_dict(model) -> Dict[str, torch.Tensor]:
     model never placed gives its own tensors), by name, as the model's
     ``state_dict()`` would hold them on one rank (its buffers, whole on
     every rank, are not listed)."""
-    pl = model.placement
+    pl = getattr(model, "placement", None)
     out = {}
     for name, p in model.named_parameters():
         t = p.detach()

@@ -6,8 +6,10 @@ JAX replica and a port replica alike.  Resolving starts nothing and
 imports no framework.  A live replica's ``stats()["config"]`` reports
 the values in force.
 
-``HOROVOD_PAGED_ATTN_CHUNK`` tunes the JAX package's XLA stand-in for its
-TPU kernel and has no counterpart here, so its row is not in the table.
+``HOROVOD_PAGED_ATTN_CHUNK`` tunes the fused decode's plain CPU version
+here (``ops/paged_attention.py``), as it tunes the JAX package's XLA
+stand-in for its TPU kernel: its row differs from the reference's in its
+help alone.
 """
 
 from __future__ import annotations
@@ -205,6 +207,15 @@ def resolved_serve_config(environ=os.environ) -> List[dict]:
                "transient socket failure (the replica parks the session "
                "and replays missed events) before escalating to the "
                "kill/requeue/relaunch path; 0 disables healing"})
+    raw_chunk = environ.get("HOROVOD_PAGED_ATTN_CHUNK") or ""
+    rows.append({
+        "env": "HOROVOD_PAGED_ATTN_CHUNK",
+        "set": raw_chunk,
+        "default": "whole table", "effective": raw_chunk or "whole table",
+        "doc": "table columns per online-softmax iteration in the "
+               "fused decode's plain CPU version (off-card stand-in "
+               "for the CUDA kernel); 1 = the per-block walk, default "
+               "folds the whole table into one dense pass"})
     return rows
 
 

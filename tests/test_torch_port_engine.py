@@ -9,7 +9,8 @@ inputs:
   ``broadcast`` / ``reducescatter`` / ``alltoall`` at 2 and 4 ranks against
   ``horovod_tpu.jax``'s eager ops: bitwise for fp32 Sum and Average at one
   ``HOROVOD_FUSION_THRESHOLD`` (small, so that the grouped tensors split
-  into several fused responses), for Min, Max, Product, int32 Sum and
+  into several fused responses; the worlds compared fused them alike),
+  for Min, Max, Product, int32 Sum and
   Average and bf16 Average; reducescatter over ``scatter_axis`` 1 and
   ``tiled=False``; alltoall with uneven ``splits``; ``wire_int8`` and
   ``wire_bf16`` within ``tests/test_compression.py``'s envelopes;
@@ -46,6 +47,8 @@ FUSION_THRESHOLD = "1024"
 #: tests/test_compression.py's envelopes (native_worker wire_values):
 #: max |out - exact| / max |exact|.
 WIRE_TOL = {"int8": 4e-2, "bf16": 2e-2}
+#: Pairs of worlds run until one pair's grouped calls fused alike.
+FUSE_ATTEMPTS = 4
 
 
 def _splits(rank, size):
@@ -68,21 +71,26 @@ def _inputs(rank, size):
             "bc": f(5, 2), "wire": 3 * f(4096)}
 
 
-def _ops_program(hvd, arr, to_np, rank, size, Compression):
+def _ops_program(hvd, arr, to_np, rank, size, Compression, responses):
     """The eager ops of (i), the same calls on either side: ``arr`` makes
     a framework tensor of a numpy array (``bf16=True``: in bfloat16),
-    ``to_np`` reads one back."""
+    ``to_np`` reads one back, ``responses()`` is the engine's count of
+    responses executed.  Also returns ``grouped_responses``: the fused
+    responses each grouped call took."""
     x = _inputs(rank, size)
     out = {}
     out["ar_sum"] = hvd.allreduce(arr(x["ar"]), op=hvd.Sum, name="ar_sum")
     out["ar_avg"] = hvd.allreduce(arr(x["ar"]), op=hvd.Average,
                                   name="ar_avg")
+    fused = [responses()]
     for i, g in enumerate(hvd.grouped_allreduce(
             [arr(t) for t in x["group"]], op=hvd.Average, name="grp")):
         out[f"grouped_avg.{i}"] = g
+    fused.append(responses())
     for i, g in enumerate(hvd.grouped_allreduce(
             [arr(t) for t in x["group"]], op=hvd.Sum)):
         out[f"grouped_sum.{i}"] = g
+    fused.append(responses())
     for op in ("Min", "Max", "Product"):
         out[f"ar_{op}"] = hvd.allreduce(arr(x["mm"]), op=getattr(hvd, op),
                                         name=f"ar_{op}")
@@ -103,7 +111,9 @@ def _ops_program(hvd, arr, to_np, rank, size, Compression):
         out[f"wire_{wd}"] = hvd.allreduce(
             arr(x["wire"]), op=hvd.Average, name=f"wire_{wd}",
             compression=getattr(Compression, f"wire_{wd}"))
-    return {k: to_np(v) for k, v in out.items()}
+    out = {k: to_np(v) for k, v in out.items()}
+    out["grouped_responses"] = np.diff(fused)
+    return out
 
 
 def _handles_program(m, rank, size):
@@ -179,6 +189,7 @@ def _rank_main(mode: str, dst: str) -> None:
         import jax.numpy as jnp
         import horovod_tpu.jax as hvd
         from horovod_tpu.ops.compression import Compression
+        from horovod_tpu.runtime.engine import get_engine
 
         hvd.init()
 
@@ -190,7 +201,8 @@ def _rank_main(mode: str, dst: str) -> None:
             return v.astype(np.float32) if v.dtype.name == "bfloat16" else v
 
         out = _ops_program(hvd, arr, to_np, hvd.rank(), hvd.size(),
-                           Compression)
+                           Compression,
+                           lambda: get_engine().stats()["responses"])
         out["epoch"] = np.array(hvd.epoch())
     elif mode == "ref_handles":
         import horovod_tpu.torch as m
@@ -210,7 +222,8 @@ def _rank_main(mode: str, dst: str) -> None:
                 hvd, lambda a, bf16=False: torch.from_numpy(a).to(
                     torch.bfloat16 if bf16 else torch.from_numpy(a).dtype),
                 lambda v: v.float().numpy() if v.dtype == torch.bfloat16
-                else v.numpy(), hvd.rank(), hvd.size(), hvd.Compression)
+                else v.numpy(), hvd.rank(), hvd.size(), hvd.Compression,
+                lambda: get_engine().stats()["responses"])
         else:
             out = _handles_program(mpi_ops, hvd.rank(), hvd.size())
         stats = get_engine().stats()
@@ -269,13 +282,33 @@ def _finish(world, timeout=150):
     return [dict(np.load(o)) for o in outs]
 
 
+def _fused_alike(got, want):
+    return all(g["grouped_responses"].tolist()
+               == w["grouped_responses"].tolist() for g, w in zip(got, want))
+
+
 @pytest.mark.parametrize("n", [2, 4])
 def test_eager_ops_match_the_jax_package_bitwise(n, tmp_path):
     """(i) and (iii): the same seeded inputs through both packages'
-    eager ops, each world of ``n`` ranks in its own processes."""
-    port = _start_world("port_ops", n, tmp_path, local_size=n // 2)
-    ref = _start_world("jax_ops", n, tmp_path, local_size=n // 2)
-    got, want = _finish(port), _finish(ref)
+    eager ops, each world of ``n`` ranks in its own processes.
+
+    Both engines (one C++ source) wake their cycle at a call's first
+    enqueue, so a grouped call's tensors may reach the coordinator in two
+    cycles and fuse into other responses; at 4 ranks a tensor's offset in
+    its fused buffer decides the order its ring adds the ranks' values,
+    so the bits follow the fusion.  Only a pair of worlds whose grouped
+    calls fused alike computes the same sums: up to ``FUSE_ATTEMPTS``
+    pairs run until one does, and that pair is held bitwise on every
+    key."""
+    for _ in range(FUSE_ATTEMPTS):
+        port = _start_world("port_ops", n, tmp_path, local_size=n // 2)
+        ref = _start_world("jax_ops", n, tmp_path, local_size=n // 2)
+        got, want = _finish(port), _finish(ref)
+        if _fused_alike(got, want):
+            break
+    assert _fused_alike(got, want), [
+        (g["grouped_responses"].tolist(), w["grouped_responses"].tolist())
+        for g, w in zip(got, want)]
     for r in range(n):
         assert got[r]["identity"].tolist() == [r, n, r % (n // 2), n // 2, 1]
         assert int(got[r]["epoch"]) == int(want[r]["epoch"]) >= 1

@@ -115,6 +115,15 @@ def test_unported_options_raise(monkeypatch):
     assert hvd.DistributedOptimizer(opt, fsdp=True).zero is not None
     lsgd = hvd.DistributedOptimizer(opt, local_sgd_steps=4)
     assert lsgd.zero is None and lsgd.local_sgd.steps == 4
+    # A parallel step takes the inner optimizer before the FSDP rung is
+    # built, and it never is; a rung already built holds the state.
+    taken = hvd.DistributedOptimizer(opt, fsdp=True)
+    assert taken.release_inner() is opt
+    assert taken.zero is None and taken.state is opt.state
+    used = hvd.DistributedOptimizer(opt, fsdp=True)
+    assert used.zero is not None
+    with pytest.raises(ValueError, match="used already"):
+        used.release_inner()
     # The RMSNorm kernels are ported: the fused model builds.
     fused = LlamaModel(dataclasses.replace(LlamaConfig.tiny(),
                                            fused_rmsnorm=True), device="meta")

@@ -255,25 +255,27 @@ def test_status_and_print_config_cite_item_6b(flags, tmp_path):
 #: Rows of ``--print-config`` where the port's table differs from the
 #: reference's, and why: the three knobs whose help names a command give
 #: the port's command (``python -m horovod_tpu_torch.<tool>``), and
-#: ``HOROVOD_PAGED_ATTN_CHUNK`` tunes the JAX package's XLA stand-in for
-#: its TPU kernel, which the port has no counterpart of.
+#: ``HOROVOD_PAGED_ATTN_CHUNK`` tunes the port's plain CPU decode where
+#: it tunes the JAX package's XLA stand-in (its help names what it tunes).
 _PORT_ROWS_DIFFER = {"HOROVOD_METRICS_PORT": "command",
                      "HOROVOD_FLIGHT_RECORDER_DIR": "command",
                      "HOROVOD_TIMELINE_ALL_RANKS": "command",
-                     "HOROVOD_PAGED_ATTN_CHUNK": "absent"}
+                     "HOROVOD_PAGED_ATTN_CHUNK": "plain"}
 
 
 def _reference_table(text):
     """The reference's ``format_table`` text with ``_PORT_ROWS_DIFFER``
     applied, as lines."""
+    from tests.test_torch_port_autotune import CHUNK_DOC
+
     out = []
     for line in text.splitlines():
         knob = line.split(" ", 1)[0]
         kind = _PORT_ROWS_DIFFER.get(knob)
-        if kind == "absent":
-            continue
         if kind == "command":
             line = line.replace("horovod_tpu.", "horovod_tpu_torch.")
+        if kind == "plain":
+            line = line.replace(*CHUNK_DOC)
         out.append(line)
     return out
 

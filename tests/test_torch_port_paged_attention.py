@@ -5,9 +5,12 @@
 runs its Pallas kernel in interpret mode with the per-block reduction
 order pinned (``HOROVOD_PAGED_ATTN_IMPL=pallas``,
 ``HOROVOD_PAGED_ATTN_CHUNK=1``), as its own tests do; the port's CPU
-tensors take its plain version, which walks the table in the kernel's
-order.  The CUDA kernel itself is held against the plain version on the
-card in ``tests/test_torch_port_cuda.py``.
+tensors take its plain version, which reads the same variable and walks
+the table in the kernel's order.  Its default, one pass over the whole
+table, and a ragged walk are held against the JAX package's blockwise
+XLA stand-in under the same ``HOROVOD_PAGED_ATTN_CHUNK`` and against the
+walk.  The CUDA kernel itself is held against
+the plain version on the card in ``tests/test_torch_port_cuda.py``.
 """
 
 import numpy as np
@@ -102,6 +105,51 @@ def test_plain_bf16_rounds_like_the_reference(monkeypatch):
     got = got.float().numpy()
     assert np.all(np.abs(got - ref) <= 2.0 ** -7 * np.maximum(1.0,
                                                               np.abs(ref)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", ["", "3"])
+def test_default_pass_matches_the_jax_package(monkeypatch, chunk, dtype):
+    """The default pass (the whole table at once) and a ragged walk of 3
+    columns a step against the JAX package's stand-in under the same
+    ``HOROVOD_PAGED_ATTN_CHUNK`` (its blockwise XLA path, the off-TPU
+    default): fp32 within ``PARITY_ATOL``, bf16 within one bf16 ULP of
+    max(1, |out|)."""
+    arrays = _case(4, seed=33)
+    monkeypatch.setenv("HOROVOD_PAGED_ATTN_IMPL", "xla")
+    monkeypatch.setenv("HOROVOD_PAGED_ATTN_CHUNK", chunk)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = np.asarray(jax_paged_attention_decode(
+        *(jnp.asarray(a, jdt) for a in arrays[:3]),
+        *(jnp.asarray(a) for a in arrays[3:])), np.float32)
+    q, pk, pv, tables, pos = _torch(*arrays)
+    got = pa.paged_attention_decode(q.to(tdt), pk.to(tdt), pv.to(tdt),
+                                    tables, pos)
+    assert got.shape == q.shape and got.dtype == tdt
+    got = got.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, rtol=0, atol=PARITY_ATOL)
+    else:
+        assert np.all(np.abs(got - ref) <= 2.0 ** -7 * np.maximum(
+            1.0, np.abs(ref)))
+    assert pa.launches == 0
+
+
+@pytest.mark.parametrize("chunk", ["", "3"])
+def test_default_pass_matches_the_walk(monkeypatch, chunk):
+    """The default (one pass over the whole table) and a ragged walk of 3
+    columns a step (its tail padded with trash block 0) equal the
+    per-block walk within the reference's fp32 bound of the fused path
+    (1e-4)."""
+    args = _torch(*_case(4, seed=21))
+    monkeypatch.setenv("HOROVOD_PAGED_ATTN_CHUNK", "1")
+    walk = pa.paged_attention_decode(*args)
+    monkeypatch.setenv("HOROVOD_PAGED_ATTN_CHUNK", chunk)
+    got = pa.paged_attention_decode(*args)
+    assert got.shape == walk.shape and got.dtype == walk.dtype
+    np.testing.assert_allclose(got.numpy(), walk.numpy(), rtol=0,
+                               atol=FUSED_TOL)
+    assert pa.launches == 0
 
 
 def test_non_cpu_tensors_never_take_the_plain_version(monkeypatch):

@@ -11,8 +11,8 @@ Llama-3-8B's layout and of ResNet-50 must get the reference's mesh axis
 on the same logical dimension, for meshes ``{"data": 2, "fsdp": 4}``,
 ``{"data": 8}`` and ``{"fsdp": 2, "tensor": 2}``.  The hand placement on
 gloo ranks is held in ``test_torch_port_parallel_step.py`` (Llama) and
-``test_torch_port_parallel_zoo.py`` (BERT, ResNet, and FSDP2 on a model
-with no hand placement).
+``test_torch_port_parallel_zoo.py`` (BERT, ResNet, and the rules'
+placement of models with no hand placement).
 """
 
 import dataclasses
@@ -190,11 +190,12 @@ def test_one_rank_mesh_replicates_and_refuses_unported_axes(cpu_world):
     """One rank: ``{"data": 1, "fsdp": -1}`` resolves to fsdp 1, a real
     DeviceMesh over the default group; ``shard_params`` leaves the model
     as it is, and so does a mesh with ``tensor``, ``seq``, ``expert`` and
-    ``pipe`` axes of size 1 (for a Llama too: nothing to place).  Still
-    refused: tensor or expert placement of a model with no hand placement
-    (``MnistMLP`` here; Llama, BERT and ResNet are placed), the parallel
-    step at fsdp > 1 for it (FSDP2's route is ``make_train_step``), and a
-    mesh that does not cover the world, as in the reference."""
+    ``pipe`` axes of size 1 (for a Llama too: nothing to place).  A model
+    with no hand placement (``MnistMLP``) is placed by the rules at
+    ``tensor``, ``expert`` and ``fsdp`` 2: they replicate every leaf of
+    it, so it stays whole and unplaced (``make_train_step`` still takes
+    it).  Still refused: a mesh that does not cover the world, as in the
+    reference."""
     m = mesh.build_mesh({"data": 1, "fsdp": -1})
     assert m.mesh_dim_names == ("data", "fsdp") and tuple(m.shape) == (1, 1)
     assert mesh.axis_sizes(m) == {"data": 1, "fsdp": 1}
@@ -213,11 +214,13 @@ def test_one_rank_mesh_replicates_and_refuses_unported_axes(cpu_world):
     assert llama.placement is None
     assert {n: p.shape for n, p in llama.named_parameters()} == shapes
     mlp = MnistMLP(dtype=torch.float32, device="cpu")
-    for axis in ("tensor", "expert"):
-        with pytest.raises(NotImplementedError, match="Queue A item 7"):
-            api.shard_params(mlp, {"data": 1, "fsdp": 1, axis: 2})
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        api.make_parallel_train_step(mlp, None, {"data": 1, "fsdp": 2})
+    shapes = {n: p.shape for n, p in mlp.named_parameters()}
+    for axis in ("tensor", "expert", "fsdp"):
+        sizes = {"data": 1, "fsdp": 1, axis: 2}
+        assert set(api.param_shardings(mlp, sizes).values()) == {()}
+        assert api.shard_params(mlp, sizes) is mlp
+        assert getattr(mlp, "placement", None) is None
+        assert {n: p.shape for n, p in mlp.named_parameters()} == shapes
     with pytest.raises(ValueError, match="does not cover"):
         mesh.build_mesh({"data": 2})
     with mesh.use_mesh(m):

@@ -40,9 +40,14 @@ k and of v; ROADMAP.md Queue C) and ``full_state_dict`` undoing it; BERT
 under dropout on ``tensor`` 2 (the ranks, handed generators in one state,
 draw the world of one's bits); a world of one through the parallel step
 bit for bit the plain loop for ResNet (its BatchNorm statistics as
-before); and FSDP2, the route of a model with no hand placement
-(``MnistMLP`` at ``fsdp`` 2 through ``make_train_step``), against the
-reference's GSPMD step, every parameter sharded.
+before); and the rules' placement of models with no hand placement,
+gathered for use (``parallel/placement.py``), against the reference's
+GSPMD step: ``MnistMLP`` at ``fsdp`` 2 (the rules replicate every leaf),
+``MnistConvNet`` at ``tensor`` 2 (both convolutions split on their
+out-channels) and at ``fsdp`` 2, and a user's two-``Linear`` module
+(``body``, ``head``: the ``head/kernel`` rule) at ``fsdp`` 2 x ``tensor``
+2 (4 ranks), each with ``param_shardings`` equal to the reference's leaf
+for leaf and each rank holding the rules' block.
 """
 
 import dataclasses
@@ -63,6 +68,9 @@ SCENARIOS = {
     "bert_tensor2": (2, {"tensor": 2}, "bert"),
     "resnet_tensor2": (2, {"tensor": 2}, "resnet"),
     "mnist_fsdp2": (2, {"data": 1, "fsdp": 2}, "mnist"),
+    "mnistconv_tensor2": (2, {"tensor": 2}, "mnistconv"),
+    "mnistconv_fsdp2": (2, {"fsdp": 2}, "mnistconv"),
+    "user_fsdp2_tensor2": (4, {"fsdp": 2, "tensor": 2}, "user"),
     "bert_fsdp2_tensor2": (4, {"fsdp": 2, "tensor": 2}, "bert"),
     "bert_data2_expert2": (4, {"data": 2, "expert": 2}, "bert"),
     # 6 heads at tensor 4: qkv's 3H divides, the heads do not
@@ -72,8 +80,40 @@ SCENARIOS = {
 }
 
 
+#: The models with no hand placement, gathered for use.
+GENERIC = ("mnist", "mnistconv", "user")
+
+
+class _UserNet(torch.nn.Module):
+    """A user's module the converter does not know: the rules read its
+    dotted names (``head`` takes the ``head/kernel`` rule, ``body`` none)."""
+
+    def __init__(self):
+        super().__init__()
+        self.body = torch.nn.Linear(28 * 28, 64)
+        self.head = torch.nn.Linear(64, 10)
+
+    def forward(self, x):
+        x = torch.relu(self.body(x.reshape(x.shape[0], -1)))
+        return self.head(x)
+
+
+def _user_to_port(variables):
+    return {f"{layer}.{k}": torch.from_numpy(np.array(
+        v["kernel"].T if k == "weight" else v["bias"]))
+        for layer, v in variables["params"].items()
+        for k in ("weight", "bias")}
+
+
+def _user_to_jax(state):
+    return {"params": {layer: {"kernel": state[f"{layer}.weight"].numpy().T,
+                               "bias": state[f"{layer}.bias"].numpy()}
+                       for layer in ("body", "head")}}
+
+
 def _cfg(kind):
-    """The port's config of a scenario's model, fp32."""
+    """The port's config of a scenario's model, fp32 (None: the user's
+    module)."""
     from horovod_tpu_torch.models.bert import BertConfig
     from horovod_tpu_torch.models.mnist import MnistConfig
     from horovod_tpu_torch.models.resnet import ResNetConfig
@@ -85,7 +125,10 @@ def _cfg(kind):
     if kind == "resnet":
         return ResNetConfig.resnet18(num_classes=10, width=8,
                                      dtype=torch.float32)
-    return MnistConfig("mlp", dtype=torch.float32)
+    if kind == "user":
+        return None
+    return MnistConfig("conv" if kind == "mnistconv" else "mlp",
+                       dtype=torch.float32)
 
 
 def _bert_batch(vocab):
@@ -122,7 +165,7 @@ def _port_batch(kind, n_dp):
         batch = BertBatch(t(ids).long(), t(labels).long(), t(targets),
                           t(nsp).long(), attention_mask=t(mask))
         return batch.over(n_dp), pretraining_loss
-    x, y = _images(1, 28) if kind == "mnist" else _images()
+    x, y = _images(1, 28) if kind in GENERIC else _images()
 
     def loss_fn(model, batch):
         kw = {"train": True} if kind == "resnet" else {}
@@ -132,7 +175,7 @@ def _port_batch(kind, n_dp):
 
 def _port_model(kind, state):
     from horovod_tpu_torch.models.bert import BertForPretraining
-    from horovod_tpu_torch.models.mnist import MnistMLP
+    from horovod_tpu_torch.models.mnist import MnistConvNet, MnistMLP
     from horovod_tpu_torch.models.resnet import ResNet
     from horovod_tpu_torch.ops.flash_attention import flash_attention_fn
 
@@ -141,7 +184,12 @@ def _port_model(kind, state):
                                                   flash_attention_fn)
     if kind == "resnet":
         return ResNet.from_state_dict(_cfg(kind), state)
-    return MnistMLP.from_state_dict(state, dtype=torch.float32)
+    if kind == "user":
+        model = _UserNet()
+        model.load_state_dict(state)
+        return model
+    cls = MnistConvNet if kind == "mnistconv" else MnistMLP
+    return cls.from_state_dict(state, dtype=torch.float32)
 
 
 def _rank_main(src: str, dst: str) -> None:
@@ -149,8 +197,9 @@ def _rank_main(src: str, dst: str) -> None:
     scenario names and each one's starting state (``<name>.w.<key>``);
     OUT each one's losses, whole parameters and buffers after the steps,
     the plain flash calls, this rank's block of layer 0's ``qkv`` weight
-    and the dropout losses (BERT at ``tensor`` 2), and FSDP2's shard
-    dimensions (MNIST)."""
+    and the dropout losses (BERT at ``tensor`` 2), and, for a model with
+    no hand placement, this rank's block of every parameter, its index on
+    each axis and whether the model was placed."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.parallel.api import (make_parallel_train_step,
@@ -170,21 +219,6 @@ def _rank_main(src: str, dst: str) -> None:
         n_dp = axes.get("data", 1) * axes.get("fsdp", 1)
         batch, loss_fn = _port_batch(kind, n_dp)
         shard_params(model, mesh)
-        if kind == "mnist":     # FSDP2: its units reduce the gradients
-            opt = hvd.DistributedOptimizer(
-                torch.optim.SGD(model.parameters(), lr=LR),
-                reduce_gradients=False)
-            step = hvd.make_train_step(model, loss_fn, opt)
-            rows = B // hvd.size()
-            r = hvd.rank()
-            losses = [float(step(tuple(t[r * rows:(r + 1) * rows]
-                                       for t in batch)))
-                      for _ in range(STEPS)]
-            for n, p in model.named_parameters():
-                out[f"{name}.shard.{n}"] = np.array(p.placements[-1].dim)
-                out[f"{name}.final.{n}"] = p.full_tensor().detach().numpy()
-            out[name + ".losses"] = np.array(losses)
-            continue
         opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(),
                                                        lr=LR))
         step = make_parallel_train_step(model, opt, mesh, loss_fn=loss_fn)
@@ -196,6 +230,19 @@ def _rank_main(src: str, dst: str) -> None:
         if kind.startswith("bert"):
             out[name + ".block"] = model.get_parameter(
                 "encoder.layers.0.attention.qkv.weight").detach().numpy()
+        if kind in GENERIC:
+            out[name + ".placed"] = np.array(
+                getattr(model, "placement", None) is not None)
+            try:
+                hvd.make_train_step(model, loss_fn, torch.optim.SGD(
+                    model.parameters(), lr=LR))
+                out[name + ".refused"] = np.array("")
+            except ValueError as e:
+                out[name + ".refused"] = np.array(str(e))
+            out[name + ".coords"] = np.array([mesh.get_local_rank(a)
+                                              for a in axes])
+            for n, p in model.named_parameters():
+                out[f"{name}.block.{n}"] = p.detach().numpy()
         for k, v in full_state_dict(model).items():
             out[name + ".final." + k] = v.numpy()
         for k, v in model.named_buffers():
@@ -243,6 +290,7 @@ def _jax_model(kind):
 
     from horovod_tpu.models.bert import BertConfig as JaxBertConfig
     from horovod_tpu.models.bert import BertForPretraining as JaxBert
+    from horovod_tpu.models.mnist import MnistConvNet as JaxMnistConvNet
     from horovod_tpu.models.mnist import MnistMLP as JaxMnistMLP
     from horovod_tpu.models.resnet import ResNet18 as JaxResNet18
 
@@ -253,6 +301,18 @@ def _jax_model(kind):
             hidden_size=cfg.hidden_size, num_heads=cfg.num_heads))
     if kind == "resnet":
         return JaxResNet18(num_classes=10, width=8, dtype=jnp.float32)
+    if kind == "user":
+        import flax.linen as nn
+
+        class UserNet(nn.Module):
+            @nn.compact
+            def __call__(self, x):
+                x = x.reshape((x.shape[0], -1))
+                x = nn.relu(nn.Dense(64, name="body")(x))
+                return nn.Dense(10, name="head")(x)
+        return UserNet()
+    if kind == "mnistconv":
+        return JaxMnistConvNet(dtype=jnp.float32)
     return JaxMnistMLP(dtype=jnp.float32)
 
 
@@ -266,7 +326,7 @@ def _init(kind, seed):
     key = jax.random.key(seed)
     if kind.startswith("bert"):
         return model.init(key, jnp.zeros((1, S), jnp.int32))
-    if kind == "mnist":
+    if kind in GENERIC:
         return model.init(key, jnp.zeros((1, 28, 28, 1)))
     v = jax.tree_util.tree_map(np.asarray, model.init(
         key, jnp.zeros((1, IMG, IMG, 3)), train=False))
@@ -306,11 +366,11 @@ def _reference(name, variables):
             return (xent(mlm_logits, labels, where=targets.astype(bool))
                     + xent(nsp_logits, nsp))
     else:
-        batch = _images(1, 28) if kind == "mnist" else _images()
+        batch = _images(1, 28) if kind in GENERIC else _images()
 
         def loss_fn(variables, batch):
             images, labels = batch
-            if kind == "mnist":
+            if kind in GENERIC:
                 return xent(model.apply(variables, images), labels)
             logits, _ = model.apply(variables, images, train=True,
                                     mutable=["batch_stats"])
@@ -340,7 +400,9 @@ def runs(tmp_path_factory):
     variables, starts = {}, {}
     for name, (_, _, kind) in SCENARIOS.items():
         variables[name] = _init(kind, list(SCENARIOS).index(name))
-        starts[name] = params_from_jax(variables[name], _cfg(kind), "cpu")
+        starts[name] = (_user_to_port(variables[name]) if kind == "user"
+                        else params_from_jax(variables[name], _cfg(kind),
+                                             "cpu"))
     worlds = {}
     for n in (2, 4):
         names = [k for k, v in SCENARIOS.items() if v[0] == n]
@@ -374,8 +436,8 @@ def _assert_params_close(cfg, final, ref_vars):
 
     from horovod_tpu_torch.models.convert import params_to_jax
 
-    got = dict(jax.tree_util.tree_leaves_with_path(
-        params_to_jax(final, cfg)["params"]))
+    tree = _user_to_jax(final) if cfg is None else params_to_jax(final, cfg)
+    got = dict(jax.tree_util.tree_leaves_with_path(tree["params"]))
     want = jax.tree_util.tree_leaves_with_path(ref_vars["params"])
     assert len(got) == len(want)
     for path, w in want:
@@ -385,6 +447,7 @@ def _assert_params_close(cfg, final, ref_vars):
 
 
 PLACED = [k for k, v in SCENARIOS.items() if v[2] != "mnist"]
+RULES_ONLY = [k for k, v in SCENARIOS.items() if v[2] in GENERIC]
 
 
 @pytest.mark.parametrize("name", PLACED)
@@ -485,19 +548,92 @@ def test_dropout_bits_match_across_a_tensor_group(runs):
 
 
 def test_fsdp2_shards_a_model_without_hand_placement(runs):
-    """``MnistMLP`` (no hand placement) at ``fsdp`` 2: FSDP2 units shard
-    every parameter (dimension 0 where the rules replicate: the FSDP2
-    route's pinned difference), ``make_train_step`` steps each rank's
-    rows, and the losses and whole parameters track the reference's
-    GSPMD step."""
+    """``MnistMLP`` (no hand placement) at ``fsdp`` 2: the rules replicate
+    every leaf (its kernels are 2-dimensional, the ``kernel$`` rule
+    names 4), so ``shard_params`` leaves the model whole on each rank (no
+    FSDP2 unit shards what the rules replicate), the parallel step splits
+    the rows over ``fsdp``, and the losses and whole parameters track the
+    reference's GSPMD step."""
     ref_losses, ref_vars, ranks, start = runs["mnist_fsdp2"]
     for rank in ranks:
-        shards = {k: int(rank[f"mnist_fsdp2.shard.{k}"]) for k in start}
-        assert shards == dict.fromkeys(start, 0)
+        assert not bool(rank["mnist_fsdp2.placed"])
+        blocks = _final(rank, "mnist_fsdp2", "block")
+        assert {k: tuple(v.shape) for k, v in blocks.items()} == \
+            {k: tuple(v.shape) for k, v in start.items()}
         np.testing.assert_allclose(rank["mnist_fsdp2.losses"], ref_losses,
                                    rtol=LOSS_RTOL)
         _assert_params_close(_cfg("mnist"), _final(rank, "mnist_fsdp2"),
                              ref_vars)
+
+
+def _reference_shardings(name, variables):
+    """The reference's ``param_shardings`` of a scenario's variables on
+    its mesh, by the port's parameter name: (mesh axis or None) per
+    reference dimension, laid on the port's dimensions."""
+    import jax
+
+    from horovod_tpu.jax import build_mesh
+    from horovod_tpu.parallel.api import param_shardings
+
+    n, axes, kind = SCENARIOS[name]
+    mesh = build_mesh(axes, devices=jax.devices()[:n])
+    tree = param_shardings(variables, mesh)["params"]
+    out = {}
+    for path, sh in jax.tree_util.tree_leaves_with_path(tree):
+        keys = [k.key for k in path]
+        leaf = np.asarray(variables["params"][keys[0]][keys[1]])
+        spec = tuple(sh.spec) + (None,) * (leaf.ndim - len(sh.spec))
+        out[tuple(keys)] = spec
+    return out
+
+
+@pytest.mark.parametrize("name", RULES_ONLY)
+def test_rules_place_models_without_hand_placement(runs, name):
+    """``param_shardings`` of a model with no hand placement equals the
+    reference's leaf for leaf (each mesh axis on the port dimension that
+    holds the reference's: a ``Linear`` weight's spec reversed, a conv
+    weight's out-channels on dimension 0), each rank holds the rules'
+    block of the whole parameter after the steps, and ``make_train_step``
+    refuses the model where it is placed."""
+    from horovod_tpu_torch.models.convert import flax_layout, params_to_jax
+    from horovod_tpu_torch.parallel.api import param_shardings
+
+    _, _, ranks, start = runs[name]
+    n, axes, kind = SCENARIOS[name]
+    model = _port_model(kind, {k: v.clone() for k, v in start.items()})
+    got = param_shardings(model, axes)
+    if kind == "user":
+        variables = _user_to_jax(start)
+        layout = {}
+        for k in ("body", "head"):
+            layout[f"{k}.weight"] = (f"params/{k}/kernel", (1, 0))
+            layout[f"{k}.bias"] = (f"params/{k}/bias", None)
+    else:
+        variables = params_to_jax(start, _cfg(kind))
+        layout = flax_layout(_cfg(kind))
+    want = _reference_shardings(name, variables)
+    assert len(got) == len(want) == len(start)
+    for pname, spec in got.items():
+        path, dims = layout[pname]
+        ref = want[tuple(path.split("/")[1:])]
+        dims = dims or tuple(range(len(ref)))
+        assert (spec or (None,) * len(ref)) == tuple(ref[j] for j in dims), \
+            (pname, spec, ref)
+    placed = any(any(s) for s in got.values())
+    for rank in ranks:
+        assert bool(rank[name + ".placed"]) == placed
+        # make_train_step averages over every rank: it refuses a placed
+        # model and takes one the rules leave whole.
+        assert ("make_parallel_train_step" in str(rank[name + ".refused"])) \
+            == placed
+        coords = dict(zip(axes, rank[name + ".coords"].tolist()))
+        for pname, whole in _final(rank, name).items():
+            block = whole
+            for d, a in enumerate(got[pname]):
+                if a is not None:
+                    block = block.chunk(axes[a], d)[coords[a]]
+            np.testing.assert_array_equal(
+                rank[f"{name}.block.{pname}"], block.numpy(), err_msg=pname)
 
 
 @pytest.fixture
